@@ -1,0 +1,86 @@
+"""Global configuration for the PyTorch/CUDA port.
+
+Same contract as ``polars_matmul_tpu.config``: every knob has a default
+that preserves the reference semantics, and ``SearchConfig`` is an
+optional override.  The fields, defaults and enum validation are the JAX
+package's, so a config can be carried from one package to the other.
+
+On this port:
+
+- ``block_q`` / ``block_n`` are accepted, but the CUDA kernel picks its
+  own tiles (they size TPU VMEM blocks).
+- ``k_pad`` keeps its meaning through ``kernels.fused_topk.effective_k_pad``,
+  but does not raise the fused path's k ceiling: the CUDA kernels hold at
+  most 1024 candidates per row, so k > 1024 runs the reference top-k even
+  where the JAX package, with ``k_pad`` > 1024, stays fused.
+- ``selection``: every value runs the same exact CUDA selection (kernel A
+  carry + kernel B merge); a Hopper-specific strategy is left for later.
+- ``precision``: ``"bf16x3"`` and ``"highest"`` run the fused kernels;
+  ``"default"`` and ``"high"`` run ``"highest"`` (exact f32 is inside
+  their looser contract).
+- ``use_pallas=False`` forces the reference top-k path, as in the JAX
+  package (the name is kept so that configs carry over).
+
+There is no ``ensure_x64``: torch has float64 natively.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """Tuning knobs for the fused search path (see the module docstring
+    for how each one maps onto the CUDA port)."""
+
+    block_q: int = 256
+    block_n: int = 2048
+    k_pad: int = 128
+    selection: str = "auto"
+    auto_tile: bool = True
+    precision: str = "bf16x3"
+    prune: str = "auto"
+    use_pallas: bool = True
+    use_autotune_cache: bool = True
+    max_fused_dim: int = 8192
+    fallback_score_bytes: int = 1 << 30
+    merge: str = "allgather"
+    prep_chunk_bytes: int = 1 << 30
+    ring_pipeline: int = 2
+    mesh_axes: Tuple[str, str] = ("data", "corpus")
+
+    def __post_init__(self):
+        for field, allowed in (
+            ("prune", ("auto", "on", "off")),
+            ("selection", ("auto", "extract", "insert", "bucket",
+                           "stack", "gstack", "gpop")),
+            ("merge", ("allgather", "ring")),
+            ("precision", ("default", "high", "highest",
+                           "bf16x3", "bf16c", "int8c", "int4c")),
+        ):
+            v = getattr(self, field)
+            if v not in allowed:
+                raise ValueError(
+                    f"Unknown {field}: {v!r} (expected one of {allowed})"
+                )
+
+    def with_updates(self, **kw) -> "SearchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_default_config = SearchConfig()
+
+
+def default_config() -> SearchConfig:
+    return _default_config
+
+
+def set_default_config(cfg: SearchConfig) -> None:
+    global _default_config
+    _default_config = cfg
+
+
+def resolve(cfg: Optional[SearchConfig]) -> SearchConfig:
+    return cfg if cfg is not None else _default_config

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file into one shared
+library with a plain C interface, for ``sm_90a`` (Hopper), and the library
+is loaded with ``ctypes``.  The build goes to
+``build/polars_matmul_tpu_torch/<hash of the sources>/libpmm_kernels.so``
+under the checkout (``build/`` is git-ignored), so a change to any source
+builds afresh and an unchanged tree reuses the library.
+
+``nvcc`` is looked up on ``PATH``, then in ``$CUDA_HOME/bin``, then in
+``/usr/local/cuda/bin``.  A missing compiler, a failed build or a failed
+load raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
+               / "polars_matmul_tpu_torch")
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# What the last build did: library path, seconds, and nvcc's output (the
+# ptxas lines give each kernel's registers, shared memory and spills).
+build_info: Dict[str, object] = {}
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cand = Path(root) / "bin" / "nvcc"
+            if cand.is_file():
+                return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH, in $CUDA_HOME/bin or in /usr/local/cuda/bin; "
+        "the CUDA kernels of polars_matmul_tpu_torch cannot be built"
+    )
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(_ARCH + _FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pmm_fused_topk_partial.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           i, i, i, p]
+    lib.pmm_fused_topk_partial.restype = i
+    lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
+    lib.pmm_topk_merge.restype = i
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = _BUILD_ROOT / _source_hash()
+        so = out_dir / "libpmm_kernels.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not so.is_file():
+            nvcc = find_nvcc()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"libpmm_kernels.{os.getpid()}.so"
+            cmd = [nvcc, *_ARCH, *_FLAGS, "-o", str(tmp),
+                   *[str(s) for s in _sources()]]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log = r.stdout + r.stderr
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{log}")
+            os.replace(tmp, so)   # atomic: concurrent builders agree
+        lib = ctypes.CDLL(str(so))
+        _declare(lib)
+        build_info.update(path=str(so), seconds=time.perf_counter() - t0,
+                          log=log)
+        _lib = lib
+        return lib

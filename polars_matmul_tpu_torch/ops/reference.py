@@ -1,0 +1,109 @@
+"""Plain PyTorch implementations of the two public operations (port of
+``polars_matmul_tpu.ops.reference``).
+
+They are the oracle for the fused kernels and the compute path wherever
+the JAX package uses XLA instead of its Pallas kernel: float64 inputs,
+k above ``kernels.fused_topk.max_fused_k``, ``use_pallas=False`` and
+problems ``supports()`` declines.
+
+- ``pairwise_scores``: cosine divides the raw dot products by the norm
+  product with zero-norm guards (eps 1e-10 f64 / 1e-6 f32; degenerate rows
+  or columns score 0.0); euclidean is sqrt(max(0, |q|^2 + |c|^2 - 2 q.c)).
+- ``topk_search``: score, mask, select, with lowest-index-wins ties.
+  ``torch.topk`` does not specify the order of equal values, so selection
+  is a stable sort.
+
+Products run in full float32 (or float64): TF32 is switched off for the
+duration of each call on the card, because its 10-bit mantissa cannot
+hold float32 semantics.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from .metrics import Metric, cosine_eps
+
+INT32_MAX = torch.iinfo(torch.int32).max
+
+
+@contextlib.contextmanager
+def exact_matmul():
+    """Run the enclosed products in full precision: TF32 off for cuBLAS
+    matmuls and cuDNN, restored on exit."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def _dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Q . C^T in the inputs' dtype, never TF32."""
+    with exact_matmul():
+        return torch.matmul(q, c.T)
+
+
+def pairwise_scores(q: torch.Tensor, c: torch.Tensor,
+                    metric=Metric.COSINE, *,
+                    precision: str = "highest") -> torch.Tensor:
+    """Dense (n_queries, n_corpus) score matrix for the given metric.
+
+    ``precision`` is accepted for signature parity; this path always
+    computes exact products in the input dtype.
+    """
+    metric = Metric.parse(metric)
+    d = _dot(q, c)
+    if metric is Metric.DOT:
+        return d
+    if metric is Metric.COSINE:
+        eps = cosine_eps(q.dtype)
+        qn = torch.sqrt(torch.sum(q * q, dim=1))
+        cn = torch.sqrt(torch.sum(c * c, dim=1))
+        denom_ok = (qn[:, None] > eps) & (cn[None, :] > eps)
+        denom = qn[:, None] * cn[None, :]
+        safe = torch.where(denom_ok, denom, torch.ones_like(denom))
+        return torch.where(denom_ok, d / safe, torch.zeros_like(d))
+    qsq = torch.sum(q * q, dim=1)
+    csq = torch.sum(c * c, dim=1)
+    sq = qsq[:, None] + csq[None, :] - 2.0 * d
+    return torch.sqrt(torch.clamp(sq, min=0.0))
+
+
+def topk_from_scores(scores: torch.Tensor, k: int,
+                     higher_is_better: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k per row, best first, lowest index first among equal values."""
+    vals, idx = torch.sort(scores, dim=1, descending=higher_is_better,
+                           stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def topk_search(q: torch.Tensor, c: torch.Tensor, k: int,
+                metric=Metric.COSINE, *,
+                mask: Optional[torch.Tensor] = None,
+                precision: str = "highest"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ((m, k) scores, (m, k) int32 indices).
+
+    ``k`` must already be clamped to ``c.shape[0]``.  ``mask`` (n,) bool
+    excludes corpus rows; slots beyond the number of matching rows carry
+    the sentinels (-inf similarity / +inf distance, index int32-max).
+    """
+    metric = Metric.parse(metric)
+    scores = pairwise_scores(q, c, metric, precision=precision)
+    if mask is not None:
+        worst = float("-inf") if metric.higher_is_better else float("inf")
+        scores = torch.where(mask[None, :].to(torch.bool), scores,
+                             torch.full_like(scores, worst))
+    vals, idx = topk_from_scores(scores, k, metric.higher_is_better)
+    if mask is not None:
+        idx = torch.where(vals == worst, torch.full_like(idx, INT32_MAX), idx)
+    return vals, idx.to(torch.int32)
