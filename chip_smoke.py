@@ -6,20 +6,32 @@
 Phases, each printing one line or a few:
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-1. build of the CUDA kernels from this checkout's sources (nvcc, sm_90a);
+1. build of the CUDA kernels from this checkout's sources (nvcc, sm_90a,
+   one compiler per source, all started together);
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
-   precision, with and without a mask, with duplicate rows, and on integer
-   tie data where the results must be bit-identical;
+   every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
+   also above dim 4096), with and without a mask, with duplicate rows,
+   and on integer tie data where the results must be bit-identical; the
+   on-card quantizers against the host NumPy ones, bit for bit;
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100, k=512 and precision="highest", each held to a float64 NumPy
    oracle;
 4. a 2,000,000 x 256 resident corpus answering requests of 8 and 256
    queries at k=10 and k=100, each held to a float64 oracle on the card;
-5. the launch counts of phases 3 and 4: both kernels ran, the plain
-   versions did not;
-6. times from CUDA events: kernels against plain versions, and requests.
+5. the launch counts of each main path (phases 3 and 4, and each tier of
+   phase 7): its kernels and cores ran, the plain versions did not;
+6. times from CUDA events: kernels against plain versions and library
+   calls, and requests with their bounds;
+7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
+   made on the card from seed 42, stored as int8 (requests of 8 and 256
+   queries at k=10 and k=100), int4 and bf16 (8 and 256 queries at
+   k=100), one tier at a time, each request through ``Corpus.topk`` held
+   to a float64 oracle over what the tier stores; int8 recall@10 against
+   the f32 corpus is reported; each tier's kernels are also checked
+   against their plain versions at these shapes (phase 2's checks), real
+   and integer tie data.
 
 The line before the last is a JSON object of per-kernel results; the last
 is {"ok": true, "device": {...}}.  Any failure exits non-zero with its
@@ -29,6 +41,7 @@ traceback and prints no result; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +52,15 @@ import numpy as np
 SEED = 42
 N_QUERIES, N_CORPUS, DIM = 1000, 10_000, 256
 BIG_ROWS = 2_000_000
+# The full-width path: the north-star corpus of BASELINE.json.
+WIDE_ROWS, WIDE_DIM = 10_000_000, 768
+WIDE_REQUESTS = {"int8": ((8, 10), (8, 100), (256, 10), (256, 100)),
+                 "int4": ((8, 100), (256, 100)),
+                 "bf16": ((8, 100), (256, 100))}
+TIER_CORE = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
+# Published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
+# and f32 (CUDA-core) operations/s.
+HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
 # Kernel against plain version: the f32 sums run in another order, and
 # their rounding error scales with the terms summed, not with the result.
 # So a score may differ by ATOL + RTOL * max(|score|, scale), where scale
@@ -46,6 +68,9 @@ BIG_ROWS = 2_000_000
 RTOL, ATOL = 1e-5, 2e-6
 KERNEL_SRC = "polars_matmul_tpu_torch/kernels/csrc/"
 TPU_KERNEL = "polars_matmul_tpu/kernels/fused_topk.py"
+# Where each core of kernel A sits in the TPU kernel (_kernel, :1167).
+CORE_LINE = {"bf16x3": 1258, "highest": 1294, "bf16c": 1271,
+             "int8c": 1283, "int4c": 1285}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -141,6 +166,29 @@ def phase_card():
     return card
 
 
+def _ptxas_summary(log: str):
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its
+    template arguments, registers and spilled bytes."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?"
+                      r"((?:fused_topk_partial|topk_merge)_kernel)"
+                      r"ILi(\d+)E(?:Li(\d+)E)?", line)
+        if m:
+            args = ", ".join(a for a in m.groups()[1:] if a is not None)
+            name, spill = f"{m.group(1)}<{args}>", ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and m.group(1) != "0":
+            spill = f", spills {m.group(1)} B stored / {m.group(2)} B loaded"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers{spill}")
+            name = None
+    return lines
+
+
 def phase_build():
     from polars_matmul_tpu_torch.kernels import _build
 
@@ -148,9 +196,8 @@ def phase_build():
     _build.load_library()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
-    for line in str(_build.build_info["log"]).splitlines():
-        if "Used" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas: " + line.strip())
+    for line in _ptxas_summary(str(_build.build_info["log"])):
+        print("  ptxas: " + line)
 
 
 def _case_data(torch, gen, m, n, dim, dup: bool):
@@ -173,13 +220,31 @@ def _tie_data(torch, gen, m, n, dim):
     return q, c
 
 
-def _term_scale(qp, cp, cbp):
-    """Row term scale |q_i| * max_j |c_j| + max_j |bias_j| (see RTOL)."""
-    return (qp.float().norm(dim=1, keepdim=True)
-            * cp.float().norm(dim=1).max() + cbp.abs().max())
+def _row_norms(F, cp, precision, dim, chunk=1 << 20):
+    """|row| of each prepared corpus row (codes unpacked), in row chunks."""
+    import torch
+
+    out = []
+    for r0 in range(0, cp.shape[0], chunk):
+        blk = cp[r0:r0 + chunk]
+        if precision == "int4c":
+            blk = F.unpack_int4(blk, dim)
+        out.append(blk.float().norm(dim=1))
+    return torch.cat(out)
 
 
-def _check_kernels(F, qp, cp, cbp, mask, k, precision, sms, err, what,
+def _term_scale(F, qp, cp, cbp, precision):
+    """Row term scale |q_i| * max_j |c_j| + max_j |bias_j| (see RTOL),
+    with c_j the corpus row the scores see (codes times their scale)."""
+    norms = _row_norms(F, cp, precision, F._query_dim(qp, precision))
+    bias = cbp
+    if precision in F._QUANT:
+        norms, bias = norms * cbp[0], cbp[1]
+    return (qp.float().norm(dim=1, keepdim=True) * norms.max()
+            + bias.abs().max())
+
+
+def _check_kernels(F, qp, cp, cbp, mask, k, precision, err, what,
                    scale=0.0, exact=False):
     """At the geometry the main path picks for this shape: kernel A
     against its plain version, kernel B against its plain version on A's
@@ -188,16 +253,15 @@ def _check_kernels(F, qp, cp, cbp, mask, k, precision, sms, err, what,
     import torch
 
     m, n = qp.shape[0], cp.shape[0]
-    tm, splits, tps = F.launch_geometry(m, n, k, sms)
+    tm, splits, tps = F.kernel_geometry(m, n, k, precision, qp.device)
     pv, pi = F.fused_topk_partial(qp, cp, cbp, mask, k, precision, splits,
                                   tps, tm)
     rv, ri = F.fused_topk_partial_plain(qp, cp, cbp, mask, k, precision,
                                         splits, tps)
     part_scale = scale[:, :, None] if torch.is_tensor(scale) else scale
-    err["fused_topk_partial"] = max(
-        err["fused_topk_partial"],
-        compare(pv, pi, rv, ri, scale=part_scale, exact=exact,
-                what="kernel A " + what))
+    err[precision] = max(err[precision], compare(
+        pv, pi, rv, ri, scale=part_scale, exact=exact,
+        what="kernel A " + what))
     del rv, ri
     v, i = F.topk_merge(pv, pi, k)
     mv, mi = F.topk_merge_plain(pv, pi, k)
@@ -210,75 +274,108 @@ def _check_kernels(F, qp, cp, cbp, mask, k, precision, sms, err, what,
     compare(v, i, fv, fi, scale=scale, exact=exact, what="A+B " + what)
 
 
-def _check_shape(F, torch, gen, q, c, ks, sms, err, label, tie=False):
+def _check_shape(F, torch, gen, q, c, ks, err, label, tie=False,
+                 precisions=("bf16x3", "highest")):
     """Every metric (only dot and euclidean on tie data, whose cosine
-    scores are not exact), both precisions, k in ``ks``, with and without
-    a mask.  Returns the number of cases."""
+    scores are not exact), each core of ``precisions``, k in ``ks``, with
+    and without a mask.  Returns the number of cases."""
     m, n = q.shape[0], c.shape[0]
     keep = torch.rand((n,), generator=gen, device="cuda") < 0.7
     mask_row = F.pad_mask_row(keep, n)
     metrics = ("dot", "euclidean") if tie else ("cosine", "dot", "euclidean")
     cases = 0
     for metric in metrics:
-        for precision in ("bf16x3", "highest"):
+        for precision in precisions:
             qp = F.prepare_queries(q, metric, precision)
             cp, cbp = F.prepare_corpus(c, metric, precision=precision)
-            scale = 0.0 if tie else _term_scale(qp, cp, cbp)
+            scale = 0.0 if tie else _term_scale(F, qp, cp, cbp, precision)
             for k in ks:
                 for mask in (None, mask_row):
                     what = (f"{label} m={m} n={n} dim={q.shape[1]} k={k} "
                             f"{metric} {precision} "
                             f"mask={mask is not None} tie={tie}")
-                    _check_kernels(F, qp, cp, cbp, mask, k, precision, sms,
-                                   err, what, scale=scale, exact=tie)
+                    _check_kernels(F, qp, cp, cbp, mask, k, precision, err,
+                                   what, scale=scale, exact=tie)
                     cases += 1
             del qp, cp, cbp
     return cases
 
 
+def _check_quantizers(F, torch, gen):
+    """The torch quantizers on the card against the host NumPy ones, bit
+    for bit, on one ingestion chunk (zero rows included)."""
+    from polars_matmul_tpu_torch.api import search as S
+
+    for dim in (WIDE_DIM, 4200):
+        c = torch.randn((4096, dim), generator=gen, device="cuda")
+        c[::97] = 0.0
+        host = c.cpu().numpy()
+        codes, scales = F.quantize_int8(c)
+        hc, hs = S._quantize_rows_np(host)
+        require(np.array_equal(codes.cpu().numpy(), hc)
+                and np.array_equal(scales.cpu().numpy(), hs),
+                f"int8 quantizer on the card differs from the host at {dim}")
+        ck, dpp, _ = F.feature_geometry(dim)
+        packed, scales = F.quantize_int4(c, ck)
+        hp, hs = S._quantize_rows_int4_np(host, ck, dpp)
+        require(np.array_equal(packed.cpu().numpy(), hp)
+                and np.array_equal(scales.cpu().numpy(), hs),
+                f"int4 quantizer on the card differs from the host at {dim}")
+
+
 def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
                   dims=(3, 56, 256, 300, 768), ks=(1, 10, 100, 512, 1024)):
-    """Kernels A and B against their plain versions on CUDA tensors: over
-    a ragged grid of shapes, then at the shapes phases 3 and 4 give them.
-    Returns the largest absolute score difference of each kernel."""
+    """Kernels A (every core) and B against their plain versions on CUDA
+    tensors: over a ragged grid of shapes, then at the shapes phases 3
+    and 4 give them (phase 7 checks its own).  Returns the largest
+    absolute score difference of each core of kernel A and of kernel B."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    err = {"fused_topk_partial": 0.0, "topk_merge": 0.0}
+    err = {name: 0.0 for name in F.CORES + ("topk_merge",)}
     cases = 0
-    shapes = [(m, n, d, False) for m in ms for n in ns for d in dims]
-    shapes.append((37, 5000, 56, True))
-    for m, n, dim, dup in shapes:
+    shapes = [(m, n, d, False, F.CORES) for m in ms for n in ns for d in dims]
+    shapes.append((37, 5000, 56, True, F.CORES))
+    # Above dim 4096 the int4 packing is chunk-interleaved.
+    shapes.append((37, 5000, 4200, False, ("int4c",)))
+    for m, n, dim, dup, precisions in shapes:
         q, c = _case_data(torch, gen, m, n, dim, dup)
         keep = torch.rand((n,), generator=gen, device="cuda") < 0.7
         for metric in ("cosine", "dot", "euclidean"):
-            for precision in ("bf16x3", "highest"):
+            for precision in precisions:
                 qp = F.prepare_queries(q, metric, precision)
                 cp, cbp = F.prepare_corpus(c, metric, precision=precision)
-                scale = _term_scale(qp, cp, cbp)
+                scale = _term_scale(F, qp, cp, cbp, precision)
                 for k in sorted({min(k, n) for k in ks}):
                     mask = (F.pad_mask_row(keep, n) if cases % 2 else None)
                     what = (f"m={m} n={n} dim={dim} k={k} {metric} "
                             f"{precision} mask={mask is not None} dup={dup}")
-                    _check_kernels(F, qp, cp, cbp, mask, k, precision, sms,
-                                   err, what, scale=scale)
+                    _check_kernels(F, qp, cp, cbp, mask, k, precision, err,
+                                   what, scale=scale)
                     cases += 1
+    ties = 0
+    for m, n, dim in ((37, 5000, 56), (300, 5000, WIDE_DIM)):
+        q, c = _tie_data(torch, gen, m, n, dim)
+        ties += _check_shape(F, torch, gen, q, c, (1, 10, 100), err,
+                             "ragged", tie=True, precisions=F.CORES)
+    _check_quantizers(F, torch, gen)
     print(f"phase 2: {cases} ragged cases match (atol {ATOL} + rtol {RTOL} "
-          f"x max(|score|, row term scale); kernel B bit-identical)")
+          f"x max(|score|, row term scale); kernel B bit-identical), every "
+          f"core; {ties} integer tie cases bit-identical; the on-card "
+          f"quantizers equal the host ones bit for bit")
 
     main = 0
     for tie in (False, True):
         q, c = (_tie_data(torch, gen, N_QUERIES, N_CORPUS, DIM) if tie else
                 _case_data(torch, gen, N_QUERIES, N_CORPUS, DIM, False))
-        main += _check_shape(F, torch, gen, q, c, (10, 100, 512), sms, err,
+        main += _check_shape(F, torch, gen, q, c, (10, 100, 512), err,
                              "canonical", tie=tie)
         q, c = (_tie_data(torch, gen, 256, BIG_ROWS, DIM) if tie else
                 _case_data(torch, gen, 256, BIG_ROWS, DIM, False))
         for batch in (8, 256):
-            main += _check_shape(F, torch, gen, q[:batch], c, (10, 100), sms,
-                                 err, "2M", tie=tie)
+            main += _check_shape(F, torch, gen, q[:batch], c, (10, 100), err,
+                                 "2M", tie=tie)
         del q, c
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -286,7 +383,8 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
           f"({N_QUERIES}x{N_CORPUS}x{DIM} at k=10/100/512, {BIG_ROWS}x{DIM} "
           f"at batch 8/256 and k=10/100; every metric, precision and mask; "
           f"integer tie data bit-identical) match; max abs err A "
-          f"{err['fused_topk_partial']:.3g}, B {err['topk_merge']:.3g}")
+          f"{err['bf16x3']:.3g} (bf16x3), {err['highest']:.3g} (highest), "
+          f"B {err['topk_merge']:.3g}")
     return err
 
 
@@ -381,23 +479,53 @@ def profile_request(torch, fn, label: str, card: str,
           f"{host_ms:.3f} ms request; {top}")
 
 
+def _bound(nbytes, ops, peak):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    each input read once and each output written once."""
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def _entry(ms, plain_ms, library_ms, library_call, bound, shape):
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": library_call, "bound_ms": bound[0],
+            "bound_by": bound[1], "shape": shape}
+
+
 def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
-    """Device times of kernels and plain versions, and request times."""
+    """Device times of kernels, plain versions and library calls, and
+    request times.  Returns the per-kernel entries of the canonical k=10
+    tiers (kernel A's bf16x3 and highest cores, kernel B)."""
+    from polars_matmul_tpu_torch.ops.reference import exact_matmul
+
     q = torch.from_numpy(q_np).cuda()
     c = torch.from_numpy(c_np).cuda()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # The library yardstick: the f32 cosine scores with one cuBLAS call,
+    # then torch.topk (TF32 off: the function is exact f32).
+    qn = q / q.norm(dim=1, keepdim=True)
+    cn = c / c.norm(dim=1, keepdim=True)
+    zero = torch.zeros(N_CORPUS, device="cuda")
+
+    def library():
+        with exact_matmul():
+            return torch.topk(torch.addmm(zero, qn, cn.T), 10, dim=1)
+
+    lib = cuda_ms(library)
+    shape = f"{N_QUERIES}x{N_CORPUS}x{DIM} cosine k=10"
     per_kernel = {}
     for k, precision in CANON_TIERS:
         qp = F.prepare_queries(q, "cosine", precision)
         cp, cbp = F.prepare_corpus(c, "cosine", precision=precision)
         compare(*F.fused_select(qp, cp, cbp, None, k, precision),
                 *F.fused_topk_plain(qp, cp, cbp, None, k, precision),
-                scale=_term_scale(qp, cp, cbp),
+                scale=_term_scale(F, qp, cp, cbp, precision),
                 what=f"timed canonical k={k} {precision}")
         ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, precision))
         plain = cuda_ms(lambda: F.fused_topk_plain(qp, cp, cbp, None, k,
                                                    precision))
-        tm, splits, tps = F.launch_geometry(N_QUERIES, N_CORPUS, k, sms)
+        tm, splits, tps = F.kernel_geometry(N_QUERIES, N_CORPUS, k,
+                                            precision, q.device)
         a = cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, None, k,
                                                  precision, splits, tps, tm))
         a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
@@ -406,9 +534,28 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                                       splits, tps, tm)
         b = cuda_ms(lambda: F.topk_merge(pv, pi, k))
         b_plain = cuda_ms(lambda: F.topk_merge_plain(pv, pi, k))
+        if k == 10:
+            passes, peak = ((3, BF16_OPS) if precision == "bf16x3"
+                            else (1, F32_OPS))
+            a_bound = _bound(
+                qp.nbytes + cp.nbytes + cbp.nbytes + pv.nbytes + pi.nbytes,
+                passes * 2 * N_QUERIES * N_CORPUS * DIM, peak)
+            per_kernel[precision] = _entry(
+                a, a_plain, lib, "torch.addmm + torch.topk (f32)", a_bound,
+                shape)
+            print(f"phase 6: [{card}] canonical k=10 {precision}: kernel A "
+                  f"bound {a_bound[0]:.4f} ms ({a_bound[1]}); library "
+                  f"torch.addmm + torch.topk {lib:.4f} ms")
         if (k, precision) == CANON_TIERS[0]:
-            per_kernel = {"fused_topk_partial": (a, a_plain),
-                          "topk_merge": (b, b_plain)}
+            m = pv.shape[0]
+            b_lib = cuda_ms(lambda: torch.topk(pv.reshape(m, -1), k, dim=1))
+            b_bound = _bound(pv.nbytes + pi.nbytes + m * k * 8, 0, F32_OPS)
+            per_kernel["topk_merge"] = _entry(
+                b, b_plain, b_lib, "torch.topk of the flattened split lists",
+                b_bound, f"{m}x{splits}x{k} split lists")
+            print(f"phase 6: [{card}] canonical k=10: kernel B bound "
+                  f"{b_bound[0]:.4f} ms (bytes); library torch.topk over "
+                  f"the flattened lists {b_lib:.4f} ms")
         print(f"phase 6: [{card}] canonical k={k} {precision} (tm={tm}, "
               f"splits={splits}): A+B {ab:.4f} ms, plain {plain:.4f} ms | "
               f"A {a:.4f} ms, A plain {a_plain:.4f} ms | B {b:.4f} ms, "
@@ -445,6 +592,239 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
     return per_kernel
 
 
+def _wide_f32(torch, chunk=1 << 20):
+    """The 10M x 768 f32 corpus, made on the card from SEED in row
+    chunks."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    c = torch.empty((WIDE_ROWS, WIDE_DIM), device="cuda")
+    for r0 in range(0, WIDE_ROWS, chunk):
+        c[r0:r0 + chunk].normal_(generator=gen)
+    return c
+
+
+def _wide_tie_corpus(pmt, F, torch, tier, gen, chunk=1 << 20):
+    """A 10M x 768 corpus of integer codes in [-2, 2], every row twinned,
+    in the tier's own form (int8 / int4 codes with scale 1, bf16 rows)."""
+    n, half = WIDE_ROWS, WIDE_ROWS // 2
+    codes = torch.empty((n, WIDE_DIM), dtype=torch.int8, device="cuda")
+    for r0 in range(0, half, chunk):
+        r1 = min(half, r0 + chunk)
+        codes[r0:r1] = torch.randint(-2, 3, (r1 - r0, WIDE_DIM),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int8)
+    codes[half:] = codes[:n - half]
+    ones = torch.ones(n, device="cuda")
+    if tier == "int8":
+        return pmt.Corpus(codes, storage="int8", scales=ones)
+    if tier == "int4":
+        ck = F.feature_geometry(WIDE_DIM)[0]
+        packed = torch.cat([F.pack_int4(codes[r0:r0 + chunk], ck)
+                            for r0 in range(0, n, chunk)])
+        del codes
+        return pmt.Corpus(packed, storage="int4", scales=ones, dim=WIDE_DIM)
+    rows = codes.to(torch.bfloat16)
+    del codes
+    return pmt.Corpus(rows, storage="bf16")
+
+
+def _oracle_stored(F, torch, corpus, q, k, chunk=250_000):
+    """float64 cosine top-k over what the tier stores: the codes for int8
+    and int4 (their scale cancels), the prepared rows for bf16 (rows
+    normalised in f32 and rounded to bf16, which the kernel scores as
+    they are)."""
+    qn = q.double()
+    qn = qn / qn.norm(dim=1, keepdim=True)
+    rows_all = (corpus._prepared_for(F.Metric.COSINE)[0]
+                if corpus.storage == "bf16" else corpus._device)
+    best_v, best_i = [], []
+    for r0 in range(0, corpus.n, chunk):
+        blk = rows_all[r0:r0 + chunk]
+        if corpus.storage == "int4":
+            blk = F.unpack_int4(blk, corpus.dim)
+        rows = blk.double()
+        if corpus.storage != "bf16":
+            rows = rows / rows.norm(dim=1, keepdim=True)
+        v, i = torch.topk(qn @ rows.T, k, dim=1)
+        best_v.append(v)
+        best_i.append(i + r0)
+    v, order = torch.sort(torch.cat(best_v, dim=1), dim=1, descending=True,
+                          stable=True)
+    return (torch.gather(torch.cat(best_i, dim=1), 1, order)[:, :k]
+            .cpu().numpy(), v[:, :k].cpu().numpy())
+
+
+def _library_rows(F, torch, corpus, chunk=1 << 20):
+    """The cosine rows the kernel scores, as bf16, for the library
+    yardstick: codes times 1/|codes| (int8, int4), the prepared rows
+    (bf16)."""
+    cp, cbp = corpus._prepared_for(F.Metric.COSINE)
+    if corpus.storage == "bf16":
+        return cp
+    out = torch.empty((corpus.n, corpus.dim), dtype=torch.bfloat16,
+                      device="cuda")
+    for r0 in range(0, corpus.n, chunk):
+        blk = cp[r0:r0 + chunk]
+        if corpus.storage == "int4":
+            blk = F.unpack_int4(blk, corpus.dim)
+        out[r0:r0 + chunk] = (blk.float() * cbp[0, r0:r0 + chunk, None]
+                              ).to(torch.bfloat16)
+    return out
+
+
+def _check_wide(F, torch, gen, corpus, q, core, err, tie):
+    """Phase 2's kernel checks at the full-width shapes, on the tier's own
+    prepared operands.  Returns the number of cases."""
+    n = corpus.n
+    mask_row = F.pad_mask_row(
+        torch.rand((n,), generator=gen, device="cuda") < 0.7, n)
+    if tie:   # dot and euclidean are exact in any order: bit for bit
+        cases = [(m, 8, k, mk) for m in ("dot", "euclidean")
+                 for k in (10, 100) for mk in (None, mask_row)]
+    else:
+        cases = [("cosine", b, k, mk) for b in (8, 256) for k in (10, 100)
+                 for mk in (None, mask_row)]
+        cases += [(m, 8, 100, mask_row) for m in ("dot", "euclidean")]
+    scales = {}
+    for metric, batch, k, mask in cases:
+        cp, cbp = corpus._prepared_for(F.Metric.parse(metric))
+        qp = F.prepare_queries(q[:batch], metric, core)
+        if (metric, batch) not in scales:
+            scales[(metric, batch)] = (0.0 if tie else
+                                       _term_scale(F, qp, cp, cbp, core))
+        _check_kernels(F, qp, cp, cbp, mask, k, core, err,
+                       f"{WIDE_ROWS}x{WIDE_DIM} {corpus.storage} b={batch} "
+                       f"k={k} {metric} mask={mask is not None} tie={tie}",
+                       scale=scales[(metric, batch)], exact=tie)
+    return len(cases)
+
+
+def phase_wide(pmt, F, torch, card, err):
+    """Phase 7 (with its phase 5 counts and phase 6 times): the 10M x 768
+    corpus in each quantized tier.  Returns each core's kernel entry (at
+    batch 8, k=100) and the launches of the tiers' main paths."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    q = torch.randn((256, WIDE_DIM), generator=gen, device="cuda")
+    entries, counts = {}, {"topk_merge": 0}
+    for tier, requests in WIDE_REQUESTS.items():
+        core = TIER_CORE[tier]
+        label = f"{WIDE_ROWS}x{WIDE_DIM} {tier}"
+        c = _wide_f32(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        corpus = pmt.Corpus(c, storage=tier)   # quantized on the card
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        f32_top10 = (_oracle_on_card(torch, q[:8], c, 10)[0]
+                     if tier == "int8" else None)
+        del c
+        torch.cuda.empty_cache()
+        stored = corpus._device.nbytes + (
+            0 if corpus._scales is None else corpus._scales.nbytes)
+        print(f"phase 7: {label} corpus built from a CUDA f32 tensor in "
+              f"{built:.2f} s host ({stored / 1e9:.2f} GB stored)")
+
+        # The tier's main path: count only its launches.
+        F.reset_launch_counts()
+        results = {}
+        for batch, k in requests:
+            t0 = time.perf_counter()
+            results[(batch, k)] = corpus.topk(q[:batch], k)
+            first = (time.perf_counter() - t0) * 1e3
+            print(f"phase 7: {label} batch {batch} k={k}: first request "
+                  f"{first:.1f} ms host (corpus prep included on the first)")
+        torch.cuda.synchronize()
+        launched, cores = dict(F.launches), dict(F.core_launches)
+        print(f"phase 5: launches on the {label} path: {launched}, by core "
+              f"{cores}")
+        require(cores[core] > 0, f"{core} never launched on the {tier} path")
+        require(launched["topk_merge"] > 0,
+                f"topk_merge never launched on the {tier} path")
+        for name in ("fused_topk_plain", "fused_topk_partial_plain",
+                     "topk_merge_plain"):
+            require(launched[name] == 0, f"{name} ran on the {tier} path")
+        counts[core] = cores[core]
+        counts["topk_merge"] += launched["topk_merge"]
+
+        for (batch, k), (idx, scores) in results.items():
+            ref_idx, ref_scores = _oracle_stored(F, torch, corpus, q[:batch],
+                                                 k)
+            gate(idx, scores, ref_idx, ref_scores, f"{label} batch={batch} "
+                 f"k={k}")
+            print(f"phase 7: {label} batch {batch} k={k}: passes the float64 "
+                  f"oracle gate over the stored rows")
+        if f32_top10 is not None:
+            idx = results[(8, 10)][0].astype(np.int64)
+            recall = np.mean([len(set(a) & set(b)) / 10
+                              for a, b in zip(idx, f32_top10)])
+            print(f"phase 7: {label} recall@10 against the f32 corpus, batch "
+                  f"8: {recall:.4f} (reported, not gated)")
+
+        cases = _check_wide(F, torch, gen, corpus, q, core, err, False)
+        print(f"phase 2: {cases} cases at the {label} main path's shapes "
+              f"match; max abs err A ({core}) {err[core]:.3g}")
+
+        lib_rows = _library_rows(F, torch, corpus)
+        zero = torch.zeros(corpus.n, dtype=torch.bfloat16, device="cuda")
+        cp, cbp = corpus._prepared_for(F.Metric.COSINE)
+        for batch, k in requests:
+            qb = q[:batch]
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                corpus.topk(qb, k)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            host = statistics.median(ts)
+            qp = F.prepare_queries(qb, "cosine", core)
+            ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, core),
+                         reps=5, warmup=1)
+            qn = (qb / qb.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+            lib = cuda_ms(lambda: torch.topk(torch.addmm(zero, qn,
+                                                         lib_rows.T), k,
+                                             dim=1), reps=5, warmup=1)
+            ops = 2 * 2 * batch * corpus.n * corpus.dim
+            bound = _bound(cp.nbytes + cbp.nbytes + qp.nbytes
+                           + batch * k * 8, ops, BF16_OPS)
+            print(f"phase 6: [{card}] {label} batch {batch} k={k}: request "
+                  f"{host:.3f} ms host, A+B {ab:.3f} ms device, bound "
+                  f"{bound[0]:.3f} ms ({bound[1]}), library torch.addmm + "
+                  f"torch.topk on the dequantised bf16 rows {lib:.3f} ms")
+            profile_request(torch, lambda: corpus.topk(qb, k),
+                            f"{label} batch {batch} k={k}", card, host)
+            if (batch, k) == (8, 100):
+                tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
+                                                    qp.device)
+                a = cuda_ms(lambda: F.fused_topk_partial(
+                    qp, cp, cbp, None, k, core, splits, tps, tm), reps=5,
+                    warmup=1)
+                a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
+                    qp, cp, cbp, None, k, core, splits, tps), reps=2,
+                    warmup=1)
+                a_bound = _bound(cp.nbytes + cbp.nbytes + qp.nbytes
+                                 + batch * splits * k * 8, ops, BF16_OPS)
+                entries[core] = _entry(
+                    a, a_plain, lib,
+                    "torch.addmm + torch.topk on the dequantised bf16 rows",
+                    a_bound, f"{label} cosine batch 8 k=100")
+                print(f"phase 6: [{card}] {label} batch 8 k=100: kernel A "
+                      f"{a:.3f} ms, A plain {a_plain:.3f} ms, bound "
+                      f"{a_bound[0]:.3f} ms ({a_bound[1]})")
+        del lib_rows, zero, cp, cbp, corpus, results
+        torch.cuda.empty_cache()
+
+        tie_corpus = _wide_tie_corpus(pmt, F, torch, tier, gen)
+        q_tie = torch.randint(-2, 3, (8, WIDE_DIM), generator=gen,
+                              device="cuda").float()
+        cases = _check_wide(F, torch, gen, tie_corpus, q_tie, core, err,
+                            True)
+        print(f"phase 2: {cases} integer tie cases at the {label} shapes "
+              f"bit-identical, tie order included")
+        del tie_corpus
+        torch.cuda.empty_cache()
+    return entries, counts
+
+
 def main() -> int:
     import torch
 
@@ -462,30 +842,43 @@ def main() -> int:
     q = rng.standard_normal((N_QUERIES, DIM)).astype(np.float32)
     c = rng.standard_normal((N_CORPUS, DIM)).astype(np.float32)
 
-    # Phases 3 and 4 are the main path: count only their launches.
+    # Phases 3 and 4 are the f32 main path: count only their launches.
     F.reset_launch_counts()
     phase_canonical(pmt, q, c)
     corpus_big, requests = phase_big(pmt, torch)
     torch.cuda.synchronize()
-    counts = dict(F.launches)
-    print(f"phase 5: launches on the main path: {counts}")
+    counts, cores = dict(F.launches), dict(F.core_launches)
+    print(f"phase 5: launches on the f32 main path: {counts}, by core "
+          f"{cores}")
     for name in ("fused_topk_partial", "topk_merge"):
         require(counts[name] > 0, f"{name} never launched on the main path")
+    for core in ("bf16x3", "highest"):
+        require(cores[core] > 0, f"{core} never launched on the main path")
     for name in ("fused_topk_plain", "fused_topk_partial_plain",
                  "topk_merge_plain"):
         require(counts[name] == 0, f"{name} ran on the main path")
 
     per_kernel = phase_times(pmt, F, torch, q, c, corpus_big, requests, card)
-    replaces = {"fused_topk_partial": TPU_KERNEL + ":1167",
-                "topk_merge": TPU_KERNEL + ":922"}
-    source = {"fused_topk_partial": KERNEL_SRC + "fused_topk.cu",
-              "topk_merge": KERNEL_SRC + "topk_merge.cu"}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source[name],
-         "replaces": replaces[name], "launches": counts[name],
-         "max_abs_err": err[name], "ms": per_kernel[name][0],
-         "plain_ms": per_kernel[name][1]}
-        for name in ("fused_topk_partial", "topk_merge")]}))
+    del corpus_big, requests
+    torch.cuda.empty_cache()
+    wide, wide_counts = phase_wide(pmt, F, torch, card, err)
+    per_kernel.update(wide)
+    launches = dict(cores, **wide_counts)
+    launches["topk_merge"] += counts["topk_merge"]
+    kernels = [dict({"name": f"fused_topk_partial.{core}", "route": "cuda",
+                     "source": KERNEL_SRC + "fused_topk.cu",
+                     "replaces": f"{TPU_KERNEL}:{CORE_LINE[core]}",
+                     "launches": launches[core], "max_abs_err": err[core]},
+                    **per_kernel[core])
+               for core in F.CORES]
+    kernels.append(dict({"name": "topk_merge", "route": "cuda",
+                         "source": KERNEL_SRC + "topk_merge.cu",
+                         "replaces": TPU_KERNEL + ":922",
+                         "launches": launches["topk_merge"],
+                         "max_abs_err": err["topk_merge"]},
+                        **per_kernel["topk_merge"]))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

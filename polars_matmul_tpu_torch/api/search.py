@@ -22,8 +22,11 @@ import numpy as np
 import torch
 
 from ..config import SearchConfig, resolve
-from ..kernels.fused_topk import (fused_topk, fused_topk_prepared,
-                                  kernel_precision, prepare_corpus, supports)
+from ..kernels.fused_topk import (dequant_int4, feature_geometry,
+                                  fused_topk, fused_topk_prepared,
+                                  kernel_precision, max_fused_k,
+                                  prepare_corpus, quantize_int4,
+                                  quantize_int8, supports)
 from ..kernels.matmul import pairwise_matmul
 from ..ops.metrics import Metric
 from ..utils.profiling import annotate, call_stats
@@ -194,11 +197,103 @@ def topk(queries: ArrayLike, corpus: ArrayLike, k: int,
     return out
 
 
+def _is_int8(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.int8
+    return np.dtype(dtype) == np.int8
+
+
+def _quantize_rows_int4_np(c: np.ndarray, ck: int, dpp: int):
+    """Host per-row symmetric int4 quantization, nibble-packed per feature
+    chunk (the layout of ``kernels.fused_topk.quantize_int4``), in row
+    chunks so the f32 / int32 temporaries stay bounded."""
+    n, dim = c.shape
+    packed = np.empty((n, dpp // 2), np.int8)
+    scales = np.empty(n, np.float32)
+    step = max(1, (64 << 20) // max(dpp * 4, 1))
+    for r0 in range(0, n, step):
+        blk = np.asarray(c[r0:r0 + step], dtype=np.float32)
+        amax = np.abs(blk).max(axis=1)
+        sc = np.where(amax > 0, amax / 7.0, 1.0).astype(np.float32)
+        codes = np.clip(np.rint(blk / sc[:, None]), -7, 7).astype(np.int32)
+        codes = np.pad(codes, ((0, 0), (0, dpp - dim)))
+        ch = codes.reshape(codes.shape[0], dpp // ck, ck)
+        packed[r0:r0 + step] = ((ch[:, :, : ck // 2] & 0xF)
+                                | ((ch[:, :, ck // 2:] & 0xF) << 4)
+                                ).astype(np.int8).reshape(
+                                    codes.shape[0], dpp // 2)
+        scales[r0:r0 + step] = sc
+    return packed, scales
+
+
+def _unpack_int4_np(packed: np.ndarray, ck: int, dim: int) -> np.ndarray:
+    """Host inverse of the int4 packing -> int codes (n, dim)."""
+    n = packed.shape[0]
+    p32 = packed.astype(np.int32).reshape(n, -1, ck // 2)
+    lo = ((p32 & 0xF) ^ 8) - 8
+    hi = (((p32 >> 4) & 0xF) ^ 8) - 8
+    return np.concatenate([lo, hi], axis=2).reshape(n, -1)[:, :dim]
+
+
+def _quantize_rows_np(c: np.ndarray):
+    """Host per-row symmetric int8 quantization (``quantize_int8``'s
+    semantics), in row chunks so the f32 temporary stays bounded; the
+    corpus then uploads a quarter of the f32 bytes."""
+    n, dim = c.shape
+    codes = np.empty((n, dim), np.int8)
+    scales = np.empty(n, np.float32)
+    step = max(1, (64 << 20) // max(dim * 4, 1))
+    for r0 in range(0, n, step):
+        blk = np.asarray(c[r0:r0 + step], dtype=np.float32)
+        amax = np.abs(blk).max(axis=1)
+        s = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+        codes[r0:r0 + step] = np.rint(blk / s[:, None]).astype(np.int8)
+        scales[r0:r0 + step] = s
+    return codes, scales
+
+
+def _row_block(x: ArrayLike, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of ``x`` as a tensor on its own device (the CPU for
+    NumPy)."""
+    if isinstance(x, torch.Tensor):
+        return x[r0:r1]
+    return _to_torch(x[r0:r1], None, torch.device("cpu"))
+
+
+def _scales_vector(scales, n: int):
+    scales = (scales.to(torch.float32) if isinstance(scales, torch.Tensor)
+              else np.asarray(scales, dtype=np.float32)).reshape(-1)
+    if scales.shape[0] != n:
+        raise ValueError(
+            f"scales must have shape ({n},), got {tuple(scales.shape)}")
+    return scales
+
+
 class Corpus:
     """Device-resident corpus handle: the corpus is uploaded and prepared
     once, and each ``topk`` / ``matmul`` call only moves the queries.
 
-    This port holds ``storage="f32"`` on one device.  Other storage tiers,
+    ``storage`` is how the corpus is held on its one device, and each tier
+    runs its own core of the fused kernel:
+
+    - ``"f32"`` (float64 input keeps float64 and takes the reference path);
+    - ``"bf16"``: half the bytes, searched by the "bf16c" core;
+    - ``"int8"``: per-row symmetric int8 codes and one f32 scale a row (a
+      quarter of the bytes), searched by "int8c", which converts codes to
+      bf16 in the kernel and folds the scale into the epilogue; scores
+      match the dequantized corpus.  Pre-quantized codes pass as int8
+      ``embeddings`` with ``scales`` (n,), row ~= codes * scale;
+    - ``"int4"``: codes in [-7, 7], two a byte (an eighth of the bytes),
+      searched by "int4c"; pre-packed bytes pass with ``scales`` and the
+      original ``dim``.
+
+    Every quantized tier presents float32 semantics, whatever the input's
+    float width.  Floats are quantized where they lie: NumPy on the host
+    (so the upload moves quantized bytes), a tensor on its own device, in
+    row chunks of ``config.prep_chunk_bytes``.  A torch tensor already in
+    the tier's form is held as it is, on its own device unless
+    ``device=`` says otherwise.
+
     ``mesh=``, ``capacity=``, ``add``, ``update`` and ``delete`` raise
     ``NotImplementedError`` naming the ROADMAP item that ports them.
     """
@@ -218,17 +313,34 @@ class Corpus:
             raise ValueError("Zero-dimensional vectors")
         if storage not in ("f32", "bf16", "int8", "int4"):
             raise ValueError(f"Unknown storage mode: {storage!r}")
-        if storage != "f32":
-            raise _not_ported(f"storage={storage!r}", 2)
-        if c.dtype in (np.int8, torch.int8):
+        int8_in = _is_int8(c.dtype)
+        if int8_in and storage not in ("int8", "int4"):
             raise ValueError(
                 "int8 embeddings (pre-quantized codes) require "
                 "storage='int8' (or storage='int4' for nibble-packed "
                 "codes with dim=)")
-        if dim is not None:
+        prepacked_int4 = storage == "int4" and int8_in
+        if prepacked_int4:
+            if scales is None or dim is None:
+                raise ValueError(
+                    "pre-packed int4 codes require scales=(n,) and the "
+                    "original dim= (the packed width is ambiguous)")
+            _, dpp_chk, _ = feature_geometry(int(dim))
+            if c.shape[1] * 2 != dpp_chk:
+                raise ValueError(
+                    f"packed width {c.shape[1]} does not match dim={dim} "
+                    f"(expected {dpp_chk // 2})")
+            scales = _scales_vector(scales, c.shape[0])
+        elif dim is not None:
             raise ValueError("dim= is only meaningful with pre-packed int4 "
                              "codes")
-        if scales is not None:
+        if storage == "int8" and int8_in:
+            if scales is None:
+                raise ValueError(
+                    "pre-quantized int8 embeddings require scales=(n,) "
+                    "with row ~= codes * scale")
+            scales = _scales_vector(scales, c.shape[0])
+        elif scales is not None and not prepacked_int4:
             raise ValueError(
                 "scales= is only meaningful with pre-quantized int8 "
                 "or pre-packed int4 embeddings")
@@ -239,15 +351,70 @@ class Corpus:
         self.config = cfg
         self.storage = storage
         self.n, self.dim = c.shape
-        self.dtype = _F32 if _is_f32(c.dtype) else _F64
+        if prepacked_int4:
+            self.dim = int(dim)
+        self.dtype = (_F32 if storage != "f32" or _is_f32(c.dtype)
+                      else _F64)
         self.device = resolve_device(device, c)
-        self._device = _to_torch(c, self.dtype, self.device)
+        # Rows a chunk of ingestion or prep handles (its f32 temporaries
+        # take about prep_chunk_bytes).
+        self._chunk_rows = max(1, cfg.prep_chunk_bytes // (4 * self.dim))
+        # int8 / int4: the (n,) f32 per-row dequant scale.
+        self._scales: Optional[torch.Tensor] = None
+        if storage == "f32":
+            self._device = _to_torch(c, self.dtype, self.device)
+        elif storage == "bf16":
+            self._device = self._store_bf16(c)
+        elif int8_in:
+            self._device = _to_torch(c, None, self.device)
+            self._scales = _to_torch(scales, _F32, self.device)
+        else:
+            self._device, self._scales = self._quantize(c)
+        # Dequantized f32 rows of a bf16 / int8 / int4 corpus, built only
+        # for matmul and the reference path (k > max_fused_k,
+        # use_pallas=False): the f32 bytes, once.
+        self._f32_view: Optional[torch.Tensor] = None
         # Rows deleted in a corpus saved by the JAX package (Corpus.load):
         # excluded from every topk through the mask path.
         self._tombstones: Optional[np.ndarray] = None
         self._alive: Optional[torch.Tensor] = None
         # (metric, kernel precision) -> (cp, cbp) on the device.
         self._prepared = {}
+
+    def _store_bf16(self, c: ArrayLike) -> torch.Tensor:
+        """bf16 rows on the device, rounded from f32 (float64 input
+        rounds to f32 first, as in the JAX package), in row chunks."""
+        if isinstance(c, torch.Tensor) and c.dtype == torch.bfloat16:
+            return c.to(self.device)
+        out = torch.empty((self.n, self.dim), dtype=torch.bfloat16,
+                          device=self.device)
+        for r0 in range(0, self.n, self._chunk_rows):
+            r1 = min(self.n, r0 + self._chunk_rows)
+            out[r0:r1].copy_(_row_block(c, r0, r1).to(torch.float32)
+                             .to(torch.bfloat16))
+        return out
+
+    def _quantize(self, c: ArrayLike):
+        """(codes, scales) on the device from float rows: NumPy by the host
+        quantizers, a tensor by the torch ones on its own device, in row
+        chunks."""
+        int4 = self.storage == "int4"
+        ck, dpp, _ = feature_geometry(self.dim)
+        if not isinstance(c, torch.Tensor):
+            codes, scales = (_quantize_rows_int4_np(c, ck, dpp) if int4
+                             else _quantize_rows_np(c))
+            return (torch.from_numpy(codes).to(self.device),
+                    torch.from_numpy(scales).to(self.device))
+        codes = torch.empty((self.n, dpp // 2 if int4 else self.dim),
+                            dtype=torch.int8, device=self.device)
+        scales = torch.empty(self.n, dtype=torch.float32, device=self.device)
+        for r0 in range(0, self.n, self._chunk_rows):
+            r1 = min(self.n, r0 + self._chunk_rows)
+            qc, sc = (quantize_int4(c[r0:r1], ck) if int4
+                      else quantize_int8(c[r0:r1]))
+            codes[r0:r1].copy_(qc)
+            scales[r0:r1].copy_(sc)
+        return codes, scales
 
     def __len__(self) -> int:
         return self.n
@@ -265,13 +432,66 @@ class Corpus:
     def delete(self, indices) -> int:
         raise _not_ported("Corpus.delete", 3)
 
+    def _effective_precision(self) -> str:
+        """The kernel core this handle runs: a quantized tier always runs
+        its own ("bf16c", "int8c", "int4c"), whatever the config says (the
+        values are quantized at rest; another core could only spend
+        memory); f32 runs the config's precision."""
+        tier = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
+        return tier.get(self.storage, kernel_precision(self.config.precision))
+
+    def _dense_device(self) -> torch.Tensor:
+        """(n, dim) rows in the compute dtype for matmul and the reference
+        path: the f32 corpus itself, else a cached dequantized f32 view."""
+        if self.storage == "f32":
+            return self._device
+        if self._f32_view is None:
+            if self.storage == "int8":
+                dense = (self._device.to(torch.float32)
+                         * self._scales[:, None])
+            elif self.storage == "int4":
+                dense = dequant_int4(self._device, self._scales, self.dim)
+            else:
+                dense = self._device.to(torch.float32)
+            self._f32_view = dense
+        return self._f32_view
+
     def _prepared_for(self, metric: Metric):
-        precision = kernel_precision(self.config.precision)
+        """Cached (cp, cbp) of ``prepare_corpus`` for this metric and the
+        handle's core, built in row chunks so that no prep holds a
+        full-size f32 temporary.  Where the prep leaves the rows as stored
+        (int8 / int4 codes, bf16 rows for dot and euclidean, f32 rows for
+        "highest" dot and euclidean) cp is the storage itself and only the
+        bias or scale | bias rows are computed."""
+        precision = self._effective_precision()
         key = (metric.value, precision)
         if key not in self._prepared:
-            self._prepared[key] = prepare_corpus(self._device, metric,
-                                                 precision=precision)
+            self._prepared[key] = self._prepare(metric, precision)
         return self._prepared[key]
+
+    def _prepare(self, metric: Metric, precision: str):
+        c = self._device
+        step = self._chunk_rows
+        cp = cbp = None
+        for r0 in range(0, self.n, step):
+            r1 = min(self.n, r0 + step)
+            chunk = c[r0:r1]
+            sc = None if self._scales is None else self._scales[r0:r1]
+            cpc, cbc = prepare_corpus(chunk, metric, precision=precision,
+                                      scales=sc)
+            if r1 - r0 == self.n:
+                return cpc, cbc
+            if cp is None:
+                shared = cpc.data_ptr() == chunk.data_ptr()
+                cp = c if shared else torch.empty(
+                    (self.n,) + tuple(cpc.shape[1:]), dtype=cpc.dtype,
+                    device=c.device)
+                cbp = torch.empty(tuple(cbc.shape[:-1]) + (self.n,),
+                                  dtype=cbc.dtype, device=c.device)
+            if cp is not c:
+                cp[r0:r1] = cpc
+            cbp[..., r0:r1] = cbc
+        return cp, cbp
 
     def _combined_mask(self, user_mk) -> Optional[torch.Tensor]:
         mk = _mask_on(user_mk, self.device)
@@ -309,20 +529,29 @@ class Corpus:
         dt = _F32 if half_q else compute_dtype(q.dtype, self.dtype)
         cfg = self.config
         mk = self._combined_mask(user_mk)
+        sup = supports(q.shape, (self.n, self.dim), dt, kk, cfg)
+        if (not sup and self.storage != "f32" and dt == _F32
+                and kk <= max_fused_k(cfg)):
+            # Quantized storage above max_fused_dim stays on the kernel:
+            # the reference path would build (and cache) the dense f32
+            # rows, the bytes the tier exists to save.
+            sup = True
         with annotate(f"pmm.topk.{metric.value}"):
-            if (cfg.use_pallas and dt == _F32 and self.dtype == _F32
-                    and supports(q.shape, (self.n, self.dim), dt, kk, cfg)):
+            if cfg.use_pallas and dt == _F32 and self.dtype == _F32 and sup:
                 qt = _to_torch(q, None if half_q else dt, self.device)
                 cp, cbp = self._prepared_for(metric)
-                vals, idx = fused_topk_prepared(qt, cp, cbp, kk, metric,
-                                                mask=mk, config=cfg)
+                vals, idx = fused_topk_prepared(
+                    qt, cp, cbp, kk, metric, mask=mk, config=cfg,
+                    precision=self._effective_precision())
             else:
-                ct = self._device.to(_torch_dtype(dt))
+                ct = self._dense_device().to(_torch_dtype(dt))
                 vals, idx = fused_topk(_to_torch(q, dt, self.device), ct, kk,
                                        metric, mask=mk, config=cfg)
             return _to_host(vals, idx)
 
     def matmul(self, queries: ArrayLike) -> np.ndarray:
+        """Q . C^T against the stored rows (dequantized for bf16 / int8 /
+        int4), in the compute dtype."""
         q = _as_input(queries)
         if q.shape[0] == 0:
             return np.empty((0, self.n), dtype=compute_dtype(q.dtype,
@@ -331,16 +560,25 @@ class Corpus:
         dt = compute_dtype(q.dtype, self.dtype)
         with annotate("pmm.matmul"):
             out = pairwise_matmul(_to_torch(q, dt, self.device),
-                                  self._device.to(_torch_dtype(dt)),
+                                  self._dense_device().to(_torch_dtype(dt)),
                                   precision=self.config.precision)
         return out.cpu().numpy()
 
     def save(self, path) -> None:
         """Persist to ``path`` (.npz) in the JAX package's format, which its
-        ``Corpus.load`` reads back."""
+        ``Corpus.load`` reads back: the tier's own bytes (bf16 as
+        ``data_u16`` bits, int8 codes or packed int4 with ``scales``) and
+        the tombstones."""
+        data = self._device.cpu()
         arrays = {"n": np.int64(self.n), "dim": np.int64(self.dim),
-                  "storage": np.array(self.storage),
-                  "data": self._device.cpu().numpy()}
+                  "storage": np.array(self.storage)}
+        if self.storage == "bf16":
+            arrays["data_u16"] = data.view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            arrays["data"] = data.numpy()
+        if self._scales is not None:
+            arrays["scales"] = self._scales.cpu().numpy()
         if self._tombstones is not None:
             arrays["tombstones"] = self._tombstones
         with open(path, "wb") as f:
@@ -350,16 +588,22 @@ class Corpus:
     def load(cls, path, *, mesh=None, capacity: Optional[int] = None,
              config: Optional[SearchConfig] = None,
              device: DeviceLike = None) -> "Corpus":
-        """Rebuild a corpus saved by either package's ``Corpus.save``
-        (storage "f32"; other tiers raise until they are ported)."""
+        """Rebuild a corpus saved by either package's ``Corpus.save``, from
+        its stored bytes (codes are not quantized again)."""
         with np.load(path, allow_pickle=False) as z:
             storage = str(z["storage"])
-            if storage != "f32":
-                raise _not_ported(f"loading storage={storage!r}", 2)
-            data = z["data"]
+            if storage == "bf16":
+                data = torch.from_numpy(
+                    z["data_u16"].view(np.int16)).view(torch.bfloat16)
+            else:
+                data = z["data"]
+            scales = z["scales"] if "scales" in z else None
             tomb = z["tombstones"] if "tombstones" in z else None
-        obj = cls(data, mesh=mesh, storage=storage, capacity=capacity,
-                  config=config, device=device)
+            dim4 = int(z["dim"]) if storage == "int4" else None
+        # NumPy's default device, also for the bf16 bits read as a tensor.
+        obj = cls(data, mesh=mesh, storage=storage, scales=scales, dim=dim4,
+                  capacity=capacity, config=config,
+                  device=resolve_device(device))
         if tomb is not None and tomb.any():
             obj._tombstones = tomb.astype(bool)
         return obj

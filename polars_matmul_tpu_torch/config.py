@@ -15,9 +15,16 @@ On this port:
   where the JAX package, with ``k_pad`` > 1024, stays fused.
 - ``selection``: every value runs the same exact CUDA selection (kernel A
   carry + kernel B merge); a Hopper-specific strategy is left for later.
-- ``precision``: ``"bf16x3"`` and ``"highest"`` run the fused kernels;
-  ``"default"`` and ``"high"`` run ``"highest"`` (exact f32 is inside
-  their looser contract).
+- ``precision``: each value runs its own core of the fused kernel:
+  ``"bf16x3"``, ``"highest"``, and the quantized-storage cores
+  ``"bf16c"``, ``"int8c"`` and ``"int4c"`` (on module-level ``topk`` and
+  an f32 ``Corpus`` they quantize the corpus on the way in; a
+  ``Corpus(storage="bf16" | "int8" | "int4")`` always runs its tier's
+  core).  ``"default"`` and ``"high"`` run ``"highest"`` (exact f32 is
+  inside their looser contract).
+- ``prep_chunk_bytes`` bounds the f32 temporaries of corpus ingestion
+  and prep: ``Corpus`` quantizes and prepares in row chunks of about
+  this many bytes.
 - ``use_pallas=False`` forces the reference top-k path, as in the JAX
   package (the name is kept so that configs carry over).
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` file into one shared
-library with a plain C interface, for ``sm_90a`` (Hopper), and the library
-is loaded with ``ctypes``.  The build goes to
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
+(Hopper), one compiler process per source, all started together, and links
+the objects into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  The build goes to
 ``build/polars_matmul_tpu_torch/<hash of the sources>/libpmm_kernels.so``
 under the checkout (``build/`` is git-ignored), so a change to any source
 builds afresh and an unchanged tree reuses the library.
@@ -28,8 +29,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
                / "polars_matmul_tpu_torch")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v"]
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,11 +68,52 @@ def _source_hash() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pmm_fused_topk_partial.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           i, i, i, p]
+    lib.pmm_fused_topk_partial.argtypes = [p] * 7 + [i] * 10 + [p]
     lib.pmm_fused_topk_partial.restype = i
+    lib.pmm_fused_topk_blocks_per_sm.argtypes = [i, i, i]
+    lib.pmm_fused_topk_blocks_per_sm.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
+
+
+def _build(so: Path) -> str:
+    """Compile each source to an object in parallel, then link ``so``.
+    Returns nvcc's output; raises on the first failure."""
+    nvcc = find_nvcc()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    objs = [so.parent / f"{src.stem}.{tag}.o" for src in _sources()]
+    logs = [obj.with_suffix(".log") for obj in objs]
+    procs = []
+    for src, obj, out in zip(_sources(), objs, logs):
+        cmd = [nvcc, *_ARCH, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(out, "w") as f:   # a file, so no pipe fills and blocks
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+    log, failed = "", None
+    for (cmd, proc), out in zip(procs, logs):
+        proc.wait()
+        log += out.read_text()
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd)
+    tmp = so.parent / f"libpmm_kernels.{tag}.so"
+    try:
+        if failed is None:
+            cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                   *[str(o) for o in objs]]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            if r.returncode != 0:
+                failed = (r.returncode, cmd)
+        if failed is not None:
+            raise RuntimeError(
+                f"nvcc failed ({failed[0]}): {' '.join(failed[1])}\n{log}")
+        os.replace(tmp, so)   # atomic: concurrent builds agree
+    finally:
+        tmp.unlink(missing_ok=True)
+        for path in objs + logs:
+            path.unlink(missing_ok=True)
+    return log
 
 
 def load_library() -> ctypes.CDLL:
@@ -86,18 +127,7 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         log = ""
         if not so.is_file():
-            nvcc = find_nvcc()
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libpmm_kernels.{os.getpid()}.so"
-            cmd = [nvcc, *_ARCH, *_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in _sources()]]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            log = r.stdout + r.stderr
-            if r.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{log}")
-            os.replace(tmp, so)   # atomic: concurrent builders agree
+            log = _build(so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         build_info.update(path=str(so), seconds=time.perf_counter() - t0,

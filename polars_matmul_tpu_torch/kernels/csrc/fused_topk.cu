@@ -1,12 +1,13 @@
 // Kernel A: fused Q.C^T -> metric epilogue -> per-split running top-k.
 //
 // Replaces polars_matmul_tpu/kernels/fused_topk.py::_kernel (the dense-grid
-// pallas_call at fused_topk.py:2177) in the modes the exact f32 main path
-// runs: the "bf16x3" core (three bf16 products, f32 accumulation) and the
-// "highest" core (f32), the f32 epilogue (additive bias row, mask by
-// select), and the running top-k carry with lowest-index ties.  The TPU's
-// gpop/gstack/extract selections all return this exact top-k; kernel A
-// plus kernel B (topk_merge.cu) compute it directly.
+// pallas_call at fused_topk.py:2177) in five cores: "bf16x3" (three bf16
+// products, f32 accumulation, fused_topk.py:1258-1270), "highest" (f32,
+// :1294-1295), and the quantized-storage cores "bf16c", "int8c" and
+// "int4c" (:1271-1293) with their scale | bias epilogue (:1301-1314);
+// then the mask by select and the running top-k carry with lowest-index
+// ties.  The TPU's gpop/gstack/extract selections all return this exact
+// top-k; kernel A plus kernel B (topk_merge.cu) compute it directly.
 //
 // What changes from the TPU: the TPU walks the corpus axis of its grid in
 // order on one core and carries the top-k in VMEM across grid steps.  Here
@@ -27,6 +28,22 @@
 //   columns [8w, 8w+8) of the tile for every query row of the block.
 // - "highest" runs on CUDA cores: f32 FMA on a (TM/16) x 4 register
 //   micro-tile per thread.  TF32 would not hold f32 semantics.
+// - "bf16c", "int8c", "int4c": the corpus is stored as one bf16 half,
+//   int8 codes, or int8 bytes of two signed nibbles.  Staging converts it
+//   to a bf16 tile in shared memory (integers up to 256 are exact in
+//   bf16), and two mma.sync per k-step give qh.c and ql.c in two
+//   accumulators, summed last (the grouping of fused_topk.py:1292-1293).
+//   int8c / int4c then compute s = d * scale + bias with the scale and
+//   bias rows of the (2, n) operand (scale = 1/|codes| for cosine, the
+//   dequant scale otherwise), rounded as two separate operations, not one
+//   FMA, so the plain PyTorch version gives the same bits; bf16c adds the
+//   bias row.  int4 layout (quantize_int4): in each ck-wide feature chunk,
+//   byte j holds feature j (low nibble) and feature j + ck/2 (high).  ck
+//   is a multiple of 128, so 8 features from a multiple of 8 are one
+//   nibble half of 8 consecutive bytes: one 8-byte load.  Corpus rows are
+//   not padded: int8 codes are dim bytes a row, int4 rows dpp/2 bytes
+//   (dpp = dim padded as feature_geometry says, the padding nibbles
+//   zero).
 //
 // What bounds it on the H100: at the 1000 x 10000 x 256 canonical shape
 // the bf16x3 product is 7.7 G multiply-adds, about 0.02 ms of bf16 tensor
@@ -40,6 +57,19 @@
 // tiles of a split) are sorted in the warp and merged into the carry in
 // one pass.  "highest" is bound by the f32 FMA rate (67 TFLOP/s peak).
 //
+// The quantized cores serve corpora too large for f32.  At the 10M x 768
+// north-star shape a batch-8 int8 request must read 7.68 GB of codes plus
+// 80 MB of scale | bias: 2.3 ms of HBM at 3.35 TB/s, so the loads bound it
+// and storing fewer bits is the design's answer (a quarter of f32's
+// bytes, an eighth for int4).  The loads are plain 8- or 16-byte loads
+// (where dim % 8 == 0), converted to bf16 in registers on the way into
+// shared memory, with no cp.async or TMA pipeline yet: each step waits
+// for its loads, so the bytes a step stages set the rate, and the stored
+// cores stage 128 features a step (64 for the 64-row query tile), with
+// all of a thread's loads issued before any is used.  At batch 256 the
+// two bf16 products (7.9 TFLOP) bound it: each 64-row query tile reads
+// the corpus again, which L2 does not hold.
+//
 // Ragged edges: query rows >= m, corpus rows >= n and features >= dim are
 // handled by the kernel's own bounds; nothing needs padding.  A carry slot
 // that nothing filled holds (-inf, INT32_MAX).
@@ -48,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,15 +90,32 @@ constexpr int kBK = 32;         // features per shared-memory chunk
 constexpr int kBKP = kBK + 8;   // bf16 row stride: conflict-free fragments
 constexpr int kINT32_MAX = 0x7fffffff;
 
-// Shared memory: the operand tiles, then the score tile and the carry.
-__host__ __device__ inline size_t operand_bytes(int tm, bool bf16x3) {
-  return bf16x3
-      ? 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t)      // hi, lo
-      : ((size_t)tm * kBK + (size_t)kTN * (kBK + 1)) * sizeof(float);
+// The cores, in the order of kernels/fused_topk.py's CORES.
+enum Core : int { kHighest = 0, kBf16x3 = 1, kBf16c = 2, kInt8c = 3,
+                  kInt4c = 4 };
+
+// Features a stored-corpus core stages per step.  Its corpus rows are
+// narrow (32 features are 32 bytes of int8, 16 of int4), and each step
+// waits for its loads, so a wide step keeps more bytes in flight.  The
+// 64-row query tile takes 64, so that two blocks still fit an SM.  (int4
+// at 256 features, the int8 step's bytes, measured slower on the H100:
+// PERF.md.)
+__host__ __device__ constexpr int stored_bk(int tm) {
+  return tm == 64 ? 64 : 128;
 }
 
-__host__ __device__ inline size_t smem_bytes(int tm, int k, bool bf16x3) {
-  return operand_bytes(tm, bf16x3)
+// Shared memory: the operand tiles, then the score tile and the carry.
+__host__ __device__ inline size_t operand_bytes(int tm, int core) {
+  if (core == kHighest)
+    return ((size_t)tm * kBK + (size_t)kTN * (kBK + 1)) * sizeof(float);
+  if (core == kBf16x3)
+    return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
+  return (size_t)(2 * tm + kTN) * (stored_bk(tm) + 8)        // qh, ql, c
+       * sizeof(uint16_t);
+}
+
+__host__ __device__ inline size_t smem_bytes(int tm, int k, int core) {
+  return operand_bytes(tm, core)
        + (size_t)tm * (kTN + 1) * sizeof(float)              // score tile
        + 2 * (size_t)tm * k * sizeof(float)                  // carry
        + 2 * (size_t)kWarps * kTN * sizeof(float);           // merge lists
@@ -98,14 +147,18 @@ __device__ inline void carry_insert(float* cv, int* ci, int k, float v,
   __syncwarp();
 }
 
-// Epilogue for one score: bias row, then the mask by select (a NaN dot
-// product on a masked row must not reach the selection), -inf past the
-// corpus end.
+// Epilogue for one score: scale row (int8c / int4c: scale != null) and
+// bias row, then the mask by select (a NaN dot product on a masked row
+// must not reach the selection), -inf past the corpus end.  The product
+// and the sum round apart, as in the plain version; a dead row's -inf
+// bias meets a finite d * scale.
 __device__ inline float epilogue(float d, int gn, int n,
+                                 const float* __restrict__ scale,
                                  const float* __restrict__ cb,
                                  const uint8_t* __restrict__ mask) {
   if (gn >= n) return -INFINITY;
-  const float s = d + cb[gn];
+  const float p = scale != nullptr ? __fmul_rn(d, scale[gn]) : d;
+  const float s = __fadd_rn(p, cb[gn]);
   return (mask != nullptr && mask[gn] == 0) ? -INFINITY : s;
 }
 
@@ -248,32 +301,35 @@ __device__ inline uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Stage rows [r0, r0 + rows) x features [k0, k0 + kBK) of a bf16 [hi | lo]
-// operand into shared memory, zero past the row count and the dim.  The
-// element-wise form takes any dim; the vector form moves 8 bf16 (16 bytes)
-// per load and needs dim % 8 == 0 and 16-byte aligned operands.
+// Stage rows [r0, r0 + rows) x features [k0, k0 + BK) of a bf16 [hi | lo]
+// operand into shared memory (row stride BK + 8), zero past the row count
+// and the dim.  The element-wise form takes any dim; the vector form
+// moves 8 bf16 (16 bytes) per load and needs dim % 8 == 0 and 16-byte
+// aligned operands.
+template <int BK = kBK>
 __device__ inline void load_tile(const uint16_t* __restrict__ src,
                                  uint16_t* hi, uint16_t* lo, int r0,
                                  int r_end, int k0, int dim, size_t ld,
                                  int rows) {
-  for (int e = threadIdx.x; e < rows * kBK; e += kThreads) {
-    const int r = e / kBK, kk = e % kBK;
+  for (int e = threadIdx.x; e < rows * BK; e += kThreads) {
+    const int r = e / BK, kk = e % BK;
     const int gr = r0 + r, gk = k0 + kk;
     uint16_t h = 0, l = 0;
     if (gr < r_end && gk < dim) {
       h = src[gr * ld + gk];
       l = src[gr * ld + dim + gk];
     }
-    hi[r * kBKP + kk] = h;
-    lo[r * kBKP + kk] = l;
+    hi[r * (BK + 8) + kk] = h;
+    lo[r * (BK + 8) + kk] = l;
   }
 }
 
+template <int BK = kBK>
 __device__ inline void load_tile_vec(const uint16_t* __restrict__ src,
                                      uint16_t* hi, uint16_t* lo, int r0,
                                      int r_end, int k0, int dim, size_t ld,
                                      int rows) {
-  constexpr int kV = kBK / 8;   // 16-byte vectors per row chunk
+  constexpr int kV = BK / 8;   // 16-byte vectors per row chunk
   for (int e = threadIdx.x; e < rows * kV; e += kThreads) {
     const int r = e / kV, kk = (e % kV) * 8;
     const int gr = r0 + r, gk = k0 + kk;
@@ -282,8 +338,8 @@ __device__ inline void load_tile_vec(const uint16_t* __restrict__ src,
       h = *reinterpret_cast<const uint4*>(src + gr * ld + gk);
       l = *reinterpret_cast<const uint4*>(src + gr * ld + dim + gk);
     }
-    *reinterpret_cast<uint4*>(hi + r * kBKP + kk) = h;
-    *reinterpret_cast<uint4*>(lo + r * kBKP + kk) = l;
+    *reinterpret_cast<uint4*>(hi + r * (BK + 8) + kk) = h;
+    *reinterpret_cast<uint4*>(lo + r * (BK + 8) + kk) = l;
   }
 }
 
@@ -346,7 +402,164 @@ __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
       const int r = 16 * t + g + (j >= 2 ? 8 : 0);
       const int col = 8 * warp + 2 * tig + (j & 1);
       St[r * (kTN + 1) + col] =
-          epilogue(acc1[t][j] + acc2[t][j], n0 + col, n, cb, mask);
+          epilogue(acc1[t][j] + acc2[t][j], n0 + col, n, nullptr, cb, mask);
+    }
+}
+
+__device__ inline uint16_t bf16_bits(int v) {
+  return __bfloat16_as_ushort(__int2bfloat16_rn(v));   // exact for |v| <= 256
+}
+
+__device__ inline int nibble(uint32_t byte, bool high) {
+  return (int)(((high ? byte >> 4 : byte) & 0xFu) ^ 8u) - 8;
+}
+
+// Byte of feature f in an int4 row (quantize_int4's layout: in each
+// ck-wide chunk, byte j holds feature j low and feature j + ck/2 high),
+// and whether it is the high nibble.  Eight features from a multiple of 8
+// share their nibble half and sit in 8 consecutive bytes (ck/2 is a
+// multiple of 64).
+__device__ inline size_t int4_byte(int f, int ck, bool& high) {
+  const int t = f / ck, j = f - t * ck, half = ck / 2;
+  high = j >= half;
+  return (size_t)t * half + (high ? j - half : j);
+}
+
+// Stage corpus rows [r0, r0 + kTN) x features [k0, k0 + BK) of a
+// stored-corpus core as bf16 into Cs (row stride BK + 8), zero past the
+// row count and the dim.  ld is the row stride in elements (bf16c) or
+// bytes (int8c, int4c); ck is the int4 feature chunk.  The vector form
+// issues all of a thread's loads (8 values each) before it converts any,
+// and needs dim % 8 == 0 and aligned operands (int4 rows always hold
+// whole 8-byte runs).
+template <int CORE, int BK>
+__device__ inline void load_corpus(const void* __restrict__ src,
+                                   uint16_t* Cs, int r0, int r_end, int k0,
+                                   int dim, size_t ld, int ck, bool vec) {
+  constexpr int BKP = BK + 8;
+  if (vec) {
+    constexpr int kV = BK / 8;
+    constexpr int kPer = kTN * kV / kThreads;   // vectors per thread
+    static_assert(kTN * kV % kThreads == 0, "whole vectors per thread");
+    uint4 raw[kPer];
+    bool high[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int gr = r0 + e / kV, gk = k0 + (e % kV) * 8;
+      raw[i] = make_uint4(0, 0, 0, 0);
+      high[i] = false;
+      if (gr < r_end && gk < dim) {
+        if (CORE == kBf16c) {
+          raw[i] = *reinterpret_cast<const uint4*>(
+              static_cast<const uint16_t*>(src) + gr * ld + gk);
+        } else {
+          const size_t b = CORE == kInt4c ? int4_byte(gk, ck, high[i])
+                                          : (size_t)gk;
+          const uint2 w = *reinterpret_cast<const uint2*>(
+              static_cast<const uint8_t*>(src) + gr * ld + b);
+          raw[i].x = w.x;
+          raw[i].y = w.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / kV, kk = (e % kV) * 8;
+      uint4 out = raw[i];
+      if (CORE != kBf16c) {
+        const uint32_t w[2] = {raw[i].x, raw[i].y};
+        uint16_t h[8];
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const uint32_t byte = (w[b >> 2] >> (8 * (b & 3))) & 0xFFu;
+          const int v = CORE == kInt8c ? (int)(int8_t)byte
+                                       : nibble(byte, high[i]);
+          h[b] = k0 + kk + b < dim ? bf16_bits(v) : (uint16_t)0;
+        }
+        out = make_uint4(h[0] | (uint32_t)h[1] << 16,
+                         h[2] | (uint32_t)h[3] << 16,
+                         h[4] | (uint32_t)h[5] << 16,
+                         h[6] | (uint32_t)h[7] << 16);
+      }
+      *reinterpret_cast<uint4*>(Cs + r * BKP + kk) = out;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kTN * BK; e += kThreads) {
+    const int r = e / BK, kk = e % BK;
+    const int gr = r0 + r, gk = k0 + kk;
+    uint16_t h = 0;
+    if (gr < r_end && gk < dim) {
+      if (CORE == kBf16c) {
+        h = static_cast<const uint16_t*>(src)[gr * ld + gk];
+      } else {
+        bool hi = false;
+        const size_t b = CORE == kInt4c ? int4_byte(gk, ck, hi)
+                                        : (size_t)gk;
+        const uint8_t byte = static_cast<const uint8_t*>(src)[gr * ld + b];
+        h = bf16_bits(CORE == kInt8c ? (int)(int8_t)byte : nibble(byte, hi));
+      }
+    }
+    Cs[r * BKP + kk] = h;
+  }
+}
+
+// Score tile of a stored-corpus core (bf16c, int8c, int4c) into St
+// (epilogue applied): qh.c and ql.c in two accumulators, summed last.
+template <int TM, int CORE>
+__device__ inline void scores_stored(const uint16_t* __restrict__ q,
+                                     const void* __restrict__ c,
+                                     const float* __restrict__ scale,
+                                     const float* __restrict__ cb,
+                                     const uint8_t* __restrict__ mask,
+                                     uint16_t* Qh, uint16_t* Ql,
+                                     uint16_t* Cs, float* St, int row0,
+                                     int n0, int m, int n, int dim,
+                                     size_t c_ld, int ck, bool vec) {
+  constexpr int MT = TM / 16;   // m16 tiles per warp
+  constexpr int BK = stored_bk(TM), BKP = BK + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t ld = 2 * (size_t)dim;   // queries: [hi | lo] row stride
+  float acc1[MT][4], acc2[MT][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) { acc1[t][j] = 0.f; acc2[t][j] = 0.f; }
+
+  for (int k0 = 0; k0 < dim; k0 += BK) {
+    load_corpus<CORE, BK>(c, Cs, n0, n, k0, dim, c_ld, ck, vec);
+    if (vec)
+      load_tile_vec<BK>(q, Qh, Ql, row0, m, k0, dim, ld, TM);
+    else
+      load_tile<BK>(q, Qh, Ql, row0, m, k0, dim, ld, TM);
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      const int bo = (8 * warp + g) * BKP + ks + 2 * tig;
+      const uint32_t b0 = ld32(Cs + bo), b1 = ld32(Cs + bo + 8);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        const int ao = (16 * t + g) * BKP + ks + 2 * tig;
+        mma_bf16(acc1[t], ld32(Qh + ao), ld32(Qh + ao + 8 * BKP),
+                 ld32(Qh + ao + 8), ld32(Qh + ao + 8 * BKP + 8), b0, b1);
+        mma_bf16(acc2[t], ld32(Ql + ao), ld32(Ql + ao + 8 * BKP),
+                 ld32(Ql + ao + 8), ld32(Ql + ao + 8 * BKP + 8), b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+  const float* sc = CORE == kBf16c ? nullptr : scale;
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 16 * t + g + (j >= 2 ? 8 : 0);
+      const int col = 8 * warp + 2 * tig + (j & 1);
+      St[r * (kTN + 1) + col] =
+          epilogue(acc1[t][j] + acc2[t][j], n0 + col, n, sc, cb, mask);
     }
 }
 
@@ -402,22 +615,23 @@ __device__ inline void scores_f32(const float* __restrict__ q,
     for (int j = 0; j < 4; ++j) {
       const int col = tx + 16 * j;
       St[(ty + 16 * i) * (kTN + 1) + col] =
-          epilogue(acc[i][j], n0 + col, n, cb, mask);
+          epilogue(acc[i][j], n0 + col, n, nullptr, cb, mask);
     }
 }
 
-template <int TM, bool BF16X3>
+template <int TM, int CORE>
 __global__ void __launch_bounds__(kThreads)
 fused_topk_partial_kernel(const void* __restrict__ qp,
                           const void* __restrict__ cp,
+                          const float* __restrict__ scale,
                           const float* __restrict__ cb,
                           const uint8_t* __restrict__ mask,
                           float* __restrict__ part_v,
                           int* __restrict__ part_i,
-                          int m, int n, int dim, int k, int splits,
-                          int tiles_per_split, bool vec) {
+                          int m, int n, int dim, int c_ld, int ck, int k,
+                          int splits, int tiles_per_split, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* St = reinterpret_cast<float*>(smem + operand_bytes(TM, BF16X3));
+  float* St = reinterpret_cast<float*>(smem + operand_bytes(TM, CORE));
   float* Cv = St + TM * (kTN + 1);
   int* Ci = reinterpret_cast<int*>(Cv + (size_t)TM * k);
   float* Lv = reinterpret_cast<float*>(Ci + (size_t)TM * k);
@@ -440,7 +654,7 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
 
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * kTN;
-    if (BF16X3) {
+    if constexpr (CORE == kBf16x3) {
       uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
       uint16_t* Ql = Qh + TM * kBKP;
       uint16_t* Ch = Ql + TM * kBKP;
@@ -448,12 +662,20 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
       scores_bf16x3<TM>(static_cast<const uint16_t*>(qp),
                         static_cast<const uint16_t*>(cp), cb, mask, Qh, Ql,
                         Ch, Cl, St, row0, n0, m, n, dim, vec);
-    } else {
+    } else if constexpr (CORE == kHighest) {
       float* Qs = reinterpret_cast<float*>(smem);
       float* Cs = Qs + TM * kBK;
       scores_f32<TM>(static_cast<const float*>(qp),
                      static_cast<const float*>(cp), cb, mask, Qs, Cs, St,
                      row0, n0, m, n, dim);
+    } else {
+      constexpr int BKP = stored_bk(TM) + 8;
+      uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
+      uint16_t* Ql = Qh + TM * BKP;
+      uint16_t* Cs = Ql + TM * BKP;
+      scores_stored<TM, CORE>(static_cast<const uint16_t*>(qp), cp, scale,
+                              cb, mask, Qh, Ql, Cs, St, row0, n0, m, n, dim,
+                              (size_t)c_ld, ck, vec);
     }
     __syncthreads();
     select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
@@ -469,24 +691,66 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
   }
 }
 
-template <int TM, bool BF16X3>
-int launch(const void* qp, const void* cp, const float* cb,
-           const uint8_t* mask, float* part_v, int* part_i, int m, int n,
-           int dim, int k, int splits, int tiles_per_split,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes(TM, k, BF16X3);
-  auto kern = fused_topk_partial_kernel<TM, BF16X3>;
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <int TM, int CORE>
+int launch(const void* qp, const void* cp, const float* scale,
+           const float* cb, const uint8_t* mask, float* part_v, int* part_i,
+           int m, int n, int dim, int c_ld, int ck, int k, int splits,
+           int tiles_per_split, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(TM, k, CORE);
+  auto kern = fused_topk_partial_kernel<TM, CORE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const bool vec = BF16X3 && dim % 8 == 0 &&
-                   (reinterpret_cast<uintptr_t>(qp) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(cp) & 15) == 0;
+  // Vector loads: 16 bytes of bf16, 8 bytes of int8 codes or packed
+  // nibbles.
+  const uintptr_t c_align = (CORE == kInt8c || CORE == kInt4c) ? 8 : 16;
+  const bool vec = CORE != kHighest && dim % 8 == 0 && aligned(qp, 16) &&
+                   aligned(cp, c_align);
   dim3 grid((m + TM - 1) / TM, splits);
-  kern<<<grid, kThreads, bytes, stream>>>(qp, cp, cb, mask, part_v, part_i,
-                                          m, n, dim, k, splits,
-                                          tiles_per_split, vec);
+  kern<<<grid, kThreads, bytes, stream>>>(qp, cp, scale, cb, mask, part_v,
+                                          part_i, m, n, dim, c_ld, ck, k,
+                                          splits, tiles_per_split, vec);
   return (int)cudaGetLastError();
+}
+
+// Blocks of kernel<TM, CORE> one SM holds at this k (its registers and
+// shared memory), or a negative cudaError_t.
+template <int TM, int CORE>
+int occupancy(int k) {
+  const size_t bytes = smem_bytes(TM, k, CORE);
+  auto kern = fused_topk_partial_kernel<TM, CORE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      kThreads, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Calls f(TM, CORE) with both as integral constants, or returns -1.
+template <typename F>
+int dispatch(int tm, int core, F&& f) {
+  auto by_core = [&](auto tmc) -> int {
+    switch (core) {
+      case kHighest: return f(tmc, std::integral_constant<int, kHighest>{});
+      case kBf16x3: return f(tmc, std::integral_constant<int, kBf16x3>{});
+      case kBf16c: return f(tmc, std::integral_constant<int, kBf16c>{});
+      case kInt8c: return f(tmc, std::integral_constant<int, kInt8c>{});
+      case kInt4c: return f(tmc, std::integral_constant<int, kInt4c>{});
+      default: return -1;
+    }
+  };
+  switch (tm) {
+    case 16: return by_core(std::integral_constant<int, 16>{});
+    case 32: return by_core(std::integral_constant<int, 32>{});
+    case 64: return by_core(std::integral_constant<int, 64>{});
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -494,30 +758,43 @@ int launch(const void* qp, const void* cp, const float* cb,
 extern "C" {
 
 // Returns 0 on success, a cudaError_t after a refused launch, or -1 for
-// arguments the kernel does not take.  bf16x3 != 0: qp and cp are bf16
-// (rows, 2*dim) [hi | lo]; else f32 (rows, dim).  mask may be null.
-int pmm_fused_topk_partial(const void* qp, const void* cp, const float* cb,
-                           const uint8_t* mask, float* part_v, int* part_i,
-                           int m, int n, int dim, int k, int splits,
-                           int tiles_per_split, int tm, int bf16x3,
+// arguments the kernel does not take.  core is a Core: qp is f32 (rows,
+// dim) for kHighest and bf16 (rows, 2*dim) [hi | lo] otherwise; cp is
+// f32 (rows, dim), bf16 (rows, 2*dim) [hi | lo] for kBf16x3, bf16 (rows,
+// dim) for kBf16c, int8 (rows, dim) for kInt8c, int8 (rows, c_ld) packed
+// nibbles for kInt4c, with c_ld its row stride and ck its feature chunk.
+// scale is the (n,) scale row for kInt8c / kInt4c and null otherwise; cb
+// the (n,) bias row; mask may be null.
+int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
+                           const float* cb, const uint8_t* mask,
+                           float* part_v, int* part_i, int m, int n, int dim,
+                           int c_ld, int ck, int k, int splits,
+                           int tiles_per_split, int tm, int core,
                            void* stream) {
   if (m <= 0 || n <= 0 || dim <= 0 || k <= 0 || splits <= 0 ||
       tiles_per_split <= 0)
     return -1;
   if ((long long)splits * tiles_per_split * kTN < n) return -1;
+  const bool quant = core == kInt8c || core == kInt4c;
+  if (quant != (scale != nullptr)) return -1;
+  if (core == kInt4c &&
+      (ck <= 0 || ck % 128 != 0 || 2LL * c_ld < dim || c_ld % (ck / 2) != 0))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PMM_LAUNCH(TM_)                                                    \
-  return bf16x3 ? launch<TM_, true>(qp, cp, cb, mask, part_v, part_i, m, \
-                                    n, dim, k, splits, tiles_per_split, s) \
-                : launch<TM_, false>(qp, cp, cb, mask, part_v, part_i, m, \
-                                     n, dim, k, splits, tiles_per_split, s)
-  switch (tm) {
-    case 16: PMM_LAUNCH(16);
-    case 32: PMM_LAUNCH(32);
-    case 64: PMM_LAUNCH(64);
-    default: return -1;
-  }
-#undef PMM_LAUNCH
+  return dispatch(tm, core, [&](auto tmc, auto cc) {
+    return launch<decltype(tmc)::value, decltype(cc)::value>(
+        qp, cp, scale, cb, mask, part_v, part_i, m, n, dim, c_ld, ck, k,
+        splits, tiles_per_split, s);
+  });
+}
+
+// Blocks of the (tm, core) kernel that one SM of the current device holds
+// at this k; negative on an error, -1 for arguments it does not take.
+int pmm_fused_topk_blocks_per_sm(int tm, int k, int core) {
+  if (k <= 0) return -1;
+  return dispatch(tm, core, [&](auto tmc, auto cc) {
+    return occupancy<decltype(tmc)::value, decltype(cc)::value>(k);
+  });
 }
 
 }  // extern "C"

@@ -6,23 +6,37 @@ corpus in order on one TPU core and carries a running top-k in VMEM.  Here
 two hand-written CUDA kernels compute the same result:
 
 - kernel A, ``csrc/fused_topk.cu`` (``fused_topk_partial``): per query
-  tile and corpus split, the tiled Q.C^T (bf16x3 or f32 core), the bias
-  row, the mask by select, and a running top-k carry per split;
+  tile and corpus split, the tiled Q.C^T, the epilogue (bias row, or
+  scale and bias rows for quantized codes), the mask by select, and a
+  running top-k carry per split;
 - kernel B, ``csrc/topk_merge.cu`` (``topk_merge``): merges the splits
   into the final (m, k) result.
 
-Both are exact, with lowest-index-wins ties, so every ``selection`` value
-of ``SearchConfig`` runs them.  The (m, n) score matrix never reaches
-device memory: kernel A writes m * splits * k candidates.
+Kernel A has five cores, the JAX kernel's precisions:
+
+- ``"bf16x3"``: f32 corpus as bf16 [hi | lo], three bf16 products;
+- ``"highest"``: f32 products;
+- ``"bf16c"``: bf16-stored corpus (hi only), two products qh.c + ql.c;
+- ``"int8c"``: per-row int8 codes, converted to bf16 while staged, two
+  products, then s = d * scale + bias;
+- ``"int4c"``: int8 bytes each holding two signed nibbles (the layout of
+  ``quantize_int4``), unpacked while staged, then as int8c.
+
+Queries are always split hi | lo except for "highest".  Both kernels are
+exact, with lowest-index-wins ties, so every ``selection`` value of
+``SearchConfig`` runs them.  The (m, n) score matrix never reaches device
+memory: kernel A writes m * splits * k candidates.
 
 Metric handling is the JAX package's: cosine pre-scales queries and
-corpus by their inverse norms (zero-norm rows scale by 0), euclidean
-selects on 2 q.c - |c|^2 and the finalize sqrt(max(|q|^2 - s, 0)) runs
-after the kernels, and dot is the plain product.
+corpus by their inverse norms (zero-norm rows scale by 0; for int8/int4
+codes the scale row carries 1/|codes| instead), euclidean selects on
+2 q.c - |c|^2 and the finalize sqrt(max(|q|^2 - s, 0)) runs after the
+kernels, and dot is the plain product.
 
 Every kernel wrapper takes CUDA tensors to its kernel and CPU tensors to
 its plain PyTorch version in this module; any other device raises.  Each
-counts its launches in ``launches``.
+counts its launches in ``launches`` (kernel A also per core in
+``core_launches``).
 """
 
 from __future__ import annotations
@@ -41,16 +55,28 @@ from ..utils.profiling import annotate
 INT32_MAX = reference.INT32_MAX
 _NEG_INF = float("-inf")
 _LANES = 128
+# Feature chunk of the int4 packing above dim 4096 (the JAX package's
+# K-chunk width).
+_K_CHUNK = 2048
 # Largest k the fused path serves, whatever the config's k_pad; beyond it
 # dispatch uses the reference.
 _MAX_FUSED_K = 1024
-# The plain version builds its score matrix in chunks of about this many
-# elements.
+# The plain versions build their score matrices in chunks of about this
+# many elements (and upcast about this many corpus values at a time).
 _PLAIN_CHUNK = 1 << 26
 # Kernel A's corpus tile height and the most splits kernel B merges (both
 # fixed in the CUDA sources).
 _TN = 64
 _MAX_SPLITS = 1024
+
+# Kernel A's cores, in the order of the CUDA source's Core enum.
+CORES = ("highest", "bf16x3", "bf16c", "int8c", "int4c")
+_QUANT = ("int8c", "int4c")
+# Cores whose queries arrive as bf16 [hi | lo].
+_SPLIT_QUERY = ("bf16x3", "bf16c", "int8c", "int4c")
+_CORPUS_DTYPE = {"highest": torch.float32, "bf16x3": torch.bfloat16,
+                 "bf16c": torch.bfloat16, "int8c": torch.int8,
+                 "int4c": torch.int8}
 
 # Launches per wrapper, for showing that a run went through the kernels.
 launches = {
@@ -60,15 +86,29 @@ launches = {
     "fused_topk_partial_plain": 0,
     "topk_merge_plain": 0,
 }
+# Kernel A's launches by core (each also counts in launches).
+core_launches = {core: 0 for core in CORES}
 
 
 def reset_launch_counts() -> None:
-    for key in launches:
-        launches[key] = 0
+    for counts in (launches, core_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def feature_geometry(dim: int):
+    """(ck, dpp, nk): the JAX package's feature chunk width, padded width
+    and chunk count (``polars_matmul_tpu.kernels.fused_topk.
+    feature_geometry``).  The int4 packing is laid out in ck-wide chunks;
+    the other forms here are unpadded."""
+    dp = _round_up(dim, _LANES)
+    ck = dp if dp <= 4096 else _K_CHUNK
+    dpp = _round_up(dp, ck)
+    return ck, dpp, dpp // ck
 
 
 def effective_k_pad(k: int, cfg: SearchConfig) -> int:
@@ -112,15 +152,14 @@ def supports(q_shape, c_shape, dtype, k: int, cfg: SearchConfig) -> bool:
 
 
 def kernel_precision(precision: str) -> str:
-    """The fused core a config precision runs: "bf16x3" or "highest"."""
-    if precision == "bf16x3":
-        return "bf16x3"
+    """The core of kernel A a config precision runs: "default" and "high"
+    run "highest" (exact f32 is inside their looser contract); every
+    other precision names its own core."""
     if precision in ("highest", "high", "default"):
         return "highest"
-    raise NotImplementedError(
-        f"precision={precision!r} is a quantized-storage kernel mode; the "
-        "storage tiers are not ported yet (ROADMAP.md queue 1, item 2)"
-    )
+    if precision in CORES:
+        return precision
+    raise ValueError(f"Unknown precision: {precision!r}")
 
 
 def split_hi_lo(x: torch.Tensor) -> torch.Tensor:
@@ -138,6 +177,131 @@ def split_hi_lo(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi.to(torch.bfloat16), lo.to(torch.bfloat16)], dim=1)
 
 
+# ---------------------------------------------------------------------------
+# Quantized storage: per-row symmetric int8 / int4 codes.
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization: codes * scale[:, None] ~= c.
+
+    scale = max|row| / 127 (1.0 for a zero row, so it dequantizes to
+    exactly zero); codes round half to even.  Bit-identical to the JAX
+    package's ``quantize_int8`` and to the host ``_quantize_rows_np``.
+    """
+    c = c.to(torch.float32)
+    scale = _row_scale(c, 127.0)
+    codes = torch.round(c / scale).to(torch.int8)
+    return codes, scale[:, 0].contiguous()
+
+
+def _row_scale(c: torch.Tensor, top: float) -> torch.Tensor:
+    """(n, 1) max|row| / top, 1.0 for a zero row.  The divisor is a tensor:
+    PyTorch divides a CUDA tensor by a Python number as a product with
+    its reciprocal, which can differ from the quotient in the last bit."""
+    amax = torch.amax(torch.abs(c), dim=1, keepdim=True)
+    return torch.where(amax > 0, amax / torch.full_like(amax, top),
+                       torch.ones_like(amax))
+
+
+def quantize_int4(c: torch.Tensor, ck: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int4 quantization, nibble-packed per feature chunk.
+
+    Codes are in [-7, 7] with scale = max|row| / 7.  Features are padded
+    with zero codes to dpp (``feature_geometry``); in each ck-wide chunk,
+    byte j holds feature j in its low nibble and feature j + ck/2 in its
+    high nibble.  Returns (packed (n, dpp // 2) int8, scales (n,) f32),
+    bit-identical to the JAX package's ``quantize_int4``.
+    """
+    c = c.to(torch.float32)
+    scale = _row_scale(c, 7.0)
+    codes = torch.clamp(torch.round(c / scale), -7, 7)
+    return pack_int4(codes, ck), scale[:, 0].contiguous()
+
+
+def pack_int4(codes: torch.Tensor, ck: int) -> torch.Tensor:
+    """(n, dim) integer codes in [-8, 7] -> (n, dpp // 2) int8 in
+    ``quantize_int4``'s layout (features zero-padded to dpp)."""
+    n, dim = codes.shape
+    dpp = _round_up(_round_up(dim, _LANES), ck)
+    codes = torch.nn.functional.pad(codes.to(torch.int16), (0, dpp - dim))
+    ch = codes.reshape(n, dpp // ck, ck)
+    lo = ch[:, :, : ck // 2] & 0xF
+    hi = (ch[:, :, ck // 2:] & 0xF) << 4
+    return (lo | hi).to(torch.int8).reshape(n, dpp // 2)
+
+
+def _unpack_nibbles(packed: torch.Tensor):
+    """(low, high) signed nibbles of int8 bytes, sign-extended in int8."""
+    lo = ((packed & 0xF) ^ 8) - 8
+    hi = (((packed >> 4) & 0xF) ^ 8) - 8
+    return lo, hi
+
+
+def unpack_int4(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """(rows, dim) int8 codes from ``quantize_int4``'s packed layout."""
+    ck, dpp, nk = feature_geometry(dim)
+    rows = packed.shape[0]
+    lo, hi = _unpack_nibbles(packed.reshape(rows, nk, ck // 2))
+    return torch.cat([lo, hi], dim=2).reshape(rows, dpp)[:, :dim]
+
+
+def dequant_int4(packed: torch.Tensor, scales: torch.Tensor,
+                 dim: int) -> torch.Tensor:
+    """Dense f32 rows from nibble-packed codes."""
+    return unpack_int4(packed, dim).to(torch.float32) * scales[:, None]
+
+
+def _scale_bias(code_norm: torch.Tensor, scales: torch.Tensor, metric,
+                n_valid: int) -> torch.Tensor:
+    """The (2, rows) scale | bias operand of int8c / int4c from each row's
+    code norm: cosine scales by 1/|codes| (the dequant scale cancels),
+    euclidean by the dequant scale with bias -(scale |codes|)^2, dot by
+    the dequant scale.  Rows >= n_valid get bias -inf; their scale stays
+    finite, so no 0 * -inf reaches the epilogue."""
+    metric = Metric.parse(metric)
+    rows = code_norm.shape[0]
+    zeros = torch.zeros_like(code_norm)
+    if metric is Metric.COSINE:
+        cs = torch.where(code_norm > 0, 1.0 / code_norm, zeros)
+        cb = zeros
+    else:
+        cs = scales.to(torch.float32)
+        if metric is Metric.EUCLIDEAN:
+            t = cs * code_norm
+            cb = -(t * t)
+        else:
+            cb = zeros
+    live = torch.arange(rows, device=code_norm.device) < n_valid
+    cb = torch.where(live, cb, torch.full_like(cb, _NEG_INF))
+    return torch.stack([cs, cb], dim=0)
+
+
+def prepare_int8_bias(codes: torch.Tensor, scales: torch.Tensor, metric,
+                      n_valid: int) -> torch.Tensor:
+    """(2, rows) scale | bias for int8 codes that are the prepared corpus
+    as they are (the JAX package's ``prepare_int8_bias``)."""
+    codesf = codes.to(torch.float32)
+    code_norm = torch.sqrt(torch.sum(codesf * codesf, dim=1))
+    return _scale_bias(code_norm, scales, metric, n_valid)
+
+
+def prepare_int4_bias(packed: torch.Tensor, scales: torch.Tensor, metric,
+                      n_valid: int) -> torch.Tensor:
+    """(2, rows) scale | bias for nibble-packed codes; the norms come
+    straight from the nibbles (a sum of squares needs no feature order)."""
+    lo, hi = _unpack_nibbles(packed)
+    lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+    code_norm = torch.sqrt(torch.sum(lo * lo + hi * hi, dim=1))
+    return _scale_bias(code_norm, scales, metric, n_valid)
+
+
+# ---------------------------------------------------------------------------
+# Operand preparation.
+# ---------------------------------------------------------------------------
+
+
 def _scale_rows(x: torch.Tensor, metric: Metric) -> torch.Tensor:
     """Cosine: rows times 1/|row| (0 for norms <= eps)."""
     if metric is not Metric.COSINE:
@@ -148,35 +312,65 @@ def _scale_rows(x: torch.Tensor, metric: Metric) -> torch.Tensor:
 
 
 def prepare_queries(q: torch.Tensor, metric, precision: str) -> torch.Tensor:
-    """Query prep: cosine normalises, euclidean doubles, then the bf16x3
-    split.  Plain torch, as the JAX package does it in XLA."""
+    """Query prep: cosine normalises, euclidean doubles, then the hi | lo
+    split for every core but "highest".  Plain torch, as the JAX package
+    does it in XLA."""
     metric = Metric.parse(metric)
     q = _scale_rows(q, metric)
     if metric is Metric.EUCLIDEAN:
         q = 2.0 * q
     q = q.contiguous()
-    return split_hi_lo(q) if precision == "bf16x3" else q
+    return split_hi_lo(q) if precision in _SPLIT_QUERY else q
 
 
-def prepare_corpus(c: torch.Tensor, metric, *, precision: str
+def prepare_corpus(c: torch.Tensor, metric, *, precision: str,
+                   scales: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Corpus prep for the fused kernels: returns (cp, cbp).
+    """Corpus prep for kernel A's core ``precision``: returns (cp, cbp).
 
-    cp is (n, 2*dim) bf16 [hi | lo] for "bf16x3" or (n, dim) f32 for
-    "highest"; cbp is the (n,) f32 epilogue bias, -|c|^2 for euclidean
-    and 0 otherwise.  Nothing is padded: the kernel bounds its own edges.
+    - "bf16x3": cp (n, 2*dim) bf16 [hi | lo]; "highest": (n, dim) f32;
+      "bf16c": (n, dim) bf16, rounded after the metric scaling (for a
+      bf16 corpus and a metric without scaling, cp is ``c`` itself).
+      cbp is the (n,) f32 bias, -|c|^2 for euclidean and 0 otherwise.
+    - "int8c" / "int4c": ``c`` is f32 (quantized here) or the int8 codes
+      (packed for int4) with their ``scales``; cp is the codes, the very
+      tensor given, and cbp the (2, n) scale | bias rows.
+
+    Nothing is padded: the kernel bounds its own edges.
     """
     metric = Metric.parse(metric)
     precision = kernel_precision(precision)
-    if c.dtype != torch.float32:
-        raise TypeError(f"prepare_corpus takes float32, got {c.dtype}")
-    c = _scale_rows(c, metric)
+    n = c.shape[0]
+    if precision in _QUANT:
+        if c.dtype != torch.int8:
+            if precision == "int4c":
+                c, scales = quantize_int4(c, feature_geometry(c.shape[1])[0])
+            else:
+                c, scales = quantize_int8(c)
+        elif scales is None:
+            raise ValueError("int8 codes need their per-row scales=")
+        bias = prepare_int4_bias if precision == "int4c" else prepare_int8_bias
+        return c, bias(c, scales, metric, n)
+    if c.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"prepare_corpus takes float32 or bfloat16, got "
+                        f"{c.dtype}")
+    keep = (precision == "bf16c" and c.dtype == torch.bfloat16
+            and metric is not Metric.COSINE)
+    stored = c
+    # A bf16 corpus is upcast for the prep math, as in the JAX package.
+    c = _scale_rows(c.to(torch.float32), metric)
     if metric is Metric.EUCLIDEAN:
         cb = -torch.sum(c * c, dim=1)
     else:
-        cb = torch.zeros(c.shape[0], dtype=torch.float32, device=c.device)
+        cb = torch.zeros(n, dtype=torch.float32, device=c.device)
     c = c.contiguous()
-    cp = split_hi_lo(c) if precision == "bf16x3" else c
+    if precision == "bf16x3":
+        cp = split_hi_lo(c)
+    elif precision == "bf16c":
+        # Unscaled bf16 rows round-trip through f32 unchanged: share them.
+        cp = stored.contiguous() if keep else c.to(torch.bfloat16)
+    else:
+        cp = c
     return cp, cb.contiguous()
 
 
@@ -193,25 +387,47 @@ def pad_mask_row(mask, width: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _query_dim(qp: torch.Tensor, precision: str) -> int:
+    return qp.shape[1] // 2 if precision in _SPLIT_QUERY else qp.shape[1]
+
+
 def _plain_scores(qp, cp, precision: str) -> torch.Tensor:
-    if precision == "bf16x3":
-        d = qp.shape[1] // 2
-        qh, ql = qp[:, :d].float(), qp[:, d:].float()
-        ch, cl = cp[:, :d].float(), cp[:, d:].float()
+    """The product of kernel A's core, with bf16 values and codes upcast
+    to f32 (their products are exact) and the groups of the TPU kernel:
+    qh.ch + (qh.cl + ql.ch) for bf16x3, qh.c + ql.c for the stored-corpus
+    cores."""
+    if precision == "highest":
         with reference.exact_matmul():
-            return qh @ ch.T + (qh @ cl.T + ql @ ch.T)
+            return qp @ cp.T
+    d = qp.shape[1] // 2
+    qh, ql = qp[:, :d].float(), qp[:, d:].float()
     with reference.exact_matmul():
-        return qp @ cp.T
+        if precision == "bf16x3":
+            ch, cl = cp[:, :d].float(), cp[:, d:].float()
+            return qh @ ch.T + (qh @ cl.T + ql @ ch.T)
+        c = unpack_int4(cp, d) if precision == "int4c" else cp
+        c = c.float()
+        return qh @ c.T + ql @ c.T
 
 
 def _masked_scores(qp, cp, cbp, mask, precision: str, r0: int, r1: int):
-    """Epilogue scores for corpus rows [r0, r1): product + bias, masked by
-    select to -inf."""
-    s = _plain_scores(qp, cp[r0:r1], precision) + cbp[r0:r1]
+    """Epilogue scores for corpus rows [r0, r1): product, then + bias (or
+    * scale + bias for int8c / int4c), then the mask by select to -inf."""
+    d = _plain_scores(qp, cp[r0:r1], precision)
+    if precision in _QUANT:
+        s = d * cbp[0, r0:r1] + cbp[1, r0:r1]
+    else:
+        s = d + cbp[r0:r1]
     if mask is not None:
         s = torch.where(mask[r0:r1].to(torch.bool), s,
                         torch.full_like(s, _NEG_INF))
     return s
+
+
+def _plain_rows(qp) -> int:
+    """Corpus rows per chunk of a plain version: about _PLAIN_CHUNK score
+    entries and _PLAIN_CHUNK upcast corpus values."""
+    return max(1, _PLAIN_CHUNK // max(qp.shape[0], qp.shape[1], 1))
 
 
 def _finish(vals, idx, k: int):
@@ -230,18 +446,17 @@ def fused_topk_plain(qp: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernels A + B on prepared operands.
 
-    Scores are the bf16x3 sum qh.ch + (qh.cl + ql.ch) of bf16 values
-    upcast to f32 (or the f32 product for "highest"), plus the bias row,
-    masked by select to -inf; returns the top-k by (value desc, index asc)
-    with INT32_MAX wherever the value is -inf.  Builds the score matrix in
-    corpus row chunks.
+    Scores are the core's product (``_plain_scores``) through the
+    epilogue, masked by select to -inf; returns the top-k by (value desc,
+    index asc) with INT32_MAX wherever the value is -inf.  Builds the
+    score matrix in corpus row chunks.
     """
     launches["fused_topk_plain"] += 1
     m, n = qp.shape[0], cp.shape[0]
     dev = qp.device
     vals = torch.empty((m, 0), dtype=torch.float32, device=dev)
     idx = torch.empty((m, 0), dtype=torch.int64, device=dev)
-    step = max(1, _PLAIN_CHUNK // max(m, 1))
+    step = _plain_rows(qp)
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         s = _masked_scores(qp, cp, cbp, mask, precision, r0, r1)
@@ -260,16 +475,25 @@ def fused_topk_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
                              splits: int, tiles_per_split: int):
     """Plain version of kernel A: (m, splits, k) top-k lists, split s
     covering corpus rows [s * rows, (s + 1) * rows) with rows =
-    tiles_per_split * 64.  Builds the whole score matrix."""
+    tiles_per_split * 64.  Scores whole splits, a few at a time."""
     launches["fused_topk_partial_plain"] += 1
     m, n = qp.shape[0], cp.shape[0]
     rows = tiles_per_split * _TN
-    s = _masked_scores(qp, cp, cbp, mask, precision, 0, n)
-    s = torch.nn.functional.pad(s, (0, splits * rows - n), value=_NEG_INF)
-    sv, order = torch.sort(s.reshape(m, splits, rows), dim=2,
-                           descending=True, stable=True)
-    base = torch.arange(splits, device=qp.device)[None, :, None] * rows
-    return _finish(sv[..., :k], order[..., :k] + base, k)
+    per = max(1, _plain_rows(qp) // rows)
+    vals, idx = [], []
+    for s0 in range(0, splits, per):
+        s1 = min(splits, s0 + per)
+        r1 = min(n, s1 * rows)
+        r0 = min(s0 * rows, r1)
+        s = _masked_scores(qp, cp, cbp, mask, precision, r0, r1)
+        s = torch.nn.functional.pad(s, (0, (s1 - s0) * rows - (r1 - r0)),
+                                    value=_NEG_INF)
+        sv, order = torch.sort(s.reshape(m, s1 - s0, rows), dim=2,
+                               descending=True, stable=True)
+        base = torch.arange(s0, s1, device=qp.device)[None, :, None] * rows
+        vals.append(sv[..., :k])
+        idx.append(order[..., :k] + base)
+    return _finish(torch.cat(vals, dim=1), torch.cat(idx, dim=1), k)
 
 
 def topk_merge_plain(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
@@ -302,36 +526,76 @@ def query_tile_rows(m: int, k: int) -> int:
     return min(by_k, by_m)
 
 
-def launch_geometry(m: int, n: int, k: int, sm_count: int):
-    """(tm, splits, tiles_per_split): enough blocks for two per SM, no
-    empty split, and at most _MAX_SPLITS lists for kernel B."""
+def launch_geometry(m: int, n: int, k: int, sm_count: int,
+                    blocks_per_sm: int = 2):
+    """(tm, splits, tiles_per_split): enough blocks to give every SM
+    ``blocks_per_sm``, no empty split, and at most _MAX_SPLITS lists for
+    kernel B."""
     tm = query_tile_rows(m, k)
     grid_m = -(-m // tm)
     n_tiles = -(-n // _TN)
-    want = max(1, -(-2 * sm_count // grid_m))
+    want = max(1, -(-blocks_per_sm * sm_count // grid_m))
     splits = max(1, min(n_tiles, want, _MAX_SPLITS))
     tps = -(-n_tiles // splits)
     return tm, -(-n_tiles // tps), tps
 
 
+# (device index, tm, k, core) -> blocks of kernel A one SM holds.
+_occupancy = {}
+
+
+def kernel_geometry(m: int, n: int, k: int, precision: str,
+                    device: torch.device):
+    """The ``launch_geometry`` kernel A runs with on a CUDA ``device``:
+    as many blocks as its SMs hold at once (kernel A waits on its loads
+    at every staging step, so blocks in flight are bytes in flight)."""
+    tm = query_tile_rows(m, k)
+    key = (device.index, tm, k, precision)
+    if key not in _occupancy:
+        from ._build import load_library
+
+        with torch.cuda.device(device):
+            blocks = load_library().pmm_fused_topk_blocks_per_sm(
+                tm, k, CORES.index(precision))
+        if blocks <= 0:
+            raise RuntimeError(f"kernel A cannot run tm={tm} k={k} "
+                               f"{precision}: error {blocks}")
+        _occupancy[key] = blocks
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return launch_geometry(m, n, k, sms, _occupancy[key])
+
+
+def _corpus_width(precision: str, dim: int) -> int:
+    if precision == "bf16x3":
+        return 2 * dim
+    if precision == "int4c":
+        return feature_geometry(dim)[1] // 2
+    return dim
+
+
 def _check_operands(qp, cp, cbp, mask, k: int, precision: str):
+    if precision not in CORES:
+        raise ValueError(f"no kernel core {precision!r}; cores: {CORES}")
     dev = qp.device
     for name, t in (("cp", cp), ("cbp", cbp)) + (
             (("mask", mask),) if mask is not None else ()):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-    want = torch.bfloat16 if precision == "bf16x3" else torch.float32
-    if qp.dtype != want or cp.dtype != want:
-        raise TypeError(f"precision={precision!r} takes {want} operands, "
-                        f"got {qp.dtype} and {cp.dtype}")
-    if qp.ndim != 2 or cp.ndim != 2 or qp.shape[1] != cp.shape[1]:
+    want_q = torch.bfloat16 if precision in _SPLIT_QUERY else torch.float32
+    want_c = _CORPUS_DTYPE[precision]
+    if qp.dtype != want_q or cp.dtype != want_c:
+        raise TypeError(f"precision={precision!r} takes {want_q} queries and "
+                        f"a {want_c} corpus, got {qp.dtype} and {cp.dtype}")
+    if precision in _SPLIT_QUERY and qp.ndim == 2 and qp.shape[1] % 2:
+        raise ValueError(f"{precision} queries carry [hi | lo]: even width")
+    if (qp.ndim != 2 or cp.ndim != 2 or cp.shape[1]
+            != _corpus_width(precision, _query_dim(qp, precision))):
         raise ValueError(f"bad operand shapes {tuple(qp.shape)} and "
-                         f"{tuple(cp.shape)}")
-    if precision == "bf16x3" and qp.shape[1] % 2:
-        raise ValueError("bf16x3 operands carry [hi | lo]: even width")
+                         f"{tuple(cp.shape)} for precision={precision!r}")
     n = cp.shape[0]
-    if cbp.dtype != torch.float32 or tuple(cbp.shape) != (n,):
-        raise ValueError(f"cbp must be ({n},) float32")
+    want_b = (2, n) if precision in _QUANT else (n,)
+    if cbp.dtype != torch.float32 or tuple(cbp.shape) != want_b:
+        raise ValueError(f"cbp must be {want_b} float32")
     if mask is not None and (mask.dtype != torch.uint8
                              or tuple(mask.shape) != (n,)):
         raise ValueError(f"mask must be ({n},) uint8")
@@ -359,19 +623,23 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
 
     lib = load_library()
     m, n = qp.shape[0], cp.shape[0]
-    dim = qp.shape[1] // 2 if precision == "bf16x3" else qp.shape[1]
+    dim = _query_dim(qp, precision)
+    ck = feature_geometry(dim)[0] if precision == "int4c" else 0
+    scale, bias = (cbp[0], cbp[1]) if precision in _QUANT else (None, cbp)
     part_v = torch.empty((m, splits, k), dtype=torch.float32,
                          device=qp.device)
     part_i = torch.empty((m, splits, k), dtype=torch.int32, device=qp.device)
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pmm_fused_topk_partial(
-            _ptr(qp), _ptr(cp), _ptr(cbp), _ptr(mask), _ptr(part_v),
-            _ptr(part_i), m, n, dim, k, splits, tiles_per_split, tm,
-            int(precision == "bf16x3"), ctypes.c_void_p(stream))
+            _ptr(qp), _ptr(cp), _ptr(scale), _ptr(bias), _ptr(mask),
+            _ptr(part_v), _ptr(part_i), m, n, dim, cp.shape[1], ck, k,
+            splits, tiles_per_split, tm, CORES.index(precision),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
     launches["fused_topk_partial"] += 1
+    core_launches[precision] += 1
     return part_v, part_i
 
 
@@ -415,8 +683,8 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str):
         return fused_topk_plain(qp, cp, cbp, mask, k, precision)
     if qp.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {qp.device}")
-    sms = torch.cuda.get_device_properties(qp.device).multi_processor_count
-    tm, splits, tps = launch_geometry(qp.shape[0], cp.shape[0], k, sms)
+    tm, splits, tps = kernel_geometry(qp.shape[0], cp.shape[0], k,
+                                      precision, qp.device)
     part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
                                         splits, tps, tm)
     return topk_merge(part_v, part_i, k)
@@ -438,13 +706,15 @@ def _finalize(q: torch.Tensor, vals: torch.Tensor, metric: Metric):
 
 def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
                         k: int, metric, *, mask=None,
-                        config: Optional[SearchConfig] = None
+                        config: Optional[SearchConfig] = None,
+                        precision: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``q`` against a corpus prepared by ``prepare_corpus``.
 
     Returns ((m, k) f32 scores best first, (m, k) int32 indices).  The
-    prepared form's dtype gives the core (bf16 -> "bf16x3", f32 ->
-    "highest") and must agree with the config's precision.
+    core is ``precision``, else the config's; the prepared form must be
+    that core's (bf16c and bf16x3 are both bf16, int8c and int4c both
+    int8, so the dtype alone cannot tell).
     """
     cfg = resolve(config)
     metric = Metric.parse(metric)
@@ -453,18 +723,19 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
             f"k={k} exceeds the fused path's ceiling "
             f"{max_fused_k(cfg)}; "
             "use the unprepared/fallback path")
-    precision = "bf16x3" if cp.dtype == torch.bfloat16 else "highest"
-    if kernel_precision(cfg.precision) != precision:
+    precision = kernel_precision(cfg.precision if precision is None
+                                 else precision)
+    if cp.dtype != _CORPUS_DTYPE[precision]:
         raise ValueError(
-            f"corpus was prepared for {precision!r}, config asks for "
-            f"{cfg.precision!r}")
+            f"corpus was prepared as {cp.dtype}; precision {precision!r} "
+            f"takes {_CORPUS_DTYPE[precision]}")
     if q.dtype != torch.float32:
         # Half-precision queries: upcast on the device, so the kernels and
         # the euclidean finalize run f32.
         q = q.float()
     qp = prepare_queries(q, metric, precision)
     mask_u8 = None if mask is None else pad_mask_row(
-        torch.as_tensor(mask, device=q.device), cbp.shape[0])
+        torch.as_tensor(mask, device=q.device), cbp.shape[-1])
     with annotate(f"pmm.fused_topk.{metric.value}"):
         vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision)
     return _finalize(q, vals, metric), idx
@@ -478,7 +749,8 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
 
     Runs the fused kernels when ``supports()`` and ``use_pallas`` allow,
     else ``ops.reference`` (float64, k > ``max_fused_k``, very wide dims),
-    the same split as the JAX package.  ``k`` must already be clamped to
+    the same split as the JAX package; a quantized precision quantizes
+    ``c`` on the way in.  ``k`` must already be clamped to
     ``c.shape[0]``.  ``mask`` (n,) bool excludes corpus rows; unfilled
     slots carry (-inf similarity / +inf distance, INT32_MAX).
     """
@@ -491,7 +763,8 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
         return reference.topk_search(q, c, k, metric, mask=mk)
     precision = kernel_precision(cfg.precision)
     cp, cbp = prepare_corpus(c, metric, precision=precision)
-    return fused_topk_prepared(q, cp, cbp, k, metric, mask=mask, config=cfg)
+    return fused_topk_prepared(q, cp, cbp, k, metric, mask=mask, config=cfg,
+                               precision=precision)
 
 
 # ---------------------------------------------------------------------------
@@ -499,44 +772,44 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
 # ---------------------------------------------------------------------------
 
 
-def _jax_feature_geometry(dim: int):
-    """(ck, dpp, nk) of the JAX package's prepared layout
-    (``polars_matmul_tpu.kernels.fused_topk.feature_geometry``)."""
-    dp = _round_up(dim, _LANES)
-    ck = dp if dp <= 4096 else 2048
-    dpp = _round_up(dp, ck)
-    return ck, dpp, dpp // ck
-
-
 def prepared_from_jax(cp, cbp, n: int, dim: int, *, device="cpu"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The port's (cp, cbp) from the JAX package's ``prepare_corpus``
     output, given as numpy arrays.
 
-    ``cp`` is bf16 [hi | lo] as raw ``uint16`` bits (bf16x3) or f32
-    (highest), ``cbp`` the (1, n_padded) bias row.  Drops JAX's tile-padded
-    rows and 128-padded feature columns, and undoes the chunk-interleaved
-    ``[hi_0 | lo_0 | hi_1 | lo_1 ...]`` layout used above dim 4096.
+    ``cp`` is one of: bf16 [hi | lo] (bf16x3) or bf16 hi only (bf16c),
+    either as raw ``uint16`` bits; f32 (highest); int8 codes (int8c) or
+    nibble-packed int8 (int4c).  ``cbp`` is the (1, n_padded) bias row or,
+    for int8c / int4c, the (2, n_padded) scale | bias rows.  Drops JAX's
+    tile-padded rows and 128-padded feature columns (int4 keeps its packed
+    width), and undoes the chunk-interleaved ``[hi_0 | lo_0 | hi_1 | lo_1
+    ...]`` layout used above dim 4096.
     """
     cp = np.asarray(cp)
     if str(cp.dtype) == "bfloat16":
         cp = cp.view(np.uint16)
     cbp = np.asarray(cbp, dtype=np.float32)
-    ck, dpp, nk = _jax_feature_geometry(dim)
-    if cp.dtype == np.uint16:
-        if cp.shape[1] != 2 * dpp:
-            raise ValueError(f"bf16x3 cp width {cp.shape[1]} != {2 * dpp}")
+    ck, dpp, nk = feature_geometry(dim)
+    if cp.dtype == np.uint16 and cp.shape[1] == 2 * dpp:
         blocks = cp[:n].reshape(n, nk, 2, ck)
         hi = blocks[:, :, 0, :].reshape(n, dpp)[:, :dim]
         lo = blocks[:, :, 1, :].reshape(n, dpp)[:, :dim]
         bits = np.ascontiguousarray(np.concatenate([hi, lo], axis=1))
         cp_t = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
-    elif cp.dtype == np.float32:
-        if cp.shape[1] != dpp:
-            raise ValueError(f"f32 cp width {cp.shape[1]} != {dpp}")
+    elif cp.dtype == np.uint16 and cp.shape[1] == dpp:
+        bits = np.ascontiguousarray(cp[:n, :dim])
+        cp_t = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    elif cp.dtype == np.float32 and cp.shape[1] == dpp:
         cp_t = torch.from_numpy(np.array(cp[:n, :dim]))
+    elif cp.dtype == np.int8 and cp.shape[1] in (dpp, dpp // 2):
+        width = dim if cp.shape[1] == dpp else dpp // 2
+        cp_t = torch.from_numpy(np.array(cp[:n, :width]))
+        if cbp.shape[0] != 2:
+            raise ValueError("int8 / int4 codes need the (2, rows) cbp")
+        cb = np.array(cbp[:, :n])   # a writable copy
+        return cp_t.to(device), torch.from_numpy(cb).to(device)
     else:
-        raise TypeError(f"unsupported prepared corpus dtype {cp.dtype}")
+        raise ValueError(f"unsupported prepared corpus: {cp.dtype} of width "
+                         f"{cp.shape[1]} for dim {dim} (padded {dpp})")
     cb = np.array(cbp.reshape(-1, cbp.shape[-1])[-1, :n])   # a writable copy
     return cp_t.to(device), torch.from_numpy(cb).to(device)
-

@@ -189,9 +189,16 @@ def test_k_clamp_k0_and_empty_queries_match_jax():
 
 
 def test_unported_corpus_features_raise():
-    _, c = _data()
-    for kw in ({"storage": "bf16"}, {"storage": "int8"},
-               {"mesh": object()}, {"capacity": 1000}):
+    q, c = _data()
+    # The storage tiers are ported: they build and answer like the JAX
+    # package.
+    for storage in ("bf16", "int8", "int4"):
+        h = pt.Corpus(c, device=CPU, storage=storage)
+        assert h.storage == storage and h.dtype == np.float32
+        _same(h.topk(q, 4, "dot"), pmt.Corpus(c, storage=storage).topk(
+            q, 4, "dot"))
+    for kw in ({"mesh": object()}, {"capacity": 1000},
+               {"storage": "int8", "mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt.Corpus(c, device=CPU, **kw)
     h = pt.Corpus(c, device=CPU)

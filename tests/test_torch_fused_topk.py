@@ -230,8 +230,8 @@ def test_wrappers_check_their_operands():
     with pytest.raises(RuntimeError, match="no kernel"):
         F.fused_select(qp.to("meta"), cp.to("meta"), cbp.to("meta"), None,
                        5, "bf16x3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.prepare_corpus(_t(c), "dot", precision="int8c")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        F.prepare_corpus(_t(c).double(), "dot", precision="bf16x3")
 
 
 def test_geometry_helpers_match_jax():
@@ -247,4 +247,4 @@ def test_geometry_helpers_match_jax():
                                JConfig()))
     assert not F.supports((5, 3), (9, 3), torch.float64, 1, SearchConfig())
     for dim in (3, 300, 4096, 4200, 9000):
-        assert F._jax_feature_geometry(dim) == JF.feature_geometry(dim)
+        assert F.feature_geometry(dim) == JF.feature_geometry(dim)
