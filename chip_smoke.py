@@ -13,15 +13,18 @@ Phases, each printing one line or a few:
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
    also above dim 4096), with and without a mask, with duplicate rows,
    and on integer tie data where the results must be bit-identical; the
-   on-card quantizers against the host NumPy ones, bit for bit;
+   on-card quantizers against the host NumPy ones, bit for bit; kernel A
+   walking random per-block tile lists (probed search) in every core,
+   and a list of every tile against the dense scan, bit for bit;
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100, k=512 and precision="highest", each held to a float64 NumPy
    oracle;
 4. a 2,000,000 x 256 resident corpus answering requests of 8 and 256
    queries at k=10 and k=100, each held to a float64 oracle on the card;
-5. the launch counts of each main path (phases 3 and 4, and each tier of
-   phase 7): its kernels and cores ran, the plain versions did not;
+5. the launch counts of each main path (phases 3 and 4, each tier of
+   phase 7, and the probed path of phase 8): its kernels and cores ran,
+   the plain versions did not;
 6. times from CUDA events: kernels against plain versions and library
    calls, and requests with their bounds;
 7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
@@ -31,7 +34,17 @@ Phases, each printing one line or a few:
    to a float64 oracle over what the tier stores; int8 recall@10 against
    the f32 corpus is reported; each tier's kernels are also checked
    against their plain versions at these shapes (phase 2's checks), real
-   and integer tie data.
+   and integer tie data;
+8. probed search: a 10,000,000 x 768 Gaussian blob mixture made on the
+   card from seed 42, built into ``ClusteredCorpus(storage="int8")`` (the
+   f32 source freed after), answering 8 and 256 queries at k=10 and 100
+   with probe=0.05 and probe=None, and a 2,000,000 x 256 f32 clustered
+   corpus answering 1000 queries (routed over several tile lists) at
+   k=10 and 100, probe=0.05; each request held to a float64 oracle over
+   exactly the rows its lists visited; probed recall@10 against the
+   exhaustive scan reported; listed kernel A checked against its plain
+   version at these shapes and timed against its bound and a library
+   yardstick.
 
 The line before the last is a JSON object of per-kernel results; the last
 is {"ok": true, "device": {...}}.  Any failure exits non-zero with its
@@ -58,6 +71,9 @@ WIDE_REQUESTS = {"int8": ((8, 10), (8, 100), (256, 10), (256, 100)),
                  "int4": ((8, 100), (256, 100)),
                  "bf16": ((8, 100), (256, 100))}
 TIER_CORE = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
+# Probed search (phase 8): blob mixtures of CENTRES centres, probe share.
+CENTRES, SPREAD, PROBE = 1024, 4.0, 0.05
+CLUSTER_REQUESTS = ((8, 10), (8, 100), (256, 10), (256, 100))
 # Published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
 # and f32 (CUDA-core) operations/s.
 HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
@@ -173,9 +189,11 @@ def _ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
                       r"((?:fused_topk_partial|topk_merge)_kernel)"
-                      r"ILi(\d+)E(?:Li(\d+)E)?", line)
+                      r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
-            args = ", ".join(a for a in m.groups()[1:] if a is not None)
+            args = ", ".join(a for a in m.groups()[1:3] if a is not None)
+            if m.group(4) is not None:
+                args += ", listed" if m.group(4) == "1" else ", dense"
             name, spill = f"{m.group(1)}<{args}>", ""
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -323,6 +341,113 @@ def _check_quantizers(F, torch, gen):
                 f"int4 quantizer on the card differs from the host at {dim}")
 
 
+def _random_lists(torch, gen, n_lists, n_layout, p):
+    """(n_lists, p) ascending distinct layout-tile ids, drawn on the card."""
+    keys = torch.rand((n_lists, n_layout), generator=gen, device="cuda")
+    pick = torch.argsort(keys, dim=1)[:, :p]
+    return torch.sort(pick, dim=1).values.to(torch.int32).contiguous()
+
+
+def _check_listed(F, qp, cp, cbp, mask, k, precision, tiles, tn, block_rows,
+                  err, what, scale=0.0, exact=False):
+    """Kernel A on tile lists against its plain version, kernel B on its
+    lists (bit-identical), and A + B through ``fused_select`` against the
+    plain version of both.  Lists of fewer rows than a query tile run
+    through ``fused_select`` only (it pads each list's rows to a tile).
+    Returns fused_select's result."""
+    import torch
+
+    m = qp.shape[0]
+    tm = F.listed_tile_rows(m, k, block_rows)
+    sv, si = F.fused_select(qp, cp, cbp, mask, k, precision, tiles, tn,
+                            block_rows)
+    if tiles.shape[0] == 1 or block_rows % tm == 0:
+        tm, splits, tps = F.kernel_geometry(m, tiles.shape[1] * tn, k,
+                                            precision, qp.device, tm,
+                                            listed=True)
+        args = (qp, cp, cbp, mask, k, precision)
+        pv, pi = F.fused_topk_partial(*args, splits, tps, tm, tiles, tn,
+                                      block_rows)
+        rv, ri = F.fused_topk_partial_plain(*args, splits, tps, tiles, tn,
+                                            block_rows)
+        part_scale = scale[:, :, None] if torch.is_tensor(scale) else scale
+        err["tiles"] = max(err["tiles"], compare(
+            pv, pi, rv, ri, scale=part_scale, exact=exact,
+            what="listed kernel A " + what))
+        v, i = F.topk_merge(pv, pi, k)
+        compare(v, i, *F.topk_merge_plain(pv, pi, k), exact=True,
+                what="kernel B on listed " + what)
+        require(torch.equal(sv, v) and torch.equal(si, i),
+                f"listed fused_select {what}: differs from kernel A then B")
+    fv, fi = F.fused_topk_plain(qp, cp, cbp, mask, k, precision, tiles, tn,
+                                block_rows)
+    err["tiles"] = max(err["tiles"], compare(
+        sv, si, fv, fi, scale=scale, exact=exact, what="listed A+B " + what))
+    return sv, si
+
+
+# (m, n, dim, layout tile rows, query rows per list): one list, several,
+# and lists shorter than a query tile (block_q=8, which fused_select pads).
+LISTED_SHAPES = ((1, 129, 56, 128, 8), (37, 5000, 56, 128, 16),
+                 (37, 5000, 300, 256, 8), (300, 5000, 768, 128, 128),
+                 (300, 5000, 256, 256, 256))
+
+
+def _compare_listed(F, torch, gen, err):
+    """Phase 2 on tile lists: every core and metric over LISTED_SHAPES with
+    random per-list tile lists (one tile, a third of them, all of them in
+    a random subset), integer tie data bit-exact, and a list of every tile
+    against the dense scan bit for bit.  Returns the case counts."""
+    cases = ties = full = 0
+    for m, n, dim, tn, br in LISTED_SHAPES:
+        n_layout = -(-n // tn)
+        n_lists = -(-m // br)
+        for tie in (False, True):
+            q, c = (_tie_data(torch, gen, m, n, dim) if tie else
+                    _case_data(torch, gen, m, n, dim, False))
+            keep = torch.rand((n,), generator=gen, device="cuda") < 0.7
+            metrics = ("dot", "euclidean") if tie else ("cosine", "dot",
+                                                        "euclidean")
+            for metric in metrics:
+                for precision in F.CORES:
+                    qp = F.prepare_queries(q, metric, precision)
+                    cp, cbp = F.prepare_corpus(c, metric,
+                                               precision=precision)
+                    scale = (0.0 if tie else
+                             _term_scale(F, qp, cp, cbp, precision))
+                    for k in sorted({min(k, n) for k in (1, 10, 100)}):
+                        mask = (F.pad_mask_row(keep, n)
+                                if (cases + ties) % 2 else None)
+                        p = (1, max(1, n_layout // 3), n_layout)[
+                            (cases + ties) % 3]
+                        tiles = _random_lists(torch, gen, n_lists, n_layout,
+                                              p)
+                        what = (f"m={m} n={n} dim={dim} tn={tn} lists of "
+                                f"{br} rows P={p} k={k} {metric} "
+                                f"{precision} mask={mask is not None} "
+                                f"tie={tie}")
+                        _check_listed(F, qp, cp, cbp, mask, k, precision,
+                                      tiles, tn, br, err, what, scale=scale,
+                                      exact=tie)
+                        if tie:
+                            ties += 1
+                            continue
+                        cases += 1
+                        every = torch.arange(
+                            n_layout, dtype=torch.int32,
+                            device="cuda").repeat(n_lists, 1).contiguous()
+                        lv, li = F.fused_select(qp, cp, cbp, mask, k,
+                                                precision, every, tn, br)
+                        dv, di = F.fused_select(qp, cp, cbp, mask, k,
+                                                precision)
+                        require(torch.equal(lv, dv) and torch.equal(li, di),
+                                f"every tile listed differs from the dense "
+                                f"scan: {what}")
+                        full += 1
+    torch.cuda.synchronize()
+    return cases, ties, full
+
+
 def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
                   dims=(3, 56, 256, 300, 768), ks=(1, 10, 100, 512, 1024)):
     """Kernels A (every core) and B against their plain versions on CUDA
@@ -333,7 +458,7 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {name: 0.0 for name in F.CORES + ("topk_merge",)}
+    err = {name: 0.0 for name in F.CORES + ("topk_merge", "tiles")}
     cases = 0
     shapes = [(m, n, d, False, F.CORES) for m in ms for n in ns for d in dims]
     shapes.append((37, 5000, 56, True, F.CORES))
@@ -364,6 +489,11 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
           f"x max(|score|, row term scale); kernel B bit-identical), every "
           f"core; {ties} integer tie cases bit-identical; the on-card "
           f"quantizers equal the host ones bit for bit")
+    listed, listed_ties, full = _compare_listed(F, torch, gen, err)
+    print(f"phase 2: listed kernel A (tile lists): {listed} ragged cases "
+          f"match their plain version, {listed_ties} integer tie cases "
+          f"bit-identical, every core; {full} lists of every tile equal "
+          f"the dense result bit for bit; max abs err {err['tiles']:.3g}")
 
     main = 0
     for tie in (False, True):
@@ -825,6 +955,301 @@ def phase_wide(pmt, F, torch, card, err):
     return entries, counts
 
 
+def _blobs(torch, gen, rows, dim, chunk=1 << 20):
+    """A rows x dim f32 Gaussian blob mixture on the card (CENTRES centres
+    times SPREAD plus N(0, 1), as examples/benchmark_clustered.py makes
+    it), and a function drawing queries from the same mixture."""
+    centres = torch.randn((CENTRES, dim), generator=gen,
+                          device="cuda") * SPREAD
+    c = torch.empty((rows, dim), device="cuda")
+    for r0 in range(0, rows, chunk):
+        r1 = min(rows, r0 + chunk)
+        label = torch.randint(0, CENTRES, (r1 - r0,), generator=gen,
+                              device="cuda")
+        c[r0:r1].normal_(generator=gen)
+        c[r0:r1] += centres[label]
+
+    def queries(m):
+        label = torch.randint(0, CENTRES, (m,), generator=gen, device="cuda")
+        return centres[label] + torch.randn((m, dim), generator=gen,
+                                            device="cuda")
+
+    return c, queries
+
+
+def _probe_plan(cc, q, k, probe):
+    """What ``ClusteredCorpus.topk(q, k, probe=probe)`` runs: the routed
+    query order (or None), the routed queries, the tile lists (None for an
+    exhaustive scan) and the query rows per list."""
+    import torch
+    from polars_matmul_tpu_torch.kernels.fused_topk import probe_block_rows
+    from polars_matmul_tpu_torch.ops.cluster import probe_tiles, resolve_probe
+    from polars_matmul_tpu_torch.ops.metrics import Metric
+
+    m = q.shape[0]
+    br = probe_block_rows(m, cc.dim, cc.config, k)
+    order = (cc._route_order(q, Metric.COSINE)
+             if probe is not None and m > br else None)
+    qr = q if order is None else q[torch.from_numpy(order).to(q.device)]
+    p, exhaustive = resolve_probe(probe, cc.n_tiles)
+    tiles = None if exhaustive else probe_tiles(
+        qr, cc.centroids, cc._tile_cluster_dev, p=p, tm=br,
+        metric_v="cosine")
+    return order, qr, tiles, br
+
+
+def _stored_rows(F, cc, pos):
+    """float64 rows of the permuted positions ``pos`` as the kernel scores
+    them for cosine: codes (int8 / int4; their scale cancels) or values."""
+    blk = cc._base[pos]
+    if cc.storage == "int4":
+        blk = F.unpack_int4(blk, cc.dim)
+    return blk.double()
+
+
+def _oracle_visited(F, torch, cc, qr, k, tiles, br, chunk=250_000):
+    """float64 cosine top-k of the routed queries ``qr`` over exactly the
+    live rows each list visits (every live row without lists), as
+    original row ids: (indices, scores) on the host."""
+    perm = cc._perm_dev.long()
+    tn = cc.layout.tn
+    out_i, out_v = [], []
+    for b in range(-(-qr.shape[0] // br)):
+        qb = qr[b * br:(b + 1) * br].double()
+        qb = qb / qb.norm(dim=1, keepdim=True)
+        if tiles is None:
+            pos = torch.arange(cc.layout.n_padded, device="cuda")
+        else:
+            pos = (tiles[b].long()[:, None] * tn
+                   + torch.arange(tn, device="cuda")).reshape(-1)
+        pos = pos[perm[pos] >= 0]
+        best_v, best_i = [], []
+        for r0 in range(0, pos.shape[0], chunk):
+            p = pos[r0:r0 + chunk]
+            rows = _stored_rows(F, cc, p)
+            rows = rows / rows.norm(dim=1, keepdim=True)
+            v, i = torch.topk(qb @ rows.T, min(k, p.shape[0]), dim=1)
+            best_v.append(v)
+            best_i.append(p[i])
+        v, order = torch.sort(torch.cat(best_v, dim=1), dim=1,
+                              descending=True, stable=True)
+        out_v.append(v[:, :k])
+        out_i.append(perm[torch.gather(torch.cat(best_i, dim=1), 1,
+                                       order[:, :k])])
+    return (torch.cat(out_i).cpu().numpy(), torch.cat(out_v).cpu().numpy())
+
+
+def _request_checked(F, torch, cc, q, k, probe, label):
+    """One ``ClusteredCorpus.topk`` request held to the float64 oracle over
+    the rows its blocks visited.  Returns (indices, host ms)."""
+    t0 = time.perf_counter()
+    idx, scores = cc.topk(q, k, probe=probe)
+    host = (time.perf_counter() - t0) * 1e3
+    order, qr, tiles, br = _probe_plan(cc, q, k, probe)
+    ref_i, ref_v = _oracle_visited(F, torch, cc, qr, k, tiles, br)
+    if order is not None:   # back to the caller's row order
+        inv = np.empty_like(order)
+        inv[order] = np.arange(order.size)
+        ref_i, ref_v = ref_i[inv], ref_v[inv]
+    gate(idx, scores, ref_i, ref_v, label)
+    share = 1.0 if tiles is None else tiles.shape[1] / cc.n_tiles
+    print(f"phase 8: {label}: passes the float64 oracle gate over the "
+          f"{share:.4f} of tiles each of its {-(-q.shape[0] // br)} "
+          f"list(s) visited (first request {host:.1f} ms host"
+          f"{', routed' if order is not None else ''})")
+    return idx
+
+
+def _listed_operands(F, cc, q, k, probe):
+    """The routed queries, prepared operands and tile lists of one probed
+    request, as the request hands them to kernel A."""
+    from polars_matmul_tpu_torch.ops.metrics import Metric
+
+    _, qr, tiles, br = _probe_plan(cc, q, k, probe)
+    core = cc._effective_precision()
+    cp, cbp = cc._prepared_for(Metric.COSINE)
+    qp = F.prepare_queries(qr, "cosine", core)
+    return qr, qp, cp, cbp, core, tiles, br
+
+
+def _time_probed(F, torch, cc, q, k, card, label):
+    """Times of one probed request and its parts: the request (host), the
+    probe step, listed kernel A, its plain version, the library yardstick
+    (index_select of the listed rows, then torch.addmm + torch.topk per
+    list, gather counted) and the bound.  Returns the kernel entry and
+    the request's host ms."""
+    from polars_matmul_tpu_torch.ops.cluster import probe_tiles
+    from polars_matmul_tpu_torch.ops.reference import exact_matmul
+
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cc.topk(q, k, probe=PROBE)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    host = statistics.median(ts)
+    qr, qp, cp, cbp, core, tiles, br = _listed_operands(F, cc, q, k, PROBE)
+    m, p, tn = q.shape[0], tiles.shape[1], cc.layout.tn
+    probe_ms = cuda_ms(lambda: probe_tiles(
+        q, cc.centroids, cc._tile_cluster_dev, p=p, tm=br,
+        metric_v="cosine"), reps=10)
+    tm = F.listed_tile_rows(m, k, br)
+    tm, splits, tps = F.kernel_geometry(m, p * tn, k, core, qp.device, tm,
+                                        listed=True)
+    args = (qp, cp, cbp, None, k, core, splits, tps)
+    a = cuda_ms(lambda: F.fused_topk_partial(*args, tm, tiles, tn, br),
+                reps=10, warmup=2)
+    a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
+        *args, tiles, tn, br), reps=3, warmup=1)
+    ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, core, tiles,
+                                        tn, br), reps=10, warmup=2)
+    # Library yardstick: the cosine rows the kernel scores, as bf16 (codes
+    # times 1/|codes|; f32 rows normalised), gathered per list.
+    qn = qr / qr.norm(dim=1, keepdim=True)
+    pos = [(tiles[b].long()[:, None] * tn
+            + torch.arange(tn, device="cuda")).reshape(-1)
+           for b in range(tiles.shape[0])]
+    if core in F._QUANT:
+        scale = cbp[0]
+
+        def rows_of(b):
+            blk = torch.index_select(cp, 0, pos[b])
+            if core == "int4c":
+                blk = F.unpack_int4(blk, cc.dim)
+            return (blk.float() * scale[pos[b], None]).to(torch.bfloat16)
+        qn = qn.to(torch.bfloat16)
+    else:
+        dense = cc._dense_view()
+        dense = dense / dense.norm(dim=1, keepdim=True).clamp(min=1e-30)
+
+        def rows_of(b):
+            return torch.index_select(dense, 0, pos[b])
+    zero = torch.zeros(p * tn, dtype=qn.dtype, device="cuda")
+
+    def library():
+        for b in range(tiles.shape[0]):
+            with exact_matmul():
+                torch.topk(torch.addmm(zero, qn[b * br:(b + 1) * br],
+                                       rows_of(b).T), k, dim=1)
+    lib = cuda_ms(library, reps=5, warmup=1)
+    row_bytes = cp.shape[1] * cp.element_size() + cbp.element_size() * (
+        cbp.shape[0] if cbp.ndim == 2 else 1)
+    passes = 3 if core == "bf16x3" else 2
+    bound = _bound(tiles.shape[0] * p * tn * row_bytes + qp.nbytes
+                   + m * splits * k * 8,
+                   passes * 2 * m * p * tn * cc.dim, BF16_OPS)
+    print(f"phase 6: [{card}] {label} probe {PROBE} batch {m} k={k}: "
+          f"request {host:.3f} ms host; probe step {probe_ms:.4f} ms; "
+          f"listed A {a:.4f} ms (tm={tm}, splits={splits}, {p} of "
+          f"{cc.n_tiles} tiles a list, {tiles.shape[0]} list(s)), A plain "
+          f"{a_plain:.3f} ms, A+B {ab:.4f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]}); library index_select + torch.addmm + torch.topk "
+          f"per list {lib:.4f} ms")
+    return _entry(a, a_plain, lib,
+                  "torch.index_select of the listed rows + torch.addmm + "
+                  "torch.topk per list (gather counted)", bound,
+                  f"{label} cosine probe {PROBE} batch {m} k={k}"), host
+
+
+def phase_clustered(pmt, F, torch, card, err):
+    """Phase 8 (with its phase 5 counts and phase 6 times): probed search
+    through ClusteredCorpus, at the 10M x 768 int8 north star and on a
+    2M x 256 f32 corpus whose 1000-query requests route over several tile
+    lists.  Returns the listed kernel's entry and the probed path's
+    launches."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    c, queries = _blobs(torch, gen, WIDE_ROWS, WIDE_DIM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wide = pmt.ClusteredCorpus(c, storage="int8")
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    del c
+    torch.cuda.empty_cache()
+    label = f"{WIDE_ROWS}x{WIDE_DIM} int8 clustered"
+    print(f"phase 8: {label} built from a CUDA f32 blob mixture "
+          f"({CENTRES} centres) in {built:.2f} s host: {wide.clusters} "
+          f"clusters, {wide.n_tiles} tiles of {wide.layout.tn} rows, "
+          f"{wide._base.nbytes / 1e9:.2f} GB of codes")
+    q = queries(256)
+    gen2 = torch.Generator(device="cuda")
+    gen2.manual_seed(SEED + 2)
+    c2, queries2 = _blobs(torch, gen2, BIG_ROWS, DIM)
+    proxy = pmt.ClusteredCorpus(c2)
+    del c2
+    torch.cuda.empty_cache()
+    q2 = queries2(N_QUERIES)
+    label2 = f"{BIG_ROWS}x{DIM} f32 clustered"
+    print(f"phase 8: {label2} built: {proxy.clusters} clusters, "
+          f"{proxy.n_tiles} tiles of {proxy.layout.tn} rows")
+
+    # The probed path: count only its launches.
+    F.reset_launch_counts()
+    results = {}
+    for batch, k in CLUSTER_REQUESTS:
+        for probe in (PROBE, None):
+            results[(batch, k, probe)] = _request_checked(
+                F, torch, wide, q[:batch], k, probe,
+                f"{label} batch {batch} k={k} probe={probe}")
+    for k in (10, 100):
+        _request_checked(F, torch, proxy, q2, k, PROBE,
+                         f"{label2} batch {N_QUERIES} k={k} probe={PROBE}")
+    torch.cuda.synchronize()
+    launched, cores = dict(F.launches), dict(F.core_launches)
+    print(f"phase 5: launches on the probed path: {launched}, by core "
+          f"{cores}")
+    for name in ("fused_topk_partial_tiles", "topk_merge"):
+        require(launched[name] > 0, f"{name} never launched on the probed "
+                f"path")
+    for core in ("int8c", "bf16x3"):
+        require(cores[core] > 0, f"{core} never launched on the probed path")
+    for name in ("fused_topk_plain", "fused_topk_partial_plain",
+                 "topk_merge_plain"):
+        require(launched[name] == 0, f"{name} ran on the probed path")
+    for batch in (8, 256):
+        got = results[(batch, 10, PROBE)].astype(np.int64)
+        exact = results[(batch, 10, None)].astype(np.int64)
+        recall = np.mean([len(set(a) & set(b)) / 10
+                          for a, b in zip(got, exact)])
+        print(f"phase 8: {label} batch {batch} probe {PROBE}: recall@10 "
+              f"against the exhaustive scan {recall:.4f} (reported, not "
+              f"gated)")
+
+    # The listed kernel against its plain version at these shapes.
+    cases = 0
+    for cc, qq, ks in ((wide, q[:8], (10, 100)), (wide, q, (10, 100)),
+                       (proxy, q2, (10, 100))):
+        for k in ks:
+            _, qp, cp, cbp, core, tiles, br = _listed_operands(
+                F, cc, qq, k, PROBE)
+            _check_listed(F, qp, cp, cbp, None, k, core, tiles,
+                          cc.layout.tn, br, err,
+                          f"{cc.storage} n={cc.n} batch {qq.shape[0]} k={k}",
+                          scale=_term_scale(F, qp, cp, cbp, core))
+            cases += 1
+    print(f"phase 2: {cases} listed cases at the probed path's shapes "
+          f"match; max abs err listed A {err['tiles']:.3g}")
+
+    entry, host = _time_probed(F, torch, wide, q[:8], 10, card, label)
+    for batch, k in CLUSTER_REQUESTS[1:]:
+        _time_probed(F, torch, wide, q[:batch], k, card, label)
+    for k in (10, 100):
+        _time_probed(F, torch, proxy, q2, k, card, label2)
+    for batch in (8, 256):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            wide.topk(q[:batch], 10)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        print(f"phase 6: [{card}] {label} exhaustive batch {batch} k=10: "
+              f"request {statistics.median(ts):.3f} ms host")
+    profile_request(torch, lambda: wide.topk(q[:8], 10, probe=PROBE),
+                    f"{label} probe {PROBE} batch 8 k=10", card, host)
+    del wide, proxy
+    torch.cuda.empty_cache()
+    return entry, launched["fused_topk_partial_tiles"]
+
+
 def main() -> int:
     import torch
 
@@ -863,6 +1288,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide, wide_counts = phase_wide(pmt, F, torch, card, err)
     per_kernel.update(wide)
+    torch.cuda.empty_cache()
+    per_kernel["tiles"], tiles_launches = phase_clustered(pmt, F, torch,
+                                                          card, err)
     launches = dict(cores, **wide_counts)
     launches["topk_merge"] += counts["topk_merge"]
     kernels = [dict({"name": f"fused_topk_partial.{core}", "route": "cuda",
@@ -877,6 +1305,12 @@ def main() -> int:
                          "launches": launches["topk_merge"],
                          "max_abs_err": err["topk_merge"]},
                         **per_kernel["topk_merge"]))
+    kernels.append(dict({"name": "fused_topk_partial.tiles", "route": "cuda",
+                         "source": KERNEL_SRC + "fused_topk.cu",
+                         "replaces": TPU_KERNEL + ":2162",
+                         "launches": tiles_launches,
+                         "max_abs_err": err["tiles"]},
+                        **per_kernel["tiles"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """polars-matmul-tpu on PyTorch and CUDA: the port of ``polars_matmul_tpu``
 to an NVIDIA H100.
 
-The same public operations — ``topk``, ``matmul`` and the resident
-``Corpus`` — with the fused top-k kernel written by hand in CUDA C++ for
-Hopper (``kernels/csrc``), built with ``nvcc`` at first use.  The JAX
-package stays the reference; this package imports neither ``jax`` nor
-``pyarrow``.
+The same public operations — ``topk``, ``matmul``, the resident
+``Corpus`` and the ``ClusteredCorpus`` of probed search — with the fused
+top-k kernel written by hand in CUDA C++ for Hopper (``kernels/csrc``),
+built with ``nvcc`` at first use.  The JAX package stays the reference;
+this package imports neither ``jax`` nor ``pyarrow``.
 
 ``topk_torch`` and ``matmul_torch`` are the tensor-level operations
 (torch tensors in, torch tensors out), the counterparts of ``topk_jax``
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from .config import SearchConfig, default_config, set_default_config
 from .ops.metrics import Metric
+from .api.clustered import ClusteredCorpus
 from .api.search import Corpus, matmul, topk
 from .kernels.fused_topk import fused_topk as topk_torch
 from .kernels.matmul import pairwise_matmul as matmul_torch
@@ -23,6 +24,7 @@ from .kernels.matmul import pairwise_matmul as matmul_torch
 __version__ = "0.1.0"
 
 __all__ = [
+    "ClusteredCorpus",
     "Corpus",
     "Metric",
     "SearchConfig",

@@ -1,0 +1,533 @@
+"""ClusteredCorpus: a device-resident clustered corpus for probed search
+(port of ``polars_matmul_tpu.api.clustered``, on one device).
+
+Rows are k-means clustered at ingestion and laid out cluster-contiguous
+in whole layout tiles; each query batch then visits only the ``probe=``
+share of tiles ranked best by a small centroid product (kernel A walking
+per-query-block tile lists: unvisited tiles are never read).  Search is
+exact over the visited rows; recall against an exhaustive scan is set by
+``probe`` and by how well the data clusters.  ``probe=None`` scans every
+tile, with the same kernels as ``Corpus``.
+
+The layout, the tile lists and the save format are the JAX package's, so
+a file saved by either package loads in the other and gives the same
+probed results; the k-means fit itself draws other random numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import SearchConfig, resolve
+from ..kernels.fused_topk import (INT32_MAX, dequant_int4,
+                                  fused_topk_prepared, kernel_precision,
+                                  layout_tile_rows, max_fused_k,
+                                  probe_block_rows, supports)
+from ..kernels.matmul import pairwise_matmul
+from ..ops import reference
+from ..ops.cluster import (ClusterLayout, assign_rows, assign_rows_native,
+                           centroid_scores, cluster_layout, kmeans,
+                           permute_rows, probe_tiles, resolve_probe)
+from ..ops.metrics import Metric
+from ..utils.profiling import annotate
+from .search import (_F32, ArrayLike, DeviceLike, _as_input,
+                     _empty_topk, _is_half, _not_ported, _to_host, _to_torch,
+                     _torch_dtype, _validate_mask, compute_dtype,
+                     prepare_stored, quantize_stored, resolve_device)
+
+_TIER_CORE = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
+
+
+def _is_float(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_floating_point
+    return np.issubdtype(dtype, np.floating)
+
+
+class ClusteredCorpus:
+    """K-means clustered, device-resident corpus for probed top-k search.
+
+    ``clusters`` defaults to about one cluster per 4 layout tiles (the
+    cluster-tail padding then costs about n/8 rows).  ``storage`` composes
+    as on ``Corpus``: "bf16" (half the bytes), "int8" (a quarter), "int4"
+    (an eighth); int8 / int4 rows are quantized before they are assigned.
+
+    The layout tile (``layout_tile_rows``) and the query rows that share a
+    tile list (``probe_block_rows``) follow the config's ``block_n`` and
+    ``block_q`` as in the JAX package, so both packages list the same
+    tiles; kernel A's own tiles do not depend on them.
+
+    ``topk(..., probe=0.05)`` visits the best ~5 % of tiles per query
+    block; ``probe=None`` is an exhaustive scan.  Probed results may hold
+    fewer than k real matches; unfilled slots carry the sentinels
+    (index INT32_MAX, score -inf similarity / +inf distance).
+
+    ``device=`` as on ``Corpus``: a torch tensor is clustered and stored
+    on its own device unless asked otherwise, NumPy goes to "cuda".
+    ``mesh=``, ``from_arrow``, ``add``, ``update`` and ``rebuild`` raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    """
+
+    def __init__(self, embeddings: ArrayLike, *,
+                 clusters: Optional[int] = None, storage: str = "f32",
+                 mesh=None, config: Optional[SearchConfig] = None,
+                 seed: int = 0, kmeans_iters: int = 8,
+                 sample_rows: int = 131072, reserve_tiles: int = 0,
+                 device: DeviceLike = None):
+        cfg = resolve(config)
+        c = _as_input(embeddings)
+        if c.ndim != 2:
+            raise ValueError("Embeddings must be 2-D (n_rows, dim) matrices")
+        if c.shape[0] == 0:
+            raise ValueError("Empty series")
+        if c.shape[1] == 0:
+            raise ValueError("Zero-dimensional vectors")
+        if storage not in ("f32", "bf16", "int8", "int4"):
+            raise ValueError(f"Unknown storage mode: {storage!r}")
+        if not _is_float(c.dtype):
+            raise ValueError(
+                "ClusteredCorpus requires float embeddings (clustering "
+                "needs the values; pre-quantized codes belong on Corpus)"
+            )
+        if mesh is not None:
+            raise _not_ported("ClusteredCorpus(mesh=...)", 6)
+        if clusters is not None and int(clusters) < 1:
+            raise ValueError(f"clusters must be >= 1, got {clusters}")
+        if int(reserve_tiles) < 0:
+            raise ValueError(
+                f"reserve_tiles must be >= 0, got {reserve_tiles}")
+        self.config = cfg
+        self.storage = storage
+        self.n, self.dim = c.shape
+        self.dtype = _F32   # f32 or quantized: the kernel path
+        self.device = resolve_device(device, c)
+        self._tn = layout_tile_rows(self.dim, cfg, 1)
+        self._chunk_rows = max(1, cfg.prep_chunk_bytes // (4 * self.dim))
+        if clusters is None:
+            clusters = self._default_clusters(self.n)
+
+        # Cluster: sampled k-means, then the chunked assignment of all rows.
+        cent = self._fit_sampled(c, int(min(clusters, self.n)), sample_rows,
+                                 kmeans_iters, seed)
+        self._set_centroids(cent)
+        scales = None
+        if storage in ("int8", "int4"):
+            # Quantize before the assignment, so that it reads the codes
+            # (a host corpus uploads a quarter or an eighth of its f32
+            # bytes) and places each row by the value it serves.
+            src, scales = quantize_stored(c, storage, self.dim, self.device,
+                                          self._chunk_rows)
+            assign = assign_rows_native(src, scales, self.centroids, storage,
+                                        self.dim)
+        else:
+            src = (np.ascontiguousarray(c, dtype=np.float32)
+                   if isinstance(c, np.ndarray) else c.to(torch.float32))
+            assign = assign_rows(src, self.centroids)
+        self.layout: ClusterLayout = cluster_layout(assign, self.clusters,
+                                                    self._tn)
+        # Dead tiles (cluster -1) appended as the growth reserve of a later
+        # add; kept so that save files carry it.
+        self._reserve_tiles = int(reserve_tiles)
+        self._extend_dead_tiles(self._reserve_tiles)
+
+        # The permuted storage-native rows: gathered where the source lies
+        # (a NumPy source on the host, so only the result is uploaded).
+        perm = torch.from_numpy(self.layout.perm)
+        src = torch.as_tensor(src)
+        base = permute_rows(src, perm.to(src.device))
+        if storage == "bf16":
+            base = base.to(torch.bfloat16)
+        del src
+        scales_p = None
+        if scales is not None:
+            scales = torch.as_tensor(scales)
+            live = (perm >= 0).to(scales.device)
+            scales_p = torch.where(live, permute_rows(scales, perm),
+                                   torch.ones((), device=scales.device))
+        self._install(base, scales_p)
+        self._tombstones: Optional[np.ndarray] = None
+        self._drift_rows = 0
+        self._striped_for = None   # saved mesh layouts: written back as read
+        self._stripe_lt = None
+
+    # -- construction -----------------------------------------------------
+    def _default_clusters(self, n: int) -> int:
+        """Constructor default: about four layout tiles per cluster."""
+        return max(1, -(-n // (4 * self._tn)))
+
+    def _fit_sampled(self, c: ArrayLike, clusters: int, sample_rows: int,
+                     kmeans_iters: int, seed: int) -> torch.Tensor:
+        """k-means on at most ``sample_rows`` rows drawn from ``seed`` (the
+        JAX package's draw), on the handle's device.  kmeans clamps the
+        cluster count to the sample size."""
+        rng = np.random.default_rng(seed)
+        ids = np.arange(self.n)
+        if self.n > sample_rows:
+            ids = rng.choice(ids, sample_rows, replace=False)
+        if isinstance(c, torch.Tensor):
+            rows = c[torch.from_numpy(ids).to(c.device)]
+        else:
+            rows = torch.from_numpy(np.ascontiguousarray(c[ids],
+                                                         dtype=np.float32))
+        x = rows.to(device=self.device, dtype=torch.float32)
+        return kmeans(x, clusters, iters=kmeans_iters, seed=seed)[0]
+
+    def _set_centroids(self, cent) -> None:
+        self.centroids = torch.as_tensor(cent).to(device=self.device,
+                                                  dtype=torch.float32)
+        self.clusters = int(self.centroids.shape[0])
+
+    def _extend_dead_tiles(self, r_tiles: int) -> None:
+        """Append ``r_tiles`` dead tiles (cluster -1, all rows slack)."""
+        if r_tiles <= 0:
+            return
+        lay, tn = self.layout, self._tn
+        perm = np.concatenate([lay.perm, np.full(r_tiles * tn, -1, np.int32)])
+        tcl = np.concatenate([lay.tile_cluster,
+                              np.full(r_tiles, -1, np.int32)])
+        self.layout = ClusterLayout(perm, lay.row_pos, tcl, lay.counts, tn)
+
+    def _install(self, base: torch.Tensor,
+                 scales: Optional[torch.Tensor]) -> None:
+        """Put a permuted payload matching ``self.layout`` on the device and
+        drop every cache derived from the layout."""
+        dev = self.device
+        self._base = base.to(dev)
+        self._scales = None if scales is None else scales.to(
+            device=dev, dtype=torch.float32)
+        self._perm_dev = torch.from_numpy(self.layout.perm).to(dev)
+        self._tile_cluster_dev = torch.from_numpy(
+            self.layout.tile_cluster).to(dev)
+        self._live_dev = self._perm_dev >= 0
+        self._prepared = {}   # (metric, core) -> (cp, cbp)
+        self._dense = None
+        self._perm_mask_dev = None
+
+    # -- introspection ----------------------------------------------------
+    def __len__(self) -> int:
+        return self.n
+
+    def __repr__(self) -> str:
+        return (f"ClusteredCorpus(n={self.n}, dim={self.dim}, "
+                f"clusters={self.clusters}, tiles={self.layout.n_tiles}, "
+                f"storage={self.storage!r}, device={str(self.device)!r})")
+
+    @property
+    def n_tiles(self) -> int:
+        return self.layout.n_tiles
+
+    @property
+    def drift(self) -> float:
+        """Share of rows added or updated since the centroids were fit
+        (carried by saved files; this port adds and updates nothing yet)."""
+        return self._drift_rows / max(1, self.n)
+
+    @property
+    def deleted_count(self) -> int:
+        return 0 if self._tombstones is None else int(self._tombstones.sum())
+
+    # -- mutation ---------------------------------------------------------
+    def add(self, rows) -> int:
+        raise _not_ported("ClusteredCorpus.add", 3)
+
+    def update(self, indices, rows) -> None:
+        raise _not_ported("ClusteredCorpus.update", 3)
+
+    def rebuild(self, **kwargs) -> "ClusteredCorpus":
+        raise _not_ported("ClusteredCorpus.rebuild", 3)
+
+    @classmethod
+    def from_arrow(cls, column, **kwargs) -> "ClusteredCorpus":
+        raise _not_ported("ClusteredCorpus.from_arrow", 4)
+
+    def delete(self, indices: ArrayLike) -> int:
+        """Tombstone rows by original id; they stop matching at once
+        (through the mask, no re-clustering).  Returns the number newly
+        deleted."""
+        idx = np.asarray(indices, dtype=np.int64).reshape(-1)
+        if idx.size and (idx.min() < 0 or idx.max() >= self.n):
+            raise IndexError(
+                f"delete index out of range for corpus of {self.n} rows")
+        if self._tombstones is None:
+            self._tombstones = np.zeros(self.n, bool)
+        before = int(self._tombstones.sum())
+        self._tombstones[idx] = True
+        self._perm_mask_dev = None
+        return int(self._tombstones.sum()) - before
+
+    # -- search helpers ---------------------------------------------------
+    def _effective_precision(self) -> str:
+        """The kernel core: a quantized tier runs its own, f32 the
+        config's."""
+        return _TIER_CORE.get(self.storage,
+                              kernel_precision(self.config.precision))
+
+    def _prepared_for(self, metric: Metric):
+        """(cp, cbp) for this metric with the slack rows dead (-inf bias):
+        they sit inside the layout, so a suffix rule cannot see them.
+        Codes (and rows the prep keeps as they are) are shared, not
+        copied."""
+        precision = self._effective_precision()
+        key = (metric.value, precision)
+        if key not in self._prepared:
+            cp, cbp = prepare_stored(self._base, self._scales, metric,
+                                     precision, self._chunk_rows)
+            bias = cbp[-1] if cbp.ndim == 2 else cbp
+            bias.masked_fill_(~self._live_dev, float("-inf"))
+            self._prepared[key] = (cp, cbp)
+        return self._prepared[key]
+
+    def _permuted_mask(self, user_mk) -> Optional[torch.Tensor]:
+        """(n_padded,) bool on the device in permuted space, or None: the
+        user's mask and the tombstones; slack rows False (their bias is
+        -inf anyway)."""
+        if user_mk is None and self._tombstones is None:
+            return None
+        if user_mk is None and self._perm_mask_dev is not None:
+            return self._perm_mask_dev
+        if user_mk is None:
+            combined = np.ones(self.n, bool)
+        elif isinstance(user_mk, torch.Tensor):
+            combined = user_mk.cpu().numpy().astype(bool)
+        else:
+            combined = user_mk.astype(bool)
+        if self._tombstones is not None:
+            combined = combined & ~self._tombstones
+        perm = self.layout.perm
+        pm = np.zeros(self.layout.n_padded, bool)
+        live = perm >= 0
+        pm[live] = combined[perm[live]]
+        dev = torch.from_numpy(pm).to(self.device)
+        if user_mk is None:
+            self._perm_mask_dev = dev
+        return dev
+
+    def _route_order(self, q: ArrayLike, metric: Metric):
+        """Stable query order grouping rows by their best cluster by
+        ``centroid_scores`` (first index among equal scores); None when
+        every query agrees on a cluster.  The JAX package scores on the
+        host; here the scores run on the handle's device."""
+        s = centroid_scores(_to_torch(q, _F32, self.device), self.centroids,
+                            metric)
+        best = torch.argmax(s, dim=1).cpu().numpy()
+        if (best == best[0]).all():
+            return None
+        return np.argsort(best, kind="stable")
+
+    def _dense_view(self) -> torch.Tensor:
+        """(n_padded, dim) f32 rows in permuted space (slack rows zero),
+        built once for matmul and the reference path."""
+        if self._dense is None:
+            base = self._base
+            if self.storage == "int8":
+                self._dense = base.to(torch.float32) * self._scales[:, None]
+            elif self.storage == "int4":
+                self._dense = dequant_int4(base, self._scales, self.dim)
+            else:
+                self._dense = base.to(torch.float32)
+        return self._dense
+
+    def _row_ids(self, idx: torch.Tensor) -> torch.Tensor:
+        """Permuted positions -> original row ids, keeping the sentinel:
+        an unfilled slot's INT32_MAX must not go through the permutation."""
+        safe = torch.clamp(idx.long(), 0, self.layout.n_padded - 1)
+        g = self._perm_dev[safe]
+        return torch.where((idx == INT32_MAX) | (g < 0),
+                           torch.full_like(g, INT32_MAX), g)
+
+    def _fallback_topk(self, q: torch.Tensor, kk: int, metric: Metric,
+                       user_mk) -> Tuple[np.ndarray, np.ndarray]:
+        """The exhaustive reference path for problems the fused kernels
+        decline (k > max_fused_k, use_pallas=False): probe= is ignored, the
+        result is exact."""
+        mk = self._permuted_mask(user_mk)
+        mk = self._live_dev if mk is None else (mk & self._live_dev)
+        vals, idx = reference.topk_search(q.to(torch.float32),
+                                          self._dense_view(), kk, metric,
+                                          mask=mk)
+        return _to_host(vals, self._row_ids(idx))
+
+    # -- persistence ------------------------------------------------------
+    def save(self, path) -> None:
+        """Persist to ``path`` (.npz) in the JAX package's format, which its
+        ``ClusteredCorpus.load`` reads: the storage-native permuted rows
+        (slack rows included), the layout, the centroids and the
+        tombstones."""
+        base = self._base.cpu()
+        arrays = {
+            "n": np.int64(self.n),
+            "dim": np.int64(self.dim),
+            "storage": np.array(self.storage),
+            "clusters": np.int64(self.clusters),
+            "tn": np.int64(self._tn),
+            "perm": self.layout.perm,
+            "tile_cluster": self.layout.tile_cluster,
+            "counts": self.layout.counts,
+            "centroids": self.centroids.cpu().numpy(),
+        }
+        if self.storage == "bf16":
+            arrays["data_u16"] = base.view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            arrays["data"] = base.numpy()
+        if self._scales is not None:
+            arrays["scales"] = self._scales.cpu().numpy()
+        if self._tombstones is not None:
+            arrays["tombstones"] = self._tombstones
+        if self._drift_rows:
+            arrays["drift_rows"] = np.int64(self._drift_rows)
+        if self._striped_for:
+            arrays["striped_for"] = np.int64(self._striped_for)
+            arrays["stripe_lt"] = np.int64(self._stripe_lt)
+        if self._reserve_tiles:
+            arrays["reserve_tiles"] = np.int64(self._reserve_tiles)
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+
+    @classmethod
+    def load(cls, path, *, mesh=None, config: Optional[SearchConfig] = None,
+             device: DeviceLike = None) -> "ClusteredCorpus":
+        """Rebuild a corpus saved by either package's ``save``: the saved
+        rows, layout and centroids are installed as they are (no
+        clustering, no quantization), so probed results match the saved
+        handle's.  ``config`` steers only the query side; the layout tile
+        is the file's."""
+        if mesh is not None:
+            raise _not_ported("ClusteredCorpus.load(mesh=...)", 6)
+        with np.load(path, allow_pickle=False) as z:
+            storage = str(z["storage"])
+            if storage == "bf16":
+                base = torch.from_numpy(
+                    z["data_u16"].view(np.int16)).view(torch.bfloat16)
+            else:
+                base = torch.from_numpy(np.array(z["data"]))
+            scales = (torch.from_numpy(np.asarray(z["scales"], np.float32))
+                      if "scales" in z else None)
+            perm = z["perm"]
+            tile_cluster = z["tile_cluster"]
+            counts = z["counts"]
+            centroids = z["centroids"]
+            n, dim = int(z["n"]), int(z["dim"])
+            tn = int(z["tn"])
+            tomb = z["tombstones"] if "tombstones" in z else None
+            drift_rows = int(z["drift_rows"]) if "drift_rows" in z else 0
+            striped_for = (int(z["striped_for"])
+                           if "striped_for" in z else None)
+            stripe_lt = int(z["stripe_lt"]) if "stripe_lt" in z else None
+            reserve_tiles = (int(z["reserve_tiles"])
+                             if "reserve_tiles" in z else 0)
+        self = cls.__new__(cls)
+        self.config = resolve(config)
+        self.storage = storage
+        self.n, self.dim = n, dim
+        self.dtype = _F32
+        self.device = resolve_device(device)
+        self._tn = tn
+        self._chunk_rows = max(1, self.config.prep_chunk_bytes // (4 * dim))
+        row_pos = np.empty(n, np.int32)
+        live = perm >= 0
+        row_pos[perm[live]] = np.flatnonzero(live).astype(np.int32)
+        self.layout = ClusterLayout(perm, row_pos, tile_cluster, counts, tn)
+        self._set_centroids(torch.from_numpy(np.asarray(centroids,
+                                                        np.float32)))
+        self._striped_for, self._stripe_lt = striped_for, stripe_lt
+        self._reserve_tiles = reserve_tiles
+        self._install(base, scales)
+        self._tombstones = (None if tomb is None or not tomb.any()
+                            else tomb.astype(bool))
+        self._drift_rows = drift_rows
+        return self
+
+    # -- operations -------------------------------------------------------
+    def _check_queries(self, q) -> None:
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            raise ValueError(
+                f"Dimension mismatch: left has "
+                f"{q.shape[1] if q.ndim == 2 else tuple(q.shape)} "
+                f"dimensional vectors, right has {self.dim} dimensional "
+                f"vectors"
+            )
+
+    def matmul(self, queries: ArrayLike) -> np.ndarray:
+        """Raw pairwise Q . C^T (n_q, n) in original row order, on the
+        stored (dequantized) rows; deleted rows still score, as on
+        ``Corpus.matmul``."""
+        q = _as_input(queries)
+        dt = compute_dtype(q.dtype, self.dtype)
+        if q.shape[0] == 0:
+            return np.empty((0, self.n), dtype=dt)
+        self._check_queries(q)
+        row_pos = torch.from_numpy(
+            self.layout.row_pos[: self.n].astype(np.int64)).to(self.device)
+        with annotate("pmm.clustered.matmul"):
+            panel = pairwise_matmul(
+                _to_torch(q, dt, self.device),
+                self._dense_view().to(_torch_dtype(dt)),
+                precision=self.config.precision)
+            return panel[:, row_pos].cpu().numpy()
+
+    def topk(self, queries: ArrayLike, k: int,
+             metric: Union[str, Metric] = "cosine", *,
+             probe: Union[float, int, None] = None, mask=None,
+             route: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k over the clustered corpus: ``(indices (m, k') u32, scores
+        (m, k') f64)`` in original row ids, as ``Corpus.topk`` returns.
+
+        ``probe`` bounds the layout tiles visited per query block: a float
+        is a fraction of all tiles (the bytes-read budget), an int a tile
+        count, None an exhaustive scan.  ``route`` (default True) reorders
+        a probed batch of several blocks so that queries wanting the same
+        cluster share a block (the budget is a per-block union); results
+        come back in the caller's order.  Queries run in f32 (float64 ones
+        are rounded; float16 / bfloat16 ones upload as they are).
+        """
+        metric = Metric.parse(metric)
+        q = _as_input(queries)
+        if q.shape[0] == 0:
+            return np.empty((0, 0), np.uint32), np.empty((0, 0), np.float64)
+        self._check_queries(q)
+        user_mk = _validate_mask(mask, self.n)
+        kk = min(int(k), self.n)
+        if kk <= 0:
+            return _empty_topk(q.shape[0])
+        cfg = self.config
+        if route and probe is not None and q.shape[0] > probe_block_rows(
+                q.shape[0], self.dim, cfg, kk):
+            order = self._route_order(q, metric)
+            if order is not None:
+                sel = (torch.from_numpy(order).to(q.device)
+                       if isinstance(q, torch.Tensor) else order)
+                i_r, v_r = self.topk(q[sel], k, metric, probe=probe,
+                                     mask=mask, route=False)
+                inv = np.empty_like(order)
+                inv[order] = np.arange(order.size)
+                return (np.ascontiguousarray(i_r[inv]),
+                        np.ascontiguousarray(v_r[inv]))
+        p, exhaustive = resolve_probe(probe, self.layout.n_tiles)
+        sup = supports(q.shape, (self.n, self.dim), torch.float32, kk, cfg)
+        if not sup and self.storage != "f32" and kk <= max_fused_k(cfg):
+            # Quantized storage above max_fused_dim stays on the kernel, as
+            # on Corpus: the reference path would build the f32 rows.
+            sup = True
+        with annotate(f"pmm.clustered.topk.{metric.value}"):
+            if not (cfg.use_pallas and sup):
+                return self._fallback_topk(_to_torch(q, _F32, self.device),
+                                           kk, metric, user_mk)
+            qt = _to_torch(q, None if _is_half(q.dtype) else _F32,
+                           self.device)
+            cp, cbp = self._prepared_for(metric)
+            tiles = None
+            if not exhaustive:
+                tiles = probe_tiles(
+                    qt, self.centroids, self._tile_cluster_dev, p=p,
+                    tm=probe_block_rows(q.shape[0], self.dim, cfg, kk),
+                    metric_v=metric.value)
+            vals, idx = fused_topk_prepared(
+                qt, cp, cbp, kk, metric, mask=self._permuted_mask(user_mk),
+                config=cfg, precision=self._effective_precision(),
+                tiles=tiles, tn=self._tn)
+            return _to_host(vals, self._row_ids(idx))
+

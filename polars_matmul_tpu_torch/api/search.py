@@ -260,6 +260,60 @@ def _row_block(x: ArrayLike, r0: int, r1: int) -> torch.Tensor:
     return _to_torch(x[r0:r1], None, torch.device("cpu"))
 
 
+def quantize_stored(c: ArrayLike, storage: str, dim: int,
+                    device: torch.device, chunk_rows: int):
+    """(codes, scales) of float rows for an "int8" or "int4" tier: NumPy
+    by the host quantizers (codes stay NumPy, so that the caller uploads
+    quantized bytes), a tensor by the torch ones on its own device, in
+    row chunks, into tensors on ``device``."""
+    int4 = storage == "int4"
+    ck, dpp, _ = feature_geometry(dim)
+    if not isinstance(c, torch.Tensor):
+        return (_quantize_rows_int4_np(c, ck, dpp) if int4
+                else _quantize_rows_np(c))
+    n = c.shape[0]
+    codes = torch.empty((n, dpp // 2 if int4 else dim), dtype=torch.int8,
+                        device=device)
+    scales = torch.empty(n, dtype=torch.float32, device=device)
+    for r0 in range(0, n, chunk_rows):
+        r1 = min(n, r0 + chunk_rows)
+        qc, sc = (quantize_int4(c[r0:r1], ck) if int4
+                  else quantize_int8(c[r0:r1]))
+        codes[r0:r1].copy_(qc)
+        scales[r0:r1].copy_(sc)
+    return codes, scales
+
+
+def prepare_stored(c: torch.Tensor, scales: Optional[torch.Tensor], metric,
+                   precision: str, chunk_rows: int):
+    """``prepare_corpus`` of stored rows in row chunks, so that no prep
+    holds a full-size f32 temporary.  Where the prep leaves the rows as
+    stored (int8 / int4 codes, bf16 rows for dot and euclidean, f32 rows
+    for "highest" dot and euclidean) cp is the storage itself and only the
+    bias or scale | bias rows are computed."""
+    n = c.shape[0]
+    cp = cbp = None
+    for r0 in range(0, n, chunk_rows):
+        r1 = min(n, r0 + chunk_rows)
+        chunk = c[r0:r1]
+        sc = None if scales is None else scales[r0:r1]
+        cpc, cbc = prepare_corpus(chunk, metric, precision=precision,
+                                  scales=sc)
+        if r1 - r0 == n:
+            return cpc, cbc
+        if cp is None:
+            shared = cpc.data_ptr() == chunk.data_ptr()
+            cp = c if shared else torch.empty(
+                (n,) + tuple(cpc.shape[1:]), dtype=cpc.dtype,
+                device=c.device)
+            cbp = torch.empty(tuple(cbc.shape[:-1]) + (n,),
+                              dtype=cbc.dtype, device=c.device)
+        if cp is not c:
+            cp[r0:r1] = cpc
+        cbp[..., r0:r1] = cbc
+    return cp, cbp
+
+
 def _scales_vector(scales, n: int):
     scales = (scales.to(torch.float32) if isinstance(scales, torch.Tensor)
               else np.asarray(scales, dtype=np.float32)).reshape(-1)
@@ -395,26 +449,12 @@ class Corpus:
         return out
 
     def _quantize(self, c: ArrayLike):
-        """(codes, scales) on the device from float rows: NumPy by the host
-        quantizers, a tensor by the torch ones on its own device, in row
-        chunks."""
-        int4 = self.storage == "int4"
-        ck, dpp, _ = feature_geometry(self.dim)
-        if not isinstance(c, torch.Tensor):
-            codes, scales = (_quantize_rows_int4_np(c, ck, dpp) if int4
-                             else _quantize_rows_np(c))
-            return (torch.from_numpy(codes).to(self.device),
-                    torch.from_numpy(scales).to(self.device))
-        codes = torch.empty((self.n, dpp // 2 if int4 else self.dim),
-                            dtype=torch.int8, device=self.device)
-        scales = torch.empty(self.n, dtype=torch.float32, device=self.device)
-        for r0 in range(0, self.n, self._chunk_rows):
-            r1 = min(self.n, r0 + self._chunk_rows)
-            qc, sc = (quantize_int4(c[r0:r1], ck) if int4
-                      else quantize_int8(c[r0:r1]))
-            codes[r0:r1].copy_(qc)
-            scales[r0:r1].copy_(sc)
-        return codes, scales
+        """(codes, scales) on the device from float rows (see
+        ``quantize_stored``)."""
+        codes, scales = quantize_stored(c, self.storage, self.dim,
+                                        self.device, self._chunk_rows)
+        return (torch.as_tensor(codes).to(self.device),
+                torch.as_tensor(scales).to(self.device))
 
     def __len__(self) -> int:
         return self.n
@@ -457,41 +497,15 @@ class Corpus:
         return self._f32_view
 
     def _prepared_for(self, metric: Metric):
-        """Cached (cp, cbp) of ``prepare_corpus`` for this metric and the
-        handle's core, built in row chunks so that no prep holds a
-        full-size f32 temporary.  Where the prep leaves the rows as stored
-        (int8 / int4 codes, bf16 rows for dot and euclidean, f32 rows for
-        "highest" dot and euclidean) cp is the storage itself and only the
-        bias or scale | bias rows are computed."""
+        """Cached (cp, cbp) of ``prepare_stored`` for this metric and the
+        handle's core."""
         precision = self._effective_precision()
         key = (metric.value, precision)
         if key not in self._prepared:
-            self._prepared[key] = self._prepare(metric, precision)
+            self._prepared[key] = prepare_stored(
+                self._device, self._scales, metric, precision,
+                self._chunk_rows)
         return self._prepared[key]
-
-    def _prepare(self, metric: Metric, precision: str):
-        c = self._device
-        step = self._chunk_rows
-        cp = cbp = None
-        for r0 in range(0, self.n, step):
-            r1 = min(self.n, r0 + step)
-            chunk = c[r0:r1]
-            sc = None if self._scales is None else self._scales[r0:r1]
-            cpc, cbc = prepare_corpus(chunk, metric, precision=precision,
-                                      scales=sc)
-            if r1 - r0 == self.n:
-                return cpc, cbc
-            if cp is None:
-                shared = cpc.data_ptr() == chunk.data_ptr()
-                cp = c if shared else torch.empty(
-                    (self.n,) + tuple(cpc.shape[1:]), dtype=cpc.dtype,
-                    device=c.device)
-                cbp = torch.empty(tuple(cbc.shape[:-1]) + (self.n,),
-                                  dtype=cbc.dtype, device=c.device)
-            if cp is not c:
-                cp[r0:r1] = cpc
-            cbp[..., r0:r1] = cbc
-        return cp, cbp
 
     def _combined_mask(self, user_mk) -> Optional[torch.Tensor]:
         mk = _mask_on(user_mk, self.device)

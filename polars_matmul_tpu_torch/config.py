@@ -7,8 +7,11 @@ package's, so a config can be carried from one package to the other.
 
 On this port:
 
-- ``block_q`` / ``block_n`` are accepted, but the CUDA kernel picks its
-  own tiles (they size TPU VMEM blocks).
+- ``block_q`` / ``block_n`` do not size the CUDA kernel's tiles (it
+  picks its own), but they size probed search as in the JAX package:
+  ``ClusteredCorpus``'s layout tile (``kernels.fused_topk.
+  layout_tile_rows``) and the query rows that share one tile list
+  (``probe_block_rows``), so both packages list the same tiles.
 - ``k_pad`` keeps its meaning through ``kernels.fused_topk.effective_k_pad``,
   but does not raise the fused path's k ceiling: the CUDA kernels hold at
   most 1024 candidates per row, so k > 1024 runs the reference top-k even

@@ -19,6 +19,19 @@
 // (m, n) score matrix never leaves the chip: a block holds one TM x TN
 // score tile in shared memory at a time.
 //
+// Probed search (the same _kernel through PrefetchScalarGridSpec at
+// fused_topk.py:2162, use_tiles=True): the TPU's index maps read corpus
+// block tiles[i, j] at grid step (i, j), so unlisted tiles never leave
+// HBM.  Here a block reads the list of its query rows (list row
+// row0 / block_rows) and walks list positions instead of corpus tiles:
+// position t is kernel tile tiles[b][t / tn_tiles] * tn_tiles +
+// t % tn_tiles, read once per tile outside the product's loops, and the
+// splits cut the p * tn listed rows.  Everything else is the dense walk.
+// The list is ascending, so each split still covers ascending rows and
+// kernel B's lowest-index ties hold unchanged.  A probed request reads
+// only the listed rows (p / n_tiles of the corpus bytes per list); the
+// rows are contiguous runs of tn, so the loads are the dense walk's.
+//
 // The two cores:
 // - "bf16x3" runs on the tensor cores: mma.sync m16n8k16 bf16 with an f32
 //   accumulator, three products per tile (qh.ch, qh.cl, ql.ch), the
@@ -619,17 +632,22 @@ __device__ inline void scores_f32(const float* __restrict__ q,
     }
 }
 
-template <int TM, int CORE>
+// LISTED instantiates the probed walk apart from the dense one: sharing one
+// instantiation moved the dense cores' register allocation and slowed
+// some of them by up to 13 % on the H100 (PERF.md).
+template <int TM, int CORE, bool LISTED>
 __global__ void __launch_bounds__(kThreads)
 fused_topk_partial_kernel(const void* __restrict__ qp,
                           const void* __restrict__ cp,
                           const float* __restrict__ scale,
                           const float* __restrict__ cb,
                           const uint8_t* __restrict__ mask,
+                          const int* __restrict__ tiles,
                           float* __restrict__ part_v,
                           int* __restrict__ part_i,
                           int m, int n, int dim, int c_ld, int ck, int k,
-                          int splits, int tiles_per_split, bool vec) {
+                          int splits, int tiles_per_split, int p,
+                          int tn_tiles, int block_rows, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* St = reinterpret_cast<float*>(smem + operand_bytes(TM, CORE));
   float* Cv = St + TM * (kTN + 1);
@@ -643,7 +661,15 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
   const int row0 = blockIdx.x * TM;
   const int rows_valid = min(TM, m - row0);
   const int split = blockIdx.y;
-  const int n_tiles = (n + kTN - 1) / kTN;
+  // Dense: kernel tile t is corpus rows [64 t, 64 t + 64).  Listed: t is a
+  // position in this query block's list, tn_tiles kernel tiles per layout
+  // tile, and the layout tile comes from the list (read once per tile,
+  // outside the product's loops).
+  const int* list = LISTED ? tiles + (size_t)(row0 / block_rows) * p
+                           : nullptr;
+  const int n_tiles = LISTED ? p * tn_tiles : (n + kTN - 1) / kTN;
+  const int layout_tiles =
+      LISTED ? (n + tn_tiles * kTN - 1) / (tn_tiles * kTN) : 0;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
@@ -653,7 +679,14 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * kTN;
+    int kt = t;
+    if constexpr (LISTED) {
+      const int lt = list[t / tn_tiles];
+      // An id outside the corpus names no rows (never read out of bounds).
+      if (lt < 0 || lt >= layout_tiles) continue;
+      kt = lt * tn_tiles + t % tn_tiles;
+    }
+    const int n0 = kt * kTN;
     if constexpr (CORE == kBf16x3) {
       uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
       uint16_t* Ql = Qh + TM * kBKP;
@@ -695,13 +728,14 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-template <int TM, int CORE>
+template <int TM, int CORE, bool LISTED>
 int launch(const void* qp, const void* cp, const float* scale,
-           const float* cb, const uint8_t* mask, float* part_v, int* part_i,
-           int m, int n, int dim, int c_ld, int ck, int k, int splits,
-           int tiles_per_split, cudaStream_t stream) {
+           const float* cb, const uint8_t* mask, const int* tiles,
+           float* part_v, int* part_i, int m, int n, int dim, int c_ld,
+           int ck, int k, int splits, int tiles_per_split, int p,
+           int tn_tiles, int block_rows, cudaStream_t stream) {
   const size_t bytes = smem_bytes(TM, k, CORE);
-  auto kern = fused_topk_partial_kernel<TM, CORE>;
+  auto kern = fused_topk_partial_kernel<TM, CORE, LISTED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -711,18 +745,18 @@ int launch(const void* qp, const void* cp, const float* scale,
   const bool vec = CORE != kHighest && dim % 8 == 0 && aligned(qp, 16) &&
                    aligned(cp, c_align);
   dim3 grid((m + TM - 1) / TM, splits);
-  kern<<<grid, kThreads, bytes, stream>>>(qp, cp, scale, cb, mask, part_v,
-                                          part_i, m, n, dim, c_ld, ck, k,
-                                          splits, tiles_per_split, vec);
+  kern<<<grid, kThreads, bytes, stream>>>(
+      qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck, k,
+      splits, tiles_per_split, p, tn_tiles, block_rows, vec);
   return (int)cudaGetLastError();
 }
 
-// Blocks of kernel<TM, CORE> one SM holds at this k (its registers and
-// shared memory), or a negative cudaError_t.
-template <int TM, int CORE>
+// Blocks of kernel<TM, CORE, LISTED> one SM holds at this k (its registers
+// and shared memory), or a negative cudaError_t.
+template <int TM, int CORE, bool LISTED>
 int occupancy(int k) {
   const size_t bytes = smem_bytes(TM, k, CORE);
-  auto kern = fused_topk_partial_kernel<TM, CORE>;
+  auto kern = fused_topk_partial_kernel<TM, CORE, LISTED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return -(int)err;
@@ -732,16 +766,23 @@ int occupancy(int k) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// Calls f(TM, CORE) with both as integral constants, or returns -1.
+// Calls f(TM, CORE, LISTED) with all three as integral constants, or
+// returns -1.
 template <typename F>
-int dispatch(int tm, int core, F&& f) {
+int dispatch(int tm, int core, bool listed, F&& f) {
+  auto by_listed = [&](auto tmc, auto cc) -> int {
+    return listed ? f(tmc, cc, std::true_type{})
+                  : f(tmc, cc, std::false_type{});
+  };
   auto by_core = [&](auto tmc) -> int {
     switch (core) {
-      case kHighest: return f(tmc, std::integral_constant<int, kHighest>{});
-      case kBf16x3: return f(tmc, std::integral_constant<int, kBf16x3>{});
-      case kBf16c: return f(tmc, std::integral_constant<int, kBf16c>{});
-      case kInt8c: return f(tmc, std::integral_constant<int, kInt8c>{});
-      case kInt4c: return f(tmc, std::integral_constant<int, kInt4c>{});
+      case kHighest:
+        return by_listed(tmc, std::integral_constant<int, kHighest>{});
+      case kBf16x3:
+        return by_listed(tmc, std::integral_constant<int, kBf16x3>{});
+      case kBf16c: return by_listed(tmc, std::integral_constant<int, kBf16c>{});
+      case kInt8c: return by_listed(tmc, std::integral_constant<int, kInt8c>{});
+      case kInt4c: return by_listed(tmc, std::integral_constant<int, kInt4c>{});
       default: return -1;
     }
   };
@@ -765,35 +806,55 @@ extern "C" {
 // nibbles for kInt4c, with c_ld its row stride and ck its feature chunk.
 // scale is the (n,) scale row for kInt8c / kInt4c and null otherwise; cb
 // the (n,) bias row; mask may be null.
+//
+// tiles, if not null, is the probed search's (n_lists, p) int32 list of
+// layout tiles of tn rows (tn a multiple of 64): query row r walks the
+// tiles of list row r / block_rows, in list order, and the splits cut the
+// p * tn listed rows.  Every query row must be on a list, and with more
+// than one list, block_rows must be a whole number of tm-row tiles.
 int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                            const float* cb, const uint8_t* mask,
-                           float* part_v, int* part_i, int m, int n, int dim,
-                           int c_ld, int ck, int k, int splits,
-                           int tiles_per_split, int tm, int core,
+                           const int* tiles, float* part_v, int* part_i,
+                           int m, int n, int dim, int c_ld, int ck, int k,
+                           int splits, int tiles_per_split, int tm, int core,
+                           int n_lists, int p, int tn, int block_rows,
                            void* stream) {
   if (m <= 0 || n <= 0 || dim <= 0 || k <= 0 || splits <= 0 ||
       tiles_per_split <= 0)
     return -1;
-  if ((long long)splits * tiles_per_split * kTN < n) return -1;
+  long long rows = n;
+  if (tiles != nullptr) {
+    if (n_lists <= 0 || p <= 0 || tn <= 0 || tn % kTN != 0 ||
+        block_rows <= 0 || (long long)n_lists * block_rows < m ||
+        (n_lists > 1 && block_rows % tm != 0))
+      return -1;
+    rows = (long long)p * tn;
+  }
+  if ((long long)splits * tiles_per_split * kTN < rows) return -1;
   const bool quant = core == kInt8c || core == kInt4c;
   if (quant != (scale != nullptr)) return -1;
   if (core == kInt4c &&
       (ck <= 0 || ck % 128 != 0 || 2LL * c_ld < dim || c_ld % (ck / 2) != 0))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(tm, core, [&](auto tmc, auto cc) {
-    return launch<decltype(tmc)::value, decltype(cc)::value>(
-        qp, cp, scale, cb, mask, part_v, part_i, m, n, dim, c_ld, ck, k,
-        splits, tiles_per_split, s);
+  return dispatch(tm, core, tiles != nullptr, [&](auto tmc, auto cc,
+                                                  auto lc) {
+    return launch<decltype(tmc)::value, decltype(cc)::value,
+                  decltype(lc)::value>(
+        qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
+        k, splits, tiles_per_split, p, tiles != nullptr ? tn / kTN : 0,
+        block_rows, s);
   });
 }
 
-// Blocks of the (tm, core) kernel that one SM of the current device holds
-// at this k; negative on an error, -1 for arguments it does not take.
-int pmm_fused_topk_blocks_per_sm(int tm, int k, int core) {
+// Blocks of the (tm, core, listed) kernel that one SM of the current
+// device holds at this k; negative on an error, -1 for arguments it does
+// not take.
+int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed) {
   if (k <= 0) return -1;
-  return dispatch(tm, core, [&](auto tmc, auto cc) {
-    return occupancy<decltype(tmc)::value, decltype(cc)::value>(k);
+  return dispatch(tm, core, listed != 0, [&](auto tmc, auto cc, auto lc) {
+    return occupancy<decltype(tmc)::value, decltype(cc)::value,
+                     decltype(lc)::value>(k);
   });
 }
 

@@ -33,9 +33,17 @@ codes the scale row carries 1/|codes| instead), euclidean selects on
 2 q.c - |c|^2 and the finalize sqrt(max(|q|^2 - s, 0)) runs after the
 kernels, and dot is the plain product.
 
+Probed search (``tiles=``, the JAX kernel's ``PrefetchScalarGridSpec``
+call): kernel A walks, for each query block, only the layout tiles its
+list names (``tiles`` (n_query_blocks, P) int32, ascending, distinct,
+``tn`` rows each), and kernel B merges as before.  The list geometry is
+the JAX package's (``layout_tile_rows``, ``probe_block_rows``), so a
+clustered layout and its lists mean the same rows in both packages.
+
 Every kernel wrapper takes CUDA tensors to its kernel and CPU tensors to
 its plain PyTorch version in this module; any other device raises.  Each
-counts its launches in ``launches`` (kernel A also per core in
+counts its launches in ``launches`` (kernel A on a tile list apart, as
+``fused_topk_partial_tiles``; kernel A also per core in
 ``core_launches``).
 """
 
@@ -81,6 +89,7 @@ _CORPUS_DTYPE = {"highest": torch.float32, "bf16x3": torch.bfloat16,
 # Launches per wrapper, for showing that a run went through the kernels.
 launches = {
     "fused_topk_partial": 0,
+    "fused_topk_partial_tiles": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -127,6 +136,68 @@ def max_fused_k(cfg: SearchConfig) -> int:
     """
     del cfg
     return _MAX_FUSED_K
+
+
+# ---------------------------------------------------------------------------
+# Probed-search geometry: the JAX package's, so that a clustered layout and
+# its tile lists cover the same rows in both packages.  Kernel A's own
+# tiles (64 corpus rows, ``query_tile_rows``) are independent of these.
+# ---------------------------------------------------------------------------
+
+# The JAX kernel's VMEM budget for one grid step's working set.
+_VMEM_BUDGET = 10 * 1024 * 1024
+
+
+def effective_tiles(cfg: SearchConfig, k: int) -> Tuple[int, int]:
+    """(block_q, block_n) the JAX package runs for this k: (128, 4096) for
+    k > 16 when the config keeps its default tiling and ``auto_tile``,
+    else the config's."""
+    fields = SearchConfig.__dataclass_fields__
+    defaults = (fields["block_q"].default, fields["block_n"].default)
+    if cfg.auto_tile and k > 16 and (cfg.block_q, cfg.block_n) == defaults:
+        return 128, 4096
+    return cfg.block_q, cfg.block_n
+
+
+def _pick_block_n(dim: int, block_q: int, block_n: int, kp: int) -> int:
+    """The JAX package's corpus tile height: block_n halved (in whole 128s)
+    until one grid step's working set fits _VMEM_BUDGET."""
+    ck, _, nk = feature_geometry(dim)
+    if nk > 1:
+        block_q = min(block_q, 128)
+    bn = block_n
+    while bn > 128:
+        tile_bytes = (
+            block_q * ck * 4 * (2 if nk > 1 else 1)
+            + bn * ck * 4 * 2
+            + block_q * bn * 4 * 2
+            + block_q * kp * 8 * 2
+            + block_q * _LANES * 5 * 4
+            + (block_q * bn * 4 if nk > 1 else 0)
+        )
+        if tile_bytes <= _VMEM_BUDGET:
+            break
+        bn = max(128, bn // 2 // 128 * 128)
+    return max(bn, 128)
+
+
+def layout_tile_rows(dim: int, cfg: SearchConfig, k: int = 1) -> int:
+    """Rows of one layout tile of a clustered corpus (the JAX package's
+    ``corpus_tile_rows``): 2048 at dim 256, 1024 at dim 768 under the
+    default config, ``block_n`` (at least 128) under a small one."""
+    bq, bn = effective_tiles(cfg, k)
+    return _pick_block_n(_round_up(dim, _LANES), bq, bn,
+                         effective_k_pad(k, cfg))
+
+
+def probe_block_rows(m: int, dim: int, cfg: SearchConfig, k: int = 1) -> int:
+    """Query rows that share one tile list (the JAX package's
+    ``query_tile_rows(m, dim, cfg, k)``): ``block_q`` (256; 128 for k > 16
+    or dim > 4096), or the whole batch rounded up to 8 rows if smaller."""
+    bq, _ = effective_tiles(cfg, k)
+    if feature_geometry(dim)[2] > 1:
+        bq = min(bq, 128)
+    return min(bq, _round_up(m, 8))
 
 
 def _is_f32(dtype) -> bool:
@@ -441,17 +512,65 @@ def _finish(vals, idx, k: int):
     return vals.contiguous(), idx.to(torch.int32).contiguous()
 
 
+def _listed(cp, cbp, mask, tiles_row, tn: int, precision: str):
+    """The rows one tile list names, in list order: (global ids, cp, cbp,
+    mask) gathered.  Rows past the corpus end, and the rows of a negative
+    tile id, score -inf through their bias, as kernel A gives them."""
+    n = cp.shape[0]
+    gid = (tiles_row.long()[:, None] * tn
+           + torch.arange(tn, device=cp.device)).reshape(-1)
+    valid = (gid >= 0) & (gid < n)
+    safe = torch.where(valid, gid, torch.zeros_like(gid))
+    ninf = torch.full((), _NEG_INF, device=cp.device)
+    if precision in _QUANT:
+        cb = torch.stack([cbp[0, safe], torch.where(valid, cbp[1, safe],
+                                                    ninf)])
+    else:
+        cb = torch.where(valid, cbp[safe], ninf)
+    return gid, cp[safe], cb, None if mask is None else mask[safe]
+
+
+def _per_list(fn, qp, cp, cbp, mask, precision: str, tiles, tn: int,
+              block_rows: int):
+    """Runs ``fn(qp rows, cp, cbp, mask)`` of a plain version per tile
+    list, on the list's query rows and gathered corpus rows, and maps its
+    local indices back to global ones (the gathered rows ascend with the
+    list, so lowest-local-index ties are lowest-global-index ties)."""
+    vals, idx = [], []
+    for b in range(tiles.shape[0]):
+        r0, r1 = b * block_rows, min(qp.shape[0], (b + 1) * block_rows)
+        gid, cp_b, cb_b, mk_b = _listed(cp, cbp, mask, tiles[b], tn,
+                                        precision)
+        v, i = fn(qp[r0:r1], cp_b, cb_b, mk_b)
+        g = gid[torch.clamp(i.long(), max=gid.shape[0] - 1)]
+        vals.append(v)
+        idx.append(torch.where(i == INT32_MAX, i, g.to(torch.int32)))
+    return torch.cat(vals), torch.cat(idx)
+
+
 def fused_topk_plain(qp: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
-                     mask: Optional[torch.Tensor], k: int, precision: str
+                     mask: Optional[torch.Tensor], k: int, precision: str,
+                     tiles: Optional[torch.Tensor] = None, tn: int = 0,
+                     block_rows: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernels A + B on prepared operands.
 
     Scores are the core's product (``_plain_scores``) through the
     epilogue, masked by select to -inf; returns the top-k by (value desc,
     index asc) with INT32_MAX wherever the value is -inf.  Builds the
-    score matrix in corpus row chunks.
+    score matrix in corpus row chunks.  With ``tiles``, query rows
+    [b * block_rows, (b + 1) * block_rows) see only the rows of the
+    ``tn``-row tiles that list row b names.
     """
     launches["fused_topk_plain"] += 1
+    if tiles is not None:
+        return _per_list(
+            lambda q, c, cb, mk: _topk_plain(q, c, cb, mk, k, precision),
+            qp, cp, cbp, mask, precision, tiles, tn, block_rows)
+    return _topk_plain(qp, cp, cbp, mask, k, precision)
+
+
+def _topk_plain(qp, cp, cbp, mask, k: int, precision: str):
     m, n = qp.shape[0], cp.shape[0]
     dev = qp.device
     vals = torch.empty((m, 0), dtype=torch.float32, device=dev)
@@ -472,11 +591,26 @@ def fused_topk_plain(qp: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
 
 
 def fused_topk_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
-                             splits: int, tiles_per_split: int):
+                             splits: int, tiles_per_split: int,
+                             tiles: Optional[torch.Tensor] = None,
+                             tn: int = 0, block_rows: int = 0):
     """Plain version of kernel A: (m, splits, k) top-k lists, split s
     covering corpus rows [s * rows, (s + 1) * rows) with rows =
-    tiles_per_split * 64.  Scores whole splits, a few at a time."""
+    tiles_per_split * 64.  Scores whole splits, a few at a time.  With
+    ``tiles``, the splits cut each list's rows (in list order) instead of
+    the corpus, as ``fused_topk_plain`` reads them."""
     launches["fused_topk_partial_plain"] += 1
+    if tiles is not None:
+        return _per_list(
+            lambda q, c, cb, mk: _partial_plain(q, c, cb, mk, k, precision,
+                                                splits, tiles_per_split),
+            qp, cp, cbp, mask, precision, tiles, tn, block_rows)
+    return _partial_plain(qp, cp, cbp, mask, k, precision, splits,
+                          tiles_per_split)
+
+
+def _partial_plain(qp, cp, cbp, mask, k: int, precision: str, splits: int,
+                   tiles_per_split: int):
     m, n = qp.shape[0], cp.shape[0]
     rows = tiles_per_split * _TN
     per = max(1, _plain_rows(qp) // rows)
@@ -527,11 +661,12 @@ def query_tile_rows(m: int, k: int) -> int:
 
 
 def launch_geometry(m: int, n: int, k: int, sm_count: int,
-                    blocks_per_sm: int = 2):
+                    blocks_per_sm: int = 2, tm: Optional[int] = None):
     """(tm, splits, tiles_per_split): enough blocks to give every SM
     ``blocks_per_sm``, no empty split, and at most _MAX_SPLITS lists for
-    kernel B."""
-    tm = query_tile_rows(m, k)
+    kernel B.  ``n`` is the rows a block may walk (a tile list's rows
+    when kernel A walks one); ``tm`` defaults to ``query_tile_rows``."""
+    tm = tm or query_tile_rows(m, k)
     grid_m = -(-m // tm)
     n_tiles = -(-n // _TN)
     want = max(1, -(-blocks_per_sm * sm_count // grid_m))
@@ -545,24 +680,32 @@ _occupancy = {}
 
 
 def kernel_geometry(m: int, n: int, k: int, precision: str,
-                    device: torch.device):
+                    device: torch.device, tm: Optional[int] = None,
+                    listed: bool = False):
     """The ``launch_geometry`` kernel A runs with on a CUDA ``device``:
     as many blocks as its SMs hold at once (kernel A waits on its loads
-    at every staging step, so blocks in flight are bytes in flight)."""
-    tm = query_tile_rows(m, k)
-    key = (device.index, tm, k, precision)
+    at every staging step, so blocks in flight are bytes in flight).
+    ``listed``: the instantiation that walks tile lists."""
+    tm = tm or query_tile_rows(m, k)
+    key = (device.index, tm, k, precision, listed)
     if key not in _occupancy:
         from ._build import load_library
 
         with torch.cuda.device(device):
             blocks = load_library().pmm_fused_topk_blocks_per_sm(
-                tm, k, CORES.index(precision))
+                tm, k, CORES.index(precision), int(listed))
         if blocks <= 0:
             raise RuntimeError(f"kernel A cannot run tm={tm} k={k} "
                                f"{precision}: error {blocks}")
         _occupancy[key] = blocks
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return launch_geometry(m, n, k, sms, _occupancy[key])
+    return launch_geometry(m, n, k, sms, _occupancy[key], tm)
+
+
+def listed_tile_rows(m: int, k: int, block_rows: int) -> int:
+    """Kernel A's query tile on a tile list: no taller than the rows that
+    share a list."""
+    return query_tile_rows(min(m, block_rows), k)
 
 
 def _corpus_width(precision: str, dim: int) -> int:
@@ -606,17 +749,54 @@ def _check_operands(qp, cp, cbp, mask, k: int, precision: str):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_tiles(qp, tiles, tn: int, block_rows: int, tm: int) -> None:
+    """A tile list kernel A can walk: (n_lists, P) int32 on the queries'
+    device, ``tn`` a whole number of kernel tiles, every query row on a
+    list, and, with several lists, whole query tiles per list."""
+    if (tiles.dtype != torch.int32 or tiles.ndim != 2
+            or tiles.shape[1] < 1 or tiles.device != qp.device
+            or not tiles.is_contiguous()):
+        raise ValueError("tiles must be a contiguous (n_lists, P >= 1) "
+                         "int32 tensor on the queries' device")
+    if tn <= 0 or tn % _TN:
+        raise ValueError(f"tn={tn} must be a positive multiple of {_TN}")
+    n_lists, m = tiles.shape[0], qp.shape[0]
+    if block_rows <= 0 or not (n_lists - 1) * block_rows < m <= (
+            n_lists * block_rows):
+        raise ValueError(f"{n_lists} tile lists of {block_rows} query rows "
+                         f"do not cover {m} queries")
+    if n_lists > 1 and block_rows % tm:
+        raise ValueError(f"block_rows={block_rows} is not a whole number of "
+                         f"{tm}-row query tiles")
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
-                       splits: int, tiles_per_split: int, tm: int):
-    """Kernel A: (m, splits, k) f32 values and int32 indices."""
+                       splits: int, tiles_per_split: int, tm: int,
+                       tiles: Optional[torch.Tensor] = None, tn: int = 0,
+                       block_rows: int = 0):
+    """Kernel A: (m, splits, k) f32 values and int32 indices.
+
+    With ``tiles`` (n_lists, P), query rows [b * block_rows, (b + 1) *
+    block_rows) walk only the ``tn``-row layout tiles that list row b
+    names, in list order (ascending, distinct: then the splits cover
+    ascending rows and kernel B's ties stay lowest-index first), and the
+    splits cut the P * tn listed rows."""
     _check_operands(qp, cp, cbp, mask, k, precision)
+    listed = tiles is not None
+    if listed:
+        _check_tiles(qp, tiles, tn, block_rows, tm)
+    rows = tiles.shape[1] * tn if listed else cp.shape[0]
+    if splits * tiles_per_split * _TN < rows:
+        raise ValueError(f"{splits} splits of {tiles_per_split} tiles do "
+                         f"not cover {rows} rows")
     if qp.device.type == "cpu":
         return fused_topk_partial_plain(qp, cp, cbp, mask, k, precision,
-                                        splits, tiles_per_split)
+                                        splits, tiles_per_split, tiles, tn,
+                                        block_rows)
     if qp.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {qp.device}")
     from ._build import load_library
@@ -626,6 +806,7 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     dim = _query_dim(qp, precision)
     ck = feature_geometry(dim)[0] if precision == "int4c" else 0
     scale, bias = (cbp[0], cbp[1]) if precision in _QUANT else (None, cbp)
+    n_lists, p = tuple(tiles.shape) if listed else (0, 0)
     part_v = torch.empty((m, splits, k), dtype=torch.float32,
                          device=qp.device)
     part_i = torch.empty((m, splits, k), dtype=torch.int32, device=qp.device)
@@ -633,12 +814,13 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pmm_fused_topk_partial(
             _ptr(qp), _ptr(cp), _ptr(scale), _ptr(bias), _ptr(mask),
-            _ptr(part_v), _ptr(part_i), m, n, dim, cp.shape[1], ck, k,
-            splits, tiles_per_split, tm, CORES.index(precision),
-            ctypes.c_void_p(stream))
+            _ptr(tiles), _ptr(part_v), _ptr(part_i), m, n, dim, cp.shape[1],
+            ck, k, splits, tiles_per_split, tm, CORES.index(precision),
+            n_lists, p, tn, block_rows, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
-    launches["fused_topk_partial"] += 1
+    launches["fused_topk_partial_tiles" if listed
+             else "fused_topk_partial"] += 1
     core_launches[precision] += 1
     return part_v, part_i
 
@@ -672,22 +854,50 @@ def topk_merge(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
     return vals, idx
 
 
-def fused_select(qp, cp, cbp, mask, k: int, precision: str):
+def fused_select(qp, cp, cbp, mask, k: int, precision: str,
+                 tiles: Optional[torch.Tensor] = None, tn: int = 0,
+                 block_rows: int = 0):
     """Top-k on prepared operands: kernels A + B for CUDA tensors, the
-    plain version for CPU tensors, and an error for any other device."""
+    plain version for CPU tensors, and an error for any other device.
+    ``tiles`` / ``tn`` / ``block_rows``: the tile lists of probed search
+    (see ``fused_topk_partial``)."""
     _check_operands(qp, cp, cbp, mask, k, precision)
-    if qp.shape[0] == 0:
+    m = qp.shape[0]
+    if m == 0:
         return (torch.empty((0, k), device=qp.device),
                 torch.empty((0, k), dtype=torch.int32, device=qp.device))
+    if tiles is not None:
+        _check_tiles(qp, tiles, tn, block_rows, 1)
     if qp.device.type == "cpu":
-        return fused_topk_plain(qp, cp, cbp, mask, k, precision)
+        return fused_topk_plain(qp, cp, cbp, mask, k, precision, tiles, tn,
+                                block_rows)
     if qp.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {qp.device}")
-    tm, splits, tps = kernel_geometry(qp.shape[0], cp.shape[0], k,
-                                      precision, qp.device)
+    if tiles is None:
+        tm, splits, tps = kernel_geometry(m, cp.shape[0], k, precision,
+                                          qp.device)
+        part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
+                                            splits, tps, tm)
+        return topk_merge(part_v, part_i, k)
+    tm = listed_tile_rows(m, k, block_rows)
+    rows = None
+    if tiles.shape[0] > 1 and block_rows % tm:
+        # Lists of fewer rows than a query tile (a small block_q): give each
+        # list's rows a whole tile, padded with zero rows, and take the
+        # real rows back after the merge.
+        br = _round_up(block_rows, tm)
+        rows = (torch.arange(m, device=qp.device) // block_rows * br
+                + torch.arange(m, device=qp.device) % block_rows)
+        padded = qp.new_zeros((tiles.shape[0] * br, qp.shape[1]))
+        padded[rows] = qp
+        qp, block_rows = padded, br
+    tm, splits, tps = kernel_geometry(qp.shape[0], tiles.shape[1] * tn, k,
+                                      precision, qp.device, tm, listed=True)
     part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
-                                        splits, tps, tm)
-    return topk_merge(part_v, part_i, k)
+                                        splits, tps, tm, tiles, tn,
+                                        block_rows)
+    vals, idx = topk_merge(part_v, part_i, k)
+    return (vals, idx) if rows is None else (vals[rows], idx[rows])
 
 
 # ---------------------------------------------------------------------------
@@ -707,7 +917,8 @@ def _finalize(q: torch.Tensor, vals: torch.Tensor, metric: Metric):
 def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
                         k: int, metric, *, mask=None,
                         config: Optional[SearchConfig] = None,
-                        precision: Optional[str] = None
+                        precision: Optional[str] = None,
+                        tiles=None, tn: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``q`` against a corpus prepared by ``prepare_corpus``.
 
@@ -715,6 +926,12 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
     core is ``precision``, else the config's; the prepared form must be
     that core's (bf16c and bf16x3 are both bf16, int8c and int4c both
     int8, so the dtype alone cannot tell).
+
+    ``tiles`` (n_query_blocks, P) int32 opts into probed search: each
+    block of ``probe_block_rows(m, dim, config, k)`` queries scans only
+    its listed layout tiles of ``tn`` rows (default ``layout_tile_rows``;
+    ascending, distinct, each below ceil(n / tn)).  Exact over the visited
+    rows; slots a query cannot fill carry (-inf, INT32_MAX).
     """
     cfg = resolve(config)
     metric = Metric.parse(metric)
@@ -733,11 +950,29 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
         # Half-precision queries: upcast on the device, so the kernels and
         # the euclidean finalize run f32.
         q = q.float()
+    block_rows = 0
+    if tiles is not None:
+        m, dim = q.shape
+        tn = tn or layout_tile_rows(dim, cfg, k)
+        n_layout = -(-cbp.shape[-1] // tn)
+        tiles = torch.as_tensor(tiles, device=q.device).to(
+            torch.int32).contiguous()
+        if tiles.shape[1] > n_layout:
+            raise ValueError(
+                f"tiles lists {tiles.shape[1]} tiles per query block; the "
+                f"prepared corpus only has {n_layout} (repeating a tile "
+                "would duplicate its rows in the result)")
+        block_rows = probe_block_rows(m, dim, cfg, k)
+        if tiles.shape[0] != -(-m // block_rows):
+            raise ValueError(
+                f"tiles has {tiles.shape[0]} rows; this problem runs "
+                f"{-(-m // block_rows)} query blocks of {block_rows} rows")
     qp = prepare_queries(q, metric, precision)
     mask_u8 = None if mask is None else pad_mask_row(
         torch.as_tensor(mask, device=q.device), cbp.shape[-1])
     with annotate(f"pmm.fused_topk.{metric.value}"):
-        vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision)
+        vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision, tiles,
+                                 tn or 0, block_rows)
     return _finalize(q, vals, metric), idx
 
 
