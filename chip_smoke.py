@@ -44,7 +44,25 @@ Phases, each printing one line or a few:
    exactly the rows its lists visited; probed recall@10 against the
    exhaustive scan reported; listed kernel A checked against its plain
    version at these shapes and timed against its bound and a library
-   yardstick.
+   yardstick;
+9. the tiled product and autotune: ``pallas_matmul`` (kernel C, both
+   cores) driven from NumPy at the canonical 1000 x 10,000 x 256 shape and
+   on card tensors at 8192 x 65,536 x 768, each held to a float64 product,
+   with its launch counts; kernel C against its plain version over ragged
+   shapes (and f64 inputs once) and at those two, against float64 too;
+   CUDA-event times of kernel C, its plain version and ``torch.matmul``
+   f32 beside the bound and the roofline share; ``autotune`` on the card
+   (every candidate's time, the distinct launches it measured, the winner
+   persisted under ``PMM_TPU_CACHE_DIR`` and served from there a second
+   time, an all-defaults ``topk_torch`` adopting it, held to a float64
+   oracle); explicit selections outside their envelope raising the JAX
+   package's errors, dense and probed.
+
+The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
+listed), kernel B (``csrc/topk_merge.cu``) and kernel C (``csrc/matmul.cu``,
+two cores).  ``PMM_TPU_CACHE_DIR`` is set to a fresh directory under
+``build/`` before anything runs, so no autotune winner of an earlier run
+changes what the all-defaults paths launch.
 
 The line before the last is a JSON object of per-kernel results; the last
 is {"ok": true, "device": {...}}.  Any failure exits non-zero with its
@@ -54,11 +72,14 @@ traceback and prints no result; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -74,9 +95,15 @@ TIER_CORE = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
 # Probed search (phase 8): blob mixtures of CENTRES centres, probe share.
 CENTRES, SPREAD, PROBE = 1024, 4.0, 0.05
 CLUSTER_REQUESTS = ((8, 10), (8, 100), (256, 10), (256, 100))
-# Published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
-# and f32 (CUDA-core) operations/s.
-HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
+# The tiled product (phase 9): ragged shapes, the canonical shape of
+# examples/benchmark_matmul.py:45, and a large one (a 2.15 GB output).
+MM_MS, MM_NS = (1, 37, 300, 1000), (1, 129, 5000, 10_000)
+MM_DIMS = (1, 56, 256, 300, 768, 4100)
+MM_SHAPES = ((N_QUERIES, N_CORPUS, DIM), (8192, 65_536, 768))
+MM_SRC = "polars_matmul_tpu/kernels/matmul.py:46"
+# Kernel C's bf16x3 core drops lo.lo and the bf16 rounding of each lo:
+# at most about 3 * 2^-16 of each term |q_d c_d| (2^-14 bounds it).
+SPLIT_RTOL = 2.0 ** -14
 # Kernel against plain version: the f32 sums run in another order, and
 # their rounding error scales with the terms summed, not with the result.
 # So a score may differ by ATOL + RTOL * max(|score|, scale), where scale
@@ -185,13 +212,17 @@ def phase_card():
 def _ptxas_summary(log: str):
     """One line per compiled kernel from nvcc's -Xptxas -v output: its
     template arguments, registers and spilled bytes."""
+    from polars_matmul_tpu_torch.kernels.matmul import CORES
+
     lines, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"((?:fused_topk_partial|topk_merge)_kernel)"
+                      r"((?:fused_topk_partial|topk_merge|matmul)_kernel)"
                       r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
+            if m.group(1) == "matmul_kernel":
+                args = CORES[int(args)]
             if m.group(4) is not None:
                 args += ", listed" if m.group(4) == "1" else ", dense"
             name, spill = f"{m.group(1)}<{args}>", ""
@@ -609,10 +640,17 @@ def profile_request(torch, fn, label: str, card: str,
           f"{host_ms:.3f} ms request; {top}")
 
 
-def _bound(nbytes, ops, peak):
+def _bound(nbytes, ops, dtype):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    each input read once and each output written once."""
-    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    each input read once and each output written once, at the published
+    peaks of ``utils.profiling`` (``dtype`` "bfloat16" for tensor-core
+    products, "float32_cuda_cores" for f32 FMA)."""
+    from polars_matmul_tpu_torch.utils import profiling as P
+
+    peak, hbm = P.device_peak_tflops(dtype), P.device_hbm_bytes_per_s()
+    require(peak is not None and hbm is not None,
+            f"no published peak for {P.device_name()} in utils/profiling")
+    by_bytes, by_ops = nbytes / hbm * 1e3, ops / (peak * 1e12) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
@@ -665,8 +703,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
         b = cuda_ms(lambda: F.topk_merge(pv, pi, k))
         b_plain = cuda_ms(lambda: F.topk_merge_plain(pv, pi, k))
         if k == 10:
-            passes, peak = ((3, BF16_OPS) if precision == "bf16x3"
-                            else (1, F32_OPS))
+            passes, peak = ((3, "bfloat16") if precision == "bf16x3"
+                            else (1, "float32_cuda_cores"))
             a_bound = _bound(
                 qp.nbytes + cp.nbytes + cbp.nbytes + pv.nbytes + pi.nbytes,
                 passes * 2 * N_QUERIES * N_CORPUS * DIM, peak)
@@ -679,7 +717,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
         if (k, precision) == CANON_TIERS[0]:
             m = pv.shape[0]
             b_lib = cuda_ms(lambda: torch.topk(pv.reshape(m, -1), k, dim=1))
-            b_bound = _bound(pv.nbytes + pi.nbytes + m * k * 8, 0, F32_OPS)
+            b_bound = _bound(pv.nbytes + pi.nbytes + m * k * 8, 0,
+                             "float32_cuda_cores")
             per_kernel["topk_merge"] = _entry(
                 b, b_plain, b_lib, "torch.topk of the flattened split lists",
                 b_bound, f"{m}x{splits}x{k} split lists")
@@ -915,7 +954,7 @@ def phase_wide(pmt, F, torch, card, err):
                                              dim=1), reps=5, warmup=1)
             ops = 2 * 2 * batch * corpus.n * corpus.dim
             bound = _bound(cp.nbytes + cbp.nbytes + qp.nbytes
-                           + batch * k * 8, ops, BF16_OPS)
+                           + batch * k * 8, ops, "bfloat16")
             print(f"phase 6: [{card}] {label} batch {batch} k={k}: request "
                   f"{host:.3f} ms host, A+B {ab:.3f} ms device, bound "
                   f"{bound[0]:.3f} ms ({bound[1]}), library torch.addmm + "
@@ -932,7 +971,8 @@ def phase_wide(pmt, F, torch, card, err):
                     qp, cp, cbp, None, k, core, splits, tps), reps=2,
                     warmup=1)
                 a_bound = _bound(cp.nbytes + cbp.nbytes + qp.nbytes
-                                 + batch * splits * k * 8, ops, BF16_OPS)
+                                 + batch * splits * k * 8, ops,
+                                 "bfloat16")
                 entries[core] = _entry(
                     a, a_plain, lib,
                     "torch.addmm + torch.topk on the dequantised bf16 rows",
@@ -1136,7 +1176,7 @@ def _time_probed(F, torch, cc, q, k, card, label):
     passes = 3 if core == "bf16x3" else 2
     bound = _bound(tiles.shape[0] * p * tn * row_bytes + qp.nbytes
                    + m * splits * k * 8,
-                   passes * 2 * m * p * tn * cc.dim, BF16_OPS)
+                   passes * 2 * m * p * tn * cc.dim, "bfloat16")
     print(f"phase 6: [{card}] {label} probe {PROBE} batch {m} k={k}: "
           f"request {host:.3f} ms host; probe step {probe_ms:.4f} ms; "
           f"listed A {a:.4f} ms (tm={tm}, splits={splits}, {p} of "
@@ -1250,12 +1290,328 @@ def phase_clustered(pmt, F, torch, card, err):
     return entry, launched["fused_topk_partial_tiles"]
 
 
+def _check_product(torch, out, q, c, core, what, plain=None):
+    """Kernel C's output against a float64 product of the same f32 inputs
+    (and, given ``plain``, against its plain version): within ATOL + RTOL
+    x the term scale |q_i| |c_j| per element, plus, for bf16x3, SPLIT_RTOL
+    x sum_d |q_d c_d| against float64.  Returns the largest absolute
+    difference from ``plain`` (0.0 without it)."""
+    scale = q.norm(dim=1)[:, None] * c.norm(dim=1)[None, :]
+    worst = 0.0
+    if plain is not None:
+        diff = (out - plain).abs()
+        worst = float(diff.max())
+        require(bool((diff <= ATOL + RTOL * torch.maximum(plain.abs(), scale)
+                      ).all()),
+                f"kernel C {core} {what}: differs from its plain version by "
+                f"up to {worst}")
+        del diff, plain
+    qd, cd = q.double(), c.double()
+    tol = ATOL + RTOL * scale.double()
+    if core == "bf16x3":
+        tol += SPLIT_RTOL * (qd.abs() @ cd.abs().T)
+    off = (out.double() - qd @ cd.T).abs()
+    require(bool((off <= tol).all()), f"kernel C {core} {what}: off the "
+            f"float64 product by up to {float(off.max())}")
+    return worst
+
+
+def _matmul_main_path(M, torch, q_np, c_np):
+    """The main path of kernel C, counted: ``pallas_matmul`` from NumPy at
+    the canonical shape in every precision, and on card tensors at the
+    large shape in each core, each held to a float64 product.  Returns the
+    large shape's operands."""
+    M.reset_launch_counts()
+    q, c = torch.from_numpy(q_np).cuda(), torch.from_numpy(c_np).cuda()
+    for precision in ("highest", "bf16x3", "default", "high", "bf16c"):
+        out = M.pallas_matmul(q_np, c_np, precision=precision)
+        require(out.is_cuda and out.dtype == torch.float32
+                and tuple(out.shape) == (N_QUERIES, N_CORPUS),
+                f"pallas_matmul from NumPy ({precision}): {out.device} "
+                f"{out.dtype} {tuple(out.shape)}")
+        _check_product(torch, out, q, c, M._CORE[precision],
+                       f"canonical {precision} from NumPy")
+    m, n, dim = MM_SHAPES[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    ql = torch.randn((m, dim), generator=gen, device="cuda")
+    cl = torch.randn((n, dim), generator=gen, device="cuda")
+    for core in M.CORES:
+        out = M.pallas_matmul(ql, cl, precision=core)
+        _check_product(torch, out, ql, cl, core, f"{m}x{n}x{dim}")
+        del out
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts, cores = dict(M.launches), dict(M.core_launches)
+    print(f"phase 5: launches on the pallas_matmul path: {counts}, by core "
+          f"{cores}")
+    for core in M.CORES:
+        require(cores[core] > 0, f"kernel C {core} never launched")
+    require(counts["pallas_matmul_plain"] == 0,
+            "pallas_matmul_plain ran on the pallas_matmul path")
+    print(f"phase 9: pallas_matmul from NumPy at {N_QUERIES}x{N_CORPUS}x{DIM} "
+          f"(precision highest, bf16x3, default, high, bf16c) and on card "
+          f"tensors at {m}x{n}x{dim} (each core) pass the float64 product")
+    return cores, ql, cl
+
+
+def _compare_matmul(M, torch, large, err):
+    """Kernel C against its plain version and float64 over ragged shapes,
+    f64 inputs once, and at the main path's two shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    cases = 0
+    for m in MM_MS:
+        for n in MM_NS:
+            for dim in MM_DIMS:
+                q = torch.randn((m, dim), generator=gen, device="cuda")
+                c = torch.randn((n, dim), generator=gen, device="cuda")
+                for core in M.CORES:
+                    out = M.pallas_matmul(q, c, precision=core)
+                    err[f"mm.{core}"] = max(err[f"mm.{core}"], _check_product(
+                        torch, out, q, c, core, f"m={m} n={n} dim={dim}",
+                        plain=M.pallas_matmul_plain(q, c, core)))
+                    cases += 1
+    q64 = torch.randn((300, 300), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    c64 = torch.randn((129, 300), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    out = M.pallas_matmul(q64, c64)
+    require(out.dtype == torch.float64, f"f64 inputs gave {out.dtype}")
+    off = float((out - q64 @ c64.T).abs().max())
+    scale = q64.norm(dim=1)[:, None] * c64.norm(dim=1)[None, :]
+    require(bool(((out - q64 @ c64.T).abs() <= ATOL + RTOL * scale).all()),
+            f"f64 inputs: off the float64 product by {off}")
+    for m, n, dim in MM_SHAPES:
+        if (m, n, dim) == MM_SHAPES[1]:
+            q, c = large
+        else:
+            q = torch.randn((m, dim), generator=gen, device="cuda")
+            c = torch.randn((n, dim), generator=gen, device="cuda")
+        for core in M.CORES:
+            out = M.pallas_matmul(q, c, precision=core)
+            err[f"mm.{core}"] = max(err[f"mm.{core}"], _check_product(
+                torch, out, q, c, core, f"{m}x{n}x{dim}",
+                plain=M.pallas_matmul_plain(q, c, core)))
+            del out
+            torch.cuda.empty_cache()
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 9: kernel C matches its plain version (atol {ATOL} + rtol "
+          f"{RTOL} x max(|value|, |q_i| |c_j|)) and the float64 product "
+          f"(bf16x3 also + {SPLIT_RTOL:.3g} x sum_d |q_d c_d|) in {cases} "
+          f"cases, both cores: ragged m {MM_MS}, n {MM_NS}, dim {MM_DIMS} "
+          f"and the shapes {MM_SHAPES}; f64 inputs give f64 within "
+          f"{off:.3g} of the float64 product; max abs err against plain "
+          f"highest {err['mm.highest']:.3g}, bf16x3 {err['mm.bf16x3']:.3g}")
+
+
+def _time_matmul(M, torch, large, card):
+    """CUDA-event times of kernel C, its plain version and torch.matmul f32
+    (TF32 off: the library yardstick, never called by the port) at the
+    two shapes, beside the bound.  Returns the canonical shape's entries
+    per core."""
+    from polars_matmul_tpu_torch.ops.reference import exact_matmul
+    from polars_matmul_tpu_torch.utils import profiling as P
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    entries = {}
+    for m, n, dim in MM_SHAPES:
+        if (m, n, dim) == MM_SHAPES[1]:
+            (q, c), iters = large, 5
+        else:
+            q = torch.randn((m, dim), generator=gen, device="cuda")
+            c = torch.randn((n, dim), generator=gen, device="cuda")
+            iters = 20
+
+        def library():
+            with exact_matmul():
+                return torch.matmul(q, c.T)
+
+        lib = P.benchmark(library, iters=iters)["median_ms"]
+        nbytes = (m * dim + n * dim + m * n) * 4
+        flops = 2 * m * n * dim
+        for core in M.CORES:
+            ms = P.benchmark(lambda: M.pallas_matmul(q, c, precision=core),
+                             iters=iters)["median_ms"]
+            plain = P.benchmark(lambda: M.pallas_matmul_plain(q, c, core),
+                                warmup=1, iters=max(3, iters // 4)
+                                )["median_ms"]
+            if core == "highest":
+                bound = _bound(nbytes, flops, "float32_cuda_cores")
+                roof = P.roofline(flops, ms / 1e3, "float32_cuda_cores")
+            else:
+                bound = _bound(nbytes, 3 * flops, "bfloat16")
+                roof = P.roofline(flops, ms / 1e3, "float32")
+            shape = f"{m}x{n}x{dim}"
+            print(f"phase 9: [{card}] pallas_matmul {core} {shape}: kernel C "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul f32 "
+                  f"{lib:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+                  f"{roof['achieved_gflops'] / 1e3:.1f} TFLOP/s, "
+                  f"{100 * roof['fraction_of_peak']:.1f} % of the "
+                  f"{roof['peak_tflops']:.1f} TFLOP/s roofline")
+            if (m, n, dim) == MM_SHAPES[0]:
+                entries[core] = _entry(ms, plain, lib,
+                                       "torch.matmul f32 (TF32 off)", bound,
+                                       shape)
+        del q, c
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _autotune_on_card(pmt, F, torch, q_np, c_np, card):
+    """``autotune`` at the canonical shape: every candidate's time, the
+    distinct launches it measured, the winner persisted in this run's
+    PMM_TPU_CACHE_DIR and served from there without measuring, and an
+    all-defaults ``topk_torch`` dispatching with the winner's fields, held
+    to the float64 oracle."""
+    from polars_matmul_tpu_torch.utils import autotune as A
+
+    measured = []
+    timer = A.device_step_seconds
+
+    def counting(step, q, **kw):
+        measured.append(q.shape)
+        return timer(step, q, **kw)
+
+    A.device_step_seconds = counting
+    t0 = time.perf_counter()
+    win = pmt.autotune(N_QUERIES, N_CORPUS, DIM, 10, "cosine", verbose=True)
+    took = time.perf_counter() - t0
+    launches = len(measured)
+    cores = {F.kernel_precision(p) for p in (
+        pmt.default_config().precision, "highest")}
+    require(launches == len(cores),
+            f"autotune measured {launches} launches; the grid has "
+            f"{len(cores)} distinct ones")
+    path = Path(A._cache_path())
+    require(path.parent == Path(os.environ["PMM_TPU_CACHE_DIR"])
+            and path.is_file(), f"no winner persisted at {path}")
+    key = [A._device_kind(), DIM, A._k_regime(10), A._n_regime(N_CORPUS),
+           "cosine", pmt.default_config().precision]
+    saved = json.loads(path.read_text())
+    require(json.dumps(key) in saved, f"{path} lacks the key {key}")
+    # A fresh process's view: the in-memory winners dropped, the file read.
+    A._WINNER_CACHE.clear()
+    A._DISK_LOADED[0] = False
+    again = pmt.autotune(N_QUERIES, N_CORPUS, DIM, 10, "cosine")
+    A.device_step_seconds = timer
+    require(again == win and len(measured) == launches,
+            "the second autotune call measured again or changed the winner")
+    print(f"phase 9: [{card}] autotune {N_QUERIES}x{N_CORPUS}x{DIM} cosine "
+          f"k=10: {launches} distinct launches measured for the grid "
+          f"({took:.2f} s), winner "
+          f"{ {f: getattr(win, f) for f in A._CFG_FIELDS} } persisted in "
+          f"{path} as {saved[json.dumps(key)]}; a second call (winners "
+          f"reloaded from the file) measured nothing")
+
+    seen = {}
+    prepared = F.fused_topk_prepared
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return prepared(*args, **kw)
+
+    F.fused_topk_prepared = spy
+    F.reset_launch_counts()
+    q, c = torch.from_numpy(q_np).cuda(), torch.from_numpy(c_np).cuda()
+    vals, idx = pmt.topk_torch(q, c, 10, "cosine")
+    torch.cuda.synchronize()
+    F.fused_topk_prepared = prepared
+    cfg = seen["config"]
+    for f in A._CFG_FIELDS:
+        require(getattr(cfg, f) == getattr(win, f),
+                f"all-defaults topk_torch ran {f}={getattr(cfg, f)!r}, the "
+                f"winner has {getattr(win, f)!r}")
+    core = F.kernel_precision(win.precision)
+    require(F.core_launches[core] > 0,
+            f"all-defaults topk_torch did not launch kernel A's {core} core")
+    ref_idx, ref_scores = numpy_oracle(q_np, c_np, 10)
+    gate(idx.cpu().numpy(), vals.cpu().numpy().astype(np.float64), ref_idx,
+         ref_scores, "topk_torch with the autotune winner")
+    print(f"phase 9: an all-defaults topk_torch dispatched with the winner's "
+          f"fields (kernel A {core} core: {F.core_launches[core]} launch) "
+          f"and passes the float64 oracle gate")
+
+
+# Explicit selections outside their envelope: (what, selection, k, rows,
+# dim, extra config, probe, start of the JAX package's message).
+ENVELOPES = (
+    ("bucket above k=128", "bucket", 200, 5000, 64, {}, None,
+     "selection='bucket' supports k <= 128"),
+    ("gpop above k=16", "gpop", 20, 500, 64, {}, None,
+     "selection='gpop' requires a dense (non-probed) scan"),
+    ("gpop past 128 groups", "gpop", 10, 20_000, 64, {}, None,
+     "selection='gpop' requires a dense (non-probed) scan"),
+    ("gstack on 3-group tiles", "gstack", 20, 20_000, 64,
+     {"block_n": 384, "block_q": 8}, None,
+     "selection='gstack' requires k <= 1024"),
+    ("gpop probed", "gpop", 5, 20_000, 64, {}, 0.5,
+     "selection='gpop' requires a dense (non-probed) scan"),
+)
+
+
+def _envelopes_on_card(pmt, torch, card):
+    """Each explicit selection outside its envelope raises the JAX
+    package's ValueError on CUDA tensors, dense and probed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    for what, selection, k, rows, dim, extra, probe, msg in ENVELOPES:
+        cfg = pmt.SearchConfig(selection=selection, **extra)
+        c = torch.randn((rows, dim), generator=gen, device="cuda")
+        q = torch.randn((8, dim), generator=gen, device="cuda")
+        try:
+            if probe is None:
+                pmt.topk_torch(q, c, k, "cosine", config=cfg)
+            else:
+                pmt.ClusteredCorpus(c, config=cfg).topk(q, k, probe=probe)
+        except ValueError as e:
+            require(str(e).startswith(msg)
+                    and ("(probed)" in str(e)) == (probe is not None),
+                    f"{what}: raised {e!r}")
+        else:
+            raise RuntimeError(f"{what}: selection={selection!r} did not "
+                               f"raise")
+    print(f"phase 9: [{card}] {len(ENVELOPES)} explicit selections outside "
+          f"their envelope raise the JAX package's ValueError on CUDA "
+          f"tensors ({', '.join(e[0] for e in ENVELOPES)})")
+
+
+def phase_matmul(pmt, F, torch, q_np, c_np, card):
+    """Phase 9 (with its phase 5 counts): kernel C's main path, its checks
+    and times, autotune on the card, and the selection envelopes.  Returns
+    kernel C's JSON entries."""
+    from polars_matmul_tpu_torch.kernels import matmul as M
+
+    t0 = time.perf_counter()
+    cores, ql, cl = _matmul_main_path(M, torch, q_np, c_np)
+    err = {f"mm.{core}": 0.0 for core in M.CORES}
+    _compare_matmul(M, torch, (ql, cl), err)
+    times = _time_matmul(M, torch, (ql, cl), card)
+    del ql, cl
+    torch.cuda.empty_cache()
+    _autotune_on_card(pmt, F, torch, q_np, c_np, card)
+    _envelopes_on_card(pmt, torch, card)
+    print(f"phase 9: took {time.perf_counter() - t0:.1f} s host")
+    return [dict({"name": f"pallas_matmul.{core}", "route": "cuda",
+                  "source": KERNEL_SRC + "matmul.cu", "replaces": MM_SRC,
+                  "launches": cores[core], "max_abs_err": err[f"mm.{core}"]},
+                 **times[core]) for core in M.CORES]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    # A fresh autotune cache: a winner persisted by an earlier run must not
+    # change what the all-defaults paths launch.
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    os.environ["PMM_TPU_CACHE_DIR"] = tempfile.mkdtemp(
+        prefix="autotune-", dir=build)
     import polars_matmul_tpu_torch as pmt
     from polars_matmul_tpu_torch.kernels import fused_topk as F
 
@@ -1311,6 +1667,7 @@ def main() -> int:
                          "launches": tiles_launches,
                          "max_abs_err": err["tiles"]},
                         **per_kernel["tiles"]))
+    kernels += phase_matmul(pmt, F, torch, q, c, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 to an NVIDIA H100.
 
 The same public operations — ``topk``, ``matmul``, the resident
-``Corpus`` and the ``ClusteredCorpus`` of probed search — with the fused
-top-k kernel written by hand in CUDA C++ for Hopper (``kernels/csrc``),
+``Corpus``, the ``ClusteredCorpus`` of probed search and ``autotune`` —
+with the fused top-k kernels and the tiled product ``kernels.
+pallas_matmul`` written by hand in CUDA C++ for Hopper (``kernels/csrc``),
 built with ``nvcc`` at first use.  The JAX package stays the reference;
 this package imports neither ``jax`` nor ``pyarrow``.
 
@@ -20,6 +21,7 @@ from .api.clustered import ClusteredCorpus
 from .api.search import Corpus, matmul, topk
 from .kernels.fused_topk import fused_topk as topk_torch
 from .kernels.matmul import pairwise_matmul as matmul_torch
+from .utils.autotune import autotune
 
 __version__ = "0.1.0"
 
@@ -28,6 +30,7 @@ __all__ = [
     "Corpus",
     "Metric",
     "SearchConfig",
+    "autotune",
     "default_config",
     "matmul",
     "matmul_torch",

@@ -18,6 +18,9 @@ On this port:
   where the JAX package, with ``k_pad`` > 1024, stays fused.
 - ``selection``: every value runs the same exact CUDA selection (kernel A
   carry + kernel B merge); a Hopper-specific strategy is left for later.
+  An explicit "gpop", "gstack", "bucket", "stack" or "insert" outside the
+  envelope the JAX package gives it raises the JAX package's ValueError
+  (``kernels.fused_topk.check_selection``), dense and probed alike.
 - ``precision``: each value runs its own core of the fused kernel:
   ``"bf16x3"``, ``"highest"``, and the quantized-storage cores
   ``"bf16c"``, ``"int8c"`` and ``"int4c"`` (on module-level ``topk`` and
@@ -30,6 +33,9 @@ On this port:
   this many bytes.
 - ``use_pallas=False`` forces the reference top-k path, as in the JAX
   package (the name is kept so that configs carry over).
+- ``use_autotune_cache``: as in the JAX package, a ``fused_topk`` whose
+  tuning fields are all at their defaults adopts the winner ``autotune``
+  persisted for this card and problem class; False keeps the defaults.
 
 There is no ``ensure_x64``: torch has float64 natively.
 """

@@ -2,4 +2,4 @@
 # name: ``polars_matmul_tpu_torch.topk_torch`` is that function.
 from .fused_topk import (fused_topk_prepared, launches,  # noqa: F401
                          prepare_corpus, reset_launch_counts)
-from .matmul import pairwise_matmul  # noqa: F401
+from .matmul import pairwise_matmul, pallas_matmul  # noqa: F401

@@ -74,6 +74,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_fused_topk_blocks_per_sm.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
+    lib.pmm_matmul.argtypes = [p, p, p, i, i, i, i, p]
+    lib.pmm_matmul.restype = i
 
 
 def _build(so: Path) -> str:

@@ -50,6 +50,7 @@ counts its launches in ``launches`` (kernel A on a tile list apart, as
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -198,6 +199,91 @@ def probe_block_rows(m: int, dim: int, cfg: SearchConfig, k: int = 1) -> int:
     if feature_geometry(dim)[2] > 1:
         bq = min(bq, 128)
     return min(bq, _round_up(m, 8))
+
+
+# ---------------------------------------------------------------------------
+# Selection envelopes.  The JAX package runs an explicit "gpop", "gstack",
+# "bucket", "stack" or "insert" only inside the geometry its kernel serves
+# and raises outside it (``_resolve_selection``).  Kernels A + B serve every
+# value alike, but the port raises where the JAX package raises, with its
+# messages, on the JAX package's geometry: 128-row groups of the corpus
+# padded to its tile height, and the tiles scanned.
+# ---------------------------------------------------------------------------
+
+# The JAX kernel's stack-depth ceiling for big-k (k > 128) gstack.
+_BIGK_MAX_LEVELS = 32
+
+
+def _bigk_tail(k: int, cells: int, levels: int) -> float:
+    """cells * P(Binomial(k, 1/cells) >= levels): the bound on a row's
+    top-k overflowing a (segment, class) stack of ``levels``."""
+    p = 1.0 / cells
+    tail = 0.0
+    for i in range(levels, min(k, levels + 96) + 1):
+        tail += math.comb(k, i) * p ** i * (1.0 - p) ** (k - i)
+    return cells * tail
+
+
+def _bigk_depth(k: int, cells: int) -> int:
+    """The JAX kernel's stack depth for k > 128: the fewest levels, from
+    ceil(k/128) + 1, whose overflow bound is at most 1e-7 a row."""
+    lo = -(-k // _LANES) + 1
+    for levels in range(lo, _BIGK_MAX_LEVELS + 1):
+        if _bigk_tail(k, cells, levels) <= 1e-7:
+            return levels
+    return _BIGK_MAX_LEVELS
+
+
+def _bigk_gstack_ok(k: int, total_groups: int) -> bool:
+    """Whether the JAX package's big-k gstack has a stack depth whose
+    overflow bound is at most 1e-6 within the level cap."""
+    if k > _MAX_FUSED_K:
+        return False
+    n_segs = max(1, -(-total_groups // _LANES))
+    cells = _LANES * n_segs if n_segs > 1 else _LANES
+    levels = _bigk_depth(k, cells)
+    return _bigk_tail(k, cells, levels) <= 1e-6
+
+
+def check_selection(selection: str, k: int, total_groups: int,
+                    use_tiles: bool, n_tiles: int, k_pad: int = 128,
+                    gpt: int = 1) -> None:
+    """The raising branches of the JAX package's ``_resolve_selection``
+    (same arguments): ``total_groups`` 128-row groups of the padded
+    corpus, ``n_tiles`` corpus tiles scanned (the list length when
+    probed), ``gpt`` groups a tile.  Raises its ValueError for an explicit
+    selection outside its envelope; "auto" and "extract" never raise."""
+    if selection == "auto":
+        return
+    groups = n_tiles * gpt if use_tiles else total_groups
+    segmentable = groups <= _LANES or _LANES % gpt == 0
+    if k > _LANES and selection in ("bucket", "stack", "insert"):
+        raise ValueError(
+            f"selection={selection!r} supports k <= {_LANES}; use "
+            "'auto', 'extract', or 'gstack' for larger k"
+        )
+    if selection == "gpop" and (
+        use_tiles or total_groups > _LANES or k > 16 or k >= k_pad
+    ):
+        raise ValueError(
+            "selection='gpop' requires a dense (non-probed) scan over at "
+            f"most {_LANES * _LANES} padded corpus rows with k <= 16 and "
+            f"k < k_pad (the kp-1 slot carries the detection flag); got "
+            f"{total_groups} groups, k={k}, k_pad={k_pad}"
+            + (" (probed)" if use_tiles else "") + " — use selection='auto'"
+        )
+    if selection == "gstack" and (
+        not segmentable or k > _MAX_FUSED_K
+        or (k > _LANES and not _bigk_gstack_ok(k, groups))
+    ):
+        raise ValueError(
+            "selection='gstack' requires "
+            f"k <= {_MAX_FUSED_K} (and a viable stack depth for this "
+            f"geometry), and beyond {_LANES} scanned groups "
+            f"a power-of-two corpus tile (128 %% groups-per-tile == 0); "
+            f"got {groups} groups, k={k}, {gpt} groups/tile"
+            + (" (probed)" if use_tiles else "") + " — use selection='auto'"
+        )
 
 
 def _is_f32(dtype) -> bool:
@@ -932,6 +1018,12 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
     its listed layout tiles of ``tn`` rows (default ``layout_tile_rows``;
     ascending, distinct, each below ceil(n / tn)).  Exact over the visited
     rows; slots a query cannot fill carry (-inf, INT32_MAX).
+
+    Without ``tiles``, ``tn`` is the JAX package's corpus tile height for
+    this call (default ``layout_tile_rows``, what its ``Corpus`` pads
+    to); it sizes only the selection envelope (``check_selection``), which
+    raises the JAX package's ValueError for an explicit selection outside
+    it, dense and probed alike.
     """
     cfg = resolve(config)
     metric = Metric.parse(metric)
@@ -950,11 +1042,11 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
         # Half-precision queries: upcast on the device, so the kernels and
         # the euclidean finalize run f32.
         q = q.float()
+    m, dim = q.shape
+    tn = tn or layout_tile_rows(dim, cfg, k)
+    n_layout = -(-cbp.shape[-1] // tn)
     block_rows = 0
     if tiles is not None:
-        m, dim = q.shape
-        tn = tn or layout_tile_rows(dim, cfg, k)
-        n_layout = -(-cbp.shape[-1] // tn)
         tiles = torch.as_tensor(tiles, device=q.device).to(
             torch.int32).contiguous()
         if tiles.shape[1] > n_layout:
@@ -967,12 +1059,16 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
             raise ValueError(
                 f"tiles has {tiles.shape[0]} rows; this problem runs "
                 f"{-(-m // block_rows)} query blocks of {block_rows} rows")
+    check_selection(cfg.selection, k, n_layout * tn // _LANES,
+                    tiles is not None,
+                    n_layout if tiles is None else tiles.shape[1],
+                    effective_k_pad(k, cfg), tn // _LANES)
     qp = prepare_queries(q, metric, precision)
     mask_u8 = None if mask is None else pad_mask_row(
         torch.as_tensor(mask, device=q.device), cbp.shape[-1])
     with annotate(f"pmm.fused_topk.{metric.value}"):
         vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision, tiles,
-                                 tn or 0, block_rows)
+                                 tn, block_rows)
     return _finalize(q, vals, metric), idx
 
 
@@ -988,9 +1084,15 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
     ``c`` on the way in.  ``k`` must already be clamped to
     ``c.shape[0]``.  ``mask`` (n,) bool excludes corpus rows; unfilled
     slots carry (-inf similarity / +inf distance, INT32_MAX).
+
+    A config that leaves every tuning field at its default adopts the
+    persisted ``autotune`` winner for this device kind and problem class
+    (``_consult_autotune_cache``), as in the JAX package.
     """
     cfg = resolve(config)
     metric = Metric.parse(metric)
+    cfg = _consult_autotune_cache(cfg, q.shape[1], k, c.shape[0], metric,
+                                  q.device)
     if not cfg.use_pallas or not supports(q.shape, c.shape, q.dtype, k,
                                           cfg):
         mk = None if mask is None else torch.as_tensor(
@@ -998,8 +1100,37 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
         return reference.topk_search(q, c, k, metric, mask=mk)
     precision = kernel_precision(cfg.precision)
     cp, cbp = prepare_corpus(c, metric, precision=precision)
+    # The JAX package's one-shot path pads the corpus to this tile height.
+    bq, bn = effective_tiles(cfg, k)
+    tn = _pick_block_n(q.shape[1], min(bq, _round_up(q.shape[0], 8)), bn,
+                       effective_k_pad(k, cfg))
     return fused_topk_prepared(q, cp, cbp, k, metric, mask=mask, config=cfg,
-                               precision=precision)
+                               precision=precision, tn=tn)
+
+
+# Tuning fields a cached autotune winner may override on an all-defaults
+# dispatch (``utils.autotune._CFG_FIELDS``).
+_TUNED_FIELDS = ("block_q", "block_n", "k_pad", "selection", "auto_tile",
+                 "precision", "prune")
+
+
+def _consult_autotune_cache(cfg: SearchConfig, dim: int, k: int, n: int,
+                            metric, device=None) -> SearchConfig:
+    """Adopt the persisted autotune winner's tuning fields for this device
+    kind when the caller left every one of them at its default; any
+    explicit pin, or ``use_autotune_cache=False``, wins."""
+    if not cfg.use_autotune_cache:
+        return cfg
+    base = SearchConfig()
+    if any(getattr(cfg, f) != getattr(base, f) for f in _TUNED_FIELDS):
+        return cfg
+    from ..utils.autotune import cached_winner
+
+    win = cached_winner(dim, k, n, metric, cfg.precision, device=device)
+    if win is None:
+        return cfg
+    return cfg.with_updates(
+        **{f: getattr(win, f) for f in _TUNED_FIELDS})
 
 
 # ---------------------------------------------------------------------------
