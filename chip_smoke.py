@@ -56,13 +56,25 @@ Phases, each printing one line or a few:
    persisted under ``PMM_TPU_CACHE_DIR`` and served from there a second
    time, an all-defaults ``topk_torch`` adopting it, held to a float64
    oracle); explicit selections outside their envelope raising the JAX
-   package's errors, dense and probed.
+   package's errors, dense and probed;
+10. the attribution kit: kernel D (``csrc/floor.cu``, ``floor_stacks``)
+   against its plain version in every core (bf16x3, int8c, int4c,
+   int4-rint, int4-raw), at levels 0, 1, 4 and 5, every id rule (global,
+   segmented, tile-local) and posu setting, over ragged shapes, integer tie
+   data bit for bit; then its main path, the three experiments of
+   ``polars_matmul_tpu_torch/tools`` at their JAX sizes (the canonical
+   floor, 2M x 256 int8 at batch 256, 2M x 768 int8 / int4 at batch 8 and
+   256; the floors JSON goes to ``build/floors.json``), counted; and each
+   core's time at its experiment's shape beside kernel A's there, its
+   plain version's, the library yardstick's and the bound.
 
 The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
-listed), kernel B (``csrc/topk_merge.cu``) and kernel C (``csrc/matmul.cu``,
-two cores).  ``PMM_TPU_CACHE_DIR`` is set to a fresh directory under
-``build/`` before anything runs, so no autotune winner of an earlier run
-changes what the all-defaults paths launch.
+listed), kernel B (``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``,
+two cores) and kernel D (``csrc/floor.cu``, five cores; its staging and
+products are kernel A's, ``csrc/tile_scores.cuh``).  ``PMM_TPU_CACHE_DIR``
+is set to a fresh directory under ``build/`` before anything runs, so no
+autotune winner of an earlier run changes what the all-defaults paths
+launch.
 
 The line before the last is a JSON object of per-kernel results; the last
 is {"ok": true, "device": {...}}.  Any failure exits non-zero with its
@@ -217,7 +229,8 @@ def _ptxas_summary(log: str):
     lines, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"((?:fused_topk_partial|topk_merge|matmul)_kernel)"
+                      r"((?:fused_topk_partial|topk_merge|matmul|"
+                      r"floor_stacks)_kernel)"
                       r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
@@ -1600,6 +1613,333 @@ def phase_matmul(pmt, F, torch, q_np, c_np, card):
                  **times[core]) for core in M.CORES]
 
 
+# Kernel D (phase 10): ragged shapes (m, n, dim, tn, kernel A's k for the
+# geometry); dim 56 and 300 take the element-wise int4 loads, 300 every
+# core's, and 40,000 rows span three 16,384-row segments (and too many
+# groups for global ids, which must raise).
+FLOOR_SHAPES = ((1, 129, 56, 128, 10), (37, 5000, 300, 256, 100),
+                (300, 5000, 768, 1024, 10), (64, 40_000, 256, 2048, 512))
+FLOOR_LEVELS = (0, 1, 4, 5)
+FLOOR_SRC = ("tools/exp_floor.py:55 (_kernel_ab), tools/exp_b256.py:94 "
+             "(_kernel_build), tools/exp_int4.py:82 (_kernel_mm)")
+# Each packed value drops its score's low 7 bits (2^-16 of it): two
+# scores within tolerance may land one 128-ulp step apart.
+PACK_RTOL = 2.0 ** -15
+
+
+def _floor_operands(D, F, torch, q, c, core, gen, tie):
+    """Kernel D's operands of ``core`` from f32 rows: queries [hi | lo];
+    a bias row (bf16x3) or scale | bias rows (integers and scale 1 on tie
+    data, so that every score is exact)."""
+    from polars_matmul_tpu_torch.tools import exp_int4
+
+    n = c.shape[0]
+    qp = F.split_hi_lo(q)
+    bias = (torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
+            if tie else 0.1 * torch.randn((n,), generator=gen,
+                                          device="cuda"))
+    if core == "bf16x3":
+        return qp, F.split_hi_lo(c), bias[None].contiguous()
+    if core == "int8c":
+        cp, scale = (c.to(torch.int8), None) if tie else F.quantize_int8(c)
+    else:
+        cp, scale = exp_int4._host_quantize_int4(c)
+        if core == "int4-rint":   # any byte on real data: rint's ties too
+            cp = (D.repack_int4_rint(cp) if tie else torch.randint(
+                -128, 128, cp.shape, generator=gen, device="cuda",
+                dtype=torch.int8))
+    if tie:
+        scale = torch.ones(n, device="cuda")
+    return qp, cp, torch.stack([scale, bias]).contiguous()
+
+
+def _floor_scale(D, qp, cp, cb, core):
+    """Row term scale of kernel D's scores (see RTOL): |q_i| times the
+    largest decoded corpus row (times its scale), plus the largest
+    |bias|."""
+    dim = qp.shape[1] // 2
+    if core == "bf16x3":
+        rows = cp[:, :dim].float() + cp[:, dim:].float()
+        norms, bias = rows.norm(dim=1), cb[0]
+    else:
+        norms = D._decoded_corpus(cp, core).norm(dim=1) * cb[0].abs()
+        bias = cb[1]
+    qf = qp[:, :dim].float() + qp[:, dim:].float()
+    return qf.norm(dim=1) * norms.max() + bias.abs().max()
+
+
+def _check_floor(D, torch, qp, cp, cb, core, levels, tn, ids, posu, k, err,
+                 what, exact):
+    """Kernel D against its plain version at its own geometry: every
+    split's every level and the output; bit for bit on tie data, else
+    decoded scores within ATOL + RTOL x max(|score|, row term scale) +
+    PACK_RTOL x |score|, group ids equal wherever a value stands clear of
+    its neighbours, and levels=0 sums off only by tiles whose max lies
+    within that tolerance of an integer."""
+    m, n = qp.shape[0], cp.shape[0]
+    geo = D.floor_geometry(m, n, core, levels, k, qp.device)
+    out, lv = D.floor_stacks(qp, cp, cb, core=core, levels=levels, tn=tn,
+                             ids=ids, posu=posu, k_geometry=k)
+    out_p, lv_p = D.floor_stacks_plain(
+        qp, cp, cb, core=core, levels=levels, tn=tn, ids=ids, posu=posu,
+        splits=geo[1], tiles_per_split=geo[2])
+    require(out.shape == out_p.shape and lv.shape == lv_p.shape,
+            f"kernel D {what}: shapes {tuple(out.shape)} {tuple(lv.shape)}")
+    if exact:
+        require(torch.equal(out, out_p) and torch.equal(lv, lv_p),
+                f"kernel D {what}: differs from its plain version on tie "
+                f"data")
+        return
+    scale = _floor_scale(D, qp, cp, cb, core)
+    if levels == 0:   # the tile maxima, then their truncated sum
+        a = D.decode_ordered(lv).double()
+        b = D.decode_ordered(lv_p).double()
+        tol = ATOL + RTOL * torch.maximum(b.abs(), scale[:, None])
+        worst = float((a - b).abs().max())
+        require(bool(((a - b).abs() <= tol).all()),
+                f"kernel D {what}: tile maxima differ by up to {worst}")
+        near = ((b - b.round()).abs() <= tol).sum(dim=1, keepdim=True)
+        require(bool(((out.long() - out_p.long()).abs() <= near).all()),
+                f"kernel D {what}: sums differ beyond near-integer maxima")
+        err[core] = max(err[core], worst)
+        return
+    empty = lv_p == D.INT32_MIN
+    require(torch.equal(lv == D.INT32_MIN, empty),
+            f"kernel D {what}: unfilled levels differ")
+    # Equal packed values need no decoding (a packed -inf decodes to NaN).
+    same = lv == lv_p
+    zero = torch.zeros((), dtype=torch.float64, device="cuda")
+    a = torch.where(same, zero, D.decode_packed(lv, posu).double())
+    b = torch.where(empty, zero, D.decode_packed(lv_p, posu).double())
+    tol = (ATOL + RTOL * torch.maximum(b.abs(), scale[:, None, None, None])
+           + PACK_RTOL * b.abs())
+    diff = torch.where(same, zero, (a - b).abs())
+    worst = float(diff.max())
+    require(bool((same | (diff <= tol)).all()),
+            f"kernel D {what}: levels differ by up to {worst}")
+    # A value clear of its neighbours in the cell keeps its group id; the
+    # plain version one level deeper gives the candidate below the last.
+    ext = torch.cat([lv_p, D.floor_stacks_plain(
+        qp, cp, cb, core=core, levels=levels + 1, tn=tn, ids=ids, posu=posu,
+        splits=geo[1], tiles_per_split=geo[2])[1][:, :, levels:]], dim=2)
+    bx = D.decode_packed(ext, posu).double()
+    step = (bx[:, :, 1:] - bx[:, :, :-1]).abs()
+    step = torch.where(ext[:, :, 1:] == D.INT32_MIN, float("inf"), step)
+    gap = step.clone()
+    gap[:, :, 1:] = torch.minimum(step[:, :, 1:], step[:, :, :-1])
+    clear = (gap > 2 * tol) & ~empty
+    require(torch.equal((lv & 127)[clear], (lv_p & 127)[clear]),
+            f"kernel D {what}: group ids differ")
+    # The output is level 0 of the splits that reach it.
+    seg = D.segment_rows(tn)
+    last = torch.clamp(torch.arange(1, geo[1] + 1, device="cuda") * geo[2]
+                       * 64, max=n) - 1
+    reach = (last // seg == (n - 1) // seg) if ids == "segmented" else (
+        torch.ones_like(last, dtype=torch.bool))
+    top = torch.where(reach[None, :, None], lv[:, :, 0],
+                      torch.full_like(lv[:, :, 0], D.INT32_MIN)).amax(dim=1)
+    require(torch.equal(out, top), f"kernel D {what}: out is not level 0 of "
+            f"its splits")
+    err[core] = max(err[core], worst)
+
+
+def _compare_floor(D, F, torch, err):
+    """Phase 10's checks: kernel D in every core, at levels 0, 1, 4, 5,
+    every id rule and posu setting, over FLOOR_SHAPES, on real data and on
+    integer tie data.  On real data posu runs on non-negative scores only:
+    posu orders negative scores by their raw bits, so a score that rounds
+    to the other side of zero could move a level far.  Returns (cases,
+    tie cases)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    cases = ties = 0
+    for m, n, dim, tn, k in FLOOR_SHAPES:
+        for tie in (False, True):
+            if tie and n > 5000:
+                continue
+            for nonneg in (False, True):
+                if tie:
+                    q = torch.randint(-2, 3, (m, dim), generator=gen,
+                                      device="cuda").float()
+                    c = torch.randint(-2, 3, (n, dim), generator=gen,
+                                      device="cuda").float()
+                else:
+                    q = torch.randn((m, dim), generator=gen, device="cuda")
+                    c = torch.randn((n, dim), generator=gen, device="cuda")
+                if nonneg:
+                    q, c = q.abs(), c.abs()
+                for core in D.CORES:
+                    qp, cp, cb = _floor_operands(D, F, torch, q, c, core,
+                                                 gen, tie)
+                    for levels in FLOOR_LEVELS:
+                        for ids in D.IDS:
+                            for posu in (False, True):
+                                if ((posu != nonneg and not tie) or (
+                                        levels == 0 and (ids, posu) != (
+                                            "global", False))):
+                                    continue   # see the docstring
+                                what = (f"m={m} n={n} dim={dim} tn={tn} "
+                                        f"{core} L{levels} {ids} posu={posu} "
+                                        f"tie={tie}")
+                                if (levels and ids == "global"
+                                        and -(-n // 128) > 128):
+                                    try:
+                                        D.floor_stacks(qp, cp, cb, core=core,
+                                                       levels=levels, tn=tn,
+                                                       ids=ids)
+                                    except ValueError:
+                                        continue
+                                    raise RuntimeError(
+                                        f"{what}: global ids past 128 groups "
+                                        f"did not raise")
+                                _check_floor(D, torch, qp, cp, cb, core,
+                                             levels, tn, ids, posu, k, err,
+                                             what, tie)
+                                if tie:
+                                    ties += 1
+                                else:
+                                    cases += 1
+    torch.cuda.synchronize()
+    return cases, ties
+
+
+def _floor_library(D, torch, qh, rows, bias, levels, tn, ids, posu):
+    """The library yardstick of kernel D: torch.addmm on bf16 rows, the
+    pack, then torch.topk over each cell's groups (a segment's, when
+    segmented)."""
+    m, n = qh.shape[0], rows.shape[0]
+    s = torch.addmm(bias, qh, rows.T).float()
+    seg = D.segment_rows(tn) if ids == "segmented" else -(-n // 128) * 128
+    p = D._pack(s, 0, tn, ids, D.segment_rows(tn), posu)
+    p = torch.nn.functional.pad(p, (0, -n % seg), value=D.INT32_MIN)
+    return torch.topk(p.reshape(m, -1, seg // 128, 128), levels, dim=2)
+
+
+def _floor_entry(D, torch, name, qp, cp, cb, core, levels, tn, ids, posu, k,
+                 ms, a_ms, a_core, launches, err, card):
+    """Kernel D's JSON entry at one experiment's shape: its time (from the
+    experiment), its plain version's and the library's, the bound, and
+    kernel A's time there.  Checks D against its plain version first."""
+    _check_floor(D, torch, qp, cp, cb, core, levels, tn, ids, posu, k, err,
+                 f"{name} main-path shape", False)
+    m, n, dim = qp.shape[0], cp.shape[0], qp.shape[1] // 2
+    geo = D.floor_geometry(m, n, core, levels, k, qp.device)
+    plain = cuda_ms(lambda: D.floor_stacks_plain(
+        qp, cp, cb, core=core, levels=levels, tn=tn, ids=ids, posu=posu,
+        splits=geo[1], tiles_per_split=geo[2]), reps=3, warmup=1)
+    qh = qp[:, :dim]
+    if core == "bf16x3":
+        rows, bias = cp[:, :dim], cb[0]
+    else:
+        rows = (D._decoded_corpus(cp, core) * cb[0][:, None]).to(
+            torch.bfloat16)
+        bias = cb[1]
+    bias = bias.to(torch.bfloat16)
+    lib = cuda_ms(lambda: _floor_library(D, torch, qh, rows, bias, levels,
+                                         tn, ids, posu), reps=5, warmup=1)
+    del rows
+    out_bytes = m * 128 * 4 + (m * 128 * 4 * geo[1] * levels if levels
+                               else m * -(-n // tn) * 4)
+    passes = 3 if core == "bf16x3" else 2
+    bound = _bound(qp.nbytes + cp.nbytes + cb.nbytes + out_bytes,
+                   passes * 2 * m * n * dim, "bfloat16")
+    blocks = D._occupancy[(qp.device.index, geo[0], core, levels)]
+    print(f"phase 10: [{card}] kernel D {name} ({m}x{n}x{dim} {core} "
+          f"L{levels} {ids}{' posu' if posu else ''}; tm={geo[0]}, "
+          f"splits={geo[1]}, {blocks} block(s)/SM): {ms:.4f} ms, kernel A "
+          f"({a_core}) there {a_ms:.4f} ms, plain {plain:.3f} ms, library "
+          f"torch.addmm + pack + torch.topk {lib:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    entry = _entry(ms, plain, lib, "torch.addmm on bf16 rows + pack + "
+                   "torch.topk over each cell's groups", bound,
+                   f"{name}: {m}x{n}x{dim} L{levels} {ids}")
+    return dict({"name": f"floor_stacks.{core}", "route": "cuda",
+                 "source": KERNEL_SRC + "floor.cu", "replaces": FLOOR_SRC,
+                 "launches": launches[core], "max_abs_err": err[core],
+                 "kernel_a_ms": a_ms, "blocks_per_sm": blocks}, **entry)
+
+
+def phase_floor(F, torch, card):
+    """Phase 10 (with its phase 5 counts): kernel D against its plain
+    version, then its main path, the three experiments at their JAX sizes
+    (tools/exp_floor.py, exp_b256.py, exp_int4.py, ported), then each
+    core's entry at its experiment's shape.  Returns kernel D's JSON
+    entries."""
+    from polars_matmul_tpu_torch.kernels import floor as D
+    from polars_matmul_tpu_torch.tools import exp_b256, exp_floor, exp_int4
+
+    t0 = time.perf_counter()
+    err = {core: 0.0 for core in D.CORES}
+    cases, ties = _compare_floor(D, F, torch, err)
+    print(f"phase 10: kernel D matches its plain version in {cases} ragged "
+          f"cases (every core, levels {FLOOR_LEVELS}, every id rule and "
+          f"posu setting; decoded levels within atol {ATOL} + rtol {RTOL} x "
+          f"max(|score|, row term scale) + {PACK_RTOL:.3g} x |score|, ids "
+          f"exact where clear) and {ties} integer tie cases bit for bit; "
+          f"global ids past 128 groups raise; took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # The main path: the three experiments.  Count only their launches.
+    t1 = time.perf_counter()
+    D.reset_launch_counts()
+    F.reset_launch_counts()
+    floors = exp_floor.main("cuda", Path(__file__).resolve().parent
+                            / "build" / "floors.json")
+    b256 = exp_b256.main("cuda")
+    int4 = exp_int4.main("cuda")
+    torch.cuda.synchronize()
+    launched, cores = dict(D.launches), dict(D.core_launches)
+    print(f"phase 5: launches on the experiments' path: {launched}, by core "
+          f"{cores}; kernels A / B {dict(F.launches)}")
+    for core in D.CORES:
+        require(cores[core] > 0, f"kernel D {core} never launched on the "
+                f"experiments' path")
+    require(launched["floor_stacks_plain"] == 0,
+            "floor_stacks_plain ran on the experiments' path")
+    for name in ("fused_topk_plain", "fused_topk_partial_plain",
+                 "topk_merge_plain"):
+        require(F.launches[name] == 0, f"{name} ran on the experiments' "
+                f"path")
+    print(f"phase 10: the three experiments ran in "
+          f"{time.perf_counter() - t1:.1f} s")
+
+    entries = []
+    qf, cf, qp = exp_floor.build(torch.device("cuda"))
+    cp, cb = exp_floor.corpus_operands(cf, 2048)
+    entries.append(_floor_entry(
+        D, torch, "exp_floor B1_2048", qp, cp, cb, "bf16x3", 1, 2048,
+        "global", False, 10, floors["floor_k10_ms"],
+        floors["geometry"]["B1_2048"]["kernel_a_ms"], "bf16x3, k=10", cores,
+        err, card))
+    del qf, cf, qp, cp, cb
+    q, cp, cb, tn = exp_b256.build(torch.device("cuda"))
+    qp = F.prepare_queries(q, "cosine", "int8c")
+    lv = b256["n_levels"]
+    entries.append(_floor_entry(
+        D, torch, f"exp_b256 L{lv}", qp, cp, cb, "int8c", lv, tn,
+        "segmented", False, exp_b256.K, b256[f"L{lv}"], b256["kernel-A"],
+        "int8c, k=100", cores, err, card))
+    del q, qp, cp, cb
+    torch.cuda.empty_cache()
+    q, corpora, tn = exp_int4.build(torch.device("cuda"))
+    qp = F.prepare_queries(q[:8], "cosine", "int8c")
+    # Kernel A runs int8 codes in its int8c core, the int4 family in int4c.
+    a_tag = {"int8": "int8c", "int4": "int4-i32", "rint": "int4-i32"}
+    for tag, core, form in exp_int4.MODES:
+        entry = _floor_entry(
+            D, torch, f"exp_int4 {tag}-b8", qp, *corpora[form], core, 1,
+            tn, "tile-local", False, exp_int4.K, int4[f"{tag}-b8"]["ms"],
+            int4[f"{a_tag[form]}-b8"]["kernel_a_ms"],
+            f"{'int8c' if form == 'int8' else 'int4c'}, k=100", cores, err,
+            card)
+        if core != "int8c":   # int8c's entry is the b256 build's
+            entries.append(entry)
+    del q, qp, corpora
+    torch.cuda.empty_cache()
+    print(f"phase 10: took {time.perf_counter() - t0:.1f} s host")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1668,6 +2008,7 @@ def main() -> int:
                          "max_abs_err": err["tiles"]},
                         **per_kernel["tiles"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
+    kernels += phase_floor(F, torch, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
 the objects into one shared library with a plain C interface, which is
 loaded with ``ctypes``.  The build goes to
 ``build/polars_matmul_tpu_torch/<hash of the sources>/libpmm_kernels.so``
-under the checkout (``build/`` is git-ignored), so a change to any source
-builds afresh and an unchanged tree reuses the library.
+under the checkout (``build/`` is git-ignored); the hash covers the
+``csrc/*.cuh`` headers the sources include as well, so a change to any
+source or header builds afresh and an unchanged tree reuses the library.
 
 ``nvcc`` is looked up on ``PATH``, then in ``$CUDA_HOME/bin``, then in
 ``/usr/local/cuda/bin``.  A missing compiler, a failed build or a failed
@@ -54,12 +55,13 @@ def find_nvcc() -> str:
 
 
 def _sources():
+    """The translation units: each is compiled on its own."""
     return sorted(_CSRC.glob("*.cu"))
 
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_sources() + list(_CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(_ARCH + _FLAGS).encode())
@@ -76,6 +78,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_topk_merge.restype = i
     lib.pmm_matmul.argtypes = [p, p, p, i, i, i, i, p]
     lib.pmm_matmul.restype = i
+    lib.pmm_floor_stacks.argtypes = [p] * 7 + [i] * 12 + [p]
+    lib.pmm_floor_stacks.restype = i
+    lib.pmm_floor_blocks_per_sm.argtypes = [i, i, i]
+    lib.pmm_floor_blocks_per_sm.restype = i
 
 
 def _build(so: Path) -> str:
