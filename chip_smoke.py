@@ -7,12 +7,18 @@ Phases, each printing one line or a few:
 
 0. the card (nvidia-smi name and power limit), torch and CUDA versions;
 1. build of the CUDA kernels from this checkout's sources (nvcc, sm_90a,
-   one compiler per source, all started together);
+   one compiler per source, all started together), each instantiation's
+   registers and spills, and the stored cores' ring at dim 768, k=100
+   (stages, bytes a stage, the query's place, blocks an SM), the source's
+   plan held to the host's mirror;
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
    also above dim 4096), with and without a mask, with duplicate rows,
    and on integer tie data where the results must be bit-identical; the
+   stored cores at the ring's edges (unaligned rows, a dim below and one
+   not a multiple of a stage, int4 over two feature chunks, splits of one
+   tile, a list whose last id lies past the corpus, k up to 1024); the
    on-card quantizers against the host NumPy ones, bit for bit; kernel A
    walking random per-block tile lists (probed search) in every core,
    and a list of every tile against the dense scan, bit for bit;
@@ -34,7 +40,8 @@ Phases, each printing one line or a few:
    to a float64 oracle over what the tier stores; int8 recall@10 against
    the f32 corpus is reported; each tier's kernels are also checked
    against their plain versions at these shapes (phase 2's checks), real
-   and integer tie data;
+   and integer tie data; kernel A alone is timed at k=100, batch 8 and
+   256;
 8. probed search: a 10,000,000 x 768 Gaussian blob mixture made on the
    card from seed 42, built into ``ClusteredCorpus(storage="int8")`` (the
    f32 source freed after), answering 8 and 256 queries at k=10 and 100
@@ -126,6 +133,14 @@ TPU_KERNEL = "polars_matmul_tpu/kernels/fused_topk.py"
 # Where each core of kernel A sits in the TPU kernel (_kernel, :1167).
 CORE_LINE = {"bf16x3": 1258, "highest": 1294, "bf16c": 1271,
              "int8c": 1283, "int4c": 1285}
+# The cores whose corpus streams through kernel A's ring of raw bytes, and
+# the ring's edges (m, n, dim): unaligned rows (bf16c at dim 36, int8 at
+# 100), a dim below one stage (56) and one not a multiple of it (300),
+# int4 over two feature chunks (4200), n not a multiple of 64, and n past
+# 1024 for the tallest carry beside the ring.
+STORED = ("bf16c", "int8c", "int4c")
+RING_EDGES = ((5, 129, 36), (5, 129, 100), (37, 1100, 56), (16, 700, 300),
+              (9, 1300, 4200))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -229,8 +244,8 @@ def _ptxas_summary(log: str):
     lines, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"((?:fused_topk_partial|topk_merge|matmul|"
-                      r"floor_stacks)_kernel)"
+                      r"((?:fused_topk_partial|fused_topk_stored|topk_merge|"
+                      r"matmul|floor_stacks)_kernel)"
                       r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
@@ -252,14 +267,39 @@ def _ptxas_summary(log: str):
 
 
 def phase_build():
+    import ctypes
+
     from polars_matmul_tpu_torch.kernels import _build
+    from polars_matmul_tpu_torch.kernels import fused_topk as F
 
     t0 = time.perf_counter()
-    _build.load_library()
+    lib = _build.load_library()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
     for line in _ptxas_summary(str(_build.build_info["log"])):
         print("  ptxas: " + line)
+    # The stored cores' ring at the north-star width, k=100: the source's
+    # plan must be the host mirror's.
+    for tm in (16, 32, 64):
+        for core in STORED:
+            c_ld = F._corpus_width(core, WIDE_DIM)
+            plan = (ctypes.c_int * 4)()
+            require(lib.pmm_fused_topk_ring(tm, F.CORES.index(core), c_ld,
+                                            100, plan) == 0,
+                    f"no ring plan for tm={tm} {core}")
+            want = F.ring_plan(tm, core, c_ld, F.tail_bytes(tm, 100))
+            require(tuple(plan) == (want[0], want[1], int(want[2]), want[3]),
+                    f"ring plan tm={tm} {core}: source {tuple(plan)}, host "
+                    f"{want}")
+            blocks = [lib.pmm_fused_topk_blocks_per_sm(
+                tm, 100, F.CORES.index(core), listed, c_ld)
+                for listed in (0, 1)]
+            print(f"  ring: tm={tm} {core} at dim {WIDE_DIM}, k=100: "
+                  f"{plan[0]} stages of {plan[1]} B ("
+                  f"{F.ring_row_bytes(tm, core)} corpus bytes a row), query "
+                  f"{'resident' if plan[2] else 'in the ring'}, {plan[3]} B "
+                  f"of shared memory; blocks an SM {blocks[0]} dense, "
+                  f"{blocks[1]} listed")
 
 
 def _case_data(torch, gen, m, n, dim, dup: bool):
@@ -315,7 +355,8 @@ def _check_kernels(F, qp, cp, cbp, mask, k, precision, err, what,
     import torch
 
     m, n = qp.shape[0], cp.shape[0]
-    tm, splits, tps = F.kernel_geometry(m, n, k, precision, qp.device)
+    tm, splits, tps = F.kernel_geometry(m, n, k, precision, qp.device,
+                                        dim=F._query_dim(qp, precision))
     pv, pi = F.fused_topk_partial(qp, cp, cbp, mask, k, precision, splits,
                                   tps, tm)
     rv, ri = F.fused_topk_partial_plain(qp, cp, cbp, mask, k, precision,
@@ -363,6 +404,48 @@ def _check_shape(F, torch, gen, q, c, ks, err, label, tie=False,
     return cases
 
 
+def _ring_edges(F, torch, gen, err):
+    """The stored cores at the ring's edges (RING_EDGES), real and integer
+    tie data (bit for bit), k=1, 100 and 1024: at the main path's
+    geometry, in splits of one tile, and walking a list of every other
+    layout tile whose last id lies past the corpus.  Returns the cases."""
+    cases = 0
+    for m, n, dim in RING_EDGES:
+        for tie in (False, True):
+            q, c = (_tie_data(torch, gen, m, n, dim) if tie else
+                    _case_data(torch, gen, m, n, dim, False))
+            metric = "dot" if tie else "cosine"
+            n_tiles, tn = -(-n // F._TN), 128
+            layout = -(-n // tn)
+            tiles = torch.tensor([list(range(0, layout, 2)) + [layout + 1]],
+                                 dtype=torch.int32, device="cuda")
+            for precision in STORED:
+                qp = F.prepare_queries(q, metric, precision)
+                cp, cbp = F.prepare_corpus(c, metric, precision=precision)
+                scale = 0.0 if tie else _term_scale(F, qp, cp, cbp,
+                                                    precision)
+                part_scale = scale if tie else scale[:, :, None]
+                for k in sorted({min(k, n) for k in (1, 100, 1024)}):
+                    what = (f"ring edge m={m} n={n} dim={dim} k={k} "
+                            f"{precision} tie={tie}")
+                    _check_kernels(F, qp, cp, cbp, None, k, precision, err,
+                                   what, scale=scale, exact=tie)
+                    tm = F.query_tile_rows(m, k)
+                    pv, pi = F.fused_topk_partial(qp, cp, cbp, None, k,
+                                                  precision, n_tiles, 1, tm)
+                    rv, ri = F.fused_topk_partial_plain(
+                        qp, cp, cbp, None, k, precision, n_tiles, 1)
+                    err[precision] = max(err[precision], compare(
+                        pv, pi, rv, ri, scale=part_scale, exact=tie,
+                        what="one-tile splits, " + what))
+                    _check_listed(F, qp, cp, cbp, None, k, precision, tiles,
+                                  tn, m, err, "a list past the corpus, "
+                                  + what, scale=scale, exact=tie)
+                    cases += 3
+    torch.cuda.synchronize()
+    return cases
+
+
 def _check_quantizers(F, torch, gen):
     """The torch quantizers on the card against the host NumPy ones, bit
     for bit, on one ingestion chunk (zero rows included)."""
@@ -406,9 +489,9 @@ def _check_listed(F, qp, cp, cbp, mask, k, precision, tiles, tn, block_rows,
     sv, si = F.fused_select(qp, cp, cbp, mask, k, precision, tiles, tn,
                             block_rows)
     if tiles.shape[0] == 1 or block_rows % tm == 0:
-        tm, splits, tps = F.kernel_geometry(m, tiles.shape[1] * tn, k,
-                                            precision, qp.device, tm,
-                                            listed=True)
+        tm, splits, tps = F.kernel_geometry(
+            m, tiles.shape[1] * tn, k, precision, qp.device, tm, listed=True,
+            dim=F._query_dim(qp, precision))
         args = (qp, cp, cbp, mask, k, precision)
         pv, pi = F.fused_topk_partial(*args, splits, tps, tm, tiles, tn,
                                       block_rows)
@@ -528,7 +611,12 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
         q, c = _tie_data(torch, gen, m, n, dim)
         ties += _check_shape(F, torch, gen, q, c, (1, 10, 100), err,
                              "ragged", tie=True, precisions=F.CORES)
+    edges = _ring_edges(F, torch, gen, err)
     _check_quantizers(F, torch, gen)
+    print(f"phase 2: {edges} cases at the ring's edges match (the stored "
+          f"cores dense, in splits of one tile and on a list past the "
+          f"corpus; unaligned dims 36 and 100, dims 56, 300 and 4200, n not "
+          f"a multiple of 64, k=1/100/1024; integer tie data bit-identical)")
     print(f"phase 2: {cases} ragged cases match (atol {ATOL} + rtol {RTOL} "
           f"x max(|score|, row term scale); kernel B bit-identical), every "
           f"core; {ties} integer tie cases bit-identical; the on-card "
@@ -706,7 +794,7 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
         plain = cuda_ms(lambda: F.fused_topk_plain(qp, cp, cbp, None, k,
                                                    precision))
         tm, splits, tps = F.kernel_geometry(N_QUERIES, N_CORPUS, k,
-                                            precision, q.device)
+                                            precision, q.device, dim=DIM)
         a = cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, None, k,
                                                  precision, splits, tps, tm))
         a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
@@ -974,25 +1062,27 @@ def phase_wide(pmt, F, torch, card, err):
                   f"torch.topk on the dequantised bf16 rows {lib:.3f} ms")
             profile_request(torch, lambda: corpus.topk(qb, k),
                             f"{label} batch {batch} k={k}", card, host)
-            if (batch, k) == (8, 100):
+            if k == 100:
                 tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
-                                                    qp.device)
+                                                    qp.device, dim=corpus.dim)
                 a = cuda_ms(lambda: F.fused_topk_partial(
                     qp, cp, cbp, None, k, core, splits, tps, tm), reps=5,
                     warmup=1)
                 a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
-                    qp, cp, cbp, None, k, core, splits, tps), reps=2,
-                    warmup=1)
+                    qp, cp, cbp, None, k, core, splits, tps),
+                    reps=2 if batch == 8 else 1, warmup=1)
                 a_bound = _bound(cp.nbytes + cbp.nbytes + qp.nbytes
                                  + batch * splits * k * 8, ops,
                                  "bfloat16")
-                entries[core] = _entry(
-                    a, a_plain, lib,
-                    "torch.addmm + torch.topk on the dequantised bf16 rows",
-                    a_bound, f"{label} cosine batch 8 k=100")
-                print(f"phase 6: [{card}] {label} batch 8 k=100: kernel A "
-                      f"{a:.3f} ms, A plain {a_plain:.3f} ms, bound "
-                      f"{a_bound[0]:.3f} ms ({a_bound[1]})")
+                if batch == 8:
+                    entries[core] = _entry(
+                        a, a_plain, lib, "torch.addmm + torch.topk on the "
+                        "dequantised bf16 rows", a_bound,
+                        f"{label} cosine batch 8 k=100")
+                print(f"phase 6: [{card}] {label} batch {batch} k=100: "
+                      f"kernel A {a:.3f} ms (tm={tm}, splits={splits}), A "
+                      f"plain {a_plain:.3f} ms, bound {a_bound[0]:.3f} ms "
+                      f"({a_bound[1]}), library {lib:.3f} ms")
         del lib_rows, zero, cp, cbp, corpus, results
         torch.cuda.empty_cache()
 
@@ -1147,7 +1237,8 @@ def _time_probed(F, torch, cc, q, k, card, label):
         metric_v="cosine"), reps=10)
     tm = F.listed_tile_rows(m, k, br)
     tm, splits, tps = F.kernel_geometry(m, p * tn, k, core, qp.device, tm,
-                                        listed=True)
+                                        listed=True,
+                                        dim=F._query_dim(qp, core))
     args = (qp, cp, cbp, None, k, core, splits, tps)
     a = cuda_ms(lambda: F.fused_topk_partial(*args, tm, tiles, tn, br),
                 reps=10, warmup=2)
@@ -1677,7 +1768,8 @@ def _check_floor(D, torch, qp, cp, cb, core, levels, tn, ids, posu, k, err,
     its neighbours, and levels=0 sums off only by tiles whose max lies
     within that tolerance of an integer."""
     m, n = qp.shape[0], cp.shape[0]
-    geo = D.floor_geometry(m, n, core, levels, k, qp.device)
+    geo = D.floor_geometry(m, n, core, levels, k, qp.device,
+                           dim=qp.shape[1] // 2)
     out, lv = D.floor_stacks(qp, cp, cb, core=core, levels=levels, tn=tn,
                              ids=ids, posu=posu, k_geometry=k)
     out_p, lv_p = D.floor_stacks_plain(
@@ -1823,7 +1915,8 @@ def _floor_entry(D, torch, name, qp, cp, cb, core, levels, tn, ids, posu, k,
     _check_floor(D, torch, qp, cp, cb, core, levels, tn, ids, posu, k, err,
                  f"{name} main-path shape", False)
     m, n, dim = qp.shape[0], cp.shape[0], qp.shape[1] // 2
-    geo = D.floor_geometry(m, n, core, levels, k, qp.device)
+    geo = D.floor_geometry(m, n, core, levels, k, qp.device,
+                           dim=qp.shape[1] // 2)
     plain = cuda_ms(lambda: D.floor_stacks_plain(
         qp, cp, cb, core=core, levels=levels, tn=tn, ids=ids, posu=posu,
         splits=geo[1], tiles_per_split=geo[2]), reps=3, warmup=1)
@@ -1843,7 +1936,8 @@ def _floor_entry(D, torch, name, qp, cp, cb, core, levels, tn, ids, posu, k,
     passes = 3 if core == "bf16x3" else 2
     bound = _bound(qp.nbytes + cp.nbytes + cb.nbytes + out_bytes,
                    passes * 2 * m * n * dim, "bfloat16")
-    blocks = D._occupancy[(qp.device.index, geo[0], core, levels)]
+    blocks = D._occupancy[(qp.device.index, geo[0], core, levels,
+                           qp.shape[1] // 2)]
     print(f"phase 10: [{card}] kernel D {name} ({m}x{n}x{dim} {core} "
           f"L{levels} {ids}{' posu' if posu else ''}; tm={geo[0]}, "
           f"splits={geo[1]}, {blocks} block(s)/SM): {ms:.4f} ms, kernel A "

@@ -72,15 +72,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pmm_fused_topk_partial.argtypes = [p] * 8 + [i] * 14 + [p]
     lib.pmm_fused_topk_partial.restype = i
-    lib.pmm_fused_topk_blocks_per_sm.argtypes = [i, i, i, i]
+    lib.pmm_fused_topk_blocks_per_sm.argtypes = [i, i, i, i, i]
     lib.pmm_fused_topk_blocks_per_sm.restype = i
+    lib.pmm_fused_topk_ring.argtypes = [i, i, i, i, p]
+    lib.pmm_fused_topk_ring.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
     lib.pmm_matmul.argtypes = [p, p, p, i, i, i, i, p]
     lib.pmm_matmul.restype = i
     lib.pmm_floor_stacks.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.pmm_floor_stacks.restype = i
-    lib.pmm_floor_blocks_per_sm.argtypes = [i, i, i]
+    lib.pmm_floor_blocks_per_sm.argtypes = [i, i, i, i]
     lib.pmm_floor_blocks_per_sm.restype = i
 
 

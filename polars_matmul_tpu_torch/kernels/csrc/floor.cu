@@ -53,9 +53,12 @@
 // batch 8) or the bf16 products (batch 256, the bf16x3 floor at 1024
 // queries), as for kernel A, plus, for levels >= 1, the selection: about
 // 2 L + 5 integer operations and L shared-memory loads and stores a score.
-// The design keeps kernel A's staging as it is, so that kernel A minus
-// kernel D at levels = 0 is kernel A's selection cost, and D at L minus D
-// at levels = 0 is what an L-level stack selection would cost instead.
+// The design runs kernel A's staging as it is (the stored cores stream
+// through kernel A's ring, tile_scores.cuh::ring_walk, with the two int4
+// experiment decodes applied as the bytes are read out), so that kernel A
+// minus kernel D at levels = 0 is kernel A's selection cost, and D at L
+// minus D at levels = 0 is what an L-level stack selection would cost
+// instead.
 
 #include "tile_scores.cuh"
 
@@ -67,20 +70,40 @@ constexpr int kLanes = 128;
 constexpr int kINT32_MIN = -2147483647 - 1;
 constexpr int kMaxLevels = 16;
 constexpr int kSegmentRows = kLanes * kLanes;   // 16,384
-constexpr size_t kMaxSmem = 232448;             // a block's dynamic limit
 
 // The group-id rules, in the order of kernels/floor.py's IDS.
 enum Ids : int { kGlobal = 0, kSegmented = 1, kTileLocal = 2 };
 
-// Shared memory: the operand tiles, the score tile, then the stacks
+// Shared memory after the staging: the score tile, then the stacks
 // (levels >= 1) or each row's running tile max (levels = 0).
-__host__ __device__ inline size_t floor_smem_bytes(int tm, int core,
-                                                   int levels) {
+__host__ __device__ inline size_t floor_tail_bytes(int tm, int levels) {
   const size_t work = levels > 0
       ? (size_t)levels * tm * kLanes * sizeof(int)
       : (size_t)tm * sizeof(float);
-  return operand_bytes(tm, core) + (size_t)tm * (kTN + 1) * sizeof(float)
-       + work;
+  return (size_t)tm * (kTN + 1) * sizeof(float) + work;
+}
+
+// The staging of kernel<TM, CORE>: bf16x3's operand tiles, or a stored
+// core's ring (corpus row stride c_ld bytes) and resident query tile.
+template <int TM, int CORE>
+__host__ __device__ inline size_t floor_staging(int c_ld, bool q_resident,
+                                                int stages) {
+  if constexpr (stored_core(CORE))
+    return ring_bytes(TM, CORE, ring_chunks(TM, CORE, c_ld), q_resident,
+                      stages);
+  return operand_bytes(TM, CORE);
+}
+
+// Kernel<TM, CORE>'s shared memory at these levels (0 where it cannot
+// fit), and a stored core's ring.
+template <int TM, int CORE>
+size_t floor_smem(int levels, int c_ld, RingPlan& plan) {
+  const size_t rest = floor_tail_bytes(TM, levels);
+  if constexpr (stored_core(CORE)) {
+    plan = ring_plan(TM, CORE, ring_chunks(TM, CORE, c_ld), rest);
+    return plan.bytes;
+  }
+  return operand_bytes(TM, CORE) + rest;
 }
 
 // The order-preserving int of f32 bits, and back (an involution).
@@ -97,9 +120,11 @@ floor_stacks_kernel(const uint16_t* __restrict__ qp,
                     int* __restrict__ levels_out, int* __restrict__ done,
                     int m, int n, int dim,
                     int c_ld, int levels, int tn, int ids, int seg,
-                    bool posu, int splits, int tiles_per_split, bool vec) {
+                    bool posu, int splits, int tiles_per_split, bool vec,
+                    int stages, bool q_resident) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* St = reinterpret_cast<float*>(smem + operand_bytes(TM, CORE));
+  float* St = reinterpret_cast<float*>(
+      smem + floor_staging<TM, CORE>(c_ld, q_resident, stages));
   int* stack = reinterpret_cast<int*>(St + TM * (kTN + 1));
   float* tile_max = reinterpret_cast<float*>(stack);   // levels = 0
   __shared__ bool last_block;
@@ -119,33 +144,8 @@ floor_stacks_kernel(const uint16_t* __restrict__ qp,
   } else {
     for (int r = tid; r < TM; r += kThreads) tile_max[r] = -INFINITY;
   }
-  // The score functions synchronise before they return, so these writes
-  // (and a segment's reset below) are seen by every thread in time.
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * kTN;
-    if (levels > 0 && ids == kSegmented && t != t_begin && n0 % seg == 0) {
-      for (int e = tid; e < levels * kCells; e += kThreads)
-        stack[e] = kINT32_MIN;
-    }
-    if constexpr (CORE == kBf16x3) {
-      uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
-      uint16_t* Ql = Qh + TM * kBKP;
-      uint16_t* Ch = Ql + TM * kBKP;
-      uint16_t* Cl = Ch + kTN * kBKP;
-      scores_bf16x3<TM>(qp, static_cast<const uint16_t*>(cp), cb, nullptr,
-                        Qh, Ql, Ch, Cl, St, row0, n0, m, n, dim, vec);
-    } else {
-      constexpr int BKP = stored_bk(TM) + 8;
-      uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
-      uint16_t* Ql = Qh + TM * BKP;
-      uint16_t* Cs = Ql + TM * BKP;
-      // The int4 family reads the experiment's layout: one chunk of the
-      // whole row (ck = dim).
-      scores_stored<TM, CORE>(qp, cp, scale, cb, nullptr, Qh, Ql, Cs, St,
-                              row0, n0, m, n, dim, (size_t)c_ld, dim, vec);
-    }
-    __syncthreads();
+  // Tile t's scores are in St: its stacks, or its rows' maxima.
+  auto take_tile = [&](int t, int n0) {
     const int cols = min(kTN, n - n0);
     if (levels > 0) {
       const int id = ids == kGlobal     ? 127 - (n0 >> 7)
@@ -186,7 +186,42 @@ floor_stacks_kernel(const uint16_t* __restrict__ qp,
         }
       }
     }
-    __syncthreads();
+  };
+  // A segmented stack restarts at every seg-th column.
+  auto reset_segment = [&](int t, int n0) -> bool {
+    if (levels == 0 || ids != kSegmented || t == t_begin || n0 % seg)
+      return false;
+    for (int e = tid; e < levels * kCells; e += kThreads)
+      stack[e] = kINT32_MIN;
+    return true;
+  };
+
+  if constexpr (CORE == kBf16x3) {
+    // The score function synchronises before it returns, so these writes
+    // (and a segment's reset) are seen by every thread in time.
+    for (int t = t_begin; t < t_end; ++t) {
+      const int n0 = t * kTN;
+      reset_segment(t, n0);
+      uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
+      uint16_t* Ql = Qh + TM * kBKP;
+      uint16_t* Ch = Ql + TM * kBKP;
+      uint16_t* Cl = Ch + kTN * kBKP;
+      scores_bf16x3<TM>(qp, static_cast<const uint16_t*>(cp), cb, nullptr,
+                        Qh, Ql, Ch, Cl, St, row0, n0, m, n, dim, vec);
+      __syncthreads();
+      take_tile(t, n0);
+      __syncthreads();
+    }
+  } else {
+    // The int4 family reads the experiment's layout: one chunk of the
+    // whole row (ck = dim).
+    ring_walk<TM, CORE, false>(
+        qp, cp, scale, cb, nullptr, nullptr, 0, 0, smem, St, row0, m, n,
+        dim, c_ld, dim, t_begin, t_end, stages, q_resident, vec,
+        [&](int t, int n0) {
+          if (reset_segment(t, n0)) __syncthreads();
+          take_tile(t, n0);
+        });
   }
 
   if (levels > 0) {
@@ -224,41 +259,39 @@ floor_stacks_kernel(const uint16_t* __restrict__ qp,
   }
 }
 
-inline bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
 template <int TM, int CORE>
 int launch(const void* qp, const void* cp, const float* scale,
            const float* cb, int* out, int* levels_out, int* done, int m,
            int n,
            int dim, int c_ld, int levels, int tn, int ids, int seg,
            bool posu, int splits, int tiles_per_split, cudaStream_t stream) {
-  const size_t bytes = floor_smem_bytes(TM, CORE, levels);
-  if (bytes > kMaxSmem) return -1;
+  RingPlan plan{};
+  const size_t bytes = floor_smem<TM, CORE>(levels, c_ld, plan);
+  if (bytes == 0 || bytes > kMaxSmem) return -1;
   auto kern = floor_stacks_kernel<TM, CORE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  // Vector loads: 16 bytes of bf16, 8 bytes of int8 codes or packed bytes
-  // (whole 8-byte runs a nibble half: dim / 2 a multiple of 8).
-  const uintptr_t c_align = CORE == kBf16x3 ? 16 : 8;
-  const bool vec = dim % 8 == 0 && (!packed_core(CORE) || dim % 16 == 0) &&
-                   aligned(qp, 16) && aligned(cp, c_align);
+  // bf16x3: 16-byte loads of bf16; the stored cores: the ring's rule.
+  const bool vec = CORE == kBf16x3
+      ? dim % 8 == 0 && aligned(qp, 16) && aligned(cp, 16)
+      : ring_aligned(qp, cp, dim, (size_t)c_ld);
   dim3 grid((m + TM - 1) / TM, splits);
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const uint16_t*>(qp), cp, scale, cb, out, levels_out, done,
       m, n, dim, c_ld, levels, tn, ids, seg, posu, splits, tiles_per_split,
-      vec);
+      vec, plan.stages, plan.q_resident);
   return (int)cudaGetLastError();
 }
 
-// Blocks of kernel<TM, CORE> one SM holds at these levels, or a negative
-// cudaError_t (-1 where the shared memory cannot fit).
+// Blocks of kernel<TM, CORE> one SM holds at these levels and corpus row
+// stride, or a negative cudaError_t (-1 where the shared memory cannot
+// fit).
 template <int TM, int CORE>
-int occupancy(int levels) {
-  const size_t bytes = floor_smem_bytes(TM, CORE, levels);
-  if (bytes > kMaxSmem) return -1;
+int occupancy(int levels, int c_ld) {
+  RingPlan plan{};
+  const size_t bytes = floor_smem<TM, CORE>(levels, c_ld, plan);
+  if (bytes == 0 || bytes > kMaxSmem) return -1;
   auto kern = floor_stacks_kernel<TM, CORE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -340,12 +373,13 @@ int pmm_floor_stacks(const void* qp, const void* cp, const float* scale,
 }
 
 // Blocks of the (tm, core) kernel that one SM of the current device holds
-// at these levels; negative on an error, -1 for arguments it does not
-// take.
-int pmm_floor_blocks_per_sm(int tm, int core, int levels) {
-  if (levels < 0 || levels > kMaxLevels) return -1;
+// at these levels and corpus row stride c_ld (pmm_floor_stacks's);
+// negative on an error, -1 for arguments it does not take.
+int pmm_floor_blocks_per_sm(int tm, int core, int levels, int c_ld) {
+  if (levels < 0 || levels > kMaxLevels || c_ld <= 0) return -1;
   return dispatch(tm, core, [&](auto tmc, auto cc) {
-    return occupancy<decltype(tmc)::value, decltype(cc)::value>(levels);
+    return occupancy<decltype(tmc)::value, decltype(cc)::value>(levels,
+                                                                c_ld);
   });
 }
 

@@ -42,54 +42,58 @@
 // - "highest" runs on CUDA cores: f32 FMA on a (TM/16) x 4 register
 //   micro-tile per thread.  TF32 would not hold f32 semantics.
 // - "bf16c", "int8c", "int4c": the corpus is stored as one bf16 half,
-//   int8 codes, or int8 bytes of two signed nibbles.  Staging converts it
-//   to a bf16 tile in shared memory (integers up to 256 are exact in
-//   bf16), and two mma.sync per k-step give qh.c and ql.c in two
-//   accumulators, summed last (the grouping of fused_topk.py:1292-1293).
-//   int8c / int4c then compute s = d * scale + bias with the scale and
-//   bias rows of the (2, n) operand (scale = 1/|codes| for cosine, the
-//   dequant scale otherwise), rounded as two separate operations, not one
-//   FMA, so the plain PyTorch version gives the same bits; bf16c adds the
-//   bias row.  int4 layout (quantize_int4): in each ck-wide feature chunk,
-//   byte j holds feature j (low nibble) and feature j + ck/2 (high).  ck
-//   is a multiple of 128, so 8 features from a multiple of 8 are one
-//   nibble half of 8 consecutive bytes: one 8-byte load.  Corpus rows are
-//   not padded: int8 codes are dim bytes a row, int4 rows dpp/2 bytes
-//   (dpp = dim padded as feature_geometry says, the padding nibbles
-//   zero).
+//   int8 codes, or int8 bytes of two signed nibbles, and streams through
+//   a ring of raw bytes (below) that is decoded to bf16 as it is read
+//   (integers up to 256 are exact in bf16); two mma.sync per k-step give
+//   qh.c and ql.c in two accumulators, summed last (the grouping of
+//   fused_topk.py:1292-1293).  int8c / int4c then compute s = d * scale +
+//   bias with the scale and bias rows of the (2, n) operand (scale =
+//   1/|codes| for cosine, the dequant scale otherwise), rounded as two
+//   separate operations, not one FMA, so the plain PyTorch version gives
+//   the same bits; bf16c adds the bias row.  int4 layout (quantize_int4):
+//   in each ck-wide feature chunk, byte j holds feature j (low nibble) and
+//   feature j + ck/2 (high); ck is a multiple of 128.  Corpus rows are not
+//   padded: int8 codes are dim bytes a row, int4 rows dpp/2 bytes (dpp =
+//   dim padded as feature_geometry says, the padding nibbles zero).
 //
 // What bounds it on the H100: at the 1000 x 10000 x 256 canonical shape
 // the bf16x3 product is 7.7 G multiply-adds, about 0.02 ms of bf16 tensor
 // core time at the published peak, so the product is not the limit; the
-// tile loads (16-byte loads where dim % 8 == 0, but no cp.async or TMA
-// pipeline yet) and the selection are.  The selection looks only at the
-// tile scores that beat the row's current k-th value (strict >, so a later
+// tile loads (16-byte loads where dim % 8 == 0, staged per tile and waited
+// for) and the selection are.  The selection looks only at the tile
+// scores that beat the row's current k-th value (strict >, so a later
 // index never displaces an equal earlier one), which after the first tiles
 // of a split is a small fraction of them.  A few are inserted one by one,
 // each a warp-wide count and shift of the sorted carry; many (the first
 // tiles of a split) are sorted in the warp and merged into the carry in
 // one pass.  "highest" is bound by the f32 FMA rate (67 TFLOP/s peak).
 //
-// The quantized cores serve corpora too large for f32.  At the 10M x 768
+// The stored cores serve corpora too large for f32.  At the 10M x 768
 // north-star shape a batch-8 int8 request must read 7.68 GB of codes plus
-// 80 MB of scale | bias: 2.3 ms of HBM at 3.35 TB/s, so the loads bound it
-// and storing fewer bits is the design's answer (a quarter of f32's
-// bytes, an eighth for int4).  The loads are plain 8- or 16-byte loads
-// (where dim % 8 == 0), converted to bf16 in registers on the way into
-// shared memory, with no cp.async or TMA pipeline yet: each step waits
-// for its loads, so the bytes a step stages set the rate, and the stored
-// cores stage 128 features a step (64 for the 64-row query tile), with
-// all of a thread's loads issued before any is used.  At batch 256 the
-// two bf16 products (7.9 TFLOP) bound it: each 64-row query tile reads
-// the corpus again, which L2 does not hold.
+// 80 MB of scale | bias: 2.3 ms of HBM at 3.35 TB/s, so the bytes bound
+// it, and storing fewer of them is the first answer (a quarter of f32's
+// bytes, an eighth for int4).  The second is keeping enough of them in
+// flight.  A block's loads used to land before its products and its
+// selection ran, so only other blocks overlapped them, and int4 moved its
+// packed bytes twice.  Now each block (fused_topk_stored_kernel) streams
+// its whole split through an asynchronous ring in shared memory
+// (tile_scores.cuh::ring_walk): cp.async copies of the raw stored bytes,
+// each byte once, run a few stages ahead of the products and straight
+// across tile boundaries, so the next tile's first chunks load while this
+// tile is selected; the bytes are decoded to bf16 only as the products
+// read them; a small batch's query tile is staged once a block, not once
+// a tile.  At batch 256 the two bf16 products (7.9 TFLOP) bound it: each
+// 64-row query tile reads the corpus again, which L2 does not hold, and
+// mma.sync with a warp owning 8 corpus columns reads the query tile from
+// shared memory for every 8 columns.
 //
 // Ragged edges: query rows >= m, corpus rows >= n and features >= dim are
 // handled by the kernel's own bounds; nothing needs padding.  A carry slot
 // that nothing filled holds (-inf, INT32_MAX).
 //
-// The staging and score-tile functions (the tensor-core cores, the
-// epilogue, the int4 layout) live in tile_scores.cuh, shared with kernel
-// D (floor.cu), which measures them without the selection.
+// The staging and score-tile functions (the tensor-core cores, the ring,
+// the epilogue, the int4 decode) live in tile_scores.cuh, shared with
+// kernel D (floor.cu), which measures them without the selection.
 
 #include "tile_scores.cuh"
 
@@ -99,11 +103,16 @@ namespace {
 
 constexpr int kINT32_MAX = 0x7fffffff;
 
-__host__ __device__ inline size_t smem_bytes(int tm, int k, int core) {
-  return operand_bytes(tm, core)
-       + (size_t)tm * (kTN + 1) * sizeof(float)              // score tile
+// Shared memory after the staging: the score tile, the carry, the merge
+// lists.
+__host__ __device__ inline size_t tail_bytes(int tm, int k) {
+  return (size_t)tm * (kTN + 1) * sizeof(float)              // score tile
        + 2 * (size_t)tm * k * sizeof(float)                  // carry
        + 2 * (size_t)kWarps * kTN * sizeof(float);           // merge lists
+}
+
+__host__ __device__ inline size_t smem_bytes(int tm, int k, int core) {
+  return operand_bytes(tm, core) + tail_bytes(tm, k);
 }
 
 // Insert (v, id) into the sorted carry row (value desc, index asc) of
@@ -376,20 +385,12 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
       scores_bf16x3<TM>(static_cast<const uint16_t*>(qp),
                         static_cast<const uint16_t*>(cp), cb, mask, Qh, Ql,
                         Ch, Cl, St, row0, n0, m, n, dim, vec);
-    } else if constexpr (CORE == kHighest) {
+    } else {
       float* Qs = reinterpret_cast<float*>(smem);
       float* Cs = Qs + TM * kBK;
       scores_f32<TM>(static_cast<const float*>(qp),
                      static_cast<const float*>(cp), cb, mask, Qs, Cs, St,
                      row0, n0, m, n, dim);
-    } else {
-      constexpr int BKP = stored_bk(TM) + 8;
-      uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
-      uint16_t* Ql = Qh + TM * BKP;
-      uint16_t* Cs = Ql + TM * BKP;
-      scores_stored<TM, CORE>(static_cast<const uint16_t*>(qp), cp, scale,
-                              cb, mask, Qh, Ql, Cs, St, row0, n0, m, n, dim,
-                              (size_t)c_ld, ck, vec);
     }
     __syncthreads();
     select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
@@ -405,8 +406,87 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
   }
 }
 
-inline bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+// The stored cores' walk: the ring of tile_scores.cuh in place of the
+// per-tile staging, the same selection and carry.  Two blocks an SM: the
+// ring's plan keeps their shared memory, and the bound their registers.
+template <int TM, int CORE, bool LISTED>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
+                         const void* __restrict__ cp,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ cb,
+                         const uint8_t* __restrict__ mask,
+                         const int* __restrict__ tiles,
+                         float* __restrict__ part_v,
+                         int* __restrict__ part_i,
+                         int m, int n, int dim, int c_ld, int ck, int k,
+                         int splits, int tiles_per_split, int p,
+                         int tn_tiles, int block_rows, bool vec,
+                         int stages, bool q_resident) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunks =
+      ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1));
+  float* St = reinterpret_cast<float*>(
+      smem + ring_bytes(TM, CORE, chunks, q_resident, stages));
+  float* Cv = St + TM * (kTN + 1);
+  int* Ci = reinterpret_cast<int*>(Cv + (size_t)TM * k);
+  float* Lv = reinterpret_cast<float*>(Ci + (size_t)TM * k);
+  int* Li = reinterpret_cast<int*>(Lv + kWarps * kTN);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * TM;
+  const int rows_valid = min(TM, m - row0);
+  const int split = blockIdx.y;
+  const int* list = LISTED ? tiles + (size_t)(row0 / block_rows) * p
+                           : nullptr;
+  const int n_tiles = LISTED ? p * tn_tiles : (n + kTN - 1) / kTN;
+  const int layout_tiles =
+      LISTED ? (n + tn_tiles * kTN - 1) / (tn_tiles * kTN) : 0;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  for (int e = tid; e < TM * k; e += kThreads) {
+    Cv[e] = -INFINITY;
+    Ci[e] = kINT32_MAX;
+  }
+  ring_walk<TM, CORE, LISTED>(
+      qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
+      m, n, dim, c_ld, ck, t_begin, t_end, stages, q_resident, vec,
+      [&](int, int n0) {
+        select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
+                        rows_valid, warp, lane);
+      });
+
+  for (int e = tid; e < rows_valid * k; e += kThreads) {
+    const int r = e / k, j = e % k;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
+    part_v[o] = Cv[e];
+    part_i[o] = Ci[e];
+  }
+}
+
+// A stored core's ring at this k and corpus row stride c_ld.
+template <int TM, int CORE>
+RingPlan stored_plan(int k, int c_ld) {
+  return ring_plan(TM, CORE,
+                   ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1)),
+                   tail_bytes(TM, k));
+}
+
+// Kernel<TM, CORE, LISTED>, its shared memory (0 where it cannot fit) and
+// a stored core's ring.
+template <int TM, int CORE, bool LISTED>
+auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
+  if constexpr (stored_core(CORE)) {
+    plan = stored_plan<TM, CORE>(k, c_ld);
+    bytes = plan.bytes;
+    return fused_topk_stored_kernel<TM, CORE, LISTED>;
+  } else {
+    bytes = smem_bytes(TM, k, CORE);
+    return fused_topk_partial_kernel<TM, CORE, LISTED>;
+  }
 }
 
 template <int TM, int CORE, bool LISTED>
@@ -415,29 +495,40 @@ int launch(const void* qp, const void* cp, const float* scale,
            float* part_v, int* part_i, int m, int n, int dim, int c_ld,
            int ck, int k, int splits, int tiles_per_split, int p,
            int tn_tiles, int block_rows, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(TM, k, CORE);
-  auto kern = fused_topk_partial_kernel<TM, CORE, LISTED>;
+  size_t bytes;
+  RingPlan plan{};
+  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bytes, plan);
+  if (bytes == 0 || bytes > kMaxSmem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  // Vector loads: 16 bytes of bf16, 8 bytes of int8 codes or packed
-  // nibbles.
-  const uintptr_t c_align = (CORE == kInt8c || CORE == kInt4c) ? 8 : 16;
-  const bool vec = CORE != kHighest && dim % 8 == 0 && aligned(qp, 16) &&
-                   aligned(cp, c_align);
   dim3 grid((m + TM - 1) / TM, splits);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck, k,
-      splits, tiles_per_split, p, tn_tiles, block_rows, vec);
+  if constexpr (stored_core(CORE)) {
+    const size_t row_bytes = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles, part_v,
+        part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
+        block_rows, ring_aligned(qp, cp, dim, row_bytes), plan.stages,
+        plan.q_resident);
+  } else {
+    // Vector loads: 16 bytes of bf16.
+    const bool vec = CORE != kHighest && dim % 8 == 0 && aligned(qp, 16) &&
+                     aligned(cp, 16);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
+        k, splits, tiles_per_split, p, tn_tiles, block_rows, vec);
+  }
   return (int)cudaGetLastError();
 }
 
-// Blocks of kernel<TM, CORE, LISTED> one SM holds at this k (its registers
-// and shared memory), or a negative cudaError_t.
+// Blocks of kernel<TM, CORE, LISTED> one SM holds at this k and corpus row
+// stride (its registers and shared memory), or a negative cudaError_t.
 template <int TM, int CORE, bool LISTED>
-int occupancy(int k) {
-  const size_t bytes = smem_bytes(TM, k, CORE);
-  auto kern = fused_topk_partial_kernel<TM, CORE, LISTED>;
+int occupancy(int k, int c_ld) {
+  size_t bytes;
+  RingPlan plan{};
+  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bytes, plan);
+  if (bytes == 0 || bytes > kMaxSmem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return -(int)err;
@@ -529,13 +620,33 @@ int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
 }
 
 // Blocks of the (tm, core, listed) kernel that one SM of the current
-// device holds at this k; negative on an error, -1 for arguments it does
-// not take.
-int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed) {
-  if (k <= 0) return -1;
+// device holds at this k and corpus row stride c_ld (pmm_fused_topk_partial's
+// c_ld); negative on an error, -1 for arguments it does not take.
+int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed,
+                                 int c_ld) {
+  if (k <= 0 || c_ld <= 0) return -1;
   return dispatch(tm, core, listed != 0, [&](auto tmc, auto cc, auto lc) {
     return occupancy<decltype(tmc)::value, decltype(cc)::value,
-                     decltype(lc)::value>(k);
+                     decltype(lc)::value>(k, c_ld);
+  });
+}
+
+// A stored core's staging at query tile tm, k and corpus row stride c_ld:
+// out = {stages, bytes a stage, query resident (0 / 1), the kernel's
+// shared memory}.  Returns 0, or -1 for arguments it does not take.
+int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
+  if (k <= 0 || c_ld <= 0 || !stored_core(core)) return -1;
+  return dispatch(tm, core, false, [&](auto tmc, auto cc, auto) {
+    constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
+    if constexpr (stored_core(CORE)) {
+      const RingPlan plan = stored_plan<TM, CORE>(k, c_ld);
+      out[0] = plan.stages;
+      out[1] = (int)ring_stage_bytes(TM, CORE, plan.q_resident);
+      out[2] = plan.q_resident ? 1 : 0;
+      out[3] = (int)plan.bytes;
+      return plan.stages > 0 ? 0 : -1;
+    }
+    return -1;
   });
 }
 

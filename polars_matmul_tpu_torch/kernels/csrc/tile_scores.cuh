@@ -5,10 +5,11 @@
 // include these very functions; only kernel D instantiates the two decodes
 // of the int4 experiment (kInt4Rint, kInt4Raw).
 //
-// The cores ("bf16x3" three bf16 products of [hi | lo] halves; "bf16c",
-// "int8c", "int4c" a stored corpus converted to bf16 while staged, two
+// The cores ("bf16x3" three bf16 products of [hi | lo] halves, staged per
+// tile; "bf16c", "int8c", "int4c" a stored corpus whose raw bytes stream
+// through a ring across tiles and become bf16 as they are read out, two
 // products qh.c + ql.c) and the int4 layout are described at the top of
-// fused_topk.cu.
+// fused_topk.cu; the ring below.
 
 #pragma once
 
@@ -24,6 +25,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTN = 64;         // corpus rows per tile (8 per warp in mma)
 constexpr int kBK = 32;         // features per shared-memory chunk
 constexpr int kBKP = kBK + 8;   // bf16 row stride: conflict-free fragments
+constexpr size_t kMaxSmem = 232448;     // a block's dynamic shared memory
+constexpr size_t kSmemPerSm = 233472;   // an SM's (228 KB)
+constexpr size_t kSmemPerBlock = 1024;  // reserved by each resident block
 
 // The cores, in the order of kernels/fused_topk.py's CORES, then the two
 // decodes of the int4 experiment (kernels/floor.py's CORES): "int4-rint"
@@ -33,29 +37,26 @@ constexpr int kBKP = kBK + 8;   // bf16 row stride: conflict-free fragments
 enum Core : int { kHighest = 0, kBf16x3 = 1, kBf16c = 2, kInt8c = 3,
                   kInt4c = 4, kInt4Rint = 5, kInt4Raw = 6 };
 
-// Cores whose bytes hold two features each (int4_byte's layout).
+// Cores whose bytes hold two features each (the int4c layout).
 __host__ __device__ constexpr bool packed_core(int core) {
   return core == kInt4c || core == kInt4Rint || core == kInt4Raw;
 }
 
-// Features a stored-corpus core stages per step.  Its corpus rows are
-// narrow (32 features are 32 bytes of int8, 16 of int4), and each step
-// waits for its loads, so a wide step keeps more bytes in flight.  The
-// 64-row query tile takes 64, so that two blocks still fit an SM.  (int4
-// at 256 features, the int8 step's bytes, measured slower on the H100:
-// PERF.md.)
-__host__ __device__ constexpr int stored_bk(int tm) {
-  return tm == 64 ? 64 : 128;
+// Cores whose corpus streams through the ring (stored as it is read).
+__host__ __device__ constexpr bool stored_core(int core) {
+  return core != kHighest && core != kBf16x3;
 }
 
-// Shared memory: the operand tiles, then the score tile and the carry.
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// Shared memory of the f32-source cores' operand tiles (the stored
+// cores': ring_bytes).
 __host__ __device__ inline size_t operand_bytes(int tm, int core) {
   if (core == kHighest)
     return ((size_t)tm * kBK + (size_t)kTN * (kBK + 1)) * sizeof(float);
-  if (core == kBf16x3)
-    return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
-  return (size_t)(2 * tm + kTN) * (stored_bk(tm) + 8)        // qh, ql, c
-       * sizeof(uint16_t);
+  return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
 }
 
 // Epilogue for one score: scale row (int8c / int4c: scale != null) and
@@ -192,185 +193,516 @@ __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
     }
 }
 
-__device__ inline uint16_t bf16_bits(int v) {
-  return __bfloat16_as_ushort(__int2bfloat16_rn(v));   // exact for |v| <= 256
+// ---------------------------------------------------------------------------
+// The stored cores (bf16c, int8c, the int4 family): a ring of raw bytes.
+//
+// A block walks the (tile, k-chunk) positions of its whole split.  Each
+// position's corpus bytes, 64 rows x ring_row_bytes as they are stored (2
+// bytes a feature for bf16c, 1 for int8, half for int4: each packed byte
+// is copied once), go by 16-byte cp.async copies into one stage of a ring
+// in shared memory, as many positions ahead of the products as the ring
+// has stages less one, and straight across tile boundaries: while the
+// block selects on tile t, the first chunks of tile t + 1 are in flight.
+// Bytes become bf16 only as they are read out of the ring, straight into
+// the mma B fragments (warp w reads corpus rows 8w .. 8w + 7, so each byte
+// is decoded once a block), by bit operations that are exact for these
+// small integers.
+//
+// The query tile is staged once, before the walk, where it fits beside the
+// ring (batch 8 at dim 768: 48 KB); otherwise the query columns that meet
+// a stage's bytes ride in that stage.  ring_plan picks the stages and the
+// query's place for each launch.
+//
+// k order.  The 16 k slots of an m16n8k16 product may hold any 16 features
+// as long as the A and B fragments agree, and the products of small
+// integers are exact in any order.  A thread's B slots (2 tig, 2 tig + 1)
+// and (2 tig + 8, 2 tig + 9) hold four consecutive stored features, one
+// 8-byte (bf16c) or 4-byte (int8) load; for int4, one 4-byte load holds
+// two k16 products' slots: bytes (4 tig, 4 tig + 1), then (4 tig + 2,
+// 4 tig + 3), each pair's low nibbles in the first slot pair and its high
+// nibbles in the second.  The query columns follow the ring's order: the
+// features in order for bf16c and int8; for int4, each 16 stored bytes
+// meet 32 columns, their 16 low-nibble features then their 16 high ones.
+// ---------------------------------------------------------------------------
+
+// Corpus bytes a row that one stage holds, and the most stages, for query
+// tile TM (chosen by measurement on the H100: PERF.md).  A 16-row query
+// tile is mostly resident, so its stages hold corpus bytes alone (256 a
+// row; int4 128); taller tiles carry their query columns too (64 or 32 of
+// them, hi and lo), so two blocks an SM still fit beside the carry at
+// k = 100.  ring_plan takes as many stages as keep two blocks an SM.
+__host__ __device__ constexpr int ring_row_bytes(int tm, int core) {
+  return tm == 16 ? (packed_core(core) ? 128 : 256)
+       : (core == kBf16c ? 4 : packed_core(core) ? 1 : 2) * (tm == 32 ? 32
+                                                                       : 16);
+}
+__host__ __device__ constexpr int ring_stages(int tm) {
+  return tm == 16 ? 4 : tm == 32 ? 3 : 2;
 }
 
-__device__ inline int nibble(uint32_t byte, bool high) {
-  return (int)(((high ? byte >> 4 : byte) & 0xFu) ^ 8u) - 8;
+// A row stride of an odd number of `unit`s: the 8 rows a 4-byte fragment
+// load reads (16-byte units) or the 4 rows each half-warp of an 8-byte one
+// reads (32-byte units) fall on distinct banks.
+__host__ __device__ constexpr int odd_units(int bytes, int unit) {
+  return (bytes / unit) % 2 ? bytes : bytes + unit;
 }
 
-// Byte of feature f in an int4 row (quantize_int4's layout: in each
-// ck-wide chunk, byte j holds feature j low and feature j + ck/2 high),
-// and whether it is the high nibble.  Eight features from a multiple of 8
-// share their nibble half and sit in 8 consecutive bytes (ck/2 is a
-// multiple of 64).
-__device__ inline size_t int4_byte(int f, int ck, bool& high) {
-  const int t = f / ck, j = f - t * ck, half = ck / 2;
-  high = j >= half;
-  return (size_t)t * half + (high ? j - half : j);
+// Byte stride of a stage's corpus rows.
+__host__ __device__ constexpr int ring_row_stride(int tm, int core) {
+  return odd_units(ring_row_bytes(tm, core), core == kBf16c ? 32 : 16);
 }
 
-// The bf16 bits of one stored byte's feature in the two decodes only
-// kernel D instantiates (high: the feature is the byte's high nibble
-// position).  int4-rint decodes in float, as the experiment does: hi =
-// rint(b / 16), lo = b - 16 hi, both exact.  int4-raw is the byte itself.
-template <int CORE>
-__device__ inline uint16_t decode_byte(uint32_t byte, bool high) {
-  if (CORE == kInt4Rint) {
-    const float b = (float)(int8_t)byte;
-    const float hi = rintf(b * 0.0625f);
-    return __bfloat16_as_ushort(
-        __float2bfloat16_rn(high ? hi : b - 16.f * hi));
-  }
-  return bf16_bits((int)(int8_t)byte);
+// Query columns that one stage's corpus bytes meet.
+__host__ __device__ constexpr int ring_cols(int tm, int core) {
+  return core == kBf16c ? ring_row_bytes(tm, core) / 2
+       : packed_core(core) ? 2 * ring_row_bytes(tm, core)
+                           : ring_row_bytes(tm, core);
 }
 
-// Stage corpus rows [r0, r0 + kTN) x features [k0, k0 + BK) of a
-// stored-corpus core as bf16 into Cs (row stride BK + 8), zero past the
-// row count and the dim.  ld is the row stride in elements (bf16c) or
-// bytes (int8c and the int4 family); ck is the int4 feature chunk.  The
-// vector form issues all of a thread's loads (8 values each) before it
-// converts any, and needs dim % 8 == 0 and aligned operands (int4 rows
-// must hold whole 8-byte runs: ck / 2 a multiple of 8).
-template <int CORE, int BK>
-__device__ inline void load_corpus(const void* __restrict__ src,
-                                   uint16_t* Cs, int r0, int r_end, int k0,
-                                   int dim, size_t ld, int ck, bool vec) {
-  constexpr int BKP = BK + 8;
-  if (vec) {
-    constexpr int kV = BK / 8;
-    constexpr int kPer = kTN * kV / kThreads;   // vectors per thread
-    static_assert(kTN * kV % kThreads == 0, "whole vectors per thread");
-    uint4 raw[kPer];
-    bool high[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int gr = r0 + e / kV, gk = k0 + (e % kV) * 8;
-      raw[i] = make_uint4(0, 0, 0, 0);
-      high[i] = false;
-      if (gr < r_end && gk < dim) {
-        if (CORE == kBf16c) {
-          raw[i] = *reinterpret_cast<const uint4*>(
-              static_cast<const uint16_t*>(src) + gr * ld + gk);
-        } else {
-          const size_t b = packed_core(CORE) ? int4_byte(gk, ck, high[i])
-                                             : (size_t)gk;
-          const uint2 w = *reinterpret_cast<const uint2*>(
-              static_cast<const uint8_t*>(src) + gr * ld + b);
-          raw[i].x = w.x;
-          raw[i].y = w.y;
-        }
+// bf16 stride of query rows of `cols` columns.
+__host__ __device__ constexpr int query_stride(int cols) {
+  return odd_units(2 * cols, 32) / 2;
+}
+
+// Ring positions (chunks) a corpus row of row_bytes takes.
+__host__ __device__ inline int ring_chunks(int tm, int core, int row_bytes) {
+  return (row_bytes + ring_row_bytes(tm, core) - 1) / ring_row_bytes(tm, core);
+}
+
+// Bytes of one stage: the corpus rows, and the query columns (hi, lo) when
+// the query is not resident.
+__host__ __device__ inline size_t ring_stage_bytes(int tm, int core,
+                                                   bool q_resident) {
+  return (size_t)kTN * ring_row_stride(tm, core)
+       + (q_resident ? 0 : 4 * (size_t)tm * query_stride(ring_cols(tm, core)));
+}
+
+// Shared memory of the staging: the ring of `stages`, then the resident
+// query tile.
+__host__ __device__ inline size_t ring_bytes(int tm, int core, int chunks,
+                                             bool q_resident, int stages) {
+  return stages * ring_stage_bytes(tm, core, q_resident)
+       + (q_resident
+              ? 4 * (size_t)tm * query_stride(chunks * ring_cols(tm, core))
+              : 0);
+}
+
+inline int smem_blocks(size_t bytes) {
+  return (int)(kSmemPerSm / (bytes + kSmemPerBlock));
+}
+
+// A ring: its stages (0 where none fits), whether the query tile is
+// resident, and the kernel's shared memory.
+struct RingPlan {
+  int stages;
+  bool q_resident;
+  size_t bytes;
+};
+
+// The ring beside `rest` bytes of the kernel's other shared memory: two
+// blocks an SM where any plan keeps them, then the most stages, then the
+// query tile resident where it fits.  A 64-row query tile always rides
+// the ring (resident, its stages' few corpus bytes a row would make every
+// position mostly overhead), so its products know the query's stride.
+inline RingPlan ring_plan(int tm, int core, int chunks, size_t rest) {
+  RingPlan best{0, false, 0};
+  int best_key = -1;
+  for (int res = tm == 64 ? 0 : 1; res >= 0; --res)
+    for (int s = ring_stages(tm); s >= 2; --s) {
+      const size_t b = ring_bytes(tm, core, chunks, res != 0, s) + rest;
+      if (b > kMaxSmem) continue;
+      const int blocks = smem_blocks(b) < 2 ? smem_blocks(b) : 2;
+      const int key = 100 * blocks + 10 * s + res;
+      if (key > best_key) {
+        best_key = key;
+        best = RingPlan{s, res != 0, b};
       }
     }
+  return best;
+}
+
+// The cp.async copies need 16-byte aligned operands and rows (and whole
+// 8-feature query pieces); anything else stages byte by byte.
+inline bool ring_aligned(const void* qp, const void* cp, int dim,
+                         size_t row_bytes) {
+  return dim % 8 == 0 && row_bytes % 16 == 0 && aligned(qp, 16) &&
+         aligned(cp, 16);
+}
+
+__device__ inline void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(bytes) : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// At most n groups still in flight (n < ring_stages - 1).
+__device__ inline void cp_async_wait_for(int n) {
+  if (n >= 2)
+    cp_async_wait<2>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+__device__ inline uint2 lds64(const uint16_t* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+__device__ inline uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// bf16x2 of x - c, exact here.
+__device__ inline uint32_t bf16x2_sub(uint32_t x, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(c), "r"(0xBF80BF80u), "r"(x));   // c * -1 + x
+  return d;
+}
+
+// The signed bytes b0, b1 in the low bytes of the 16-bit halves of s, as
+// bf16x2: bits 0x4300 | (b & 127) are 128 + (b & 127), less 128 or, with
+// the sign bit, 256.
+__device__ inline uint32_t i8_bf16x2(uint32_t s) {
+  return bf16x2_sub((s & 0x007F007Fu) | 0x43004300u,
+                    (s & 0x00800080u) | 0x43004300u);
+}
+
+// The four signed bytes of w as bf16x2 pairs: (byte 0, 1) and (2, 3).
+__device__ inline void i8x4_bf16(uint32_t w, uint32_t& b01, uint32_t& b23) {
+  b01 = i8_bf16x2(__byte_perm(w, 0, 0x4140));
+  b23 = i8_bf16x2(__byte_perm(w, 0, 0x4342));
+}
+
+// The four signed bytes of w as floats: 2^23 + (v + 128) built in the
+// bits, less 2^23 + 128.
+__device__ inline void i8x4_float(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+}
+
+// The low nibble of each 16-bit half of x, signed, as bf16x2: bits 0x4300
+// | (v + 8) are 136 + v, less 136.
+__device__ inline uint32_t nibbles_bf16x2(uint32_t x) {
+  return bf16x2_sub((x & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
+}
+
+// B fragments of the int4 family from four stored bytes: (lo_a, hi_a) the
+// low and high positions of bytes 0 and 1, (lo_b, hi_b) of bytes 2 and 3.
+template <int CORE>
+__device__ inline void decode_packed(uint32_t w, uint32_t& lo_a,
+                                     uint32_t& hi_a, uint32_t& lo_b,
+                                     uint32_t& hi_b) {
+  if constexpr (CORE == kInt4c) {
+    const uint32_t p01 = __byte_perm(w, 0, 0x4140);   // bytes 0, 1 apart
+    const uint32_t p23 = __byte_perm(w, 0, 0x4342);
+    lo_a = nibbles_bf16x2(p01);
+    hi_a = nibbles_bf16x2(p01 >> 4);
+    lo_b = nibbles_bf16x2(p23);
+    hi_b = nibbles_bf16x2(p23 >> 4);
+  } else if constexpr (CORE == kInt4Raw) {   // the byte in both places
+    i8x4_bf16(w, lo_a, lo_b);
+    hi_a = lo_a;
+    hi_b = lo_b;
+  } else {   // kInt4Rint: b = 16 hi + lo, hi = rint(b / 16), both exact
+    float f[4], hi[4], lo[4];
+    i8x4_float(w, f);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int r = e / kV, kk = (e % kV) * 8;
-      uint4 out = raw[i];
-      if (CORE != kBf16c) {
-        const uint32_t w[2] = {raw[i].x, raw[i].y};
-        uint16_t h[8];
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const uint32_t byte = (w[b >> 2] >> (8 * (b & 3))) & 0xFFu;
-          if constexpr (CORE == kInt4Rint || CORE == kInt4Raw) {
-            h[b] = k0 + kk + b < dim ? decode_byte<CORE>(byte, high[i])
-                                     : (uint16_t)0;
-          } else {
-            const int v = CORE == kInt8c ? (int)(int8_t)byte
-                                         : nibble(byte, high[i]);
-            h[b] = k0 + kk + b < dim ? bf16_bits(v) : (uint16_t)0;
-          }
-        }
-        out = make_uint4(h[0] | (uint32_t)h[1] << 16,
-                         h[2] | (uint32_t)h[3] << 16,
-                         h[4] | (uint32_t)h[5] << 16,
-                         h[6] | (uint32_t)h[7] << 16);
-      }
-      *reinterpret_cast<uint4*>(Cs + r * BKP + kk) = out;
+    for (int i = 0; i < 4; ++i) {
+      hi[i] = rintf(f[i] * 0.0625f);
+      lo[i] = f[i] - 16.f * hi[i];
+    }
+    lo_a = bf16x2(lo[0], lo[1]);
+    hi_a = bf16x2(hi[0], hi[1]);
+    lo_b = bf16x2(lo[2], lo[3]);
+    hi_b = bf16x2(hi[2], hi[3]);
+  }
+}
+
+// The feature that query column `col` of chunk kc holds (8 columns from a
+// multiple of 8 hold 8 consecutive features).  int4 layout (quantize_int4):
+// in each ck-wide feature chunk, byte j holds feature j low and j + ck/2
+// high; inv_half = 1 / (ck / 2) finds a byte's chunk without an integer
+// division (the producer runs it while the products' sums are live).
+template <int TM, int CORE>
+__device__ inline int ring_feature(int kc, int col, int ck, float inv_half) {
+  if constexpr (packed_core(CORE)) {
+    const int b = kc * ring_row_bytes(TM, CORE) + (col / 32) * 16;
+    const int half = ck / 2, w = col % 32;
+    int t = __float2int_rz(__int2float_rn(b) * inv_half);   // b / half +- 1
+    t += (t + 1) * half <= b ? 1 : 0;
+    t -= t * half > b ? 1 : 0;
+    return t * ck + (b - t * half) + (w >= 16 ? half + w - 16 : w);
+  } else {
+    return kc * ring_cols(TM, CORE) + col;
+  }
+}
+
+// Stage corpus rows [n0, n0 + 64), bytes [b0, b0 + ring_row_bytes) of
+// each, zero past row n and past row_bytes.  vec: 16-byte cp.async copies;
+// otherwise byte by byte, loaded and stored here.
+template <int TM, int CORE>
+__device__ inline void ring_corpus(unsigned char* dst,
+                                   const unsigned char* __restrict__ c,
+                                   size_t ld, int row_bytes, int n0, int n,
+                                   int b0, bool vec) {
+  constexpr int RB = ring_row_bytes(TM, CORE);
+  constexpr int RS = ring_row_stride(TM, CORE);
+  if (vec) {
+    constexpr int kV = RB / 16;
+    for (int e = threadIdx.x; e < kTN * kV; e += kThreads) {
+      const int r = e / kV, o = (e % kV) * 16;
+      const int gr = n0 + r, b = b0 + o;
+      const bool in = gr < n && b < row_bytes;   // whole 16-byte pieces
+      cp_async16(dst + r * RS + o, in ? c + (size_t)gr * ld + b : c,
+                 in ? 16 : 0);
     }
     return;
   }
-  for (int e = threadIdx.x; e < kTN * BK; e += kThreads) {
-    const int r = e / BK, kk = e % BK;
-    const int gr = r0 + r, gk = k0 + kk;
-    uint16_t h = 0;
-    if (gr < r_end && gk < dim) {
-      if (CORE == kBf16c) {
-        h = static_cast<const uint16_t*>(src)[gr * ld + gk];
-      } else {
-        bool hi = false;
-        const size_t b = packed_core(CORE) ? int4_byte(gk, ck, hi)
-                                           : (size_t)gk;
-        const uint8_t byte = static_cast<const uint8_t*>(src)[gr * ld + b];
-        if constexpr (CORE == kInt4Rint || CORE == kInt4Raw)
-          h = decode_byte<CORE>(byte, hi);
-        else
-          h = bf16_bits(CORE == kInt8c ? (int)(int8_t)byte
-                                       : nibble(byte, hi));
-      }
-    }
-    Cs[r * BKP + kk] = h;
+  for (int e = threadIdx.x; e < kTN * RB; e += kThreads) {
+    const int r = e / RB, o = e % RB;
+    const int gr = n0 + r, b = b0 + o;
+    dst[r * RS + o] = gr < n && b < row_bytes ? c[(size_t)gr * ld + b] : 0;
   }
 }
 
-// Score tile of a stored-corpus core (bf16c, int8c, the int4 family) into
-// St (epilogue applied): qh.c and ql.c in two accumulators, summed last.
+// Stage the query columns of chunk kc of rows [row0, row0 + TM) into Qh /
+// Ql (row stride qs, from column 0), zero past row m and feature dim.
 template <int TM, int CORE>
-__device__ inline void scores_stored(const uint16_t* __restrict__ q,
-                                     const void* __restrict__ c,
-                                     const float* __restrict__ scale,
-                                     const float* __restrict__ cb,
-                                     const uint8_t* __restrict__ mask,
-                                     uint16_t* Qh, uint16_t* Ql,
-                                     uint16_t* Cs, float* St, int row0,
-                                     int n0, int m, int n, int dim,
-                                     size_t c_ld, int ck, bool vec) {
-  constexpr int MT = TM / 16;   // m16 tiles per warp
-  constexpr int BK = stored_bk(TM), BKP = BK + 8;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const size_t ld = 2 * (size_t)dim;   // queries: [hi | lo] row stride
-  float acc1[MT][4], acc2[MT][4];
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) { acc1[t][j] = 0.f; acc2[t][j] = 0.f; }
+__device__ inline void ring_query(uint16_t* Qh, uint16_t* Ql, int qs,
+                                  const uint16_t* __restrict__ q, int row0,
+                                  int m, int dim, int ck, float inv_half,
+                                  int kc, bool vec) {
+  constexpr int QC = ring_cols(TM, CORE);
+  const size_t ld = 2 * (size_t)dim;   // [hi | lo] row stride
+  if (vec) {
+    constexpr int kP = QC / 8;   // 8-column pieces a row
+    for (int e = threadIdx.x; e < TM * kP; e += kThreads) {
+      const int r = e / kP, col = (e % kP) * 8;
+      const int f = ring_feature<TM, CORE>(kc, col, ck, inv_half);
+      const int gr = row0 + r;
+      const bool in = gr < m && f < dim;   // whole 8-feature pieces
+      const uint16_t* src = in ? q + gr * ld + f : q;
+      cp_async16(Qh + r * qs + col, src, in ? 16 : 0);
+      cp_async16(Ql + r * qs + col, in ? src + dim : q, in ? 16 : 0);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < TM * QC; e += kThreads) {
+    const int r = e / QC, col = e % QC;
+    const int f = ring_feature<TM, CORE>(kc, col, ck, inv_half);
+    const int gr = row0 + r;
+    const bool in = gr < m && f < dim;
+    Qh[r * qs + col] = in ? q[gr * ld + f] : (uint16_t)0;
+    Ql[r * qs + col] = in ? q[gr * ld + dim + f] : (uint16_t)0;
+  }
+}
 
-  for (int k0 = 0; k0 < dim; k0 += BK) {
-    load_corpus<CORE, BK>(c, Cs, n0, n, k0, dim, c_ld, ck, vec);
-    if (vec)
-      load_tile_vec<BK>(q, Qh, Ql, row0, m, k0, dim, ld, TM);
-    else
-      load_tile<BK>(q, Qh, Ql, row0, m, k0, dim, ld, TM);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      const int bo = (8 * warp + g) * BKP + ks + 2 * tig;
-      const uint32_t b0 = ld32(Cs + bo), b1 = ld32(Cs + bo + 8);
+// The products of one stage: qh.c into acc1, ql.c into acc2.  Qh / Ql
+// point at the stage's first query column, row stride QS where it is known
+// at compile time (nonzero), else qs_rt.
+template <int TM, int CORE, int QS>
+__device__ inline void ring_products(const unsigned char* cs,
+                                     const uint16_t* Qh, const uint16_t* Ql,
+                                     int qs_rt, float (&acc1)[TM / 16][4],
+                                     float (&acc2)[TM / 16][4]) {
+  constexpr int MT = TM / 16;   // m16 tiles per warp
+  constexpr int RB = ring_row_bytes(TM, CORE);
+  constexpr int RS = ring_row_stride(TM, CORE);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const unsigned char* row = cs + (8 * warp + g) * RS
+                           + 4 * tig * (CORE == kBf16c ? 2 : 1);
+  const int qs = QS ? QS : qs_rt;
+  const uint16_t* qh = Qh + g * qs + 4 * tig;
+  const uint16_t* ql = Ql + g * qs + 4 * tig;
+  // A taller query tile has MT independent products a step already; its
+  // steps unrolled in full would hold every step's A fragments at once.
+  constexpr int kUnroll = MT == 1 ? 8 : MT == 2 ? 2 : 1;
+  if constexpr (packed_core(CORE)) {
+#pragma unroll kUnroll
+    for (int s = 0; s < RB / 16; ++s) {   // 16 bytes: 32 columns
+      uint32_t lo_a, hi_a, lo_b, hi_b;
+      decode_packed<CORE>(*reinterpret_cast<const uint32_t*>(row + 16 * s),
+                          lo_a, hi_a, lo_b, hi_b);
 #pragma unroll
       for (int t = 0; t < MT; ++t) {
-        const int ao = (16 * t + g) * BKP + ks + 2 * tig;
-        mma_bf16(acc1[t], ld32(Qh + ao), ld32(Qh + ao + 8 * BKP),
-                 ld32(Qh + ao + 8), ld32(Qh + ao + 8 * BKP + 8), b0, b1);
-        mma_bf16(acc2[t], ld32(Ql + ao), ld32(Ql + ao + 8 * BKP),
-                 ld32(Ql + ao + 8), ld32(Ql + ao + 8 * BKP + 8), b0, b1);
+        const int o = 16 * t * qs + 32 * s;
+        uint2 l0 = lds64(qh + o), l1 = lds64(qh + o + 8 * qs);
+        uint2 h0 = lds64(qh + o + 16), h1 = lds64(qh + o + 8 * qs + 16);
+        mma_bf16(acc1[t], l0.x, l1.x, h0.x, h1.x, lo_a, hi_a);
+        mma_bf16(acc1[t], l0.y, l1.y, h0.y, h1.y, lo_b, hi_b);
+        l0 = lds64(ql + o), l1 = lds64(ql + o + 8 * qs);
+        h0 = lds64(ql + o + 16), h1 = lds64(ql + o + 8 * qs + 16);
+        mma_bf16(acc2[t], l0.x, l1.x, h0.x, h1.x, lo_a, hi_a);
+        mma_bf16(acc2[t], l0.y, l1.y, h0.y, h1.y, lo_b, hi_b);
       }
     }
-    __syncthreads();
-  }
-  const float* sc = CORE == kBf16c ? nullptr : scale;
+  } else {
+    constexpr int kStep = CORE == kBf16c ? 32 : 16;   // bytes a k16 product
+#pragma unroll kUnroll
+    for (int s = 0; s < RB / kStep; ++s) {
+      uint32_t b0, b1;
+      if constexpr (CORE == kBf16c) {
+        const uint2 w = *reinterpret_cast<const uint2*>(row + kStep * s);
+        b0 = w.x;
+        b1 = w.y;
+      } else {
+        i8x4_bf16(*reinterpret_cast<const uint32_t*>(row + kStep * s), b0,
+                  b1);
+      }
 #pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = 16 * t + g + (j >= 2 ? 8 : 0);
-      const int col = 8 * warp + 2 * tig + (j & 1);
-      St[r * (kTN + 1) + col] =
-          epilogue(acc1[t][j] + acc2[t][j], n0 + col, n, sc, cb, mask);
+      for (int t = 0; t < MT; ++t) {
+        const int o = 16 * t * qs + 16 * s;
+        const uint2 h0 = lds64(qh + o), h1 = lds64(qh + o + 8 * qs);
+        mma_bf16(acc1[t], h0.x, h1.x, h0.y, h1.y, b0, b1);
+        const uint2 l0 = lds64(ql + o), l1 = lds64(ql + o + 8 * qs);
+        mma_bf16(acc2[t], l0.x, l1.x, l0.y, l1.y, b0, b1);
+      }
     }
+  }
+}
+
+// Walk tiles [t_begin, t_end) of a stored core through the ring: each
+// tile's epilogue scores go to St (TM x (kTN + 1)), then, after a barrier,
+// on_tile(t, n0) runs (n0 the tile's first corpus row); the next tile's
+// scores wait for a barrier after it.  Listed (LISTED): tile t is kernel
+// tile list[t / tn_tiles] * tn_tiles + t % tn_tiles, an id outside the
+// layout_tiles naming no rows (never read).  c_ld is the corpus row stride
+// in elements (bf16c) or bytes; ck the int4 feature chunk; stages and
+// q_resident the host's ring_plan.  Ends after a barrier with no copy in
+// flight.
+template <int TM, int CORE, bool LISTED, typename OnTile>
+__device__ inline void ring_walk(const uint16_t* __restrict__ q,
+                                 const void* __restrict__ cp,
+                                 const float* __restrict__ scale,
+                                 const float* __restrict__ cb,
+                                 const uint8_t* __restrict__ mask,
+                                 const int* __restrict__ list,
+                                 int layout_tiles, int tn_tiles,
+                                 unsigned char* smem, float* St, int row0,
+                                 int m, int n, int dim, int c_ld, int ck,
+                                 int t_begin, int t_end, int stages,
+                                 bool q_resident, bool vec,
+                                 OnTile&& on_tile) {
+  constexpr int RB = ring_row_bytes(TM, CORE);
+  constexpr int RS = ring_row_stride(TM, CORE), QC = ring_cols(TM, CORE);
+  constexpr int MT = TM / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const unsigned char* c = static_cast<const unsigned char*>(cp);
+  const size_t ld = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
+  const int row_bytes = (int)ld, chunks = ring_chunks(TM, CORE, row_bytes);
+  const int qs = query_stride(q_resident ? chunks * QC : QC);
+  const size_t stage = ring_stage_bytes(TM, CORE, q_resident);
+  uint16_t* Qr = reinterpret_cast<uint16_t*>(smem + stages * stage);
+  const float inv_half = packed_core(CORE) ? 1.f / (ck / 2) : 0.f;
+  // The first corpus row of tile t (list entry t / tn_tiles, tile t %
+  // tn_tiles of it when listed), or -1 where its listed id names no rows.
+  auto first_row = [&](int t, int entry, int sub) -> int {
+    if constexpr (LISTED) {
+      const int lt = list[entry];
+      if (lt < 0 || lt >= layout_tiles) return -1;
+      return (lt * tn_tiles + sub) * kTN;
+    }
+    return t * kTN;
+  };
+  // The producer: the next position's tile (its list entry and tile in
+  // it, kept without divisions) and chunk, into stage `to`.
+  int it = t_begin, ikc = 0;
+  int ie = LISTED ? t_begin / tn_tiles : 0;
+  int isub = LISTED ? t_begin - ie * tn_tiles : 0;
+  auto produce = [&](int to) {
+    const int n0 = it < t_end ? first_row(it, ie, isub) : -1;
+    if (n0 >= 0) {
+      unsigned char* st = smem + to * stage;
+      ring_corpus<TM, CORE>(st, c, ld, row_bytes, n0, n, ikc * RB, vec);
+      if (!q_resident) {
+        uint16_t* qh = reinterpret_cast<uint16_t*>(st + kTN * RS);
+        ring_query<TM, CORE>(qh, qh + TM * qs, qs, q, row0, m, dim, ck,
+                             inv_half, ikc, vec);
+      }
+    }
+    cp_async_commit();   // one group a position, empty or not
+    if (++ikc == chunks) {
+      ikc = 0;
+      ++it;
+      if (LISTED && ++isub == tn_tiles) {
+        isub = 0;
+        ++ie;
+      }
+    }
+  };
+  if (q_resident)   // joins position 0's group
+    for (int kc = 0; kc < chunks; ++kc)
+      ring_query<TM, CORE>(Qr + kc * QC, Qr + TM * qs + kc * QC, qs, q, row0,
+                           m, dim, ck, inv_half, kc, vec);
+  for (int i = 0; i < stages - 1; ++i) produce(i);
+
+  int st = 0;   // the consumer's stage
+  for (int t = t_begin; t < t_end; ++t) {
+    const int n0 = LISTED ? first_row(t, t / tn_tiles, t % tn_tiles)
+                          : first_row(t, 0, 0);
+    float acc1[MT][4], acc2[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) { acc1[i][j] = 0.f; acc2[i][j] = 0.f; }
+    for (int kc = 0; kc < chunks; ++kc) {
+      cp_async_wait_for(stages - 2);   // this position's copies landed
+      __syncthreads();          // everyone's; the stage refilled next is read
+      produce(st == 0 ? stages - 1 : st - 1);   // stages - 1 positions ahead
+      const unsigned char* cs = smem + st * stage;
+      st = st == stages - 1 ? 0 : st + 1;
+      if (n0 < 0) continue;
+      const uint16_t* qh = q_resident
+          ? Qr + kc * QC : reinterpret_cast<const uint16_t*>(cs + kTN * RS);
+      ring_products<TM, CORE, TM == 64 ? query_stride(QC) : 0>(
+          cs, qh, qh + TM * qs, qs, acc1, acc2);
+    }
+    if (n0 < 0) continue;
+    // Accumulator layout: d0, d1 at (row g, cols 2 tig, 2 tig + 1), d2, d3
+    // at row g + 8.  The epilogue's (see epilogue()), with each thread's
+    // two columns' scale, bias and mask read once.
+    float sc[2], bias[2];
+    bool dead[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gn = n0 + 8 * warp + 2 * tig + e;
+      dead[e] = gn >= n || (mask != nullptr && mask[gn] == 0);
+      sc[e] = CORE == kBf16c || dead[e] ? 1.f : scale[gn];
+      bias[e] = dead[e] ? 0.f : cb[gn];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * i + g + (j >= 2 ? 8 : 0);
+        const int col = 8 * warp + 2 * tig + (j & 1);
+        const float d = acc1[i][j] + acc2[i][j];
+        const float p = CORE == kBf16c ? d : __fmul_rn(d, sc[j & 1]);
+        St[r * (kTN + 1) + col] =
+            dead[j & 1] ? -INFINITY : __fadd_rn(p, bias[j & 1]);
+      }
+    __syncthreads();
+    on_tile(t, n0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 }  // namespace

@@ -71,7 +71,7 @@ _LANES = 128
 _SEGMENT_ROWS = _LANES * _LANES
 _TN = F._TN
 # A block's dynamic shared-memory limit on the H100.
-_MAX_SMEM = 232448
+_MAX_SMEM = F.MAX_SMEM
 # The CPU has no SMs to fill: its plain version runs the geometry of a
 # notional 132-SM card holding one block an SM.
 _NOTIONAL_SMS = 132
@@ -166,39 +166,47 @@ def segment_rows(tn: int) -> int:
 
 
 def smem_bytes(tm: int, core: str, levels: int) -> int:
-    """Kernel D's shared memory (``floor_smem_bytes`` in the source): bf16
-    operand tiles of 32 features (bf16x3) or ``stored_bk`` features, rows
-    padded by 8; the score tile; the stacks or the running tile maxima."""
+    """Kernel D's least shared memory (``floor_smem`` in the source, which
+    takes more where it fits): bf16x3's operand tiles of 32 features, rows
+    padded by 8, or a stored core's ring of two stages with the query
+    columns in each; the score tile; the stacks or the running tile
+    maxima."""
     if core == "bf16x3":
-        operands = 2 * (tm + _TN) * (32 + 8) * 2
-    else:
-        operands = (2 * tm + _TN) * ((64 if tm == 64 else 128) + 8) * 2
+        staging = 2 * (tm + _TN) * (32 + 8) * 2
+    else:   # two stages, query not resident: independent of dim
+        staging = F.ring_staging(tm, core, 1, False, 2)[1]
     work = levels * tm * _LANES * 4 if levels else tm * 4
-    return operands + tm * (_TN + 1) * 4 + work
+    return staging + tm * (_TN + 1) * 4 + work
 
 
-# (device index, tm, core, levels) -> blocks of kernel D one SM holds.
+# (device index, tm, core, levels, dim) -> blocks of kernel D one SM holds.
 _occupancy = {}
 
 
+def corpus_width(core: str, dim: int) -> int:
+    """Kernel D's corpus row width (elements of cp) at ``dim`` features."""
+    return 2 * dim if core == "bf16x3" else dim if core == "int8c" else (
+        dim // 2)
+
+
 def floor_geometry(m: int, n: int, core: str, levels: int, k_geometry: int,
-                   device: torch.device):
+                   device: torch.device, *, dim: int):
     """(tm, splits, tiles_per_split) of kernel D: kernel A's query tile for
     k_geometry (halved while the stacks do not fit) and kernel A's split
     rule at D's own occupancy on a CUDA ``device`` (a notional 132-SM card
-    elsewhere)."""
+    elsewhere) for queries of ``dim`` features."""
     tm = F.query_tile_rows(m, k_geometry)
     while tm > 16 and smem_bytes(tm, core, levels) > _MAX_SMEM:
         tm //= 2
     sms, blocks = _NOTIONAL_SMS, 1
     if device.type == "cuda":
-        key = (device.index, tm, core, levels)
+        key = (device.index, tm, core, levels, dim)
         if key not in _occupancy:
             from ._build import load_library
 
             with torch.cuda.device(device):
                 got = load_library().pmm_floor_blocks_per_sm(
-                    tm, _CORE_ENUM[core], levels)
+                    tm, _CORE_ENUM[core], levels, corpus_width(core, dim))
             if got <= 0:
                 raise RuntimeError(f"kernel D cannot run tm={tm} {core} "
                                    f"levels={levels}: error {got}")
@@ -224,8 +232,8 @@ def _check(qp, cp, cb, core: str, levels: int, tn: int, ids: str):
     if qp.dtype != torch.bfloat16 or qp.ndim != 2 or qp.shape[1] % 2:
         raise ValueError("qp must be (m, 2 dim) bfloat16 [hi | lo]")
     dim = qp.shape[1] // 2
-    want = {"bf16x3": (torch.bfloat16, 2 * dim),
-            "int8c": (torch.int8, dim)}.get(core, (torch.int8, dim // 2))
+    want = (torch.bfloat16 if core == "bf16x3" else torch.int8,
+            corpus_width(core, dim))
     if (cp.ndim != 2 or (cp.dtype, cp.shape[1]) != want
             or (core in _INT4 and dim % 2)):
         raise ValueError(f"core {core!r} takes a {want[0]} corpus of width "
@@ -257,7 +265,7 @@ def floor_stacks(qp: torch.Tensor, cp: torch.Tensor, cb: torch.Tensor, *,
     _check(qp, cp, cb, core, levels, tn, ids)
     m, n = qp.shape[0], cp.shape[0]
     tm, splits, tps = floor_geometry(m, n, core, levels, k_geometry,
-                                     qp.device)
+                                     qp.device, dim=qp.shape[1] // 2)
     if qp.device.type == "cpu":
         return floor_stacks_plain(qp, cp, cb, core=core, levels=levels,
                                   tn=tn, ids=ids, posu=posu, splits=splits,

@@ -17,10 +17,14 @@ Kernel A has five cores, the JAX kernel's precisions:
 - ``"bf16x3"``: f32 corpus as bf16 [hi | lo], three bf16 products;
 - ``"highest"``: f32 products;
 - ``"bf16c"``: bf16-stored corpus (hi only), two products qh.c + ql.c;
-- ``"int8c"``: per-row int8 codes, converted to bf16 while staged, two
-  products, then s = d * scale + bias;
+- ``"int8c"``: per-row int8 codes, two products, then s = d * scale +
+  bias;
 - ``"int4c"``: int8 bytes each holding two signed nibbles (the layout of
-  ``quantize_int4``), unpacked while staged, then as int8c.
+  ``quantize_int4``), then as int8c.
+
+The three stored cores stream their raw bytes through a ring of
+asynchronous copies that runs across corpus tiles and decode them to bf16
+as the products read them (``ring_plan`` mirrors its shared memory).
 
 Queries are always split hi | lo except for "highest".  Both kernels are
 exact, with lowest-index-wins ties, so every ``selection`` value of
@@ -50,6 +54,7 @@ counts its launches in ``launches`` (kernel A on a tile list apart, as
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -213,7 +218,12 @@ def probe_block_rows(m: int, dim: int, cfg: SearchConfig, k: int = 1) -> int:
 # The JAX kernel's stack-depth ceiling for big-k (k > 128) gstack.
 _BIGK_MAX_LEVELS = 32
 
+# The three functions below are pure functions of small integers, and an
+# explicit gstack at k > 128 reaches them on every request (a Python loop of
+# math.comb terms, milliseconds a call): each answer is computed once.
 
+
+@functools.lru_cache(maxsize=None)
 def _bigk_tail(k: int, cells: int, levels: int) -> float:
     """cells * P(Binomial(k, 1/cells) >= levels): the bound on a row's
     top-k overflowing a (segment, class) stack of ``levels``."""
@@ -224,6 +234,7 @@ def _bigk_tail(k: int, cells: int, levels: int) -> float:
     return cells * tail
 
 
+@functools.lru_cache(maxsize=None)
 def _bigk_depth(k: int, cells: int) -> int:
     """The JAX kernel's stack depth for k > 128: the fewest levels, from
     ceil(k/128) + 1, whose overflow bound is at most 1e-7 a row."""
@@ -234,6 +245,7 @@ def _bigk_depth(k: int, cells: int) -> int:
     return _BIGK_MAX_LEVELS
 
 
+@functools.lru_cache(maxsize=None)
 def _bigk_gstack_ok(k: int, total_groups: int) -> bool:
     """Whether the JAX package's big-k gstack has a stack depth whose
     overflow bound is at most 1e-6 within the level cap."""
@@ -761,31 +773,112 @@ def launch_geometry(m: int, n: int, k: int, sm_count: int,
     return tm, -(-n_tiles // tps), tps
 
 
-# (device index, tm, k, core) -> blocks of kernel A one SM holds.
+# (device index, tm, k, core, listed, c_ld) -> blocks of kernel A one SM
+# holds.
 _occupancy = {}
 
 
 def kernel_geometry(m: int, n: int, k: int, precision: str,
                     device: torch.device, tm: Optional[int] = None,
-                    listed: bool = False):
+                    listed: bool = False, *, dim: int):
     """The ``launch_geometry`` kernel A runs with on a CUDA ``device``:
-    as many blocks as its SMs hold at once (kernel A waits on its loads
-    at every staging step, so blocks in flight are bytes in flight).
-    ``listed``: the instantiation that walks tile lists."""
+    as many blocks as its SMs hold at once.  ``listed``: the
+    instantiation that walks tile lists; ``dim``: the queries' features
+    (a stored core's shared memory grows with them where its query tile
+    stays resident)."""
     tm = tm or query_tile_rows(m, k)
-    key = (device.index, tm, k, precision, listed)
+    c_ld = _corpus_width(precision, dim)
+    key = (device.index, tm, k, precision, listed, c_ld)
     if key not in _occupancy:
         from ._build import load_library
 
         with torch.cuda.device(device):
             blocks = load_library().pmm_fused_topk_blocks_per_sm(
-                tm, k, CORES.index(precision), int(listed))
+                tm, k, CORES.index(precision), int(listed), c_ld)
         if blocks <= 0:
             raise RuntimeError(f"kernel A cannot run tm={tm} k={k} "
                                f"{precision}: error {blocks}")
         _occupancy[key] = blocks
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return launch_geometry(m, n, k, sms, _occupancy[key], tm)
+
+
+# The H100's shared memory: a block's most, an SM's, and what each
+# resident block reserves of it.
+MAX_SMEM, _SMEM_PER_SM, _SMEM_PER_BLOCK = 232448, 233472, 1024
+
+
+def _odd_units(nbytes: int, unit: int) -> int:
+    """A row stride of an odd number of ``unit`` bytes (conflict-free
+    fragment loads)."""
+    return nbytes if (nbytes // unit) % 2 else nbytes + unit
+
+
+def _packed(precision: str) -> bool:
+    return precision.startswith("int4")
+
+
+def ring_row_bytes(tm: int, precision: str) -> int:
+    """Corpus bytes a row that one stage of the stored cores' ring holds
+    (``csrc/tile_scores.cuh``, ``ring_walk``): 256 at a 16-row query tile
+    (int4: 128); taller ones carry their query columns in the stage and
+    hold 32 (tm 32) or 16 (tm 64) bytes of int8, twice that of bf16, half
+    of int4."""
+    if tm == 16:
+        return 128 if _packed(precision) else 256
+    per = 4 if precision == "bf16c" else 1 if _packed(precision) else 2
+    return per * (32 if tm == 32 else 16)
+
+
+def ring_stages(tm: int) -> int:
+    """The most stages of the ring: 4 at tm 16, 3 at tm 32, 2 at tm 64."""
+    return 4 if tm == 16 else 3 if tm == 32 else 2
+
+
+def ring_staging(tm: int, precision: str, c_ld: int, resident: bool,
+                 stages: int):
+    """(bytes a stage, staging bytes) of a stored core's ring of
+    ``stages`` at query tile ``tm`` for corpus rows of ``c_ld`` elements
+    (bytes for int8 and the int4 forms): 64 corpus rows a stage, each
+    with the query columns they meet unless the query tile is
+    ``resident`` after the ring."""
+    rb, bf16 = ring_row_bytes(tm, precision), precision == "bf16c"
+    cols = rb // 2 if bf16 else 2 * rb if _packed(precision) else rb
+    chunks = -(-c_ld * (2 if bf16 else 1) // rb)
+
+    def query(c):   # hi and lo rows of c bf16 columns
+        return 2 * tm * _odd_units(2 * c, 32)
+
+    stage = _TN * _odd_units(rb, 32 if bf16 else 16) + (
+        0 if resident else query(cols))
+    return stage, stages * stage + (query(chunks * cols) if resident else 0)
+
+
+def ring_plan(tm: int, precision: str, c_ld: int, rest: int):
+    """(stages, bytes a stage, query resident, shared memory) of a stored
+    core beside ``rest`` bytes of other shared memory (``ring_plan`` in
+    the source): two blocks an SM where any plan keeps them, then the most
+    stages, then the query tile resident where it fits (never at tm 64);
+    stages 0 where no plan fits."""
+    best, best_key = (0, 0, False, 0), -1
+    for resident in ((False,) if tm == 64 else (True, False)):
+        for stages in range(ring_stages(tm), 1, -1):
+            stage, staging = ring_staging(tm, precision, c_ld, resident,
+                                          stages)
+            nbytes = staging + rest
+            if nbytes > MAX_SMEM:
+                continue
+            blocks = _SMEM_PER_SM // (nbytes + _SMEM_PER_BLOCK)
+            key = 100 * min(blocks, 2) + 10 * stages + resident
+            if key > best_key:
+                best, best_key = (stages, stage, resident, nbytes), key
+    return best
+
+
+def tail_bytes(tm: int, k: int) -> int:
+    """Kernel A's shared memory after its staging: the score tile, the
+    carry, the merge lists."""
+    return tm * (_TN + 1) * 4 + 2 * tm * k * 4 + 2 * 8 * _TN * 4
 
 
 def listed_tile_rows(m: int, k: int, block_rows: int) -> int:
@@ -961,7 +1054,8 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
         raise RuntimeError(f"no kernel for device {qp.device}")
     if tiles is None:
         tm, splits, tps = kernel_geometry(m, cp.shape[0], k, precision,
-                                          qp.device)
+                                          qp.device, dim=_query_dim(
+                                              qp, precision))
         part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
                                             splits, tps, tm)
         return topk_merge(part_v, part_i, k)
@@ -978,7 +1072,8 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
         padded[rows] = qp
         qp, block_rows = padded, br
     tm, splits, tps = kernel_geometry(qp.shape[0], tiles.shape[1] * tn, k,
-                                      precision, qp.device, tm, listed=True)
+                                      precision, qp.device, tm, listed=True,
+                                      dim=_query_dim(qp, precision))
     part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
                                         splits, tps, tm, tiles, tn,
                                         block_rows)

@@ -70,7 +70,8 @@ def kernel_a_ms(qp: torch.Tensor, cp: torch.Tensor, cb: torch.Tensor,
     bias = cb[0] if core == "bf16x3" else cb
     m, n = qp.shape[0], cp.shape[0]
     if qp.is_cuda:
-        tm, splits, tps = F.kernel_geometry(m, n, k, core, qp.device)
+        tm, splits, tps = F.kernel_geometry(m, n, k, core, qp.device,
+                                            dim=qp.shape[1] // 2)
     else:
         tm, splits, tps = F.launch_geometry(m, n, k, D._NOTIONAL_SMS)
     return median_ms(lambda: F.fused_topk_partial(

@@ -80,14 +80,16 @@ def main(device: str = "cuda", n: int = N, dim: int = DIM, b: int = B,
     for tag, levels, posu in (("matmul+epi(L0)", 0, False), ("L1", 1, False),
                               (f"L{n_levels}", n_levels, False),
                               (f"L{n_levels}-posu", n_levels, True)):
-        geo = D.floor_geometry(b, cp.shape[0], "int8c", levels, k, dev)
+        geo = D.floor_geometry(b, cp.shape[0], "int8c", levels, k, dev,
+                               dim=cp.shape[1])
         res[tag] = median_ms(lambda: D.floor_stacks(
             qp, cp, cb, core="int8c", levels=levels, tn=tn, ids="segmented",
             posu=posu, k_geometry=k), iters)
         emit({"tag": tag, "ms": res[tag], "tm": geo[0], "splits": geo[1]})
 
     if dev.type == "cuda":
-        tm, splits, tps = F.kernel_geometry(b, cp.shape[0], k, "int8c", dev)
+        tm, splits, tps = F.kernel_geometry(b, cp.shape[0], k, "int8c", dev,
+                                            dim=cp.shape[1])
     else:
         tm, splits, tps = F.launch_geometry(b, cp.shape[0], k,
                                             D._NOTIONAL_SMS)

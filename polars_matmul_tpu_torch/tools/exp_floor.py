@@ -87,7 +87,7 @@ def main(device: str = "cuda", out: Optional[Path] = DEFAULT_OUT,
     for tag, levels, tn, k in PROGRAMS:
         cp, cb = corpus_operands(cf, tn)
         geo = D.floor_geometry(qp.shape[0], cp.shape[0], "bf16x3", levels,
-                               k, dev)
+                               k, dev, dim=dim)
         res[tag] = median_ms(lambda: D.floor_stacks(
             qp, cp, cb, core="bf16x3", levels=levels, tn=tn, ids="global",
             k_geometry=k), iters)

@@ -91,7 +91,7 @@ def main(device: str = "cuda", n: int = N, dim: int = DIM, k: int = K,
         qp = F.prepare_queries(q[:b], "cosine", "int8c")
         for tag, core, form in MODES:
             cp, cb = corpora[form]
-            geo = D.floor_geometry(b, cp.shape[0], core, 1, k, dev)
+            geo = D.floor_geometry(b, cp.shape[0], core, 1, k, dev, dim=dim)
             ms = median_ms(lambda: D.floor_stacks(
                 qp, cp, cb, core=core, levels=1, tn=tn, ids="tile-local",
                 k_geometry=k), iters)

@@ -232,7 +232,8 @@ def test_plain_matches_jax_kernel(tool, kernel, mode, levels, ids, posu, n,
         kw["posu"] = posu
     want = _run_jax(getattr(_tool(tool), kernel), *jops, tn,
                     max(levels, 1), **kw)
-    tm, splits, tps = D.floor_geometry(M, n, core, levels, 10, CPU)
+    tm, splits, tps = D.floor_geometry(M, n, core, levels, 10, CPU,
+                                       dim=tops[0].shape[1] // 2)
     got, lv = D.floor_stacks(*tops, core=core, levels=levels, tn=tn, ids=ids,
                              posu=posu, k_geometry=10)
     got, lv = got.numpy(), lv.numpy()

@@ -274,3 +274,35 @@ def test_in_envelope_selections_return_what_auto_returns(selection, k,
     got = F.fused_topk(_t(q), _t(c), k, "cosine",
                        config=SearchConfig(selection=selection, **extra))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The big-k envelope is computed once per geometry.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("geometry", [(512, 2000, False, 125, 512, 16),
+                                      (300, 2000, False, 125, 384, 16),
+                                      (200, 1000, True, 10, 256, 8)])
+def test_gstack_envelope_is_memoized(geometry):
+    """A repeated explicit gstack at k > 128 reads its envelope from the
+    caches: the hits grow and no new entry is computed, and the answer is
+    still ``_resolve_selection``'s."""
+    funcs = (F._bigk_tail, F._bigk_depth, F._bigk_gstack_ok)
+
+    def port():
+        F.check_selection("gstack", *geometry)
+        raise _Resolved
+
+    def jax():
+        JF._resolve_selection("gstack", *geometry)
+        raise _Resolved
+
+    first = _outcome(port)
+    before = [f.cache_info() for f in funcs]
+    for _ in range(3):
+        assert _outcome(port) == first
+    after = [f.cache_info() for f in funcs]
+    assert after[2].hits >= before[2].hits + 3
+    assert [a.misses for a in after] == [b.misses for b in before]
+    assert first == _outcome(jax)
