@@ -8,9 +8,10 @@ Phases, each printing one line or a few:
 0. the card (nvidia-smi name and power limit), torch and CUDA versions;
 1. build of the CUDA kernels from this checkout's sources (nvcc, sm_90a,
    one compiler per source, all started together), each instantiation's
-   registers and spills, and the stored cores' ring at dim 768, k=100
-   (stages, bytes a stage, the query's place, blocks an SM), the source's
-   plan held to the host's mirror;
+   registers and spills (none allowed in the warpgroup consumer), and the
+   stored cores' ring at dim 768 (stages, bytes a stage, the query's
+   place, blocks an SM; query tiles 16 and 32 at k=100, 64 at k=10, 100
+   and 128), the source's plan held to the host's mirror;
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
@@ -18,7 +19,9 @@ Phases, each printing one line or a few:
    and on integer tie data where the results must be bit-identical; the
    stored cores at the ring's edges (unaligned rows, a dim below and one
    not a multiple of a stage, int4 over two feature chunks, splits of one
-   tile, a list whose last id lies past the corpus, k up to 1024); the
+   tile, a list whose last id lies past the corpus, k up to 1024; at
+   query tile 64, the warpgroup consumer, 33, 65 and 300 queries, k up to
+   128 and corpus rows not a multiple of a step); the
    on-card quantizers against the host NumPy ones, bit for bit; kernel A
    walking random per-block tile lists (probed search) in every core,
    and a list of every tile against the dense scan, bit for bit;
@@ -141,6 +144,13 @@ CORE_LINE = {"bf16x3": 1258, "highest": 1294, "bf16c": 1271,
 STORED = ("bf16c", "int8c", "int4c")
 RING_EDGES = ((5, 129, 36), (5, 129, 100), (37, 1100, 56), (16, 700, 300),
               (9, 1300, 4200))
+# The same at query tile 64 (the warpgroup consumer, four kernel tiles a
+# step), at k=1, 100 and 128 (the tallest tile-64 carry): 33, 65 and 300
+# queries, n not a whole number of steps (18, 21 and 11 kernel tiles) and
+# one that is (1000 rows, 16 tiles), unaligned rows (36, 100), int4 over
+# two feature chunks (4200).
+RING64_EDGES = ((33, 1100, 36), (65, 1300, 100), (300, 700, 4200),
+                (65, 1000, WIDE_DIM))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -244,7 +254,8 @@ def _ptxas_summary(log: str):
     lines, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"((?:fused_topk_partial|fused_topk_stored|topk_merge|"
+                      r"((?:fused_topk_partial|fused_topk_stored|"
+                      r"fused_topk_wgmma|topk_merge|"
                       r"matmul|floor_stacks)_kernel)"
                       r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
@@ -276,27 +287,39 @@ def phase_build():
     lib = _build.load_library()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
-    for line in _ptxas_summary(str(_build.build_info["log"])):
+    log = str(_build.build_info["log"])
+    for line in _ptxas_summary(log):
         print("  ptxas: " + line)
-    # The stored cores' ring at the north-star width, k=100: the source's
-    # plan must be the host mirror's.
-    for tm in (16, 32, 64):
+    # The warpgroup consumer (the stored cores at tm 64): no spills, and
+    # no wgmma that ptxas had to serialize.
+    for line in _ptxas_summary(log):
+        require("fused_topk_wgmma" not in line or "spills" not in line,
+                f"the warpgroup consumer spills: {line}")
+    for line in log.splitlines():
+        if "wgmma" in line and "serialized" in line:
+            print("  ptxas: " + line.strip())
+    # The stored cores' ring at the north-star width: the source's plan
+    # must be the host mirror's (tm 64: the warpgroup consumer's ring, at
+    # k=10 and 128 too).
+    for tm, k in ((16, 100), (32, 100), (64, 10), (64, 100), (64, 128)):
         for core in STORED:
             c_ld = F._corpus_width(core, WIDE_DIM)
             plan = (ctypes.c_int * 4)()
             require(lib.pmm_fused_topk_ring(tm, F.CORES.index(core), c_ld,
-                                            100, plan) == 0,
+                                            k, plan) == 0,
                     f"no ring plan for tm={tm} {core}")
-            want = F.ring_plan(tm, core, c_ld, F.tail_bytes(tm, 100))
+            want = F.stage_plan(tm, core, c_ld, k)
             require(tuple(plan) == (want[0], want[1], int(want[2]), want[3]),
-                    f"ring plan tm={tm} {core}: source {tuple(plan)}, host "
-                    f"{want}")
+                    f"ring plan tm={tm} {core} k={k}: source {tuple(plan)}, "
+                    f"host {want}")
             blocks = [lib.pmm_fused_topk_blocks_per_sm(
-                tm, 100, F.CORES.index(core), listed, c_ld)
+                tm, k, F.CORES.index(core), listed, c_ld)
                 for listed in (0, 1)]
-            print(f"  ring: tm={tm} {core} at dim {WIDE_DIM}, k=100: "
-                  f"{plan[0]} stages of {plan[1]} B ("
-                  f"{F.ring_row_bytes(tm, core)} corpus bytes a row), query "
+            row = (F.wg_row_bytes(core) if tm == F.WG_TM
+                   else F.ring_row_bytes(tm, core))
+            print(f"  ring: tm={tm} {core} at dim {WIDE_DIM}, k={k}"
+                  f"{' (wgmma)' if tm == F.WG_TM else ''}: {plan[0]} stages "
+                  f"of {plan[1]} B ({row} corpus bytes a row), query "
                   f"{'resident' if plan[2] else 'in the ring'}, {plan[3]} B "
                   f"of shared memory; blocks an SM {blocks[0]} dense, "
                   f"{blocks[1]} listed")
@@ -405,12 +428,15 @@ def _check_shape(F, torch, gen, q, c, ks, err, label, tie=False,
 
 
 def _ring_edges(F, torch, gen, err):
-    """The stored cores at the ring's edges (RING_EDGES), real and integer
-    tie data (bit for bit), k=1, 100 and 1024: at the main path's
-    geometry, in splits of one tile, and walking a list of every other
-    layout tile whose last id lies past the corpus.  Returns the cases."""
+    """The stored cores at the ring's edges, real and integer tie data
+    (bit for bit): RING_EDGES at k=1, 100 and 1024, RING64_EDGES at k=1,
+    100 and 128; at the main path's geometry, in splits of one tile, and
+    walking a list of every other layout tile whose last id lies past the
+    corpus.  Returns the cases."""
     cases = 0
-    for m, n, dim in RING_EDGES:
+    edges = ([(e, (1, 100, 1024)) for e in RING_EDGES]
+             + [(e, (1, 100, 128)) for e in RING64_EDGES])
+    for (m, n, dim), ks in edges:
         for tie in (False, True):
             q, c = (_tie_data(torch, gen, m, n, dim) if tie else
                     _case_data(torch, gen, m, n, dim, False))
@@ -425,7 +451,7 @@ def _ring_edges(F, torch, gen, err):
                 scale = 0.0 if tie else _term_scale(F, qp, cp, cbp,
                                                     precision)
                 part_scale = scale if tie else scale[:, :, None]
-                for k in sorted({min(k, n) for k in (1, 100, 1024)}):
+                for k in sorted({min(k, n) for k in ks}):
                     what = (f"ring edge m={m} n={n} dim={dim} k={k} "
                             f"{precision} tie={tie}")
                     _check_kernels(F, qp, cp, cbp, None, k, precision, err,
@@ -524,8 +550,10 @@ def _compare_listed(F, torch, gen, err):
     """Phase 2 on tile lists: every core and metric over LISTED_SHAPES with
     random per-list tile lists (one tile, a third of them, all of them in
     a random subset), integer tie data bit-exact, and a list of every tile
-    against the dense scan bit for bit.  Returns the case counts."""
-    cases = ties = full = 0
+    against the dense scan bit for bit (within tolerance where a stored
+    core's list and dense walks take different consumers).  Returns the
+    case counts."""
+    cases = ties = full = near = 0
     for m, n, dim, tn, br in LISTED_SHAPES:
         n_layout = -(-n // tn)
         n_lists = -(-m // br)
@@ -567,12 +595,22 @@ def _compare_listed(F, torch, gen, err):
                                                 precision, every, tn, br)
                         dv, di = F.fused_select(qp, cp, cbp, mask, k,
                                                 precision)
+                        if precision in STORED and (
+                                F.listed_tile_rows(m, k, br) == F.WG_TM) != (
+                                F.query_tile_rows(m, k) == F.WG_TM):
+                            # The warpgroup (tile 64) and mma.sync
+                            # consumers sum the products in other orders.
+                            compare(lv, li, dv, di, scale=scale,
+                                    what=f"every tile listed against the "
+                                    f"dense scan, {what}")
+                            near += 1
+                            continue
                         require(torch.equal(lv, dv) and torch.equal(li, di),
                                 f"every tile listed differs from the dense "
                                 f"scan: {what}")
                         full += 1
     torch.cuda.synchronize()
-    return cases, ties, full
+    return cases, ties, full, near
 
 
 def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
@@ -616,16 +654,20 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
     print(f"phase 2: {edges} cases at the ring's edges match (the stored "
           f"cores dense, in splits of one tile and on a list past the "
           f"corpus; unaligned dims 36 and 100, dims 56, 300 and 4200, n not "
-          f"a multiple of 64, k=1/100/1024; integer tie data bit-identical)")
+          f"a multiple of 64, k=1/100/1024; at query tile 64, m=33/65/300, "
+          f"n not a multiple of 128, k=1/100/128; integer tie data "
+          f"bit-identical)")
     print(f"phase 2: {cases} ragged cases match (atol {ATOL} + rtol {RTOL} "
           f"x max(|score|, row term scale); kernel B bit-identical), every "
           f"core; {ties} integer tie cases bit-identical; the on-card "
           f"quantizers equal the host ones bit for bit")
-    listed, listed_ties, full = _compare_listed(F, torch, gen, err)
+    listed, listed_ties, full, near = _compare_listed(F, torch, gen, err)
     print(f"phase 2: listed kernel A (tile lists): {listed} ragged cases "
           f"match their plain version, {listed_ties} integer tie cases "
           f"bit-identical, every core; {full} lists of every tile equal "
-          f"the dense result bit for bit; max abs err {err['tiles']:.3g}")
+          f"the dense result bit for bit, {near} more within tolerance "
+          f"(a stored core whose list and dense walks take different "
+          f"consumers); max abs err {err['tiles']:.3g}")
 
     main = 0
     for tie in (False, True):
@@ -972,7 +1014,8 @@ def _check_wide(F, torch, gen, corpus, q, core, err, tie):
 def phase_wide(pmt, F, torch, card, err):
     """Phase 7 (with its phase 5 counts and phase 6 times): the 10M x 768
     corpus in each quantized tier.  Returns each core's kernel entry (at
-    batch 8, k=100) and the launches of the tiers' main paths."""
+    batch 8, k=100; its warpgroup consumer's, "<core>.wgmma", at batch
+    256) and the launches of the tiers' main paths."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     q = torch.randn((256, WIDE_DIM), generator=gen, device="cuda")
@@ -1014,7 +1057,11 @@ def phase_wide(pmt, F, torch, card, err):
         for name in ("fused_topk_plain", "fused_topk_partial_plain",
                      "topk_merge_plain"):
             require(launched[name] == 0, f"{name} ran on the {tier} path")
+        # Its batch-256 requests run the warpgroup consumer (query tile 64).
+        require(launched["fused_topk_partial_wgmma"] > 0,
+                f"the warpgroup consumer never launched on the {tier} path")
         counts[core] = cores[core]
+        counts[core + ".wgmma"] = launched["fused_topk_partial_wgmma"]
         counts["topk_merge"] += launched["topk_merge"]
 
         for (batch, k), (idx, scores) in results.items():
@@ -1074,11 +1121,10 @@ def phase_wide(pmt, F, torch, card, err):
                 a_bound = _bound(cp.nbytes + cbp.nbytes + qp.nbytes
                                  + batch * splits * k * 8, ops,
                                  "bfloat16")
-                if batch == 8:
-                    entries[core] = _entry(
-                        a, a_plain, lib, "torch.addmm + torch.topk on the "
-                        "dequantised bf16 rows", a_bound,
-                        f"{label} cosine batch 8 k=100")
+                entries[core if batch == 8 else core + ".wgmma"] = _entry(
+                    a, a_plain, lib, "torch.addmm + torch.topk on the "
+                    "dequantised bf16 rows", a_bound,
+                    f"{label} cosine batch {batch} k=100")
                 print(f"phase 6: [{card}] {label} batch {batch} k=100: "
                       f"kernel A {a:.3f} ms (tm={tm}, splits={splits}), A "
                       f"plain {a_plain:.3f} ms, bound {a_bound[0]:.3f} ms "
@@ -1342,7 +1388,8 @@ def phase_clustered(pmt, F, torch, card, err):
     launched, cores = dict(F.launches), dict(F.core_launches)
     print(f"phase 5: launches on the probed path: {launched}, by core "
           f"{cores}")
-    for name in ("fused_topk_partial_tiles", "topk_merge"):
+    for name in ("fused_topk_partial_tiles", "fused_topk_partial_wgmma",
+                 "topk_merge"):
         require(launched[name] > 0, f"{name} never launched on the probed "
                 f"path")
     for core in ("int8c", "bf16x3"):
@@ -2089,6 +2136,13 @@ def main() -> int:
                      "launches": launches[core], "max_abs_err": err[core]},
                     **per_kernel[core])
                for core in F.CORES]
+    kernels += [dict({"name": f"fused_topk_partial.{core}.wgmma",
+                      "route": "cuda", "source": KERNEL_SRC + "ring_wgmma.cuh",
+                      "replaces": f"{TPU_KERNEL}:{CORE_LINE[core]}",
+                      "launches": launches[core + ".wgmma"],
+                      "max_abs_err": err[core]},
+                     **per_kernel[core + ".wgmma"])
+                for core in STORED]
     kernels.append(dict({"name": "topk_merge", "route": "cuda",
                          "source": KERNEL_SRC + "topk_merge.cu",
                          "replaces": TPU_KERNEL + ":922",

@@ -44,8 +44,9 @@
 // - "bf16c", "int8c", "int4c": the corpus is stored as one bf16 half,
 //   int8 codes, or int8 bytes of two signed nibbles, and streams through
 //   a ring of raw bytes (below) that is decoded to bf16 as it is read
-//   (integers up to 256 are exact in bf16); two mma.sync per k-step give
-//   qh.c and ql.c in two accumulators, summed last (the grouping of
+//   (integers up to 256 are exact in bf16); two products per k-step
+//   (mma.sync, or wgmma at query tile 64) give qh.c and ql.c in two
+//   accumulators, summed last (the grouping of
 //   fused_topk.py:1292-1293).  int8c / int4c then compute s = d * scale +
 //   bias with the scale and bias rows of the (2, n) operand (scale =
 //   1/|codes| for cosine, the dequant scale otherwise), rounded as two
@@ -82,10 +83,27 @@
 // across tile boundaries, so the next tile's first chunks load while this
 // tile is selected; the bytes are decoded to bf16 only as the products
 // read them; a small batch's query tile is staged once a block, not once
-// a tile.  At batch 256 the two bf16 products (7.9 TFLOP) bound it: each
-// 64-row query tile reads the corpus again, which L2 does not hold, and
-// mma.sync with a warp owning 8 corpus columns reads the query tile from
-// shared memory for every 8 columns.
+// a tile.
+//
+// At batch 256 (query tile 64: m > 32, k <= 128) the two bf16 products
+// (7.9 TFLOP at 10M x 768, 8 ms at the bf16 peak) were the bound the
+// stored cores could not approach on mma.sync: with a warp owning 8 corpus
+// columns, every warp re-read the whole 64-row [hi | lo] query tile from
+// shared memory for each tile.  Tile 64 now has its own consumer
+// (fused_topk_wgmma_kernel, ring_wgmma.cuh): the same ring of raw bytes as
+// producer; two warpgroups, each decoding two 64-row corpus tiles a step
+// into wgmma's register A operand; the query tile as the B operand, read
+// by the tensor cores through matrix descriptors, so no warp loads it.
+// What bounds it now (PERF.md): the ring.  The query columns ride
+// it (64 query rows x 768 features do not fit beside the carry), so each
+// stage of 256 corpus rows copies as many query bytes as int8 corpus
+// bytes, and each 64-row query tile reads the corpus again: 61 GB through
+// cp.async at 10M x 768 int8, batch 256.  The ring alone (products taken
+// out) takes about two thirds of the kernel's time there; the products
+// hide only partly behind it in the one block an SM, and the selection,
+// on the same warps, adds to both.
+// Batches of up to 32 queries and k > 128 keep the mma.sync consumer
+// (query tiles 16 and 32), bound by bytes.
 //
 // Ragged edges: query rows >= m, corpus rows >= n and features >= dim are
 // handled by the kernel's own bounds; nothing needs padding.  A carry slot
@@ -95,6 +113,7 @@
 // the epilogue, the int4 decode) live in tile_scores.cuh, shared with
 // kernel D (floor.cu), which measures them without the selection.
 
+#include "ring_wgmma.cuh"
 #include "tile_scores.cuh"
 
 #include <type_traits>
@@ -467,19 +486,98 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   }
 }
 
+// The stored cores at query tile 64: the same ring as producer, the
+// warpgroup products of ring_wgmma.cuh as consumer, each warpgroup on its
+// own kernel tiles (kWgTiles a step), the same selection on each tile's
+// scores in walk order.
+template <int TM, int CORE, bool LISTED>
+__global__ void __launch_bounds__(kThreads, kWgBlocks)
+fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
+                        const void* __restrict__ cp,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ cb,
+                        const uint8_t* __restrict__ mask,
+                        const int* __restrict__ tiles,
+                        float* __restrict__ part_v,
+                        int* __restrict__ part_i,
+                        int m, int n, int dim, int c_ld, int ck, int k,
+                        int splits, int tiles_per_split, int p,
+                        int tn_tiles, int block_rows, bool vec,
+                        int stages) {
+  static_assert(TM == kWgTM, "the warpgroup consumer takes 64 query rows");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* St = reinterpret_cast<float*>(smem + stages * wg_stage_bytes(CORE));
+  float* Cv = St + kWgTiles * TM * (kTN + 1);
+  int* Ci = reinterpret_cast<int*>(Cv + (size_t)TM * k);
+  float* Lv = reinterpret_cast<float*>(Ci + (size_t)TM * k);
+  int* Li = reinterpret_cast<int*>(Lv + kWarps * kTN);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * TM;
+  const int rows_valid = min(TM, m - row0);
+  const int split = blockIdx.y;
+  const int* list = LISTED ? tiles + (size_t)(row0 / block_rows) * p
+                           : nullptr;
+  const int n_tiles = LISTED ? p * tn_tiles : (n + kTN - 1) / kTN;
+  const int layout_tiles =
+      LISTED ? (n + tn_tiles * kTN - 1) / (tn_tiles * kTN) : 0;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  for (int e = tid; e < TM * k; e += kThreads) {
+    Cv[e] = -INFINITY;
+    Ci[e] = kINT32_MAX;
+  }
+  wg_walk<CORE, LISTED>(
+      qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
+      m, n, dim, c_ld, ck, t_begin, t_end, stages, vec,
+      [&](const WgStep& step) {
+        // A row's warp takes the step's tiles in order.
+#pragma unroll 1
+        for (int j = 0; j < kWgTiles; ++j)
+          if (step.n0[j] >= 0)
+            select_tile<TM>(St + j * TM * (kTN + 1), Cv, Ci, Lv + warp * kTN,
+                            Li + warp * kTN, k, step.n0[j], rows_valid, warp,
+                            lane);
+      });
+
+  for (int e = tid; e < rows_valid * k; e += kThreads) {
+    const int r = e / k, j = e % k;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
+    part_v[o] = Cv[e];
+    part_i[o] = Ci[e];
+  }
+}
+
+// Whether the (TM, CORE) launch takes the warpgroup consumer.
+template <int TM, int CORE>
+constexpr bool wgmma_core() {
+  return stored_core(CORE) && TM == kWgTM;
+}
+
 // A stored core's ring at this k and corpus row stride c_ld.
 template <int TM, int CORE>
 RingPlan stored_plan(int k, int c_ld) {
-  return ring_plan(TM, CORE,
-                   ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1)),
-                   tail_bytes(TM, k));
+  if constexpr (wgmma_core<TM, CORE>()) {
+    return wg_plan(CORE, k);
+  } else {
+    return ring_plan(TM, CORE,
+                     ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1)),
+                     tail_bytes(TM, k));
+  }
 }
 
 // Kernel<TM, CORE, LISTED>, its shared memory (0 where it cannot fit) and
 // a stored core's ring.
 template <int TM, int CORE, bool LISTED>
 auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
-  if constexpr (stored_core(CORE)) {
+  if constexpr (wgmma_core<TM, CORE>()) {
+    plan = stored_plan<TM, CORE>(k, c_ld);
+    bytes = plan.bytes;
+    return fused_topk_wgmma_kernel<TM, CORE, LISTED>;
+  } else if constexpr (stored_core(CORE)) {
     plan = stored_plan<TM, CORE>(k, c_ld);
     bytes = plan.bytes;
     return fused_topk_stored_kernel<TM, CORE, LISTED>;
@@ -503,7 +601,13 @@ int launch(const void* qp, const void* cp, const float* scale,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((m + TM - 1) / TM, splits);
-  if constexpr (stored_core(CORE)) {
+  if constexpr (wgmma_core<TM, CORE>()) {
+    const size_t row_bytes = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles, part_v,
+        part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
+        block_rows, ring_aligned(qp, cp, dim, row_bytes), plan.stages);
+  } else if constexpr (stored_core(CORE)) {
     const size_t row_bytes = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles, part_v,
@@ -641,7 +745,9 @@ int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
     if constexpr (stored_core(CORE)) {
       const RingPlan plan = stored_plan<TM, CORE>(k, c_ld);
       out[0] = plan.stages;
-      out[1] = (int)ring_stage_bytes(TM, CORE, plan.q_resident);
+      out[1] = (int)(wgmma_core<TM, CORE>()
+                         ? wg_stage_bytes(CORE)
+                         : ring_stage_bytes(TM, CORE, plan.q_resident));
       out[2] = plan.q_resident ? 1 : 0;
       out[3] = (int)plan.bytes;
       return plan.stages > 0 ? 0 : -1;

@@ -86,6 +86,7 @@ _MAX_SPLITS = 1024
 # Kernel A's cores, in the order of the CUDA source's Core enum.
 CORES = ("highest", "bf16x3", "bf16c", "int8c", "int4c")
 _QUANT = ("int8c", "int4c")
+_STORED = ("bf16c",) + _QUANT
 # Cores whose queries arrive as bf16 [hi | lo].
 _SPLIT_QUERY = ("bf16x3", "bf16c", "int8c", "int4c")
 _CORPUS_DTYPE = {"highest": torch.float32, "bf16x3": torch.bfloat16,
@@ -96,6 +97,9 @@ _CORPUS_DTYPE = {"highest": torch.float32, "bf16x3": torch.bfloat16,
 launches = {
     "fused_topk_partial": 0,
     "fused_topk_partial_tiles": 0,
+    # Kernel A's launches of the warpgroup consumer (stored cores at query
+    # tile 64, csrc/ring_wgmma.cuh), dense or listed.
+    "fused_topk_partial_wgmma": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -877,8 +881,66 @@ def ring_plan(tm: int, precision: str, c_ld: int, rest: int):
 
 def tail_bytes(tm: int, k: int) -> int:
     """Kernel A's shared memory after its staging: the score tile, the
-    carry, the merge lists."""
+    carry, the merge lists (the mma.sync consumer's; the warpgroup
+    consumer's is ``wg_tail_bytes``)."""
     return tm * (_TN + 1) * 4 + 2 * tm * k * 4 + 2 * 8 * _TN * 4
+
+
+# Kernel A's stored cores at query tile 64 (``csrc/ring_wgmma.cuh``): the
+# same ring of raw bytes, WG_TILES kernel tiles a step (WG_TPW for each of
+# two warpgroups), the query columns as wgmma core matrices, at most
+# WG_STAGES stages, one block an SM.
+WG_TM, WG_TPW, WG_STAGES = 64, 2, 8
+WG_TILES = 2 * WG_TPW
+
+
+def wg_cols(precision: str) -> int:
+    """Query columns one stage meets: 64, bf16c 48 (two of its wider
+    stages still fit beside the tallest carry, k = 128)."""
+    return 48 if precision == "bf16c" else 64
+
+
+def wg_row_bytes(precision: str) -> int:
+    """Corpus bytes a row of one stage: 2 a column for bf16c, 1 for int8,
+    half for int4."""
+    cols = wg_cols(precision)
+    return 2 * cols if precision == "bf16c" else (
+        cols // 2 if _packed(precision) else cols)
+
+
+def wg_stage_bytes(precision: str) -> int:
+    """The step's corpus rows at an odd number of 16-byte units a row,
+    then the hi and lo query columns of 64 rows (bf16)."""
+    return (WG_TILES * _TN * _odd_units(wg_row_bytes(precision), 16)
+            + 2 * WG_TM * wg_cols(precision) * 2)
+
+
+def wg_tail_bytes(k: int) -> int:
+    """After the ring: a score tile a kernel tile of the step, the carry,
+    the merge lists."""
+    return (WG_TILES * WG_TM * (_TN + 1) * 4 + 2 * WG_TM * k * 4
+            + 2 * 8 * _TN * 4)
+
+
+def wg_plan(precision: str, k: int):
+    """(stages, bytes a stage, query resident, shared memory) of the
+    warpgroup consumer's ring (``wg_plan`` in the source): the most
+    stages that fit beside the tail; the query tile is never resident;
+    stages 0 where none fits."""
+    stage = wg_stage_bytes(precision)
+    for stages in range(WG_STAGES, 1, -1):
+        nbytes = stages * stage + wg_tail_bytes(k)
+        if nbytes <= MAX_SMEM:
+            return stages, stage, False, nbytes
+    return 0, 0, False, 0
+
+
+def stage_plan(tm: int, precision: str, c_ld: int, k: int):
+    """Kernel A's staging of a stored core (``pmm_fused_topk_ring``): the
+    warpgroup consumer's ring at tm 64, the mma.sync consumer's below."""
+    if tm == WG_TM:
+        return wg_plan(precision, k)
+    return ring_plan(tm, precision, c_ld, tail_bytes(tm, k))
 
 
 def listed_tile_rows(m: int, k: int, block_rows: int) -> int:
@@ -1000,6 +1062,8 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
     launches["fused_topk_partial_tiles" if listed
              else "fused_topk_partial"] += 1
+    if tm == WG_TM and precision in _STORED:
+        launches["fused_topk_partial_wgmma"] += 1
     core_launches[precision] += 1
     return part_v, part_i
 

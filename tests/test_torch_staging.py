@@ -175,3 +175,182 @@ def test_int4_chunk_of_a_byte_without_division(half):
     t += (t + 1) * half <= b
     t -= t * half > b
     assert np.array_equal(t, b // half)
+
+
+# Kernel A's stored cores at query tile 64: the warpgroup consumer
+# (``csrc/ring_wgmma.cuh``) on the same ring.
+
+
+@pytest.mark.parametrize("core,cols,row_bytes,want", [
+    ("bf16c", 48, 96, 256 * 112 + 2 * 64 * 48 * 2),
+    ("int8c", 64, 64, 256 * 80 + 2 * 64 * 64 * 2),
+    ("int4c", 64, 32, 256 * 48 + 2 * 64 * 64 * 2),
+])
+def test_wgmma_stage_bytes(core, cols, row_bytes, want):
+    """A stage holds 256 corpus rows (four kernel tiles, two a warpgroup)
+    at an odd number of 16-byte units a row, then the hi and lo query
+    columns they meet (whole k16 steps; int4 whole 16-byte groups)."""
+    assert (F.wg_cols(core), F.wg_row_bytes(core)) == (cols, row_bytes)
+    assert F.wg_stage_bytes(core) == want and want % 16 == 0
+    assert F.WG_TILES * F._TN == 256 and cols % 16 == 0
+
+
+@pytest.mark.parametrize("core", STORED)
+@pytest.mark.parametrize("k", (1, 10, 100, 128))
+def test_wgmma_plan_one_block_an_sm(core, k):
+    """The warpgroup consumer runs one block an SM (its accumulators take
+    up to 255 registers a thread), with the most stages that fit beside
+    the carry."""
+    stages, stage, resident, smem = F.wg_plan(core, k)
+    assert not resident
+    assert 2 <= stages <= F.WG_STAGES and smem <= F.MAX_SMEM
+    assert _blocks(smem) == 1
+    assert smem == stages * stage + F.wg_tail_bytes(k)
+    assert (stages == F.WG_STAGES
+            or (stages + 1) * stage + F.wg_tail_bytes(k) > F.MAX_SMEM)
+
+
+@pytest.mark.parametrize("core", STORED)
+def test_wgmma_plan_fits_every_tile_64_k(core):
+    """Every k a 64-row query tile takes (1-128) has a ring of at least two
+    stages at dim 768, the plan the source's pmm_fused_topk_ring reports
+    for tm 64."""
+    c_ld = F._corpus_width(core, 768)
+    for k in range(1, 129):
+        assert F.query_tile_rows(256, k) == 64
+        stages, _, _, smem = F.stage_plan(64, core, c_ld, k)
+        assert stages >= 2 and smem <= F.MAX_SMEM, k
+    assert F.query_tile_rows(256, 129) < 64
+
+
+@pytest.mark.parametrize("core,k,want", [
+    ("int8c", 10, 4), ("int8c", 100, 3), ("int8c", 128, 2),
+    ("int4c", 10, 5), ("int4c", 100, 3), ("int4c", 128, 3),
+    ("bf16c", 10, 3), ("bf16c", 100, 2), ("bf16c", 128, 2),
+])
+def test_wgmma_plan_stages(core, k, want):
+    """The stages of the north-star cells: the ring deferring each
+    stage's wait (three stages or more) everywhere but bf16c past k = 10
+    and int8 at k = 128."""
+    assert F.wg_plan(core, k)[0] == want
+
+
+@pytest.mark.parametrize("core", STORED)
+def test_stage_plan_below_tile_64_is_the_mma_ring(core):
+    c_ld = F._corpus_width(core, 768)
+    for tm, k in ((16, 10), (16, 1024), (32, 256)):
+        assert F.stage_plan(tm, core, c_ld, k) == F.ring_plan(
+            tm, core, c_ld, F.tail_bytes(tm, k))
+
+
+# NumPy models of what csrc/ring_wgmma.cuh computes on the card: where a
+# query column lands in a stage (wg_query_offset), each k16 step's matrix
+# descriptor fields, and the feature a stage column holds (wg_feature).
+
+
+def _query_offset(core, row, col):
+    """Element offset of query (row, column) in a stage's hi or lo
+    columns: 8-row x 8-column core matrices of 128 bytes, row groups
+    outer."""
+    return (((row >> 3) * (F.wg_cols(core) >> 3) + (col >> 3)) * 64
+            + (row & 7) * 8 + (col & 7))
+
+
+def _step_descriptor(core, step):
+    """(start, leading, stride) byte offsets of k16 step ``step``'s B
+    operand: its first core matrix, the next 8 columns, the next 8 rows
+    (no swizzle, K-major), as wg_issue builds them."""
+    return 256 * step, 128, 16 * F.wg_cols(core)
+
+
+def _feature(core, kc, col, ck):
+    """The feature query column ``col`` of ring chunk ``kc`` holds: in
+    order for bf16c and int8; for int4 each 16 stored bytes meet 32
+    columns, their low nibbles' features then their high ones' (byte j of
+    a ck-wide chunk holds feature j low and j + ck/2 high)."""
+    if core != "int4c":
+        return kc * F.wg_cols(core) + col
+    b, half = kc * F.wg_row_bytes(core) + (col // 32) * 16, ck // 2
+    t, w = b // half, col % 32
+    return t * ck + (b - t * half) + (half + w - 16 if w >= 16 else w)
+
+
+@pytest.mark.parametrize("core", STORED)
+def test_wgmma_query_layout_is_core_matrices(core):
+    """The query columns of a stage: every (row, column) at its own
+    offset, 8 columns of a row contiguous (one 16-byte cp.async), a core
+    matrix 128 contiguous bytes."""
+    cols = F.wg_cols(core)
+    r, c = np.meshgrid(np.arange(64), np.arange(cols), indexing="ij")
+    off = _query_offset(core, r, c)
+    assert sorted(off.ravel()) == list(range(64 * cols))
+    assert (off[:, 1:8] - off[:, :1] == np.arange(1, 8)).all()
+    assert (off[:, ::8] % 8 == 0).all()
+    for rg in range(8):
+        for cg in range(cols // 8):
+            block = off[8 * rg:8 * rg + 8, 8 * cg:8 * cg + 8]
+            assert block.min() % 64 == 0
+            assert sorted(block.ravel()) == list(
+                range(block.min(), block.min() + 64))
+
+
+@pytest.mark.parametrize("core", STORED)
+def test_wgmma_descriptor_fields_address_the_b_operand(core):
+    """Each k16 step's descriptor (start, leading byte offset, stride byte
+    offset) addresses query row n, k slot j as the no-swizzle K-major
+    canonical layout does: start + (n / 8) SBO + (n % 8) 16 + (j / 8) LBO
+    + (j % 8) 2, which must be column 16 step + j of row n."""
+    cols = F.wg_cols(core)
+    n, j = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+    for step in range(cols // 16):
+        start, lbo, sbo = _step_descriptor(core, step)
+        assert start % 16 == 0 and lbo % 16 == 0 and sbo % 16 == 0
+        assert max(start, lbo, sbo) >> 4 < 1 << 14   # 14-bit fields
+        addr = start + (n // 8) * sbo + (n % 8) * 16 + (j // 8) * lbo \
+            + (j % 8) * 2
+        assert np.array_equal(addr, 2 * _query_offset(
+            core, n, 16 * step + j))
+
+
+def _a_slot_features(core, kc, step, ck):
+    """Model of a thread's A fragment (csrc/ring_wgmma.cuh wg_decode): the
+    stored feature in each of the 16 k slots of k16 step ``step`` of ring
+    chunk ``kc``, from the stage bytes each thread tig loads: slot pairs
+    (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9) are elements e of the
+    step (int8: bytes, bf16c: 2-byte elements); int4 steps 2u and 2u + 1
+    share the bytes 16u + e, low nibbles then high."""
+    rb = F.wg_row_bytes(core)
+    out = np.full(16, -1)
+    for tig in range(4):
+        for e in (2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9):
+            if core == "int4c":
+                byte, half = kc * rb + 16 * (step // 2) + e, ck // 2
+                t = byte // half
+                out[e] = t * ck + byte - t * half + (half if step % 2 else 0)
+            elif core == "bf16c":
+                out[e] = kc * (rb // 2) + 16 * step + e
+            else:
+                out[e] = kc * rb + 16 * step + e
+    return out
+
+
+@pytest.mark.parametrize("core,dim", [
+    ("bf16c", 768), ("int8c", 768), ("int4c", 768), ("int4c", 4200),
+    ("int4c", 8192)])
+def test_wgmma_a_and_b_agree_on_the_k_order(core, dim):
+    """For every chunk and k16 step, the feature a thread decodes into A
+    slot j is the feature the query column under B slot j holds, int4's
+    nibble order across ck-wide chunks included."""
+    ck = F.feature_geometry(dim)[0]
+    c_ld = F._corpus_width(core, dim)
+    row_bytes = c_ld * (2 if core == "bf16c" else 1)
+    chunks = -(-row_bytes // F.wg_row_bytes(core))
+    seen = set()
+    for kc in range(chunks):
+        for step in range(F.wg_cols(core) // 16):
+            a = _a_slot_features(core, kc, step, ck)
+            b = [_feature(core, kc, 16 * step + j, ck) for j in range(16)]
+            assert list(a) == b, (kc, step)
+            seen.update(b)
+    width = 2 * c_ld if core == "int4c" else dim
+    assert seen == set(range(width))
