@@ -22,7 +22,10 @@ Phases, each printing one line or a few:
    tile, a list whose last id lies past the corpus, k up to 1024; at
    query tile 64, the warpgroup consumer, 33, 65 and 300 queries, k up to
    128 and corpus rows not a multiple of a step); the
-   on-card quantizers against the host NumPy ones, bit for bit; kernel A
+   on-card quantizers against the host NumPy ones, bit for bit; kernel B
+   bit for bit over a sweep of sorted lists (splits 1 to 1024, k 1 to
+   1024, m 1 to 1000: tie data, padded and wholly -inf lists, -inf entries
+   with real indices; one block a row and several); kernel A
    walking random per-block tile lists (probed search) in every core,
    and a list of every tile against the dense scan, bit for bit;
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
@@ -35,7 +38,11 @@ Phases, each printing one line or a few:
    phase 7, and the probed path of phase 8): its kernels and cores ran,
    the plain versions did not;
 6. times from CUDA events: kernels against plain versions and library
-   calls, and requests with their bounds;
+   calls, and requests with their bounds; kernel B at the eight list
+   shapes of the main path's requests (``MERGE_SHAPES``), a call timed
+   by CUDA events as every kernel is, and on the device alone (a CUDA
+   graph of calls), beside ``torch.topk`` of the flattened lists and its
+   byte bound;
 7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
    made on the card from seed 42, stored as int8 (requests of 8 and 256
    queries at k=10 and k=100), int4 and bf16 (8 and 256 queries at
@@ -255,16 +262,16 @@ def _ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
                       r"((?:fused_topk_partial|fused_topk_stored|"
-                      r"fused_topk_wgmma|topk_merge|"
+                      r"fused_topk_wgmma|topk_merge_tree|topk_merge_best|"
                       r"matmul|floor_stacks)_kernel)"
-                      r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
+                      r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
             if m.group(1) == "matmul_kernel":
                 args = CORES[int(args)]
             if m.group(4) is not None:
                 args += ", listed" if m.group(4) == "1" else ", dense"
-            name, spill = f"{m.group(1)}<{args}>", ""
+            name, spill = m.group(1) + (f"<{args}>" if args else ""), ""
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -539,6 +546,110 @@ def _check_listed(F, qp, cp, cbp, mask, k, precision, tiles, tn, block_rows,
     return sv, si
 
 
+# Kernel B's sweep (phase 2): every (m, splits, k) of these with m * splits
+# * k <= MERGE_SWEEP_CAP.
+MERGE_SWEEP_SPLITS = (1, 2, 3, 31, 32, 33, 258, 264, 1023, 1024)
+MERGE_SWEEP_KS = (1, 2, 10, 16, 100, 128, 512, 1024)
+MERGE_SWEEP_MS = (1, 8, 37, 1000)
+MERGE_SWEEP_CAP = 1 << 26
+# Kernel B's timed shapes (phase 6), (m, splits, k, where the shape comes
+# from): the lists kernel A leaves for kernel B on the main path's requests
+# (launch_geometry on 132 SMs).
+MERGE_SHAPES = (
+    (1000, 16, 10, "canonical k=10, bf16x3"),
+    (1000, 16, 100, "canonical k=100"),
+    (1000, 5, 512, "canonical k=512"),
+    (1000, 32, 10, "canonical k=10, highest"),
+    (8, 1024, 100, "2M x 256 f32, batch 8, k=100"),
+    (8, 264, 100, "10M x 768 int8, batch 8, k=100"),
+    (8, 258, 100, "probed 10M int8, probe 0.05, batch 8, k=100"),
+    (256, 33, 100, "10M x 768 int8, batch 256, k=100"),
+)
+# How sorted_lists fills the lists.
+MERGE_MODES = ("random", "ties", "padded", "empty", "real_inf")
+
+
+def sorted_lists(torch, gen, m, splits, k, mode, device="cuda"):
+    """(m, splits, k) f32 values and int32 indices shaped as kernel A
+    leaves them: list s of a row holds k distinct indices of [2 k s, 2 k (s
+    + 1)), ordered by value descending, then index ascending, so the
+    splits cover ascending index ranges.  ``mode``:
+
+    - "random": normal values;
+    - "ties": integer values in [0, 4), ties within and across lists;
+    - "padded": ties, each list finite up to a random length and (-inf,
+      INT32_MAX) after it;
+    - "empty": padded, with every third list and every fourth row (a
+      masked row) wholly -inf;
+    - "real_inf": padded, the -inf tails keeping real indices.
+    """
+    if mode not in MERGE_MODES:
+        raise ValueError(f"mode must be one of {MERGE_MODES}, not {mode!r}")
+    shape = (m, splits, k)
+    pos = torch.arange(k, device=device)
+    base = 2 * k * torch.arange(splits, device=device)
+    idx = (base[None, :, None] + 2 * pos + torch.randint(
+        0, 2, shape, generator=gen, device=device))
+    if mode == "random":
+        v = torch.randn(shape, generator=gen, device=device)
+    else:
+        v = torch.randint(0, 4, shape, generator=gen,
+                          device=device).to(torch.float32)
+    v, order = torch.sort(v, dim=2, descending=True, stable=True)
+    idx = torch.gather(idx, 2, order)
+    if mode in ("padded", "empty", "real_inf"):
+        fill = torch.randint(0, k + 1, (m, splits, 1), generator=gen,
+                             device=device)
+        if mode == "empty":
+            fill[:, ::3] = 0
+            fill[::4] = 0
+        tail = pos >= fill
+        v = v.masked_fill(tail, float("-inf"))
+        if mode != "real_inf":
+            idx = idx.masked_fill(tail, np.iinfo(np.int32).max)
+    return v.contiguous(), idx.to(torch.int32).contiguous()
+
+
+def _merge_sweep(F, torch, gen):
+    """Kernel B against its plain version, bit for bit, on sorted lists
+    with ascending split ranges (``sorted_lists``): at every shape of the
+    sweep on integer tie data, and on one of random values, padded lists,
+    wholly -inf lists and rows, and -inf entries with real indices, in
+    turn; then lists past the kernel's limits, which it must refuse.
+    Returns (cases, grouped cases, cases of several rows a block)."""
+    sms = F.device_sms(torch.device("cuda"))
+    others = [mode for mode in MERGE_MODES if mode != "ties"]
+    cases = grouped = shared = 0
+    for m in MERGE_SWEEP_MS:
+        for splits in MERGE_SWEEP_SPLITS:
+            for k in MERGE_SWEEP_KS:
+                if m * splits * k > MERGE_SWEEP_CAP:
+                    continue
+                for mode in ("ties", others[cases % len(others)]):
+                    pv, pi = sorted_lists(torch, gen, m, splits, k, mode)
+                    compare(*F.topk_merge(pv, pi, k),
+                            *F.topk_merge_plain(pv, pi, k), exact=True,
+                            what=f"kernel B sweep m={m} splits={splits} "
+                            f"k={k} {mode}")
+                    cases += 1
+                    groups, rows = F.merge_plan(m, splits, k, sms)
+                    grouped += groups > 1
+                    shared += rows > 1
+                del pv, pi
+    for splits, k in ((2, 4097), (F._MAX_SPLITS + 1, 10)):
+        pv = torch.zeros((1, splits, k), device="cuda")
+        pi = torch.zeros((1, splits, k), dtype=torch.int32, device="cuda")
+        try:
+            F.topk_merge(pv, pi, k)
+        except RuntimeError as e:
+            require("error -1" in str(e), f"kernel B at {splits} lists of "
+                    f"{k}: {e}")
+        else:
+            raise AssertionError(f"kernel B took {splits} lists of {k}")
+    torch.cuda.synchronize()
+    return cases, grouped, shared
+
+
 # (m, n, dim, layout tile rows, query rows per list): one list, several,
 # and lists shorter than a query tile (block_q=8, which fused_select pads).
 LISTED_SHAPES = ((1, 129, 56, 128, 8), (37, 5000, 56, 128, 16),
@@ -651,6 +762,16 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
                              "ragged", tie=True, precisions=F.CORES)
     edges = _ring_edges(F, torch, gen, err)
     _check_quantizers(F, torch, gen)
+    t0 = time.perf_counter()
+    merges, grouped, shared = _merge_sweep(F, torch, gen)
+    print(f"phase 2: kernel B sweep: {merges} cases bit-identical to its "
+          f"plain version ({grouped} with several blocks a row, {shared} "
+          f"with several rows a block; k > 4096 and more than 1024 lists "
+          f"refused), splits "
+          f"{MERGE_SWEEP_SPLITS} x k {MERGE_SWEEP_KS} x m {MERGE_SWEEP_MS} "
+          f"up to {MERGE_SWEEP_CAP} entries; tie data, random values, "
+          f"padded and wholly -inf lists, -inf with real indices; "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"phase 2: {edges} cases at the ring's edges match (the stored "
           f"cores dense, in splits of one tile and on a list past the "
           f"corpus; unaligned dims 36 and 100, dims 56, 300 and 4200, n not "
@@ -804,11 +925,48 @@ def _entry(ms, plain_ms, library_ms, library_call, bound, shape):
             "bound_by": bound[1], "shape": shape}
 
 
+def _time_merge(F, torch, card):
+    """Kernel B at the shapes of ``MERGE_SHAPES`` (the lists the main
+    path's requests give it), on sorted lists of random values: CUDA
+    events around one call (the host's enqueue included, as ``cuda_ms``
+    times every kernel) and a CUDA graph of 20 calls (the device alone),
+    beside its plain version, ``torch.topk`` of the flattened lists and
+    its byte bound."""
+    from polars_matmul_tpu_torch.utils.profiling import graph_ms
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sms = F.device_sms(torch.device("cuda"))
+    for m, splits, k, source in MERGE_SHAPES:
+        pv, pi = sorted_lists(torch, gen, m, splits, k, "random")
+        compare(*F.topk_merge(pv, pi, k), *F.topk_merge_plain(pv, pi, k),
+                exact=True, what=f"timed kernel B {m}x{splits}x{k}")
+        flat = pv.reshape(m, -1)
+        b, b_dev = (cuda_ms(lambda: F.topk_merge(pv, pi, k)),
+                    graph_ms(lambda: F.topk_merge(pv, pi, k)))
+        plain, plain_dev = (cuda_ms(lambda: F.topk_merge_plain(pv, pi, k)),
+                            graph_ms(lambda: F.topk_merge_plain(pv, pi, k)))
+        lib, lib_dev = (cuda_ms(lambda: torch.topk(flat, k, dim=1)),
+                        graph_ms(lambda: torch.topk(flat, k, dim=1)))
+        bound = _bound(pv.nbytes + pi.nbytes + m * k * 8, 0,
+                       "float32_cuda_cores")
+        groups, rows = F.merge_plan(m, splits, k, sms)
+        print(f"phase 6: [{card}] kernel B {m}x{splits}x{k} ({source}; "
+              f"{groups} blocks a row, {rows} rows a block): "
+              f"{b:.4f} ms a call, {b_dev:.4f} ms on the device | plain "
+              f"{plain:.4f} ms a call, {plain_dev:.4f} ms on the device | "
+              f"torch.topk {lib:.4f} ms a call, "
+              f"{lib_dev:.4f} ms on the device | bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+        del pv, pi, flat
+
+
 def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
     """Device times of kernels, plain versions and library calls, and
     request times.  Returns the per-kernel entries of the canonical k=10
     tiers (kernel A's bf16x3 and highest cores, kernel B)."""
     from polars_matmul_tpu_torch.ops.reference import exact_matmul
+    from polars_matmul_tpu_torch.utils.profiling import graph_ms
 
     q = torch.from_numpy(q_np).cuda()
     c = torch.from_numpy(c_np).cuda()
@@ -858,20 +1016,33 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                   f"bound {a_bound[0]:.4f} ms ({a_bound[1]}); library "
                   f"torch.addmm + torch.topk {lib:.4f} ms")
         if (k, precision) == CANON_TIERS[0]:
+            # A call timed by events, as every entry is; kernel B finishes
+            # well before a call's Python enqueue does, so its device time
+            # (a CUDA graph of calls) stands beside it under device_*.
             m = pv.shape[0]
-            b_lib = cuda_ms(lambda: torch.topk(pv.reshape(m, -1), k, dim=1))
+            flat = pv.reshape(m, -1)
+            b_lib = cuda_ms(lambda: torch.topk(flat, k, dim=1))
+            dev = [graph_ms(fn) for fn in (
+                lambda: F.topk_merge(pv, pi, k),
+                lambda: F.topk_merge_plain(pv, pi, k),
+                lambda: torch.topk(flat, k, dim=1))]
             b_bound = _bound(pv.nbytes + pi.nbytes + m * k * 8, 0,
                              "float32_cuda_cores")
-            per_kernel["topk_merge"] = _entry(
+            per_kernel["topk_merge"] = dict(_entry(
                 b, b_plain, b_lib, "torch.topk of the flattened split lists",
-                b_bound, f"{m}x{splits}x{k} split lists")
+                b_bound, f"{m}x{splits}x{k} split lists"),
+                device_ms=dev[0], device_plain_ms=dev[1],
+                device_library_ms=dev[2])
             print(f"phase 6: [{card}] canonical k=10: kernel B bound "
                   f"{b_bound[0]:.4f} ms (bytes); library torch.topk over "
-                  f"the flattened lists {b_lib:.4f} ms")
+                  f"the flattened lists {b_lib:.4f} ms | on the device "
+                  f"(a CUDA graph of calls): kernel B {dev[0]:.4f} ms, "
+                  f"plain {dev[1]:.4f} ms, torch.topk {dev[2]:.4f} ms")
         print(f"phase 6: [{card}] canonical k={k} {precision} (tm={tm}, "
               f"splits={splits}): A+B {ab:.4f} ms, plain {plain:.4f} ms | "
               f"A {a:.4f} ms, A plain {a_plain:.4f} ms | B {b:.4f} ms, "
               f"B plain {b_plain:.4f} ms")
+    _time_merge(F, torch, card)
     canon = pmt.Corpus(c_np)
     for k in (10, 100, 512):
         canon.topk(q_np, k)

@@ -78,6 +78,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_fused_topk_ring.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
+    lib.pmm_topk_merge_plan.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.pmm_topk_merge_plan.restype = i
     lib.pmm_matmul.argtypes = [p, p, p, i, i, i, i, p]
     lib.pmm_matmul.restype = i
     lib.pmm_floor_stacks.argtypes = [p] * 7 + [i] * 12 + [p]

@@ -9,8 +9,9 @@ two hand-written CUDA kernels compute the same result:
   tile and corpus split, the tiled Q.C^T, the epilogue (bias row, or
   scale and bias rows for quantized codes), the mask by select, and a
   running top-k carry per split;
-- kernel B, ``csrc/topk_merge.cu`` (``topk_merge``): merges the splits
-  into the final (m, k) result.
+- kernel B, ``csrc/topk_merge.cu`` (``topk_merge``): merges the splits'
+  sorted lists into the final (m, k) result, pairs in parallel rounds
+  (a small batch's rows over several blocks, ``merge_plan``).
 
 Kernel A has five cores, the JAX kernel's precisions:
 
@@ -53,6 +54,7 @@ counts its launches in ``launches`` (kernel A on a tile list apart, as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -82,6 +84,11 @@ _PLAIN_CHUNK = 1 << 26
 # fixed in the CUDA sources).
 _TN = 64
 _MAX_SPLITS = 1024
+# Kernel B's fewest lists a group when a row's lists spread over blocks,
+# and the most entries (rows x splits x k) a block takes when several small
+# rows share one.
+_MERGE_MIN_LISTS = 4
+_MERGE_ROW_ENTRIES = 1024
 
 # Kernel A's cores, in the order of the CUDA source's Core enum.
 CORES = ("highest", "bf16x3", "bf16c", "int8c", "int4c")
@@ -782,6 +789,13 @@ def launch_geometry(m: int, n: int, k: int, sm_count: int,
 _occupancy = {}
 
 
+@functools.lru_cache(maxsize=None)
+def device_sms(device: torch.device) -> int:
+    """The SMs of a CUDA ``device`` (cached: get_device_properties takes
+    microseconds, and every request asks)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def kernel_geometry(m: int, n: int, k: int, precision: str,
                     device: torch.device, tm: Optional[int] = None,
                     listed: bool = False, *, dim: int):
@@ -803,8 +817,7 @@ def kernel_geometry(m: int, n: int, k: int, precision: str,
             raise RuntimeError(f"kernel A cannot run tm={tm} k={k} "
                                f"{precision}: error {blocks}")
         _occupancy[key] = blocks
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return launch_geometry(m, n, k, sms, _occupancy[key], tm)
+    return launch_geometry(m, n, k, device_sms(device), _occupancy[key], tm)
 
 
 # The H100's shared memory: a block's most, an SM's, and what each
@@ -1068,29 +1081,73 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     return part_v, part_i
 
 
+@functools.lru_cache(maxsize=None)
+def merge_plan(m: int, splits: int, k: int, sm_count: int
+               ) -> Tuple[int, int]:
+    """Kernel B's launch shape (csrc/topk_merge.cu): (blocks a query row,
+    query rows a block), one of the two 1.
+
+    k=1 takes one warp a row.  When the rows alone give about half the SMs
+    a block, a block takes a row, or several rows of few entries (up to
+    _MERGE_ROW_ENTRIES) as long as the blocks still give every SM two.
+    Below that a row's lists split into groups of about sqrt(splits)
+    lists, at least four, and few enough that the batch's groups stay
+    within two blocks an SM: the groups run side by side, then the row's
+    last block merges the group lists, so the two steps cost about the
+    same.  No group is empty."""
+    if k == 1:
+        return 1, 1
+    if 2 * m < sm_count and splits >= 2 * _MERGE_MIN_LISTS:
+        per = max(_MERGE_MIN_LISTS, math.isqrt(splits - 1) + 1,
+                  -(-splits // (2 * sm_count // m)))
+        return -(-splits // per), 1
+    return 1, max(1, min(_MERGE_ROW_ENTRIES // (splits * k),
+                         m // (2 * sm_count)))
+
+
+def merge_scratch_ints(m: int, groups: int, k: int) -> int:
+    """int32 words of kernel B's scratch for ``groups`` blocks a row: the
+    rows' arrival counters (rounded up to 16 bytes), then each group
+    list's values and indices."""
+    return _round_up(m, 4) + 2 * m * groups * k
+
+
 def topk_merge(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
-    """Kernel B: (m, k) f32 values and int32 indices from the splits."""
+    """Kernel B: (m, k) f32 values and int32 indices from the splits.  The
+    kernel takes at most _MAX_SPLITS lists of k <= 4096 a row and refuses
+    more (error -1)."""
     if (part_v.ndim != 3 or part_v.shape != part_i.shape
             or part_v.shape[2] != k or part_v.dtype != torch.float32
             or part_i.dtype != torch.int32 or part_v.device != part_i.device
             or not part_v.is_contiguous() or not part_i.is_contiguous()):
         raise ValueError("topk_merge takes contiguous (m, splits, k) f32 "
                          "values and int32 indices on one device")
-    if part_v.device.type == "cpu":
+    device = part_v.device
+    if device.type == "cpu":
         return topk_merge_plain(part_v, part_i, k)
-    if part_v.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {part_v.device}")
+    if device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {device}")
     from ._build import load_library
 
     lib = load_library()
     m, splits = part_v.shape[0], part_v.shape[1]
-    vals = torch.empty((m, k), dtype=torch.float32, device=part_v.device)
-    idx = torch.empty((m, k), dtype=torch.int32, device=part_v.device)
-    with torch.cuda.device(part_v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pmm_topk_merge(_ptr(part_v), _ptr(part_i), _ptr(vals),
-                                _ptr(idx), m, splits, k,
-                                ctypes.c_void_p(stream))
+    groups, rows = merge_plan(m, splits, k, device_sms(device))
+    vals = torch.empty((m, k), dtype=torch.float32, device=device)
+    idx = torch.empty((m, k), dtype=torch.int32, device=device)
+    # Entering the device's context costs microseconds; skip it where the
+    # device is current already.
+    with (contextlib.nullcontext() if device.index == torch.cuda.
+          current_device() else torch.cuda.device(device)):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        args = (_ptr(part_v), _ptr(part_i), _ptr(vals), _ptr(idx))
+        if groups == rows == 1:
+            rc = lib.pmm_topk_merge(*args, m, splits, k, stream)
+        else:
+            scratch = (torch.empty(merge_scratch_ints(m, groups, k),
+                                   dtype=torch.int32, device=device)
+                       if groups > 1 else None)
+            rc = lib.pmm_topk_merge_plan(*args, _ptr(scratch), m, splits,
+                                         k, groups, rows, stream)
     if rc != 0:
         raise RuntimeError(f"topk_merge launch failed: error {rc}")
     launches["topk_merge"] += 1

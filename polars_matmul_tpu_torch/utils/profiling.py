@@ -4,7 +4,8 @@
   so it shows in a ``torch.profiler`` trace; with ``PMM_TPU_DEBUG=1`` it
   also logs the host time of the phase.
 - ``block`` and ``benchmark``: wait for the card, and time a function:
-  CUDA events when it runs on the card, the host clock on the CPU.
+  CUDA events when it runs on the card, the host clock on the CPU;
+  ``graph_ms``: its device time alone, from a CUDA graph of many calls.
 - ``device_peak_tflops``, ``device_hbm_bytes_per_s`` and ``roofline``:
   achieved GFLOP/s against the card's published peak (NVIDIA's H100 SXM
   data sheet; other cards report no peak).
@@ -95,6 +96,39 @@ def benchmark(fn: Callable, *args, warmup: int = 2, iters: int = 10,
         "mean_ms": sum(times) / len(times),
         "iters": float(iters),
     }
+
+
+def graph_ms(fn: Callable, calls: int = 20, iters: int = 5) -> float:
+    """Device time of one ``fn()`` in ms without the host's enqueue:
+    ``calls`` calls captured in one CUDA graph, replayed ``iters`` times
+    between CUDA events; the median replay over ``calls`` (the gaps
+    between the graph's kernels count).  The card only: ``fn`` launches on
+    the current stream, and everything it allocates comes from the
+    graph's pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
 
 
 # Published dense peaks, TFLOP/s, keyed by a lower-cased substring of
