@@ -11,7 +11,8 @@ Phases, each printing one line or a few:
    registers and spills (none allowed in the warpgroup consumer), and the
    stored cores' ring at dim 768 (stages, bytes a stage, the query's
    place, blocks an SM; query tiles 16 and 32 at k=100, 64 at k=10, 100
-   and 128), the source's plan held to the host's mirror;
+   and 128) and the highest core's f32 ring at dims 256 and 768
+   (``HIGHEST_PLANS``), the source's plan held to the host's mirror;
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
@@ -21,7 +22,9 @@ Phases, each printing one line or a few:
    not a multiple of a stage, int4 over two feature chunks, splits of one
    tile, a list whose last id lies past the corpus, k up to 1024; at
    query tile 64, the warpgroup consumer, 33, 65 and 300 queries, k up to
-   128 and corpus rows not a multiple of a step); the
+   128 and corpus rows not a multiple of a step); the highest core at
+   the f32 ring's edges (dims 1, 3, 4, 5, 255, 257 and 768, query tiles
+   16, 32 and 64, k up to 512, the same splits and lists); the
    on-card quantizers against the host NumPy ones, bit for bit; kernel B
    bit for bit over a sweep of sorted lists (splits 1 to 1024, k 1 to
    1024, m 1 to 1000: tie data, padded and wholly -inf lists, -inf entries
@@ -30,15 +33,17 @@ Phases, each printing one line or a few:
    and a list of every tile against the dense scan, bit for bit;
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
-   k=100, k=512 and precision="highest", each held to a float64 NumPy
-   oracle;
+   k=100 and k=512, in the default precision and precision="highest",
+   each held to a float64 NumPy oracle;
 4. a 2,000,000 x 256 resident corpus answering requests of 8 and 256
    queries at k=10 and k=100, each held to a float64 oracle on the card;
 5. the launch counts of each main path (phases 3 and 4, each tier of
    phase 7, and the probed path of phase 8): its kernels and cores ran,
    the plain versions did not;
 6. times from CUDA events: kernels against plain versions and library
-   calls, and requests with their bounds; kernel B at the eight list
+   calls, and requests with their bounds (the highest core at the
+   canonical k=10, 100 and 512, at 2M x 256 batch 8 and 256, and its
+   canonical ``Corpus.topk`` request); kernel B at the seven list
    shapes of the main path's requests (``MERGE_SHAPES``), a call timed
    by CUDA events as every kernel is, and on the device alone (a CUDA
    graph of calls), beside ``torch.topk`` of the flattened lists and its
@@ -61,7 +66,7 @@ Phases, each printing one line or a few:
    exactly the rows its lists visited; probed recall@10 against the
    exhaustive scan reported; listed kernel A checked against its plain
    version at these shapes and timed against its bound and a library
-   yardstick;
+   yardstick, the f32 clustered corpus's lists in its highest core too;
 9. the tiled product and autotune: ``pallas_matmul`` (kernel C, both
    cores) driven from NumPy at the canonical 1000 x 10,000 x 256 shape and
    on card tensors at 8192 x 65,536 x 768, each held to a float64 product,
@@ -158,6 +163,16 @@ RING_EDGES = ((5, 129, 36), (5, 129, 100), (37, 1100, 56), (16, 700, 300),
 # two feature chunks (4200).
 RING64_EDGES = ((33, 1100, 36), (65, 1300, 100), (300, 700, 4200),
                 (65, 1000, WIDE_DIM))
+# The highest core's f32 ring: dims below a 16-byte piece (1, 3), one
+# piece (4), not a multiple of 4 (5, 255, 257: the unaligned path), the
+# wide 768; n a multiple of no kernel tile; query tiles 16 (m 9, or
+# k=512), 32 (m 20) and 64 (m 33, 65, 300).
+HIGHEST_EDGES = ((9, 129, 1), (33, 700, 3), (20, 1100, 4), (65, 1300, 5),
+                 (9, 700, 255), (300, 1000, 257), (33, 1100, WIDE_DIM))
+# The f32 ring's plans phase 1 prints: (query tile, k) of the canonical
+# tiers, of batch 8 and of the tallest carries.
+HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
+                 (16, 10), (16, 100), (16, 512), (16, 1024))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -262,8 +277,8 @@ def _ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
                       r"((?:fused_topk_partial|fused_topk_stored|"
-                      r"fused_topk_wgmma|topk_merge_tree|topk_merge_best|"
-                      r"matmul|floor_stacks)_kernel)"
+                      r"fused_topk_wgmma|fused_topk_f32|topk_merge_tree|"
+                      r"topk_merge_best|matmul|floor_stacks)_kernel)"
                       r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
@@ -330,6 +345,29 @@ def phase_build():
                   f"{'resident' if plan[2] else 'in the ring'}, {plan[3]} B "
                   f"of shared memory; blocks an SM {blocks[0]} dense, "
                   f"{blocks[1]} listed")
+    # The highest core's f32 ring at the canonical and the wide dims, at
+    # the query tiles and k its main path takes.
+    core = F.CORES.index("highest")
+    for dim in (DIM, WIDE_DIM):
+        for tm, k in HIGHEST_PLANS:
+            plan = (ctypes.c_int * 4)()
+            require(lib.pmm_fused_topk_ring(tm, core, dim, k, plan) == 0,
+                    f"no f32 ring plan for tm={tm} k={k} dim={dim}")
+            want = F.stage_plan(tm, "highest", dim, k)
+            require(tuple(plan) == (want[0], want[1], int(want[2]), want[3]),
+                    f"f32 ring plan tm={tm} k={k} dim={dim}: source "
+                    f"{tuple(plan)}, host {want}")
+            blocks = [lib.pmm_fused_topk_blocks_per_sm(tm, k, core, listed,
+                                                       dim)
+                      for listed in (0, 1)]
+            require(min(blocks) >= 1, f"highest tm={tm} k={k} dim={dim}: "
+                    f"blocks an SM {blocks}")
+            print(f"  ring: tm={tm} highest at dim {dim}, k={k}: {plan[0]} "
+                  f"stages of {plan[1]} B ({F.f32_step_rows(tm)} corpus rows "
+                  f"x {F.f32_cols(tm)} features), query "
+                  f"{'resident' if plan[2] else 'riding the stages'}, "
+                  f"{plan[3]} B of shared memory; blocks an SM {blocks[0]} "
+                  f"dense, {blocks[1]} listed")
 
 
 def _case_data(torch, gen, m, n, dim, dup: bool):
@@ -435,15 +473,18 @@ def _check_shape(F, torch, gen, q, c, ks, err, label, tie=False,
 
 
 def _ring_edges(F, torch, gen, err):
-    """The stored cores at the ring's edges, real and integer tie data
-    (bit for bit): RING_EDGES at k=1, 100 and 1024, RING64_EDGES at k=1,
-    100 and 128; at the main path's geometry, in splits of one tile, and
-    walking a list of every other layout tile whose last id lies past the
-    corpus.  Returns the cases."""
+    """The ring's cores at its edges, real and integer tie data (bit for
+    bit): the stored cores over RING_EDGES at k=1, 100 and 1024 and
+    RING64_EDGES at k=1, 100 and 128, the highest core over HIGHEST_EDGES
+    at k=1, 10, 100 and 512; at the main path's geometry, in splits of one
+    tile, and walking a list of every other layout tile whose last id lies
+    past the corpus.  Returns the cases."""
     cases = 0
-    edges = ([(e, (1, 100, 1024)) for e in RING_EDGES]
-             + [(e, (1, 100, 128)) for e in RING64_EDGES])
-    for (m, n, dim), ks in edges:
+    edges = ([(e, (1, 100, 1024), STORED) for e in RING_EDGES]
+             + [(e, (1, 100, 128), STORED) for e in RING64_EDGES]
+             + [(e, (1, 10, 100, 512), ("highest",))
+                for e in HIGHEST_EDGES])
+    for (m, n, dim), ks, precisions in edges:
         for tie in (False, True):
             q, c = (_tie_data(torch, gen, m, n, dim) if tie else
                     _case_data(torch, gen, m, n, dim, False))
@@ -452,7 +493,7 @@ def _ring_edges(F, torch, gen, err):
             layout = -(-n // tn)
             tiles = torch.tensor([list(range(0, layout, 2)) + [layout + 1]],
                                  dtype=torch.int32, device="cuda")
-            for precision in STORED:
+            for precision in precisions:
                 qp = F.prepare_queries(q, metric, precision)
                 cp, cbp = F.prepare_corpus(c, metric, precision=precision)
                 scale = 0.0 if tie else _term_scale(F, qp, cp, cbp,
@@ -556,10 +597,9 @@ MERGE_SWEEP_CAP = 1 << 26
 # from): the lists kernel A leaves for kernel B on the main path's requests
 # (launch_geometry on 132 SMs).
 MERGE_SHAPES = (
-    (1000, 16, 10, "canonical k=10, bf16x3"),
+    (1000, 16, 10, "canonical k=10, bf16x3 and highest"),
     (1000, 16, 100, "canonical k=100"),
     (1000, 5, 512, "canonical k=512"),
-    (1000, 32, 10, "canonical k=10, highest"),
     (8, 1024, 100, "2M x 256 f32, batch 8, k=100"),
     (8, 264, 100, "10M x 768 int8, batch 8, k=100"),
     (8, 258, 100, "probed 10M int8, probe 0.05, batch 8, k=100"),
@@ -776,8 +816,9 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
           f"cores dense, in splits of one tile and on a list past the "
           f"corpus; unaligned dims 36 and 100, dims 56, 300 and 4200, n not "
           f"a multiple of 64, k=1/100/1024; at query tile 64, m=33/65/300, "
-          f"n not a multiple of 128, k=1/100/128; integer tie data "
-          f"bit-identical)")
+          f"n not a multiple of 128, k=1/100/128; the highest core at dims "
+          f"1, 3, 4, 5, 255, 257 and {WIDE_DIM}, query tiles 16/32/64, "
+          f"k=1/10/100/512; integer tie data bit-identical)")
     print(f"phase 2: {cases} ragged cases match (atol {ATOL} + rtol {RTOL} "
           f"x max(|score|, row term scale); kernel B bit-identical), every "
           f"core; {ties} integer tie cases bit-identical; the on-card "
@@ -814,7 +855,7 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
 
 
 CANON_TIERS = ((10, "bf16x3"), (100, "bf16x3"), (512, "bf16x3"),
-               (10, "highest"))
+               (10, "highest"), (100, "highest"), (512, "highest"))
 
 
 def phase_canonical(pmt, q, c):
@@ -1056,6 +1097,21 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
         profile_request(torch, lambda: canon.topk(q_np, k),
                         f"canonical Corpus.topk k={k}", card,
                         statistics.median(ts))
+    canon = pmt.Corpus(c_np, config=pmt.SearchConfig(precision="highest"))
+    canon.topk(q_np, 10)
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        canon.topk(q_np, 10)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 6: [{card}] canonical Corpus.topk k=10 precision=highest "
+          f"from NumPy: {statistics.median(ts):.3f} ms host per 1000-query "
+          f"request")
+    profile_request(torch, lambda: canon.topk(q_np, 10),
+                    "canonical Corpus.topk k=10 highest", card,
+                    statistics.median(ts))
+    del canon
+    _time_highest_big(F, torch, corpus_big, requests, card)
     for (batch, k), qb in requests.items():
         ts = []
         for _ in range(5):
@@ -1073,6 +1129,50 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                         f"{BIG_ROWS}x{DIM} batch {batch} k={k}", card,
                         statistics.median(ts))
     return per_kernel
+
+
+def _time_highest_big(F, torch, corpus_big, requests, card):
+    """The highest core at the 2M x 256 corpus, k=10, batch 8 and 256:
+    kernel A alone and A + B (CUDA events) beside the plain version, the
+    library yardstick (torch.addmm + torch.topk, f32) and the bound, after
+    a check against the plain version."""
+    from polars_matmul_tpu_torch.ops.reference import exact_matmul
+
+    cp, cbp = F.prepare_corpus(corpus_big._dense_device(), "cosine",
+                               precision="highest")
+    zero = torch.zeros(BIG_ROWS, device="cuda")
+    for (batch, k), qb in requests.items():
+        if k != 10:
+            continue
+        qp = F.prepare_queries(qb, "cosine", "highest")
+        compare(*F.fused_select(qp, cp, cbp, None, k, "highest"),
+                *F.fused_topk_plain(qp, cp, cbp, None, k, "highest"),
+                scale=_term_scale(F, qp, cp, cbp, "highest"),
+                what=f"timed {BIG_ROWS}x{DIM} batch {batch} highest")
+        tm, splits, tps = F.kernel_geometry(batch, BIG_ROWS, k, "highest",
+                                            qp.device, dim=DIM)
+        a = cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, None, k,
+                                                 "highest", splits, tps, tm),
+                    reps=10)
+        ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k,
+                                            "highest"), reps=10)
+        plain = cuda_ms(lambda: F.fused_topk_partial_plain(
+            qp, cp, cbp, None, k, "highest", splits, tps), reps=3, warmup=1)
+
+        def library():
+            with exact_matmul():
+                return torch.topk(torch.addmm(zero, qp, cp.T), k, dim=1)
+
+        lib = cuda_ms(library, reps=5)
+        bound = _bound(qp.nbytes + cp.nbytes + cbp.nbytes
+                       + batch * splits * k * 8,
+                       2 * batch * BIG_ROWS * DIM, "float32_cuda_cores")
+        print(f"phase 6: [{card}] {BIG_ROWS}x{DIM} batch {batch} k={k} "
+              f"highest (tm={tm}, splits={splits}): A {a:.4f} ms, A+B "
+              f"{ab:.4f} ms, A plain {plain:.3f} ms; bound {bound[0]:.4f} "
+              f"ms ({bound[1]}); library torch.addmm + torch.topk (f32) "
+              f"{lib:.4f} ms")
+    del cp, cbp
 
 
 def _wide_f32(torch, chunk=1 << 20):
@@ -1494,10 +1594,11 @@ def _time_probed(F, torch, cc, q, k, card, label):
     lib = cuda_ms(library, reps=5, warmup=1)
     row_bytes = cp.shape[1] * cp.element_size() + cbp.element_size() * (
         cbp.shape[0] if cbp.ndim == 2 else 1)
-    passes = 3 if core == "bf16x3" else 2
+    passes, peak = ((1, "float32_cuda_cores") if core == "highest" else
+                    (3 if core == "bf16x3" else 2, "bfloat16"))
     bound = _bound(tiles.shape[0] * p * tn * row_bytes + qp.nbytes
                    + m * splits * k * 8,
-                   passes * 2 * m * p * tn * cc.dim, "bfloat16")
+                   passes * 2 * m * p * tn * cc.dim, peak)
     print(f"phase 6: [{card}] {label} probe {PROBE} batch {m} k={k}: "
           f"request {host:.3f} ms host; probe step {probe_ms:.4f} ms; "
           f"listed A {a:.4f} ms (tm={tm}, splits={splits}, {p} of "
@@ -1597,6 +1698,16 @@ def phase_clustered(pmt, F, torch, card, err):
         _time_probed(F, torch, wide, q[:batch], k, card, label)
     for k in (10, 100):
         _time_probed(F, torch, proxy, q2, k, card, label2)
+    # The listed highest instantiation on the same lists' rows.
+    proxy.config = proxy.config.with_updates(precision="highest")
+    _, qp, cp, cbp, core, tiles, br = _listed_operands(F, proxy, q2, 10,
+                                                       PROBE)
+    require(core == "highest", f"the f32 clustered corpus runs {core}")
+    _check_listed(F, qp, cp, cbp, None, 10, core, tiles, proxy.layout.tn, br,
+                  err, f"f32 n={proxy.n} batch {N_QUERIES} k=10 highest",
+                  scale=_term_scale(F, qp, cp, cbp, core))
+    del qp, cp, cbp
+    _time_probed(F, torch, proxy, q2, 10, card, label2 + " highest")
     for batch in (8, 256):
         ts = []
         for _ in range(5):

@@ -32,15 +32,18 @@
 // only the listed rows (p / n_tiles of the corpus bytes per list); the
 // rows are contiguous runs of tn, so the loads are the dense walk's.
 //
-// The two cores:
+// The cores:
 // - "bf16x3" runs on the tensor cores: mma.sync m16n8k16 bf16 with an f32
 //   accumulator, three products per tile (qh.ch, qh.cl, ql.ch), the
 //   counterpart of the TPU's three bf16 MXU passes.  Products of bf16
 //   values are exact in f32; hh and (hl + lh) accumulate apart and are
 //   summed last, the grouping of the TPU kernel.  Warp w owns corpus
 //   columns [8w, 8w+8) of the tile for every query row of the block.
-// - "highest" runs on CUDA cores: f32 FMA on a (TM/16) x 4 register
-//   micro-tile per thread.  TF32 would not hold f32 semantics.
+// - "highest" (the TPU kernel's f32 product, fused_topk.py:1294-1295, the
+//   else branch of :1257-1296) runs on CUDA cores: f32 FMA on register
+//   tiles of 4 query x 4 corpus rows a thread, fed by the ring of raw f32
+//   corpus bytes (fused_topk_f32_kernel, below).
+//   TF32 would not hold f32 semantics.
 // - "bf16c", "int8c", "int4c": the corpus is stored as one bf16 half,
 //   int8 codes, or int8 bytes of two signed nibbles, and streams through
 //   a ring of raw bytes (below) that is decoded to bf16 as it is read
@@ -67,7 +70,22 @@
 // of a split is a small fraction of them.  A few are inserted one by one,
 // each a warp-wide count and shift of the sorted carry; many (the first
 // tiles of a split) are sorted in the warp and merged into the carry in
-// one pass.  "highest" is bound by the f32 FMA rate (67 TFLOP/s peak).
+// one pass.
+//
+// "highest" needs 5.1 G f32 FMA at the canonical shape, 0.076 ms at the
+// 67 TFLOP/s FMA peak.  The per-tile core it replaced staged each tile with
+// plain loads and a barrier, copied the whole query tile again for every
+// corpus tile, and read shared memory for every product (0.5 FMA a byte
+// at query tile 64).  Now the corpus streams through the ring across
+// steps, the query tile is staged once a block where it fits, and each
+// thread's 16-byte reads feed a 4 x 4 register tile.  What bounds it now
+// (PERF.md, H100): the products alone (the selection taken out) run at
+// 46 % of the FMA peak at 256 queries x 2M x 256, held by the shared
+// memory the tiles read and the ring writes and by a barrier a position
+// (a 4 x 8 tile read less and ran no faster; 32 features a position at
+// query tile 64 beat 16; an 8 x 8 tile spills at two blocks an SM), and
+// the selection, on the same warps, takes about a third of the canonical
+// k=10 time and most of it at k >= 100.
 //
 // The stored cores serve corpora too large for f32.  At the 10M x 768
 // north-star shape a batch-8 int8 request must read 7.68 GB of codes plus
@@ -285,60 +303,288 @@ __device__ inline void select_tile(const float* St, float* Cv, int* Ci,
   }
 }
 
-// Score tile of the f32 core into St (epilogue applied).
-template <int TM>
-__device__ inline void scores_f32(const float* __restrict__ q,
-                                  const float* __restrict__ c,
-                                  const float* __restrict__ cb,
-                                  const uint8_t* __restrict__ mask,
-                                  float* Qs, float* Cs, float* St, int row0,
-                                  int n0, int m, int n, int dim) {
-  constexpr int RM = TM / 16;   // query rows per thread
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;      // corpus columns tx + 16 j
-  const int ty = tid >> 4;      // query rows ty + 16 i
-  float acc[RM][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// ---------------------------------------------------------------------------
+// The highest core: exact f32 products on the CUDA cores, fed by the ring
+// of tile_scores.cuh.
+//
+// Producer: the ring carries the raw f32 corpus bytes.  A position is a
+// step's corpus rows x ring_row_bytes (32, 16 or 8 features at query tile
+// 64, 32 or 16),
+// copied by 16-byte cp.async stages - 1 positions ahead of the products and
+// straight across steps; a listed walk reads each tile's list entry as it
+// copies it and skips ids past the corpus.  The query tile is staged once
+// a block where f32_plan keeps it resident; otherwise its columns of the
+// position's features ride the stage, after the corpus rows.
+//
+// Consumer: register tiles of f32 FMA.  A step is 4096 / TM corpus rows
+// (64 / TM kernel tiles), so every query tile scores 4096 pairs a step, 16
+// a thread.  Lane (lq, lc) = (lane / 8, lane % 8) of warp w owns query
+// rows 16 (w % WQ) + lq + 4 i and step rows 32 (w / WQ) + lc + 8 j, i, j <
+// 4 (WQ = TM / 16 warps along the query tile).  Each 16-byte shared read
+// brings four features of one row: a read of query row i meets 4 rows (8
+// lanes each, a broadcast), a read of corpus row j meets 8 rows (4 lanes
+// each); rows an odd number of 16-byte units apart put the rows of one
+// read on distinct banks.  Every four features a warp reads 768 distinct
+// bytes for 2048 FMA lanes (2.7 a byte; the per-tile micro-tile read 0.5
+// at query tile 64).  Each score keeps one accumulator, fmaf
+// over features in ascending order, as before: the scores are the
+// per-tile core's, bit for bit.  After a step's products, its kernel tiles
+// take turns in one score tile: the warps of tile j write its scores, then
+// every warp selects on it.
+// ---------------------------------------------------------------------------
 
-  for (int k0 = 0; k0 < dim; k0 += kBK) {
-    for (int e = tid; e < TM * kBK; e += kThreads) {
-      const int r = e / kBK, kk = e % kBK;
-      const int gr = row0 + r, gk = k0 + kk;
-      Qs[r * kBK + kk] = (gr < m && gk < dim) ? q[(size_t)gr * dim + gk]
-                                              : 0.f;
+constexpr int kF32Stages = 4;   // the most stages of the f32 ring
+
+__host__ __device__ constexpr int f32_step_rows(int tm) { return 4096 / tm; }
+__host__ __device__ constexpr int f32_step_tiles(int tm) { return 64 / tm; }
+
+// Bytes of one stage: the step's corpus rows, and the query tile's rows
+// when it rides.
+__host__ __device__ inline size_t f32_stage_bytes(int tm, bool q_resident) {
+  return (size_t)(f32_step_rows(tm) + (q_resident ? 0 : tm)) *
+         ring_row_stride(tm, kHighest);
+}
+
+// Byte stride of a resident query row: every feature the positions hold.
+__host__ __device__ inline int f32_query_stride(int tm, int dim) {
+  return odd_units(ring_chunks(tm, kHighest, 4 * dim) *
+                       ring_row_bytes(tm, kHighest), 16);
+}
+
+// The ring of `stages`, then the resident query tile.
+__host__ __device__ inline size_t f32_staging_bytes(int tm, int dim,
+                                                    bool q_resident,
+                                                    int stages) {
+  return stages * f32_stage_bytes(tm, q_resident) +
+         (q_resident ? (size_t)tm * f32_query_stride(tm, dim) : 0);
+}
+
+// The f32 ring: the most blocks an SM (two at most), then the query tile
+// resident wherever that keeps them, then the most stages.
+inline RingPlan f32_plan(int tm, int dim, int k) {
+  RingPlan best{0, false, 0};
+  int best_key = -1;
+  for (int res = 1; res >= 0; --res)
+    for (int s = kF32Stages; s >= 2; --s) {
+      const size_t b =
+          f32_staging_bytes(tm, dim, res != 0, s) + tail_bytes(tm, k);
+      if (b > kMaxSmem) continue;
+      const int blocks = smem_blocks(b) < 2 ? smem_blocks(b) : 2;
+      const int key = 100 * blocks + 10 * res + s;
+      if (key > best_key) {
+        best_key = key;
+        best = RingPlan{s, res != 0, b};
+      }
     }
-    for (int e = tid; e < kTN * kBK; e += kThreads) {
-      const int r = e / kBK, kk = e % kBK;
-      const int gn = n0 + r, gk = k0 + kk;
-      Cs[r * (kBK + 1) + kk] = (gn < n && gk < dim)
-                                   ? c[(size_t)gn * dim + gk] : 0.f;
+  return best;
+}
+
+// Stage features [f0, f0 + cols) of query rows [row0, row0 + TM) into Qs
+// (row stride qs floats), zero past row m and feature dim.  vec: 16-byte
+// cp.async copies (dim % 4 == 0, aligned rows); otherwise plain loads.
+template <int TM>
+__device__ inline void f32_query(float* Qs, int qs,
+                                 const float* __restrict__ q, int row0, int m,
+                                 int dim, int f0, int cols, bool vec) {
+  if (vec) {
+    const int pieces = cols / 4;
+    for (int e = threadIdx.x; e < TM * pieces; e += kThreads) {
+      const int r = e / pieces, o = (e % pieces) * 4;
+      const int gr = row0 + r, f = f0 + o;
+      const bool in = gr < m && f < dim;   // whole 4-feature pieces
+      cp_async16(Qs + r * qs + o, in ? q + (size_t)gr * dim + f : q,
+                 in ? 16 : 0);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float qv[RM], cv[4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = Qs[(ty + 16 * i) * kBK + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cv[j] = Cs[(tx + 16 * j) * (kBK + 1) + kk];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], cv[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
+  for (int e = threadIdx.x; e < TM * cols; e += kThreads) {
+    const int r = e / cols, o = e % cols;
+    const int gr = row0 + r, f = f0 + o;
+    Qs[r * qs + o] = gr < m && f < dim ? q[(size_t)gr * dim + f] : 0.f;
+  }
+}
+
+// The products of one position: acc[i][j] gains q(qr + 4 i rows) .
+// c(cr + 8 j rows) over the position's features, one fmaf a feature in
+// ascending order.  qs: the query's row stride in floats.
+template <int TM>
+__device__ inline void f32_products(const float* qr, int qs, const float* cr,
+                                    float (&acc)[4][4]) {
+  constexpr int BK = ring_cols(TM, kHighest);
+  constexpr int CS = ring_row_stride(TM, kHighest) / 4;
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int u = 0; u < BK; u += 4) {
+    float4 a[4], b[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      St[(ty + 16 * i) * (kTN + 1) + col] =
-          epilogue(acc[i][j], n0 + col, n, nullptr, cb, mask);
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(qr + 4 * i * qs + u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(cr + 8 * j * CS + u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// The highest core's walk: the ring, the register tiles, then the
+// selection of each of the step's tiles in walk order.  Two blocks an SM:
+// f32_plan keeps their shared memory, the bound their registers.
+template <int TM, bool LISTED>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_topk_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ c,
+                      const float* __restrict__ cb,
+                      const uint8_t* __restrict__ mask,
+                      const int* __restrict__ tiles,
+                      float* __restrict__ part_v, int* __restrict__ part_i,
+                      int m, int n, int dim, int k, int splits,
+                      int tiles_per_split, int p, int tn_tiles,
+                      int block_rows, bool vec, int stages,
+                      bool q_resident) {
+  constexpr int S = f32_step_tiles(TM), R = f32_step_rows(TM);
+  constexpr int RB = ring_row_bytes(TM, kHighest);
+  constexpr int BK = ring_cols(TM, kHighest);
+  constexpr int RS = ring_row_stride(TM, kHighest);
+  constexpr int WQ = TM / 16;   // warps along the query rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row_bytes = 4 * dim;
+  const int chunks = ring_chunks(TM, kHighest, row_bytes);
+  const size_t stage = f32_stage_bytes(TM, q_resident);
+  const int qs = (q_resident ? f32_query_stride(TM, dim) : RS) / 4;
+  float* Qr = reinterpret_cast<float*>(smem + stages * stage);
+  float* St = reinterpret_cast<float*>(
+      smem + f32_staging_bytes(TM, dim, q_resident, stages));
+  float* Cv = St + TM * (kTN + 1);
+  int* Ci = reinterpret_cast<int*>(Cv + (size_t)TM * k);
+  float* Lv = reinterpret_cast<float*>(Ci + (size_t)TM * k);
+  int* Li = reinterpret_cast<int*>(Lv + kWarps * kTN);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * TM;
+  const int rows_valid = min(TM, m - row0);
+  const int split = blockIdx.y;
+  const int* list = LISTED ? tiles + (size_t)(row0 / block_rows) * p
+                           : nullptr;
+  const int n_tiles = LISTED ? p * tn_tiles : (n + kTN - 1) / kTN;
+  const int layout_tiles =
+      LISTED ? (n + tn_tiles * kTN - 1) / (tn_tiles * kTN) : 0;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  // The first corpus row of kernel tile t, or -1 past the split or where
+  // its listed id names no rows (never read).
+  auto first_row = [&](int t) -> int {
+    if (t >= t_end) return -1;
+    if constexpr (LISTED) {
+      const int lt = list[t / tn_tiles];
+      if (lt < 0 || lt >= layout_tiles) return -1;
+      return (lt * tn_tiles + t % tn_tiles) * kTN;
     }
+    return t * kTN;
+  };
+
+  for (int e = tid; e < TM * k; e += kThreads) {
+    Cv[e] = -INFINITY;
+    Ci[e] = kINT32_MAX;
+  }
+
+  // The producer: the next position (its step's first tile, its chunk)
+  // into stage `to`; one commit group a position, empty or not.  The first
+  // rows of its step's tiles are read once a step (a listed id once).
+  const unsigned char* cbytes = reinterpret_cast<const unsigned char*>(c);
+  int it = t_begin, ikc = 0;
+  int pn0[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) pn0[j] = first_row(it + j);
+  auto produce = [&](int to) {
+    unsigned char* st = smem + to * stage;
+    if (it < t_end) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (pn0[j] >= 0)
+          ring_corpus<TM, kHighest>(st + j * kTN * RS, cbytes, row_bytes,
+                                    row_bytes, pn0[j], n, ikc * RB, vec);
+      if (!q_resident)
+        f32_query<TM>(reinterpret_cast<float*>(st + R * RS), RS / 4, q, row0,
+                      m, dim, ikc * BK, BK, vec);
+    }
+    cp_async_commit();
+    if (++ikc == chunks) {
+      ikc = 0;
+      it += S;
+#pragma unroll
+      for (int j = 0; j < S; ++j) pn0[j] = first_row(it + j);
+    }
+  };
+  if (q_resident)   // joins position 0's group
+    f32_query<TM>(Qr, qs, q, row0, m, dim, 0, chunks * BK, vec);
+  for (int i = 0; i < stages - 1; ++i) produce(i);
+
+  const int qrow = 16 * (warp % WQ) + (lane >> 3);
+  const int crow = 32 * (warp / WQ) + (lane & 7);
+  const int tile = crow / kTN, col = crow % kTN;   // the step tile, column
+  int st = 0;   // the consumer's stage
+  for (int t0 = t_begin; t0 < t_end; t0 += S) {
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < S; ++j) any |= first_row(t0 + j) >= 0;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int kc = 0; kc < chunks; ++kc) {
+      cp_async_wait_for(stages - 2);   // this position's copies landed
+      __syncthreads();          // everyone's; the stage refilled next is read
+      produce(st == 0 ? stages - 1 : st - 1);   // stages - 1 positions ahead
+      const unsigned char* cs = smem + st * stage;
+      st = st == stages - 1 ? 0 : st + 1;
+      if (!any) continue;
+      const float* qc = q_resident ? Qr + kc * BK
+                                   : reinterpret_cast<const float*>(cs + R * RS);
+      f32_products<TM>(qc + qrow * qs, qs,
+                       reinterpret_cast<const float*>(cs) + crow * (RS / 4),
+                       acc);
+    }
+    if (!any) continue;
+    // The step's tiles in walk order through the one score tile: a barrier
+    // before each tile's scores overwrite the last one's (the next step's
+    // first position has its own), one before its selection.
+#pragma unroll 1
+    for (int t = 0; t < S; ++t) {
+      const int n0 = first_row(t0 + t);
+      if (n0 < 0) continue;
+      if (t > 0) __syncthreads();
+      if (tile == t) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            St[(qrow + 4 * i) * (kTN + 1) + col + 8 * j] =
+                epilogue(acc[i][j], n0 + col + 8 * j, n, nullptr, cb, mask);
+      }
+      __syncthreads();
+      select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
+                      rows_valid, warp, lane);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int e = tid; e < rows_valid * k; e += kThreads) {
+    const int r = e / k, j = e % k;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
+    part_v[o] = Cv[e];
+    part_i[o] = Ci[e];
+  }
 }
 
 // LISTED instantiates the probed walk apart from the dense one: sharing one
@@ -396,21 +642,13 @@ fused_topk_partial_kernel(const void* __restrict__ qp,
       kt = lt * tn_tiles + t % tn_tiles;
     }
     const int n0 = kt * kTN;
-    if constexpr (CORE == kBf16x3) {
-      uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
-      uint16_t* Ql = Qh + TM * kBKP;
-      uint16_t* Ch = Ql + TM * kBKP;
-      uint16_t* Cl = Ch + kTN * kBKP;
-      scores_bf16x3<TM>(static_cast<const uint16_t*>(qp),
-                        static_cast<const uint16_t*>(cp), cb, mask, Qh, Ql,
-                        Ch, Cl, St, row0, n0, m, n, dim, vec);
-    } else {
-      float* Qs = reinterpret_cast<float*>(smem);
-      float* Cs = Qs + TM * kBK;
-      scores_f32<TM>(static_cast<const float*>(qp),
-                     static_cast<const float*>(cp), cb, mask, Qs, Cs, St,
-                     row0, n0, m, n, dim);
-    }
+    uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
+    uint16_t* Ql = Qh + TM * kBKP;
+    uint16_t* Ch = Ql + TM * kBKP;
+    uint16_t* Cl = Ch + kTN * kBKP;
+    scores_bf16x3<TM>(static_cast<const uint16_t*>(qp),
+                      static_cast<const uint16_t*>(cp), cb, mask, Qh, Ql, Ch,
+                      Cl, St, row0, n0, m, n, dim, vec);
     __syncthreads();
     select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
                     rows_valid, warp, lane);
@@ -557,11 +795,14 @@ constexpr bool wgmma_core() {
   return stored_core(CORE) && TM == kWgTM;
 }
 
-// A stored core's ring at this k and corpus row stride c_ld.
+// The ring of a stored core or the f32 core at this k and corpus row
+// stride c_ld (the f32 core's: dim).
 template <int TM, int CORE>
 RingPlan stored_plan(int k, int c_ld) {
   if constexpr (wgmma_core<TM, CORE>()) {
     return wg_plan(CORE, k);
+  } else if constexpr (CORE == kHighest) {
+    return f32_plan(TM, c_ld, k);
   } else {
     return ring_plan(TM, CORE,
                      ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1)),
@@ -581,6 +822,10 @@ auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
     plan = stored_plan<TM, CORE>(k, c_ld);
     bytes = plan.bytes;
     return fused_topk_stored_kernel<TM, CORE, LISTED>;
+  } else if constexpr (CORE == kHighest) {
+    plan = stored_plan<TM, CORE>(k, c_ld);
+    bytes = plan.bytes;
+    return fused_topk_f32_kernel<TM, LISTED>;
   } else {
     bytes = smem_bytes(TM, k, CORE);
     return fused_topk_partial_kernel<TM, CORE, LISTED>;
@@ -614,10 +859,17 @@ int launch(const void* qp, const void* cp, const float* scale,
         part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
         block_rows, ring_aligned(qp, cp, dim, row_bytes), plan.stages,
         plan.q_resident);
+  } else if constexpr (CORE == kHighest) {
+    // The ring's 16-byte copies: whole 4-feature pieces, aligned rows.
+    kern<<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(qp), static_cast<const float*>(cp), cb,
+        mask, tiles, part_v, part_i, m, n, dim, k, splits, tiles_per_split,
+        p, tn_tiles, block_rows,
+        dim % 4 == 0 && aligned(qp, 16) && aligned(cp, 16), plan.stages,
+        plan.q_resident);
   } else {
     // Vector loads: 16 bytes of bf16.
-    const bool vec = CORE != kHighest && dim % 8 == 0 && aligned(qp, 16) &&
-                     aligned(cp, 16);
+    const bool vec = dim % 8 == 0 && aligned(qp, 16) && aligned(cp, 16);
     kern<<<grid, kThreads, bytes, stream>>>(
         qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
         k, splits, tiles_per_split, p, tn_tiles, block_rows, vec);
@@ -735,18 +987,21 @@ int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed,
   });
 }
 
-// A stored core's staging at query tile tm, k and corpus row stride c_ld:
-// out = {stages, bytes a stage, query resident (0 / 1), the kernel's
-// shared memory}.  Returns 0, or -1 for arguments it does not take.
+// The staging of a stored core or the f32 core ("highest") at query tile
+// tm, k and corpus row stride c_ld: out = {stages, bytes a stage, query
+// resident (0 / 1), the kernel's shared memory}.  Returns 0, or -1 for
+// arguments it does not take.
 int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
-  if (k <= 0 || c_ld <= 0 || !stored_core(core)) return -1;
+  if (k <= 0 || c_ld <= 0 || core == kBf16x3) return -1;
   return dispatch(tm, core, false, [&](auto tmc, auto cc, auto) {
     constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
-    if constexpr (stored_core(CORE)) {
+    if constexpr (CORE != kBf16x3) {
       const RingPlan plan = stored_plan<TM, CORE>(k, c_ld);
       out[0] = plan.stages;
       out[1] = (int)(wgmma_core<TM, CORE>()
                          ? wg_stage_bytes(CORE)
+                     : CORE == kHighest
+                         ? f32_stage_bytes(TM, plan.q_resident)
                          : ring_stage_bytes(TM, CORE, plan.q_resident));
       out[2] = plan.q_resident ? 1 : 0;
       out[3] = (int)plan.bytes;

@@ -8,7 +8,8 @@
 // The cores ("bf16x3" three bf16 products of [hi | lo] halves, staged per
 // tile; "bf16c", "int8c", "int4c" a stored corpus whose raw bytes stream
 // through a ring across tiles and become bf16 as they are read out, two
-// products qh.c + ql.c) and the int4 layout are described at the top of
+// products qh.c + ql.c; "highest" the f32 corpus through the same ring,
+// kernel A only) and the int4 layout are described at the top of
 // fused_topk.cu; the ring below.
 
 #pragma once
@@ -51,11 +52,9 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// Shared memory of the f32-source cores' operand tiles (the stored
-// cores': ring_bytes).
+// Shared memory of the bf16x3 core's operand tiles (the ring's cores':
+// ring_bytes).
 __host__ __device__ inline size_t operand_bytes(int tm, int core) {
-  if (core == kHighest)
-    return ((size_t)tm * kBK + (size_t)kTN * (kBK + 1)) * sizeof(float);
   return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
 }
 
@@ -231,8 +230,12 @@ __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
 // row; int4 128); taller tiles carry their query columns too (64 or 32 of
 // them, hi and lo), so two blocks an SM still fit beside the carry at
 // k = 100.  ring_plan takes as many stages as keep two blocks an SM.
+// The f32 core (kernel A's f32_plan) holds 32 features a row at query
+// tile 64, 16 at 32, 8 at 16 (whose stages hold 256 corpus rows): two
+// blocks an SM fit beside the carry up to k = 113, 256 and 635.
 __host__ __device__ constexpr int ring_row_bytes(int tm, int core) {
-  return tm == 16 ? (packed_core(core) ? 128 : 256)
+  return core == kHighest ? 2 * tm
+       : tm == 16 ? (packed_core(core) ? 128 : 256)
        : (core == kBf16c ? 4 : packed_core(core) ? 1 : 2) * (tm == 32 ? 32
                                                                        : 16);
 }
@@ -254,7 +257,8 @@ __host__ __device__ constexpr int ring_row_stride(int tm, int core) {
 
 // Query columns that one stage's corpus bytes meet.
 __host__ __device__ constexpr int ring_cols(int tm, int core) {
-  return core == kBf16c ? ring_row_bytes(tm, core) / 2
+  return core == kHighest ? ring_row_bytes(tm, core) / 4
+       : core == kBf16c ? ring_row_bytes(tm, core) / 2
        : packed_core(core) ? 2 * ring_row_bytes(tm, core)
                            : ring_row_bytes(tm, core);
 }

@@ -25,7 +25,9 @@ Kernel A has five cores, the JAX kernel's precisions:
 
 The three stored cores stream their raw bytes through a ring of
 asynchronous copies that runs across corpus tiles and decode them to bf16
-as the products read them (``ring_plan`` mirrors its shared memory).
+as the products read them (``ring_plan`` mirrors its shared memory);
+"highest" streams its f32 rows through the same ring into register tiles
+of f32 FMA (``f32_plan``).
 
 Queries are always split hi | lo except for "highest".  Both kernels are
 exact, with lowest-index-wins ties, so every ``selection`` value of
@@ -948,9 +950,62 @@ def wg_plan(precision: str, k: int):
     return 0, 0, False, 0
 
 
+# Kernel A's highest core (``fused_topk_f32_kernel``): the ring carries
+# raw f32 corpus rows, a step of 4096 / tm of them (4 x 4 scores a thread),
+# at most F32_STAGES stages, two blocks an SM at most.
+F32_STAGES = 4
+
+
+def f32_step_rows(tm: int) -> int:
+    """Corpus rows the f32 core scores a step: 4096 pairs a query tile."""
+    return 4096 // tm
+
+
+def f32_cols(tm: int) -> int:
+    """Features a position of the f32 ring holds (``ring_row_bytes`` / 4
+    in the source): 32 at tm 64, 16 at 32, 8 at 16."""
+    return tm // 2
+
+
+def f32_stage_bytes(tm: int, resident: bool) -> int:
+    """The step's corpus rows, then, when the query tile rides, its rows
+    of the same features; each row an odd number of 16-byte units."""
+    rows = f32_step_rows(tm) + (0 if resident else tm)
+    return rows * _odd_units(4 * f32_cols(tm), 16)
+
+
+def f32_query_stride(tm: int, dim: int) -> int:
+    """Bytes of a resident query row: every position's features."""
+    cols = f32_cols(tm)
+    return _odd_units(4 * cols * -(-dim // cols), 16)
+
+
+def f32_plan(tm: int, dim: int, k: int):
+    """(stages, bytes a stage, query resident, shared memory) of the f32
+    ring (``f32_plan`` in the source): the most blocks an SM (two at
+    most), then the query tile resident wherever that keeps them, then
+    the most stages; stages 0 where no plan fits."""
+    best, best_key = (0, 0, False, 0), -1
+    for resident in (True, False):
+        for stages in range(F32_STAGES, 1, -1):
+            stage = f32_stage_bytes(tm, resident)
+            nbytes = (stages * stage + tail_bytes(tm, k)
+                      + (tm * f32_query_stride(tm, dim) if resident else 0))
+            if nbytes > MAX_SMEM:
+                continue
+            blocks = _SMEM_PER_SM // (nbytes + _SMEM_PER_BLOCK)
+            key = 100 * min(blocks, 2) + 10 * resident + stages
+            if key > best_key:
+                best, best_key = (stages, stage, resident, nbytes), key
+    return best
+
+
 def stage_plan(tm: int, precision: str, c_ld: int, k: int):
-    """Kernel A's staging of a stored core (``pmm_fused_topk_ring``): the
+    """Kernel A's staging of a ring core (``pmm_fused_topk_ring``): the
+    f32 ring of "highest" (``c_ld`` its dim); for a stored core the
     warpgroup consumer's ring at tm 64, the mma.sync consumer's below."""
+    if precision == "highest":
+        return f32_plan(tm, c_ld, k)
     if tm == WG_TM:
         return wg_plan(precision, k)
     return ring_plan(tm, precision, c_ld, tail_bytes(tm, k))
