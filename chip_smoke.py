@@ -11,8 +11,10 @@ Phases, each printing one line or a few:
    registers and spills (none allowed in the warpgroup consumer), and the
    stored cores' ring at dim 768 (stages, bytes a stage, the query's
    place, blocks an SM; query tiles 16 and 32 at k=100, 64 at k=10, 100
-   and 128) and the highest core's f32 ring at dims 256 and 768
-   (``HIGHEST_PLANS``), the source's plan held to the host's mirror;
+   and 128), the bf16x3 core's ring (``BF16X3_PLANS``, no spill allowed
+   in any of its instantiations) and the highest core's f32 ring at dims
+   256 and 768 (``HIGHEST_PLANS``), the source's plan held to the host's
+   mirror;
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
@@ -22,9 +24,13 @@ Phases, each printing one line or a few:
    not a multiple of a stage, int4 over two feature chunks, splits of one
    tile, a list whose last id lies past the corpus, k up to 1024; at
    query tile 64, the warpgroup consumer, 33, 65 and 300 queries, k up to
-   128 and corpus rows not a multiple of a step); the highest core at
-   the f32 ring's edges (dims 1, 3, 4, 5, 255, 257 and 768, query tiles
-   16, 32 and 64, k up to 512, the same splits and lists); the
+   128 and corpus rows not a multiple of a step); the highest and bf16x3
+   cores at their rings' edges (dims 1, 3, 4, 5, 255, 257 and 768, query
+   tiles 16, 32 and 64, k up to 512, the same splits and lists); the
+   bf16x3 ring's mma.sync consumer against the per-tile staging it
+   replaced (``scores_bf16x3``, which kernel D still runs), every score
+   bit for bit on the canonical and 2M x 256 operands at query tiles 16,
+   32 and 64; the
    on-card quantizers against the host NumPy ones, bit for bit; kernel B
    bit for bit over a sweep of sorted lists (splits 1 to 1024, k 1 to
    1024, m 1 to 1000: tie data, padded and wholly -inf lists, -inf entries
@@ -43,7 +49,9 @@ Phases, each printing one line or a few:
 6. times from CUDA events: kernels against plain versions and library
    calls, and requests with their bounds (the highest core at the
    canonical k=10, 100 and 512, at 2M x 256 batch 8 and 256, and its
-   canonical ``Corpus.topk`` request); kernel B at the seven list
+   canonical ``Corpus.topk`` request; the bf16x3 core likewise at 2M x
+   256 batch 8 and 256, and on the 2M x 256 f32 clustered lists in phase
+   8); kernel B at the seven list
    shapes of the main path's requests (``MERGE_SHAPES``), a call timed
    by CUDA events as every kernel is, and on the device alone (a CUDA
    graph of calls), beside ``torch.topk`` of the flattened lists and its
@@ -88,7 +96,8 @@ Phases, each printing one line or a few:
    floor, 2M x 256 int8 at batch 256, 2M x 768 int8 / int4 at batch 8 and
    256; the floors JSON goes to ``build/floors.json``), counted; and each
    core's time at its experiment's shape beside kernel A's there, its
-   plain version's, the library yardstick's and the bound.
+   plain version's, the library yardstick's and the bound (D's bf16x3
+   still stages per tile: ``scores_bf16x3``).
 
 The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
 listed), kernel B (``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``,
@@ -170,9 +179,59 @@ RING64_EDGES = ((33, 1100, 36), (65, 1300, 100), (300, 700, 4200),
 HIGHEST_EDGES = ((9, 129, 1), (33, 700, 3), (20, 1100, 4), (65, 1300, 5),
                  (9, 700, 255), (300, 1000, 257), (33, 1100, WIDE_DIM))
 # The f32 ring's plans phase 1 prints: (query tile, k) of the canonical
-# tiers, of batch 8 and of the tallest carries.
+# tiers, of batch 8 and of the tallest carries; the bf16x3 ring's too (its
+# edges are HIGHEST_EDGES).
 HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
                  (16, 10), (16, 100), (16, 512), (16, 1024))
+BF16X3_PLANS = HIGHEST_PLANS
+# The per-tile staging kernel A's bf16x3 core ran before the ring
+# (tile_scores.cuh::scores_bf16x3, which kernel D still runs), writing
+# every score: the reference the ring's mma.sync consumer must equal bit
+# for bit.
+PER_TILE_CU = r"""
+#include "tile_scores.cuh"
+
+namespace {
+template <int TM>
+__global__ void __launch_bounds__(kThreads)
+per_tile_kernel(const uint16_t* __restrict__ q,
+                const uint16_t* __restrict__ c, const float* __restrict__ cb,
+                float* __restrict__ out, int m, int n, int dim, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* Ql = Qh + TM * kBKP;
+  uint16_t* Ch = Ql + TM * kBKP;
+  uint16_t* Cl = Ch + kTN * kBKP;
+  float* St = reinterpret_cast<float*>(smem + operand_bytes(TM, kBf16x3));
+  const int row0 = blockIdx.x * TM, n0 = blockIdx.y * kTN;
+  scores_bf16x3<TM>(q, c, cb, nullptr, Qh, Ql, Ch, Cl, St, row0, n0, m, n,
+                    dim, vec);
+  __syncthreads();
+  for (int e = threadIdx.x; e < TM * kTN; e += kThreads) {
+    const int r = e / kTN, col = e % kTN;
+    if (row0 + r < m && n0 + col < n)
+      out[(size_t)(row0 + r) * n + n0 + col] = St[r * (kTN + 1) + col];
+  }
+}
+}  // namespace
+
+extern "C" int per_tile_scores(const void* q, const void* c, const float* cb,
+                               float* out, int m, int n, int dim,
+                               void* stream) {
+  constexpr int TM = 16;
+  const bool vec = dim % 8 == 0 && aligned(q, 16) && aligned(c, 16);
+  const dim3 grid((m + TM - 1) / TM, (n + kTN - 1) / kTN);
+  const size_t bytes =
+      operand_bytes(TM, kBf16x3) + TM * (kTN + 1) * sizeof(float);
+  per_tile_kernel<TM><<<grid, kThreads, bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(c), cb,
+      out, m, n, dim, vec);
+  return (int)cudaGetLastError();
+}
+"""
+# nvcc of PER_TILE_CU, started beside the kernels' build (phase 1).
+_per_tile = {}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -306,6 +365,16 @@ def phase_build():
     from polars_matmul_tpu_torch.kernels import fused_topk as F
 
     t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="per-tile-",
+                                dir=Path(__file__).resolve().parent
+                                / "build"))
+    (out / "per_tile.cu").write_text(PER_TILE_CU)
+    _per_tile["so"] = out / "per_tile.so"
+    _per_tile["proc"] = subprocess.Popen(
+        [_build.find_nvcc(), *_build._ARCH, *_build._FLAGS, "-shared",
+         "-I", str(_build._CSRC), "-o", str(_per_tile["so"]),
+         str(out / "per_tile.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
     lib = _build.load_library()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
@@ -317,6 +386,9 @@ def phase_build():
     for line in _ptxas_summary(log):
         require("fused_topk_wgmma" not in line or "spills" not in line,
                 f"the warpgroup consumer spills: {line}")
+        require(not re.match(r"fused_topk_(stored|wgmma)_kernel<\d+, [17],",
+                             line) or "spills" not in line,
+                f"kernel A's bf16x3 core spills: {line}")
     for line in log.splitlines():
         if "wgmma" in line and "serialized" in line:
             print("  ptxas: " + line.strip())
@@ -342,6 +414,30 @@ def phase_build():
             print(f"  ring: tm={tm} {core} at dim {WIDE_DIM}, k={k}"
                   f"{' (wgmma)' if tm == F.WG_TM else ''}: {plan[0]} stages "
                   f"of {plan[1]} B ({row} corpus bytes a row), query "
+                  f"{'resident' if plan[2] else 'in the ring'}, {plan[3]} B "
+                  f"of shared memory; blocks an SM {blocks[0]} dense, "
+                  f"{blocks[1]} listed")
+    # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
+    core = F.CORES.index("bf16x3")
+    for dim in (DIM, WIDE_DIM):
+        for tm, k in BF16X3_PLANS:
+            plan = (ctypes.c_int * 4)()
+            require(lib.pmm_fused_topk_ring(tm, core, 2 * dim, k, plan) == 0,
+                    f"no bf16x3 ring plan for tm={tm} k={k} dim={dim}")
+            want = F.stage_plan(tm, "bf16x3", 2 * dim, k)
+            require(tuple(plan) == (want[0], want[1], int(want[2]), want[3]),
+                    f"bf16x3 ring plan tm={tm} k={k} dim={dim}: source "
+                    f"{tuple(plan)}, host {want}")
+            blocks = [lib.pmm_fused_topk_blocks_per_sm(tm, k, core, listed,
+                                                       2 * dim)
+                      for listed in (0, 1)]
+            require(min(blocks) >= 1, f"bf16x3 tm={tm} k={k} dim={dim}: "
+                    f"blocks an SM {blocks}")
+            row = F.ring_row_bytes(tm, F.ring_core(tm, "bf16x3", 2 * dim,
+                                                   k))
+            print(f"  ring: tm={tm} bf16x3 at dim {dim}, k={k}: {plan[0]} "
+                  f"stages of {plan[1]} B ({row} corpus bytes a row, "
+                  f"{row // 4} features), query "
                   f"{'resident' if plan[2] else 'in the ring'}, {plan[3]} B "
                   f"of shared memory; blocks an SM {blocks[0]} dense, "
                   f"{blocks[1]} listed")
@@ -475,14 +571,14 @@ def _check_shape(F, torch, gen, q, c, ks, err, label, tie=False,
 def _ring_edges(F, torch, gen, err):
     """The ring's cores at its edges, real and integer tie data (bit for
     bit): the stored cores over RING_EDGES at k=1, 100 and 1024 and
-    RING64_EDGES at k=1, 100 and 128, the highest core over HIGHEST_EDGES
-    at k=1, 10, 100 and 512; at the main path's geometry, in splits of one
-    tile, and walking a list of every other layout tile whose last id lies
-    past the corpus.  Returns the cases."""
+    RING64_EDGES at k=1, 100 and 128, the highest and bf16x3 cores over
+    HIGHEST_EDGES at k=1, 10, 100 and 512; at the main path's geometry, in
+    splits of one tile, and walking a list of every other layout tile
+    whose last id lies past the corpus.  Returns the cases."""
     cases = 0
     edges = ([(e, (1, 100, 1024), STORED) for e in RING_EDGES]
              + [(e, (1, 100, 128), STORED) for e in RING64_EDGES]
-             + [(e, (1, 10, 100, 512), ("highest",))
+             + [(e, (1, 10, 100, 512), ("highest", "bf16x3"))
                 for e in HIGHEST_EDGES])
     for (m, n, dim), ks, precisions in edges:
         for tie in (False, True):
@@ -517,6 +613,87 @@ def _ring_edges(F, torch, gen, err):
                                   + what, scale=scale, exact=tie)
                     cases += 3
     torch.cuda.synchronize()
+    return cases
+
+
+def _tile_lists(torch, scores, k):
+    """The best k of every 64-row tile's scores of each row as kernel A's
+    carry holds them (value descending, lowest index first on ties, -inf
+    slots (-inf, INT32_MAX)): what one-tile splits at k return."""
+    m, n = scores.shape
+    tiles = -(-n // 64)
+    s = torch.nn.functional.pad(scores, (0, tiles * 64 - n),
+                                value=float("-inf")).view(m, tiles, 64)
+    v, order = torch.sort(s, dim=2, descending=True, stable=True)
+    i = order + 64 * torch.arange(tiles, device=s.device)[None, :, None]
+    if k > 64:
+        v = torch.nn.functional.pad(v, (0, k - 64), value=float("-inf"))
+        i = torch.nn.functional.pad(i, (0, k - 64))
+    v, i = v[:, :, :k], i[:, :, :k]
+    i = torch.where(v == float("-inf"), torch.full_like(i, 2 ** 31 - 1), i)
+    return v.contiguous(), i.to(torch.int32)
+
+
+def _per_tile_bits(F, torch):
+    """The bf16x3 ring's mma.sync consumer against the per-tile staging it
+    replaced (``PER_TILE_CU``): every score, bit for bit, in one-tile
+    splits at each query tile and both ring forms (32 and 64 features a
+    position: ``ring_core``'s k), on the canonical cosine operands and on
+    the 2M x 256 ones (batch 8, 32 and 64 of phase 4's queries).  Returns
+    the cases."""
+    import ctypes
+
+    proc = _per_tile["proc"]
+    log = proc.communicate()[0]
+    require(proc.returncode == 0, f"the per-tile reference did not build:\n"
+            f"{log}")
+    lib = ctypes.CDLL(str(_per_tile["so"]))
+    lib.per_tile_scores.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.per_tile_scores.restype = ctypes.c_int
+    rng = np.random.default_rng(SEED)
+    q = torch.from_numpy(rng.standard_normal(
+        (N_QUERIES, DIM)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.standard_normal(
+        (N_CORPUS, DIM)).astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    big = torch.randn((BIG_ROWS, DIM), generator=gen, device="cuda")
+    q8 = torch.randn((8, DIM), generator=gen, device="cuda")
+    q256 = torch.randn((256, DIM), generator=gen, device="cuda")
+    cases, seen = 0, set()
+    # (tm, k): tile 16 at k=64 (64 features a position) and 512 (32), 32
+    # at 64, 64 at 32 (64 features) and 128 (32).
+    forms = {16: (64, 512), 32: (64,), 64: (32, 128)}
+    for qf, cf, label, tms in ((q, c, "canonical", (16, 32, 64)),
+                               (q8, big, "2M batch 8", (16,)),
+                               (q256[:32], big, "2M batch 32", (32,)),
+                               (q256[:64], big, "2M batch 64", (64,))):
+        qp = F.prepare_queries(qf, "cosine", "bf16x3")
+        cp, cbp = F.prepare_corpus(cf, "cosine", precision="bf16x3")
+        m, n = qp.shape[0], cp.shape[0]
+        ref = torch.empty((m, n), device="cuda")
+        rc = lib.per_tile_scores(
+            qp.data_ptr(), cp.data_ptr(), cbp.data_ptr(), ref.data_ptr(), m,
+            n, DIM, torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"per-tile reference launch failed: error {rc}")
+        tiles = -(-n // 64)
+        for tm in tms:
+            for k in forms[tm]:
+                rv, ri = _tile_lists(torch, ref, k)
+                pv, pi = F.fused_topk_partial(qp, cp, cbp, None, k,
+                                              "bf16x3", tiles, 1, tm)
+                core = F.ring_core(tm, "bf16x3", cp.shape[1], k)
+                require(torch.equal(pv, rv) and torch.equal(pi, ri),
+                        f"bf16x3 ({core}) {label} at tm {tm}, k={k}: the "
+                        f"ring's scores differ from the per-tile staging's")
+                cases += 1
+                seen.add(core)
+                del pv, pi, rv, ri
+        del qp, cp, cbp, ref
+    del big
+    torch.cuda.empty_cache()
+    require(seen == {"bf16x3", "bf16x3w"}, f"ring forms checked: {seen}")
     return cases
 
 
@@ -746,9 +923,10 @@ def _compare_listed(F, torch, gen, err):
                                                 precision, every, tn, br)
                         dv, di = F.fused_select(qp, cp, cbp, mask, k,
                                                 precision)
-                        if precision in STORED and (
-                                F.listed_tile_rows(m, k, br) == F.WG_TM) != (
-                                F.query_tile_rows(m, k) == F.WG_TM):
+                        if F.wgmma_core(F.listed_tile_rows(m, k, br),
+                                        precision) != F.wgmma_core(
+                                            F.query_tile_rows(m, k),
+                                            precision):
                             # The warpgroup (tile 64) and mma.sync
                             # consumers sum the products in other orders.
                             compare(lv, li, dv, di, scale=scale,
@@ -816,9 +994,15 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
           f"cores dense, in splits of one tile and on a list past the "
           f"corpus; unaligned dims 36 and 100, dims 56, 300 and 4200, n not "
           f"a multiple of 64, k=1/100/1024; at query tile 64, m=33/65/300, "
-          f"n not a multiple of 128, k=1/100/128; the highest core at dims "
-          f"1, 3, 4, 5, 255, 257 and {WIDE_DIM}, query tiles 16/32/64, "
-          f"k=1/10/100/512; integer tie data bit-identical)")
+          f"n not a multiple of 128, k=1/100/128; the highest and bf16x3 "
+          f"cores at dims 1, 3, 4, 5, 255, 257 and {WIDE_DIM}, query tiles "
+          f"16/32/64, k=1/10/100/512; integer tie data bit-identical)")
+    bits = _per_tile_bits(F, torch)
+    print(f"phase 2: the bf16x3 ring's mma.sync consumer equals the "
+          f"per-tile staging it replaced bit for bit in {bits} cases (every "
+          f"score of the canonical operands at query tiles 16, 32 and 64, "
+          f"of the {BIG_ROWS}x{DIM} ones at batch 8, 32 and 64; 32 and 64 "
+          f"features a position)")
     print(f"phase 2: {cases} ragged cases match (atol {ATOL} + rtol {RTOL} "
           f"x max(|score|, row term scale); kernel B bit-identical), every "
           f"core; {ties} integer tie cases bit-identical; the on-card "
@@ -828,8 +1012,8 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
           f"match their plain version, {listed_ties} integer tie cases "
           f"bit-identical, every core; {full} lists of every tile equal "
           f"the dense result bit for bit, {near} more within tolerance "
-          f"(a stored core whose list and dense walks take different "
-          f"consumers); max abs err {err['tiles']:.3g}")
+          f"(a core whose list and dense walks take different consumers); "
+          f"max abs err {err['tiles']:.3g}")
 
     main = 0
     for tie in (False, True):
@@ -1111,7 +1295,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                     "canonical Corpus.topk k=10 highest", card,
                     statistics.median(ts))
     del canon
-    _time_highest_big(F, torch, corpus_big, requests, card)
+    for core in ("bf16x3", "highest"):
+        _time_big(F, torch, corpus_big, requests, card, core)
     for (batch, k), qb in requests.items():
         ts = []
         for _ in range(5):
@@ -1131,48 +1316,52 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
     return per_kernel
 
 
-def _time_highest_big(F, torch, corpus_big, requests, card):
-    """The highest core at the 2M x 256 corpus, k=10, batch 8 and 256:
-    kernel A alone and A + B (CUDA events) beside the plain version, the
-    library yardstick (torch.addmm + torch.topk, f32) and the bound, after
-    a check against the plain version."""
+def _time_big(F, torch, corpus_big, requests, card, core):
+    """Kernel A's bf16x3 or highest core at the 2M x 256 corpus, k=10,
+    batch 8 and 256: kernel A alone and A + B (CUDA events) beside the
+    plain version, the library yardstick (torch.addmm + torch.topk, f32)
+    and the bound, after a check against the plain version."""
     from polars_matmul_tpu_torch.ops.reference import exact_matmul
 
-    cp, cbp = F.prepare_corpus(corpus_big._dense_device(), "cosine",
-                               precision="highest")
+    f32 = corpus_big._dense_device()
+    cp, cbp = F.prepare_corpus(f32, "cosine", precision=core)
+    cn = f32 / f32.norm(dim=1, keepdim=True)
     zero = torch.zeros(BIG_ROWS, device="cuda")
+    passes, peak = ((3, "bfloat16") if core == "bf16x3"
+                    else (1, "float32_cuda_cores"))
     for (batch, k), qb in requests.items():
         if k != 10:
             continue
-        qp = F.prepare_queries(qb, "cosine", "highest")
-        compare(*F.fused_select(qp, cp, cbp, None, k, "highest"),
-                *F.fused_topk_plain(qp, cp, cbp, None, k, "highest"),
-                scale=_term_scale(F, qp, cp, cbp, "highest"),
-                what=f"timed {BIG_ROWS}x{DIM} batch {batch} highest")
-        tm, splits, tps = F.kernel_geometry(batch, BIG_ROWS, k, "highest",
+        qp = F.prepare_queries(qb, "cosine", core)
+        compare(*F.fused_select(qp, cp, cbp, None, k, core),
+                *F.fused_topk_plain(qp, cp, cbp, None, k, core),
+                scale=_term_scale(F, qp, cp, cbp, core),
+                what=f"timed {BIG_ROWS}x{DIM} batch {batch} {core}")
+        tm, splits, tps = F.kernel_geometry(batch, BIG_ROWS, k, core,
                                             qp.device, dim=DIM)
         a = cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, None, k,
-                                                 "highest", splits, tps, tm),
+                                                 core, splits, tps, tm),
                     reps=10)
-        ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k,
-                                            "highest"), reps=10)
+        ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, core),
+                     reps=10)
         plain = cuda_ms(lambda: F.fused_topk_partial_plain(
-            qp, cp, cbp, None, k, "highest", splits, tps), reps=3, warmup=1)
+            qp, cp, cbp, None, k, core, splits, tps), reps=3, warmup=1)
+        qn = qb / qb.norm(dim=1, keepdim=True)
 
         def library():
             with exact_matmul():
-                return torch.topk(torch.addmm(zero, qp, cp.T), k, dim=1)
+                return torch.topk(torch.addmm(zero, qn, cn.T), k, dim=1)
 
         lib = cuda_ms(library, reps=5)
         bound = _bound(qp.nbytes + cp.nbytes + cbp.nbytes
                        + batch * splits * k * 8,
-                       2 * batch * BIG_ROWS * DIM, "float32_cuda_cores")
+                       passes * 2 * batch * BIG_ROWS * DIM, peak)
         print(f"phase 6: [{card}] {BIG_ROWS}x{DIM} batch {batch} k={k} "
-              f"highest (tm={tm}, splits={splits}): A {a:.4f} ms, A+B "
+              f"{core} (tm={tm}, splits={splits}): A {a:.4f} ms, A+B "
               f"{ab:.4f} ms, A plain {plain:.3f} ms; bound {bound[0]:.4f} "
               f"ms ({bound[1]}); library torch.addmm + torch.topk (f32) "
               f"{lib:.4f} ms")
-    del cp, cbp
+    del cp, cbp, cn
 
 
 def _wide_f32(torch, chunk=1 << 20):
@@ -2296,7 +2485,9 @@ def phase_floor(F, torch, card):
     cases, ties = _compare_floor(D, F, torch, err)
     print(f"phase 10: kernel D matches its plain version in {cases} ragged "
           f"cases (every core, levels {FLOOR_LEVELS}, every id rule and "
-          f"posu setting; decoded levels within atol {ATOL} + rtol {RTOL} x "
+          f"posu setting; its bf16x3 core still stages per tile, "
+          f"scores_bf16x3, not on kernel A's ring; "
+          f"decoded levels within atol {ATOL} + rtol {RTOL} x "
           f"max(|score|, row term scale) + {PACK_RTOL:.3g} x |score|, ids "
           f"exact where clear) and {ties} integer tie cases bit for bit; "
           f"global ids past 128 groups raise; took "

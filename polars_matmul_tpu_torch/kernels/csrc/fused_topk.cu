@@ -33,12 +33,18 @@
 // rows are contiguous runs of tn, so the loads are the dense walk's.
 //
 // The cores:
-// - "bf16x3" runs on the tensor cores: mma.sync m16n8k16 bf16 with an f32
-//   accumulator, three products per tile (qh.ch, qh.cl, ql.ch), the
+// - "bf16x3" (the default precision) runs on the tensor cores: three bf16
+//   products per k-step (qh.ch, qh.cl, ql.ch) with f32 accumulators, the
 //   counterpart of the TPU's three bf16 MXU passes.  Products of bf16
 //   values are exact in f32; hh and (hl + lh) accumulate apart and are
-//   summed last, the grouping of the TPU kernel.  Warp w owns corpus
-//   columns [8w, 8w+8) of the tile for every query row of the block.
+//   summed last, the grouping of the TPU kernel.  Its prepared [hi | lo]
+//   corpus rows stream through the ring of the stored cores (below), a
+//   position's hi and lo pieces of the same 32 or 64 features (ring_core)
+//   in one stage, into
+//   mma.sync at every query tile (warp w owns corpus columns [8w, 8w+8) of
+//   the tile, with the k slots and product order of the per-tile core it
+//   replaced, so the scores are that core's bit for bit; wgmma_core says
+//   why tile 64 is not the warpgroup consumer's).
 // - "highest" (the TPU kernel's f32 product, fused_topk.py:1294-1295, the
 //   else branch of :1257-1296) runs on CUDA cores: f32 FMA on register
 //   tiles of 4 query x 4 corpus rows a thread, fed by the ring of raw f32
@@ -63,8 +69,13 @@
 // What bounds it on the H100: at the 1000 x 10000 x 256 canonical shape
 // the bf16x3 product is 7.7 G multiply-adds, about 0.02 ms of bf16 tensor
 // core time at the published peak, so the product is not the limit; the
-// tile loads (16-byte loads where dim % 8 == 0, staged per tile and waited
-// for) and the selection are.  The selection looks only at the tile
+// staging and the selection are.  Staged per tile, each 32-feature chunk
+// of the query tile and 64 corpus rows was loaded, waited for, multiplied
+// and waited for again, the whole query tile copied anew for every corpus
+// tile, and each warp re-read every A fragment of the query from shared
+// memory; now the ring keeps copies in flight across tiles and stages the
+// query once a block where it fits (PERF.md has the times; the fragments
+// are still re-read per warp).  The selection looks only at the tile
 // scores that beat the row's current k-th value (strict >, so a later
 // index never displaces an equal earlier one), which after the first tiles
 // of a split is a small fraction of them.  A few are inserted one by one,
@@ -146,10 +157,6 @@ __host__ __device__ inline size_t tail_bytes(int tm, int k) {
   return (size_t)tm * (kTN + 1) * sizeof(float)              // score tile
        + 2 * (size_t)tm * k * sizeof(float)                  // carry
        + 2 * (size_t)kWarps * kTN * sizeof(float);           // merge lists
-}
-
-__host__ __device__ inline size_t smem_bytes(int tm, int k, int core) {
-  return operand_bytes(tm, core) + tail_bytes(tm, k);
 }
 
 // Insert (v, id) into the sorted carry row (value desc, index asc) of
@@ -587,85 +594,12 @@ fused_topk_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// LISTED instantiates the probed walk apart from the dense one: sharing one
-// instantiation moved the dense cores' register allocation and slowed
-// some of them by up to 13 % on the H100 (PERF.md).
-template <int TM, int CORE, bool LISTED>
-__global__ void __launch_bounds__(kThreads)
-fused_topk_partial_kernel(const void* __restrict__ qp,
-                          const void* __restrict__ cp,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ cb,
-                          const uint8_t* __restrict__ mask,
-                          const int* __restrict__ tiles,
-                          float* __restrict__ part_v,
-                          int* __restrict__ part_i,
-                          int m, int n, int dim, int c_ld, int ck, int k,
-                          int splits, int tiles_per_split, int p,
-                          int tn_tiles, int block_rows, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* St = reinterpret_cast<float*>(smem + operand_bytes(TM, CORE));
-  float* Cv = St + TM * (kTN + 1);
-  int* Ci = reinterpret_cast<int*>(Cv + (size_t)TM * k);
-  float* Lv = reinterpret_cast<float*>(Ci + (size_t)TM * k);
-  int* Li = reinterpret_cast<int*>(Lv + kWarps * kTN);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * TM;
-  const int rows_valid = min(TM, m - row0);
-  const int split = blockIdx.y;
-  // Dense: kernel tile t is corpus rows [64 t, 64 t + 64).  Listed: t is a
-  // position in this query block's list, tn_tiles kernel tiles per layout
-  // tile, and the layout tile comes from the list (read once per tile,
-  // outside the product's loops).
-  const int* list = LISTED ? tiles + (size_t)(row0 / block_rows) * p
-                           : nullptr;
-  const int n_tiles = LISTED ? p * tn_tiles : (n + kTN - 1) / kTN;
-  const int layout_tiles =
-      LISTED ? (n + tn_tiles * kTN - 1) / (tn_tiles * kTN) : 0;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-
-  for (int e = tid; e < TM * k; e += kThreads) {
-    Cv[e] = -INFINITY;
-    Ci[e] = kINT32_MAX;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    int kt = t;
-    if constexpr (LISTED) {
-      const int lt = list[t / tn_tiles];
-      // An id outside the corpus names no rows (never read out of bounds).
-      if (lt < 0 || lt >= layout_tiles) continue;
-      kt = lt * tn_tiles + t % tn_tiles;
-    }
-    const int n0 = kt * kTN;
-    uint16_t* Qh = reinterpret_cast<uint16_t*>(smem);
-    uint16_t* Ql = Qh + TM * kBKP;
-    uint16_t* Ch = Ql + TM * kBKP;
-    uint16_t* Cl = Ch + kTN * kBKP;
-    scores_bf16x3<TM>(static_cast<const uint16_t*>(qp),
-                      static_cast<const uint16_t*>(cp), cb, mask, Qh, Ql, Ch,
-                      Cl, St, row0, n0, m, n, dim, vec);
-    __syncthreads();
-    select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
-                    rows_valid, warp, lane);
-    __syncthreads();
-  }
-
-  for (int e = tid; e < rows_valid * k; e += kThreads) {
-    const int r = e / k, j = e % k;
-    const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
-    part_v[o] = Cv[e];
-    part_i[o] = Ci[e];
-  }
-}
-
-// The stored cores' walk: the ring of tile_scores.cuh in place of the
-// per-tile staging, the same selection and carry.  Two blocks an SM: the
-// ring's plan keeps their shared memory, and the bound their registers.
+// The ring cores' walk (bf16x3 at every query tile, the stored cores at
+// 16 and 32): the ring of tile_scores.cuh, then the selection and carry.  Two
+// blocks an SM: the ring's plan keeps their shared memory, and the bound
+// their registers.  LISTED instantiates the probed walk apart from the
+// dense one: sharing one instantiation moved the dense cores' register
+// allocation and slowed some of them by up to 13 % on the H100 (PERF.md).
 template <int TM, int CORE, bool LISTED>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
@@ -681,8 +615,7 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          int tn_tiles, int block_rows, bool vec,
                          int stages, bool q_resident) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int chunks =
-      ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1));
+  const int chunks = ring_chunks(TM, CORE, c_ld * ring_elem_bytes(CORE));
   float* St = reinterpret_cast<float*>(
       smem + ring_bytes(TM, CORE, chunks, q_resident, stages));
   float* Cv = St + TM * (kTN + 1);
@@ -789,14 +722,36 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
   }
 }
 
-// Whether the (TM, CORE) launch takes the warpgroup consumer.
+// Whether the (TM, CORE) launch takes the warpgroup consumer: the stored
+// cores at query tile 64.  bf16x3 keeps the mma.sync ring there: a
+// warpgroup walk of it (three wgmma a k16, one block an SM, which halves
+// the warps that select and leaves the canonical 16 query tiles x 9
+// splits for 132 SMs) was the slower at every shape measured on the H100
+// and is not built (PERF.md, ROADMAP.md).
 template <int TM, int CORE>
 constexpr bool wgmma_core() {
   return stored_core(CORE) && TM == kWgTM;
 }
 
-// The ring of a stored core or the f32 core at this k and corpus row
-// stride c_ld (the f32 core's: dim).
+// The ring core a launch of CORE at query tile TM streams: bf16x3 takes 64
+// features a position (kBf16x3W) at query tiles 16 and 64 wherever that
+// ring keeps two blocks an SM (at 256 dims and more: tile 16 up to k = 495,
+// tile 64 up to k = 45), else 32.  Chosen by measurement on the H100
+// (PERF.md): wider positions cost fewer barriers a byte, two blocks an SM
+// outweigh them, and at query tile 32 the wide listed walk spilled.
+template <int TM, int CORE>
+int ring_core(int k, int c_ld) {
+  if constexpr (CORE == kBf16x3 && TM != 32) {
+    const RingPlan wide =
+        ring_plan(TM, kBf16x3W, ring_chunks(TM, kBf16x3W, 2 * c_ld),
+                  tail_bytes(TM, k));
+    if (wide.stages > 0 && smem_blocks(wide.bytes) >= 2) return kBf16x3W;
+  }
+  return CORE;
+}
+
+// The ring of a core at this k and corpus row stride c_ld (the f32 core's:
+// dim).
 template <int TM, int CORE>
 RingPlan stored_plan(int k, int c_ld) {
   if constexpr (wgmma_core<TM, CORE>()) {
@@ -804,31 +759,28 @@ RingPlan stored_plan(int k, int c_ld) {
   } else if constexpr (CORE == kHighest) {
     return f32_plan(TM, c_ld, k);
   } else {
-    return ring_plan(TM, CORE,
-                     ring_chunks(TM, CORE, c_ld * (CORE == kBf16c ? 2 : 1)),
+    const int core = ring_core<TM, CORE>(k, c_ld);
+    return ring_plan(TM, core,
+                     ring_chunks(TM, core, c_ld * ring_elem_bytes(core)),
                      tail_bytes(TM, k));
   }
 }
 
 // Kernel<TM, CORE, LISTED>, its shared memory (0 where it cannot fit) and
-// a stored core's ring.
+// its ring.
 template <int TM, int CORE, bool LISTED>
 auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
+  plan = stored_plan<TM, CORE>(k, c_ld);
+  bytes = plan.bytes;
   if constexpr (wgmma_core<TM, CORE>()) {
-    plan = stored_plan<TM, CORE>(k, c_ld);
-    bytes = plan.bytes;
     return fused_topk_wgmma_kernel<TM, CORE, LISTED>;
-  } else if constexpr (stored_core(CORE)) {
-    plan = stored_plan<TM, CORE>(k, c_ld);
-    bytes = plan.bytes;
-    return fused_topk_stored_kernel<TM, CORE, LISTED>;
   } else if constexpr (CORE == kHighest) {
-    plan = stored_plan<TM, CORE>(k, c_ld);
-    bytes = plan.bytes;
     return fused_topk_f32_kernel<TM, LISTED>;
   } else {
-    bytes = smem_bytes(TM, k, CORE);
-    return fused_topk_partial_kernel<TM, CORE, LISTED>;
+    if constexpr (CORE == kBf16x3 && TM != 32)
+      if (ring_core<TM, CORE>(k, c_ld) == kBf16x3W)
+        return fused_topk_stored_kernel<TM, kBf16x3W, LISTED>;
+    return fused_topk_stored_kernel<TM, CORE, LISTED>;
   }
 }
 
@@ -846,20 +798,7 @@ int launch(const void* qp, const void* cp, const float* scale,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((m + TM - 1) / TM, splits);
-  if constexpr (wgmma_core<TM, CORE>()) {
-    const size_t row_bytes = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
-    kern<<<grid, kThreads, bytes, stream>>>(
-        static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles, part_v,
-        part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
-        block_rows, ring_aligned(qp, cp, dim, row_bytes), plan.stages);
-  } else if constexpr (stored_core(CORE)) {
-    const size_t row_bytes = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
-    kern<<<grid, kThreads, bytes, stream>>>(
-        static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles, part_v,
-        part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
-        block_rows, ring_aligned(qp, cp, dim, row_bytes), plan.stages,
-        plan.q_resident);
-  } else if constexpr (CORE == kHighest) {
+  if constexpr (CORE == kHighest) {
     // The ring's 16-byte copies: whole 4-feature pieces, aligned rows.
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(qp), static_cast<const float*>(cp), cb,
@@ -868,11 +807,18 @@ int launch(const void* qp, const void* cp, const float* scale,
         dim % 4 == 0 && aligned(qp, 16) && aligned(cp, 16), plan.stages,
         plan.q_resident);
   } else {
-    // Vector loads: 16 bytes of bf16.
-    const bool vec = dim % 8 == 0 && aligned(qp, 16) && aligned(cp, 16);
-    kern<<<grid, kThreads, bytes, stream>>>(
-        qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
-        k, splits, tiles_per_split, p, tn_tiles, block_rows, vec);
+    const size_t row_bytes = (size_t)c_ld * ring_elem_bytes(CORE);
+    const bool vec = ring_aligned(qp, cp, dim, row_bytes);
+    if constexpr (wgmma_core<TM, CORE>())
+      kern<<<grid, kThreads, bytes, stream>>>(
+          static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
+          part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
+          tn_tiles, block_rows, vec, plan.stages);
+    else
+      kern<<<grid, kThreads, bytes, stream>>>(
+          static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
+          part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
+          tn_tiles, block_rows, vec, plan.stages, plan.q_resident);
   }
   return (int)cudaGetLastError();
 }
@@ -987,27 +933,25 @@ int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed,
   });
 }
 
-// The staging of a stored core or the f32 core ("highest") at query tile
-// tm, k and corpus row stride c_ld: out = {stages, bytes a stage, query
-// resident (0 / 1), the kernel's shared memory}.  Returns 0, or -1 for
-// arguments it does not take.
+// The staging of kernel A's core at query tile tm, k and corpus row
+// stride c_ld (pmm_fused_topk_partial's c_ld): out = {stages, bytes a
+// stage, query resident (0 / 1), the kernel's shared memory}.  Returns 0,
+// or -1 for arguments it does not take.
 int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
-  if (k <= 0 || c_ld <= 0 || core == kBf16x3) return -1;
+  if (k <= 0 || c_ld <= 0) return -1;
   return dispatch(tm, core, false, [&](auto tmc, auto cc, auto) {
     constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
-    if constexpr (CORE != kBf16x3) {
-      const RingPlan plan = stored_plan<TM, CORE>(k, c_ld);
-      out[0] = plan.stages;
-      out[1] = (int)(wgmma_core<TM, CORE>()
-                         ? wg_stage_bytes(CORE)
-                     : CORE == kHighest
-                         ? f32_stage_bytes(TM, plan.q_resident)
-                         : ring_stage_bytes(TM, CORE, plan.q_resident));
-      out[2] = plan.q_resident ? 1 : 0;
-      out[3] = (int)plan.bytes;
-      return plan.stages > 0 ? 0 : -1;
-    }
-    return -1;
+    const RingPlan plan = stored_plan<TM, CORE>(k, c_ld);
+    out[0] = plan.stages;
+    out[1] = (int)(wgmma_core<TM, CORE>()
+                       ? wg_stage_bytes(CORE)
+                   : CORE == kHighest
+                       ? f32_stage_bytes(TM, plan.q_resident)
+                       : ring_stage_bytes(TM, ring_core<TM, CORE>(k, c_ld),
+                                          plan.q_resident));
+    out[2] = plan.q_resident ? 1 : 0;
+    out[3] = (int)plan.bytes;
+    return plan.stages > 0 ? 0 : -1;
   });
 }
 

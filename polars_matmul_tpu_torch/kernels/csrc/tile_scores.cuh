@@ -5,12 +5,13 @@
 // include these very functions; only kernel D instantiates the two decodes
 // of the int4 experiment (kInt4Rint, kInt4Raw).
 //
-// The cores ("bf16x3" three bf16 products of [hi | lo] halves, staged per
-// tile; "bf16c", "int8c", "int4c" a stored corpus whose raw bytes stream
-// through a ring across tiles and become bf16 as they are read out, two
-// products qh.c + ql.c; "highest" the f32 corpus through the same ring,
-// kernel A only) and the int4 layout are described at the top of
-// fused_topk.cu; the ring below.
+// The cores ("bf16x3" three bf16 products of [hi | lo] halves: kernel A
+// streams them through the ring below, kernel D stages them per tile
+// (scores_bf16x3); "bf16c", "int8c", "int4c" a stored corpus whose raw
+// bytes stream through a ring across tiles and become bf16 as they are
+// read out, two products qh.c + ql.c; "highest" the f32 corpus through the
+// same ring, kernel A only) and the int4 layout are described at the top
+// of fused_topk.cu; the ring below.
 
 #pragma once
 
@@ -34,9 +35,15 @@ constexpr size_t kSmemPerBlock = 1024;  // reserved by each resident block
 // decodes of the int4 experiment (kernels/floor.py's CORES): "int4-rint"
 // reads bytes b = 16 hi + lo and decodes them in float, "int4-raw" feeds
 // each byte as it is to both nibble positions (wrong on purpose: a free
-// unpack).  Both keep the int4c layout.
+// unpack).  Both keep the int4c layout.  kBf16x3W is kernel A's bf16x3 with
+// 64 features a ring position (fused_topk.cu's ring_core picks it).
 enum Core : int { kHighest = 0, kBf16x3 = 1, kBf16c = 2, kInt8c = 3,
-                  kInt4c = 4, kInt4Rint = 5, kInt4Raw = 6 };
+                  kInt4c = 4, kInt4Rint = 5, kInt4Raw = 6, kBf16x3W = 7 };
+
+// Cores whose corpus rows are the bf16 [hi | lo] halves: bf16x3's.
+__host__ __device__ constexpr bool hilo_core(int core) {
+  return core == kBf16x3 || core == kBf16x3W;
+}
 
 // Cores whose bytes hold two features each (the int4c layout).
 __host__ __device__ constexpr bool packed_core(int core) {
@@ -45,15 +52,21 @@ __host__ __device__ constexpr bool packed_core(int core) {
 
 // Cores whose corpus streams through the ring (stored as it is read).
 __host__ __device__ constexpr bool stored_core(int core) {
-  return core != kHighest && core != kBf16x3;
+  return core != kHighest && !hilo_core(core);
+}
+
+// Bytes of one element of a bf16-or-byte ring core's corpus row (the unit
+// of c_ld): bf16 for bf16c and bf16x3's [hi | lo], one for the int8 forms.
+__host__ __device__ constexpr int ring_elem_bytes(int core) {
+  return core == kBf16c || hilo_core(core) ? 2 : 1;
 }
 
 inline bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// Shared memory of the bf16x3 core's operand tiles (the ring's cores':
-// ring_bytes).
+// Shared memory of kernel D's per-tile bf16x3 operand tiles (the ring's
+// cores': ring_bytes).
 __host__ __device__ inline size_t operand_bytes(int tm, int core) {
   return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
 }
@@ -129,7 +142,9 @@ __device__ inline void load_tile_vec(const uint16_t* __restrict__ src,
   }
 }
 
-// Score tile of the bf16x3 core into St (epilogue applied).
+// Score tile of the bf16x3 core into St (epilogue applied), staged per
+// tile: kernel D's.  Kernel A's ring (ring_products) keeps its k slots and
+// its order of products, so both give the same scores bit for bit.
 template <int TM>
 __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
                                      const uint16_t* __restrict__ c,
@@ -207,6 +222,14 @@ __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
 // is decoded once a block), by bit operations that are exact for these
 // small integers.
 //
+// bf16x3 streams the prepared [hi | lo] rows as they are: a position's hi
+// piece and lo piece of the same features go into one stage, each row's
+// hi bytes then its lo bytes, and nothing is decoded.  Its products are
+// the per-tile core's (scores_bf16x3): per k16, qh.ch into acc1, then
+// qh.cl and ql.ch into acc2, with that core's k slots, so its scores are
+// that core's bit for bit; its fragments come by ldmatrix, 16 bytes of 8
+// rows at a time, so its rows are an odd number of 16-byte units apart.
+//
 // The query tile is staged once, before the walk, where it fits beside the
 // ring (batch 8 at dim 768: 48 KB); otherwise the query columns that meet
 // a stage's bytes ride in that stage.  ring_plan picks the stages and the
@@ -230,22 +253,27 @@ __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
 // row; int4 128); taller tiles carry their query columns too (64 or 32 of
 // them, hi and lo), so two blocks an SM still fit beside the carry at
 // k = 100.  ring_plan takes as many stages as keep two blocks an SM.
+// bf16x3 holds 32 features a row (4 bytes a feature, hi and lo), kBf16x3W
+// 64, in up to four stages.
 // The f32 core (kernel A's f32_plan) holds 32 features a row at query
 // tile 64, 16 at 32, 8 at 16 (whose stages hold 256 corpus rows): two
 // blocks an SM fit beside the carry up to k = 113, 256 and 635.
 __host__ __device__ constexpr int ring_row_bytes(int tm, int core) {
   return core == kHighest ? 2 * tm
+       : hilo_core(core) ? (core == kBf16x3W ? 256 : 128)
        : tm == 16 ? (packed_core(core) ? 128 : 256)
        : (core == kBf16c ? 4 : packed_core(core) ? 1 : 2) * (tm == 32 ? 32
                                                                        : 16);
 }
-__host__ __device__ constexpr int ring_stages(int tm) {
-  return tm == 16 ? 4 : tm == 32 ? 3 : 2;
+__host__ __device__ constexpr int ring_stages(int tm, int core) {
+  return hilo_core(core) || tm == 16 ? 4 : tm == 32 ? 3 : 2;
 }
 
 // A row stride of an odd number of `unit`s: the 8 rows a 4-byte fragment
 // load reads (16-byte units) or the 4 rows each half-warp of an 8-byte one
-// reads (32-byte units) fall on distinct banks.
+// reads (32-byte units) fall on distinct banks.  bf16c's fragments are
+// 8-byte loads, int8's 4-byte ones, bf16x3's ldmatrix rows of 16 bytes
+// (8 rows a phase: 16-byte units).
 __host__ __device__ constexpr int odd_units(int bytes, int unit) {
   return (bytes / unit) % 2 ? bytes : bytes + unit;
 }
@@ -257,15 +285,17 @@ __host__ __device__ constexpr int ring_row_stride(int tm, int core) {
 
 // Query columns that one stage's corpus bytes meet.
 __host__ __device__ constexpr int ring_cols(int tm, int core) {
-  return core == kHighest ? ring_row_bytes(tm, core) / 4
+  return core == kHighest || hilo_core(core) ? ring_row_bytes(tm, core) / 4
        : core == kBf16c ? ring_row_bytes(tm, core) / 2
        : packed_core(core) ? 2 * ring_row_bytes(tm, core)
                            : ring_row_bytes(tm, core);
 }
 
-// bf16 stride of query rows of `cols` columns.
-__host__ __device__ constexpr int query_stride(int cols) {
-  return odd_units(2 * cols, 32) / 2;
+// bf16 stride of query rows of `cols` columns: an odd number of 32-byte
+// units for the 8-byte fragment loads, of 16-byte units for bf16x3's
+// ldmatrix rows.
+__host__ __device__ constexpr int query_stride(int cols, int core) {
+  return odd_units(2 * cols, hilo_core(core) ? 16 : 32) / 2;
 }
 
 // Ring positions (chunks) a corpus row of row_bytes takes.
@@ -278,7 +308,9 @@ __host__ __device__ inline int ring_chunks(int tm, int core, int row_bytes) {
 __host__ __device__ inline size_t ring_stage_bytes(int tm, int core,
                                                    bool q_resident) {
   return (size_t)kTN * ring_row_stride(tm, core)
-       + (q_resident ? 0 : 4 * (size_t)tm * query_stride(ring_cols(tm, core)));
+       + (q_resident
+              ? 0
+              : 4 * (size_t)tm * query_stride(ring_cols(tm, core), core));
 }
 
 // Shared memory of the staging: the ring of `stages`, then the resident
@@ -287,7 +319,8 @@ __host__ __device__ inline size_t ring_bytes(int tm, int core, int chunks,
                                              bool q_resident, int stages) {
   return stages * ring_stage_bytes(tm, core, q_resident)
        + (q_resident
-              ? 4 * (size_t)tm * query_stride(chunks * ring_cols(tm, core))
+              ? 4 * (size_t)tm *
+                    query_stride(chunks * ring_cols(tm, core), core)
               : 0);
 }
 
@@ -312,7 +345,7 @@ inline RingPlan ring_plan(int tm, int core, int chunks, size_t rest) {
   RingPlan best{0, false, 0};
   int best_key = -1;
   for (int res = tm == 64 ? 0 : 1; res >= 0; --res)
-    for (int s = ring_stages(tm); s >= 2; --s) {
+    for (int s = ring_stages(tm, core); s >= 2; --s) {
       const size_t b = ring_bytes(tm, core, chunks, res != 0, s) + rest;
       if (b > kMaxSmem) continue;
       const int blocks = smem_blocks(b) < 2 ? smem_blocks(b) : 2;
@@ -356,6 +389,17 @@ __device__ inline void cp_async_wait_for(int n) {
     cp_async_wait<1>();
   else
     cp_async_wait<0>();
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes); matrix i lands in ri as an mma
+// fragment (thread t: row t / 4, elements 2 (t % 4) and 2 (t % 4) + 1).
+__device__ inline void ldsm_x4(const void* p, uint32_t& r0, uint32_t& r1,
+                               uint32_t& r2, uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
 }
 
 __device__ inline uint2 lds64(const uint16_t* p) {
@@ -458,7 +502,9 @@ __device__ inline int ring_feature(int kc, int col, int ck, float inv_half) {
 
 // Stage corpus rows [n0, n0 + 64), bytes [b0, b0 + ring_row_bytes) of
 // each, zero past row n and past row_bytes.  vec: 16-byte cp.async copies;
-// otherwise byte by byte, loaded and stored here.
+// otherwise byte by byte, loaded and stored here.  bf16x3: the position's
+// features come from both halves of the [hi | lo] row, bytes [b0 / 2,
+// b0 / 2 + RB / 2) of each half, hi first, zero past the half's end.
 template <int TM, int CORE>
 __device__ inline void ring_corpus(unsigned char* dst,
                                    const unsigned char* __restrict__ c,
@@ -466,6 +512,29 @@ __device__ inline void ring_corpus(unsigned char* dst,
                                    int b0, bool vec) {
   constexpr int RB = ring_row_bytes(TM, CORE);
   constexpr int RS = ring_row_stride(TM, CORE);
+  if constexpr (hilo_core(CORE)) {
+    constexpr int kHalf = RB / 2;          // a piece's bytes
+    const int half = row_bytes / 2, f0 = b0 / 2;
+    if (vec) {
+      constexpr int kV = RB / 16;
+      for (int e = threadIdx.x; e < kTN * kV; e += kThreads) {
+        const int r = e / kV, o = (e % kV) * 16;
+        const int gr = n0 + r, fo = f0 + o % kHalf;
+        const bool in = gr < n && fo < half;   // whole 8-feature pieces
+        cp_async16(dst + r * RS + o,
+                   in ? c + (size_t)gr * ld + (o < kHalf ? 0 : half) + fo : c,
+                   in ? 16 : 0);
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < kTN * RB; e += kThreads) {
+      const int r = e / RB, o = e % RB;
+      const int gr = n0 + r, fo = f0 + o % kHalf;
+      dst[r * RS + o] = gr < n && fo < half
+          ? c[(size_t)gr * ld + (o < kHalf ? 0 : half) + fo] : 0;
+    }
+    return;
+  }
   if (vec) {
     constexpr int kV = RB / 16;
     for (int e = threadIdx.x; e < kTN * kV; e += kThreads) {
@@ -537,7 +606,35 @@ __device__ inline void ring_products(const unsigned char* cs,
   // A taller query tile has MT independent products a step already; its
   // steps unrolled in full would hold every step's A fragments at once.
   constexpr int kUnroll = MT == 1 ? 8 : MT == 2 ? 2 : 1;
-  if constexpr (packed_core(CORE)) {
+  if constexpr (hilo_core(CORE)) {
+    // scores_bf16x3's k slots: (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9)
+    // hold those features of the k16, and its products in its order.  Each
+    // fragment comes from ldmatrix: lane l names row l % 8 (A: l % 16) of
+    // one 8 x 8 matrix, 16 bytes; B's four are ch and cl at k 0-7 and 8-15.
+    const unsigned char* bp = cs + (8 * warp + (lane & 7)) * RS
+                            + ((lane >> 3) & 1) * 16 + (lane >> 4) * (RB / 2);
+    const int ao = (lane & 15) * qs + (lane >> 4) * 8;
+#pragma unroll kUnroll
+    for (int s = 0; s < RB / 64; ++s) {   // 32 bytes of hi, 32 of lo
+      uint32_t bh0, bh1, bl0, bl1;
+      ldsm_x4(bp + 32 * s, bh0, bh1, bl0, bl1);
+      // qh's fragments, then ql's: each accumulator still takes qh.cl
+      // before ql.ch, and one tile's fragments are live at a time.
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        uint32_t a0, a1, a2, a3;
+        ldsm_x4(Qh + 16 * t * qs + 16 * s + ao, a0, a1, a2, a3);
+        mma_bf16(acc1[t], a0, a1, a2, a3, bh0, bh1);
+        mma_bf16(acc2[t], a0, a1, a2, a3, bl0, bl1);
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        uint32_t a0, a1, a2, a3;
+        ldsm_x4(Ql + 16 * t * qs + 16 * s + ao, a0, a1, a2, a3);
+        mma_bf16(acc2[t], a0, a1, a2, a3, bh0, bh1);
+      }
+    }
+  } else if constexpr (packed_core(CORE)) {
 #pragma unroll kUnroll
     for (int s = 0; s < RB / 16; ++s) {   // 16 bytes: 32 columns
       uint32_t lo_a, hi_a, lo_b, hi_b;
@@ -587,9 +684,9 @@ __device__ inline void ring_products(const unsigned char* cs,
 // scores wait for a barrier after it.  Listed (LISTED): tile t is kernel
 // tile list[t / tn_tiles] * tn_tiles + t % tn_tiles, an id outside the
 // layout_tiles naming no rows (never read).  c_ld is the corpus row stride
-// in elements (bf16c) or bytes; ck the int4 feature chunk; stages and
-// q_resident the host's ring_plan.  Ends after a barrier with no copy in
-// flight.
+// in elements (bf16c, bf16x3) or bytes; ck the int4 feature chunk; stages
+// and q_resident the host's ring_plan.  Ends after a barrier with no copy
+// in flight.
 template <int TM, int CORE, bool LISTED, typename OnTile>
 __device__ inline void ring_walk(const uint16_t* __restrict__ q,
                                  const void* __restrict__ cp,
@@ -609,9 +706,13 @@ __device__ inline void ring_walk(const uint16_t* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const unsigned char* c = static_cast<const unsigned char*>(cp);
-  const size_t ld = (size_t)c_ld * (CORE == kBf16c ? 2 : 1);
+  const size_t ld = (size_t)c_ld * ring_elem_bytes(CORE);
   const int row_bytes = (int)ld, chunks = ring_chunks(TM, CORE, row_bytes);
-  const int qs = query_stride(q_resident ? chunks * QC : QC);
+  // ring_plan never keeps a 64-row query tile resident; the bf16x3 walk
+  // needs the registers that knowing so at compile time frees (ptxas spilled
+  // without it; kernel D's tile-64 walks keep their code).
+  if constexpr (hilo_core(CORE) && TM == 64) q_resident = false;
+  const int qs = query_stride(q_resident ? chunks * QC : QC, CORE);
   const size_t stage = ring_stage_bytes(TM, CORE, q_resident);
   uint16_t* Qr = reinterpret_cast<uint16_t*>(smem + stages * stage);
   const float inv_half = packed_core(CORE) ? 1.f / (ck / 2) : 0.f;
@@ -675,20 +776,22 @@ __device__ inline void ring_walk(const uint16_t* __restrict__ q,
       if (n0 < 0) continue;
       const uint16_t* qh = q_resident
           ? Qr + kc * QC : reinterpret_cast<const uint16_t*>(cs + kTN * RS);
-      ring_products<TM, CORE, TM == 64 ? query_stride(QC) : 0>(
+      ring_products<TM, CORE, TM == 64 ? query_stride(QC, CORE) : 0>(
           cs, qh, qh + TM * qs, qs, acc1, acc2);
     }
     if (n0 < 0) continue;
     // Accumulator layout: d0, d1 at (row g, cols 2 tig, 2 tig + 1), d2, d3
     // at row g + 8.  The epilogue's (see epilogue()), with each thread's
-    // two columns' scale, bias and mask read once.
+    // two columns' scale, bias and mask read once (bf16c and bf16x3 have
+    // no scale row).
+    constexpr bool kScaled = CORE != kBf16c && !hilo_core(CORE);
     float sc[2], bias[2];
     bool dead[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int gn = n0 + 8 * warp + 2 * tig + e;
       dead[e] = gn >= n || (mask != nullptr && mask[gn] == 0);
-      sc[e] = CORE == kBf16c || dead[e] ? 1.f : scale[gn];
+      sc[e] = !kScaled || dead[e] ? 1.f : scale[gn];
       bias[e] = dead[e] ? 0.f : cb[gn];
     }
 #pragma unroll
@@ -698,7 +801,7 @@ __device__ inline void ring_walk(const uint16_t* __restrict__ q,
         const int r = 16 * i + g + (j >= 2 ? 8 : 0);
         const int col = 8 * warp + 2 * tig + (j & 1);
         const float d = acc1[i][j] + acc2[i][j];
-        const float p = CORE == kBf16c ? d : __fmul_rn(d, sc[j & 1]);
+        const float p = kScaled ? __fmul_rn(d, sc[j & 1]) : d;
         St[r * (kTN + 1) + col] =
             dead[j & 1] ? -INFINITY : __fadd_rn(p, bias[j & 1]);
       }

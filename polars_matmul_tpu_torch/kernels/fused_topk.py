@@ -26,8 +26,11 @@ Kernel A has five cores, the JAX kernel's precisions:
 The three stored cores stream their raw bytes through a ring of
 asynchronous copies that runs across corpus tiles and decode them to bf16
 as the products read them (``ring_plan`` mirrors its shared memory);
-"highest" streams its f32 rows through the same ring into register tiles
-of f32 FMA (``f32_plan``).
+"bf16x3" streams its [hi | lo] rows through the same ring, a position's hi
+and lo pieces of the same features in one stage.  At query tile 64 the
+stored cores take the warpgroup consumer (``wgmma_core``, ``wg_plan``),
+bf16x3 the mma.sync one.  "highest" streams its f32 rows through the same
+ring into register tiles of f32 FMA (``f32_plan``).
 
 Queries are always split hi | lo except for "highest".  Both kernels are
 exact, with lowest-index-wins ties, so every ``selection`` value of
@@ -95,7 +98,8 @@ _MERGE_ROW_ENTRIES = 1024
 # Kernel A's cores, in the order of the CUDA source's Core enum.
 CORES = ("highest", "bf16x3", "bf16c", "int8c", "int4c")
 _QUANT = ("int8c", "int4c")
-_STORED = ("bf16c",) + _QUANT
+# bf16x3's ring forms: 32 and 64 features a position (``ring_core``).
+_HILO = ("bf16x3", "bf16x3w")
 # Cores whose queries arrive as bf16 [hi | lo].
 _SPLIT_QUERY = ("bf16x3", "bf16c", "int8c", "int4c")
 _CORPUS_DTYPE = {"highest": torch.float32, "bf16x3": torch.bfloat16,
@@ -106,8 +110,8 @@ _CORPUS_DTYPE = {"highest": torch.float32, "bf16x3": torch.bfloat16,
 launches = {
     "fused_topk_partial": 0,
     "fused_topk_partial_tiles": 0,
-    # Kernel A's launches of the warpgroup consumer (stored cores at query
-    # tile 64, csrc/ring_wgmma.cuh), dense or listed.
+    # Kernel A's launches of the warpgroup consumer (``wgmma_core``:
+    # csrc/ring_wgmma.cuh), dense or listed.
     "fused_topk_partial_wgmma": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
@@ -838,38 +842,53 @@ def _packed(precision: str) -> bool:
 
 
 def ring_row_bytes(tm: int, precision: str) -> int:
-    """Corpus bytes a row that one stage of the stored cores' ring holds
+    """Corpus bytes a row that one stage of the ring holds
     (``csrc/tile_scores.cuh``, ``ring_walk``): 256 at a 16-row query tile
     (int4: 128); taller ones carry their query columns in the stage and
     hold 32 (tm 32) or 16 (tm 64) bytes of int8, twice that of bf16, half
-    of int4."""
+    of int4.  bf16x3 holds 32 features (4 bytes each, hi and lo), its
+    wide form "bf16x3w" 64 (``ring_core``)."""
+    if precision in _HILO:
+        return 256 if precision == "bf16x3w" else 128
     if tm == 16:
         return 128 if _packed(precision) else 256
     per = 4 if precision == "bf16c" else 1 if _packed(precision) else 2
     return per * (32 if tm == 32 else 16)
 
 
-def ring_stages(tm: int) -> int:
-    """The most stages of the ring: 4 at tm 16, 3 at tm 32, 2 at tm 64."""
-    return 4 if tm == 16 else 3 if tm == 32 else 2
+def ring_stages(tm: int, precision: str) -> int:
+    """The most stages of the ring: 4 at tm 16, 3 at tm 32, 2 at tm 64;
+    4 at every tile for bf16x3."""
+    return 4 if tm == 16 or precision in _HILO else 3 if tm == 32 else 2
+
+
+def ring_cols(tm: int, precision: str) -> int:
+    """Query columns (features) one position of the ring meets."""
+    rb = ring_row_bytes(tm, precision)
+    if precision in _HILO:
+        return rb // 4
+    return rb // 2 if precision == "bf16c" else (
+        2 * rb if _packed(precision) else rb)
 
 
 def ring_staging(tm: int, precision: str, c_ld: int, resident: bool,
                  stages: int):
-    """(bytes a stage, staging bytes) of a stored core's ring of
-    ``stages`` at query tile ``tm`` for corpus rows of ``c_ld`` elements
-    (bytes for int8 and the int4 forms): 64 corpus rows a stage, each
-    with the query columns they meet unless the query tile is
-    ``resident`` after the ring."""
-    rb, bf16 = ring_row_bytes(tm, precision), precision == "bf16c"
-    cols = rb // 2 if bf16 else 2 * rb if _packed(precision) else rb
-    chunks = -(-c_ld * (2 if bf16 else 1) // rb)
+    """(bytes a stage, staging bytes) of the ring of ``stages`` at query
+    tile ``tm`` for corpus rows of ``c_ld`` elements (bf16 for bf16c and
+    bf16x3's [hi | lo], bytes for int8 and the int4 forms): 64 corpus rows
+    a stage, each with the query columns they meet unless the query tile
+    is ``resident`` after the ring.  Rows are an odd number of 32-byte
+    units apart for bf16c's 8-byte fragment loads, of 16-byte units for
+    int8's 4-byte loads and bf16x3's 16-byte ldmatrix rows."""
+    rb, cols = ring_row_bytes(tm, precision), ring_cols(tm, precision)
+    elem = 2 if precision == "bf16c" or precision in _HILO else 1
+    unit = 32 if precision == "bf16c" else 16
+    chunks = -(-c_ld * elem // rb)
 
     def query(c):   # hi and lo rows of c bf16 columns
-        return 2 * tm * _odd_units(2 * c, 32)
+        return 2 * tm * _odd_units(2 * c, 16 if precision in _HILO else 32)
 
-    stage = _TN * _odd_units(rb, 32 if bf16 else 16) + (
-        0 if resident else query(cols))
+    stage = _TN * _odd_units(rb, unit) + (0 if resident else query(cols))
     return stage, stages * stage + (query(chunks * cols) if resident else 0)
 
 
@@ -881,7 +900,7 @@ def ring_plan(tm: int, precision: str, c_ld: int, rest: int):
     stages 0 where no plan fits."""
     best, best_key = (0, 0, False, 0), -1
     for resident in ((False,) if tm == 64 else (True, False)):
-        for stages in range(ring_stages(tm), 1, -1):
+        for stages in range(ring_stages(tm, precision), 1, -1):
             stage, staging = ring_staging(tm, precision, c_ld, resident,
                                           stages)
             nbytes = staging + rest
@@ -901,12 +920,19 @@ def tail_bytes(tm: int, k: int) -> int:
     return tm * (_TN + 1) * 4 + 2 * tm * k * 4 + 2 * 8 * _TN * 4
 
 
-# Kernel A's stored cores at query tile 64 (``csrc/ring_wgmma.cuh``): the
+# Kernel A's warpgroup consumer (``csrc/ring_wgmma.cuh``): the
 # same ring of raw bytes, WG_TILES kernel tiles a step (WG_TPW for each of
 # two warpgroups), the query columns as wgmma core matrices, at most
 # WG_STAGES stages, one block an SM.
 WG_TM, WG_TPW, WG_STAGES = 64, 2, 8
 WG_TILES = 2 * WG_TPW
+
+
+def wgmma_core(tm: int, precision: str) -> bool:
+    """Whether kernel A's launch takes the warpgroup consumer
+    (``wgmma_core`` in the source): the stored cores at query tile 64
+    (bf16x3 keeps the mma.sync ring there, chosen by measurement)."""
+    return precision in ("bf16c", "int8c", "int4c") and tm == WG_TM
 
 
 def wg_cols(precision: str) -> int:
@@ -1000,15 +1026,29 @@ def f32_plan(tm: int, dim: int, k: int):
     return best
 
 
+def ring_core(tm: int, precision: str, c_ld: int, k: int) -> str:
+    """The ring a launch streams (``ring_core`` in the source): bf16x3
+    takes 64 features a position ("bf16x3w") at query tiles 16 and 64
+    wherever that ring keeps two blocks an SM, else 32; the other cores
+    their own."""
+    if precision == "bf16x3" and tm != 32:
+        wide = ring_plan(tm, "bf16x3w", c_ld, tail_bytes(tm, k))
+        if wide[0] and _SMEM_PER_SM // (wide[3] + _SMEM_PER_BLOCK) >= 2:
+            return "bf16x3w"
+    return precision
+
+
 def stage_plan(tm: int, precision: str, c_ld: int, k: int):
-    """Kernel A's staging of a ring core (``pmm_fused_topk_ring``): the
-    f32 ring of "highest" (``c_ld`` its dim); for a stored core the
-    warpgroup consumer's ring at tm 64, the mma.sync consumer's below."""
+    """Kernel A's staging (``pmm_fused_topk_ring``): the f32 ring of
+    "highest" (``c_ld`` its dim); for the other cores the warpgroup
+    consumer's ring where ``wgmma_core``, the mma.sync consumer's
+    otherwise (bf16x3's of ``ring_core``)."""
     if precision == "highest":
         return f32_plan(tm, c_ld, k)
-    if tm == WG_TM:
+    if wgmma_core(tm, precision):
         return wg_plan(precision, k)
-    return ring_plan(tm, precision, c_ld, tail_bytes(tm, k))
+    return ring_plan(tm, ring_core(tm, precision, c_ld, k), c_ld,
+                     tail_bytes(tm, k))
 
 
 def listed_tile_rows(m: int, k: int, block_rows: int) -> int:
@@ -1130,7 +1170,7 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
     launches["fused_topk_partial_tiles" if listed
              else "fused_topk_partial"] += 1
-    if tm == WG_TM and precision in _STORED:
+    if wgmma_core(tm, precision):
         launches["fused_topk_partial_wgmma"] += 1
     core_launches[precision] += 1
     return part_v, part_i

@@ -83,7 +83,7 @@ def test_batch_256_rides_the_ring_two_blocks_an_sm(core):
     c_ld = F._corpus_width(core, 768)
     stages, _, resident, smem = F.ring_plan(64, core, c_ld,
                                             F.tail_bytes(64, 100))
-    assert stages == F.ring_stages(64) and not resident
+    assert stages == F.ring_stages(64, core) and not resident
     assert _blocks(smem) >= 2
 
 
@@ -100,7 +100,7 @@ def test_every_plan_fits_and_costs_no_block(core, dim):
             best = max(min(_blocks(F.ring_staging(
                 tm, core, c_ld, res, st)[1] + rest), 2)
                 for res in ((False,) if tm == 64 else (True, False))
-                for st in range(2, F.ring_stages(tm) + 1))
+                for st in range(2, F.ring_stages(tm, core) + 1))
             assert not (resident and tm == 64)
             assert min(_blocks(smem), 2) == best
             assert smem == F.ring_staging(tm, core, c_ld, resident,
