@@ -1,29 +1,38 @@
-"""Kernel A's bf16x3 core on one card: a parent's source against this
-tree's, built side by side and timed in turns.
+"""Kernel A on one card: a parent's source against this tree's, built side
+by side and timed in turns.
 
     mkdir -p build/parent
     git archive <parent> polars_matmul_tpu_torch | tar -x -C build/parent
-    python ab_kernel_a.py --parent build/parent
+    python ab_kernel_a.py --parent build/parent [--bits-only]
+        [--groups canonical,big,...] [--variants noselect,...]
 
 Run from the checkout's root, beside ``chip_smoke.py``, whose operands,
 timer and bounds it reuses, so its cells are that script's.  It builds
-``csrc/fused_topk.cu`` alone with nvcc twice, each into its own library
-in a temporary directory under ``build/``: the parent's and this tree's.
+``csrc/fused_topk.cu`` alone with nvcc, each build into its own library in
+a temporary directory under ``build/``: the parent's, this tree's, and
+each variant's (this tree's source with a line or two patched, ``VARIANTS``).
 Then:
 
 1. ptxas: every ``.cu`` of both trees compiled, each kernel's registers,
    stack and spills keyed by its entry name (the anonymous namespace's
-   hash removed); prints the kernels whose lines differ;
-2. bits: this tree's split lists against the parent's at one geometry
-   (this tree's), at query tiles 16, 32 and 64 on the canonical operands
-   and at the cells' own tiles; they must be equal (both run mma.sync);
+   hash removed); prints the kernels whose lines differ, and every line
+   of this tree's kernel A (its out-of-line functions too);
+2. bits: each tree's split lists against the parent's at one geometry
+   (this tree's), on the canonical operands at every query tile a k can
+   take, in the bf16x3 and highest cores, and at each cell's own
+   geometry; they must be equal (the variants' too, but "noselect");
 3. times: kernel A alone (CUDA events, ``chip_smoke.cuda_ms``), each
-   tree at the geometry its own library's occupancy gives, parent,
-   change, change, parent, at the canonical k=10 / 100 / 512, the
-   2M x 256 f32 corpus at batch 8 and 256 (k=10), and the 2M x 256 f32
-   clustered corpus's tile lists (1000 queries, probe 0.05, k=10), beside
-   the bound (``chip_smoke._bound``) and ``torch.addmm`` + ``torch.topk``
-   in f32.
+   build at the geometry its own library's occupancy gives, parent,
+   change, variants, then the reverse, beside the bound
+   (``chip_smoke._bound``) and a library call, in groups of cells
+   (``GROUPS``): ``canonical`` (1000 x 10,000 x 256 f32 at k=10 / 100 /
+   512, bf16x3 and highest), ``big`` (2M x 256 f32 at batch 8 and 256,
+   k=10 and 100, bf16x3), ``stored`` (the attribution kit's 2M x 768 int8
+   operand, ``tools/exp_int4.build``, at batch 256, k=100 and 512),
+   ``wide`` (10M x 768 int8, phase 7's corpus, batch 8 and 256, k=100),
+   ``clustered`` (phase 8's 10M x 768 int8 clustered corpus, probe 0.05,
+   batch 256, k=100) and ``lists`` (phase 8's 2M x 256 f32 clustered
+   lists, 1000 queries, probe 0.05, k=10 and 100).
 
 Needs a CUDA card, nvcc and the parent checkout; prints one line a result.
 """
@@ -44,6 +53,25 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("polars_matmul_tpu_torch/kernels/csrc")
+GROUPS = ("canonical", "big", "stored", "wide", "clustered", "lists")
+# Builds of this tree's fused_topk.cu with a line or two changed: (pattern,
+# replacement) pairs of re.subn, each of which must match once.
+VARIANTS = {
+    # The selection taken out (its share of kernel A): the score tiles are
+    # written and nothing selects on them.
+    "noselect": [(rf"(__device__ inline void {f}\([^{{]*\{{)",
+                  r"\1\n  return;") for f in ("select_tile", "append_tile")],
+    # The appending selection at every k (the rule keeps k <= 16 on the
+    # insertion).
+    "append-all": [(r"constexpr int kInsertMaxK = \d+;",
+                    "constexpr int kInsertMaxK = 0;")],
+    # A slack of at most 64 entries a row.
+    "slack64": [(r"constexpr int kSlackMax = \d+;",
+                 "constexpr int kSlackMax = 64;")],
+    # A slack of k entries a row up to kSlackMax (the first rule measured).
+    "slack-k": [(r"return k >= kSlackMax \? kSlackMax : k >= 64 \? 64 : k;",
+                 "return k < kSlackMax ? k : kSlackMax;")],
+}
 
 
 def _nvcc(args, src: Path, out: Path) -> subprocess.Popen:
@@ -55,31 +83,60 @@ def _nvcc(args, src: Path, out: Path) -> subprocess.Popen:
         stderr=subprocess.STDOUT, text=True)
 
 
+def _plain(name: str) -> str:
+    """A mangled name without the anonymous namespace's per-build hash,
+    and without a kernel A's last template argument where it is false
+    (the inserting selection), so that those kernels key as their
+    parents, which had no such argument, did."""
+    name = re.sub(r"_GLOBAL__N__[0-9a-f]+_|_INTERNAL_[0-9a-f]+_", "", name)
+    return re.sub(r"(fused_topk_(?:f32|stored|wgmma)_kernelI(?:L[ib]\d+E)+?"
+                  r"Lb[01]E)Lb0E(EEv)", r"\1\2", name)
+
+
 def _ptxas(log: str, unit: str, out: dict) -> None:
     """Each kernel's "Used N registers" line and its stack / spill line,
-    keyed by unit and entry name."""
+    keyed by unit and entry name; an out-of-line function's stack / spill
+    line keyed by unit and "function " and its name."""
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = unit + ":" + re.sub(r"_GLOBAL__N__[0-9a-f]+_", "",
-                                       m.group(1))
+            name = unit + ":" + _plain(m.group(1))
+            continue
+        f = re.search(r"Function properties for (\w+)", line)
+        if f:   # an entry's own, or an out-of-line function's
+            if name is None or not name.endswith(":" + _plain(f.group(1))):
+                name = unit + ":function " + _plain(f.group(1))
             continue
         m = re.search(r"\d+ bytes stack frame, \d+ bytes spill stores, "
                       r"\d+ bytes spill loads", line)
         if m and name:
             out[name] = m.group(0)
+            if ":function " in name:
+                name = None
         m = re.search(r"Used \d+ registers", line)
         if m and name:
             out[name] = m.group(0) + "; " + out.get(name, "")
             name = None
 
 
-def build(parent: Path, work: Path):
-    """(libraries by variant, ptxas lines by tree): every nvcc at once."""
+def build(parent: Path, work: Path, variants):
+    """(libraries by build, ptxas lines by tree): every nvcc at once."""
     trees = {"parent": parent / CSRC, "change": ROOT / CSRC}
+    srcs = dict(trees)
+    for name in variants:
+        d = work / f"src-{name}"
+        shutil.copytree(ROOT / CSRC, d)
+        text = (d / "fused_topk.cu").read_text()
+        for pattern, replacement in VARIANTS[name]:
+            text, hits = re.subn(pattern, replacement, text, count=1)
+            if hits != 1:
+                raise RuntimeError(f"variant {name}: {pattern} is not in "
+                                   f"fused_topk.cu")
+        (d / "fused_topk.cu").write_text(text)
+        srcs[name] = d
     procs = {}
-    for name, d in trees.items():
+    for name, d in srcs.items():
         procs[("lib", name)] = _nvcc(["-shared"], d / "fused_topk.cu",
                                      work / f"{name}.so")
     for tree, d in trees.items():
@@ -87,7 +144,7 @@ def build(parent: Path, work: Path):
             if cu.name != "fused_topk.cu":
                 procs[(tree, cu.name)] = _nvcc(
                     ["-c"], cu, work / f"{tree}.{cu.stem}.o")
-    lines = {name: {} for name in trees}
+    lines = {name: {} for name in srcs}
     for (kind, name), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -98,7 +155,7 @@ def build(parent: Path, work: Path):
             _ptxas(log, name, lines[kind])
     libs = {}
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in trees:
+    for name in srcs:
         lib = ctypes.CDLL(str(work / f"{name}.so"))
         lib.pmm_fused_topk_partial.argtypes = [p] * 8 + [i] * 14 + [p]
         lib.pmm_fused_topk_partial.restype = i
@@ -108,24 +165,161 @@ def build(parent: Path, work: Path):
     return libs, lines
 
 
+class Cell:
+    """One timed case: prepared operands of a core at k, the f32 (or
+    bf16) operands of its library call (None: that call is timed in
+    chip_smoke.py), and, listed, (tiles, tn, block_rows)."""
+
+    def __init__(self, label, core, qp, cp, cbp, k, lib_q=None, lib_c=None,
+                 listed=None, dim=None):
+        self.label, self.core, self.k, self.listed = label, core, k, listed
+        self.qp, self.cp, self.cbp = qp, cp, cbp
+        self.lib_q, self.lib_c, self.dim = lib_q, lib_c, dim
+
+
+def _canonical(cs, F, dev):
+    rng = np.random.default_rng(cs.SEED)
+    q = torch.from_numpy(rng.standard_normal(
+        (cs.N_QUERIES, cs.DIM)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal(
+        (cs.N_CORPUS, cs.DIM)).astype(np.float32)).to(dev)
+    qn = q / q.norm(dim=1, keepdim=True)
+    cn = c / c.norm(dim=1, keepdim=True)
+    cells = []
+    for core in ("bf16x3", "highest"):
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=core)
+        qp = F.prepare_queries(q, "cosine", core)
+        cells += [Cell(f"canonical {core} k={k}", core, qp, cp, cbp, k, qn,
+                       cn, dim=cs.DIM) for k in (10, 100, 512)]
+    return cells
+
+
+def _big(cs, F, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    big = torch.randn((cs.BIG_ROWS, cs.DIM), generator=gen, device=dev)
+    qbig = {b: torch.randn((b, cs.DIM), generator=gen, device=dev)
+            for b in (8, 256)}
+    cp, cbp = F.prepare_corpus(big, "cosine", precision="bf16x3")
+    cn = big / big.norm(dim=1, keepdim=True)
+    del big
+    return [Cell(f"2M x 256 f32 batch {b} k={k}", "bf16x3",
+                 F.prepare_queries(qbig[b], "cosine", "bf16x3"), cp, cbp, k,
+                 qbig[b] / qbig[b].norm(dim=1, keepdim=True), cn, dim=cs.DIM)
+            for b in (8, 256) for k in (10, 100)]
+
+
+def _dequantised(F, cp, cbp, chunk=1 << 20):
+    """The cosine rows an int8 core scores, as bf16 (codes times
+    1/|codes|), for the library call."""
+    out = torch.empty(cp.shape, dtype=torch.bfloat16, device=cp.device)
+    for r0 in range(0, cp.shape[0], chunk):
+        out[r0:r0 + chunk] = (cp[r0:r0 + chunk].float()
+                              * cbp[0, r0:r0 + chunk, None]).to(
+                                  torch.bfloat16)
+    return out
+
+
+def _stored(cs, F, dev):
+    from polars_matmul_tpu_torch.tools import exp_int4
+
+    q, corpora, _ = exp_int4.build(dev)
+    cp, cbp = corpora["int8"]
+    del corpora
+    qp = F.prepare_queries(q, "cosine", "int8c")
+    qn = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    rows = _dequantised(F, cp, cbp)
+    return [Cell(f"2M x 768 int8 batch 256 k={k}", "int8c", qp, cp, cbp, k,
+                 qn, rows, dim=exp_int4.DIM) for k in (100, 512)]
+
+
+def _wide(cs, F, dev):
+    import polars_matmul_tpu_torch as pmt
+
+    c = cs._wide_f32(torch)
+    corpus = pmt.Corpus(c, storage="int8")
+    del c
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 1)
+    q = torch.randn((256, cs.WIDE_DIM), generator=gen, device=dev)
+    cp, cbp = corpus._prepared_for(F.Metric.COSINE)
+    rows = _dequantised(F, cp, cbp)
+    cells = []
+    for b in (8, 256):
+        qn = (q[:b] / q[:b].norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        cells.append(Cell(f"10M x 768 int8 batch {b} k=100", "int8c",
+                          F.prepare_queries(q[:b], "cosine", "int8c"), cp,
+                          cbp, 100, qn, rows, dim=cs.WIDE_DIM))
+    return cells
+
+
+def _listed_cell(cs, F, label, cc, q, k):
+    qr, qp, cp, cbp, core, tiles, br = cs._listed_operands(F, cc, q, k,
+                                                           cs.PROBE)
+    return Cell(label, core, qp, cp, cbp, k,
+                listed=(tiles, cc.layout.tn, br), dim=cc.dim)
+
+
+def _clustered(cs, F, dev):
+    import polars_matmul_tpu_torch as pmt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    c, queries = cs._blobs(torch, gen, cs.WIDE_ROWS, cs.WIDE_DIM)
+    wide = pmt.ClusteredCorpus(c, storage="int8")
+    del c
+    torch.cuda.empty_cache()
+    q = queries(256)
+    return [_listed_cell(cs, F, "10M x 768 int8 clustered probe 0.05 batch "
+                         "256 k=100", wide, q, 100)]
+
+
+def _lists(cs, F, dev):
+    import polars_matmul_tpu_torch as pmt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 2)
+    c, queries = cs._blobs(torch, gen, cs.BIG_ROWS, cs.DIM)
+    proxy = pmt.ClusteredCorpus(c)
+    del c
+    q = queries(cs.N_QUERIES)
+    return [_listed_cell(cs, F, f"2M x 256 f32 clustered probe 0.05 1000 q "
+                         f"k={k}", proxy, q, k) for k in (10, 100)]
+
+
+BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,
+            "wide": _wide, "clustered": _clustered, "lists": _lists}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="a checkout of the parent (git archive)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--bits-only", action="store_true",
+                    help="ptxas and bits, no times")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help=f"cells to run, of {', '.join(GROUPS)}")
+    ap.add_argument("--variants", default="",
+                    help=f"extra builds, of {', '.join(VARIANTS)}")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernel_a: no CUDA device", file=sys.stderr)
         return 2
+    groups = [g for g in args.groups.split(",") if g]
+    variants = [v for v in args.variants.split(",") if v]
+    for name in groups + variants:
+        if name not in GROUPS and name not in VARIANTS:
+            raise SystemExit(f"ab_kernel_a: unknown group or variant {name}")
     import chip_smoke as cs
-    import polars_matmul_tpu_torch as pmt
     from polars_matmul_tpu_torch.kernels import _build
     from polars_matmul_tpu_torch.kernels import fused_topk as F
     from polars_matmul_tpu_torch.ops.reference import exact_matmul
 
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="ab-", dir=ROOT / "build"))
-    libs, lines = build(args.parent.resolve(), work)
+    libs, lines = build(args.parent.resolve(), work, variants)
     card = cs.phase_card()
     same = [k for k in lines["parent"] if lines["change"].get(k)
             == lines["parent"][k]]
@@ -136,6 +330,16 @@ def main(argv=None) -> int:
             print(f"ptxas differs: {key}\n  parent: "
                   f"{lines['parent'].get(key)}\n  change: "
                   f"{lines['change'].get(key)}")
+    for key in sorted(lines["change"]):
+        if key.startswith("fused_topk.cu:"):
+            print(f"ptxas change: {key}: {lines['change'][key]}")
+    for name in variants:
+        spills = [key for key, line in lines[name].items()
+                  if key.startswith("fused_topk.cu:")
+                  and not line.endswith(" 0 bytes spill loads")]
+        print(f"ptxas {name}: kernel A spills in {len(spills)} "
+              f"instantiations: " + "; ".join(
+                  f"{key}: {lines[name][key]}" for key in sorted(spills)))
 
     def use(name):
         _build._lib = libs[name]
@@ -143,115 +347,101 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     sms = F.device_sms(dev)
-    rng = np.random.default_rng(cs.SEED)
-    q = torch.from_numpy(rng.standard_normal(
-        (cs.N_QUERIES, cs.DIM)).astype(np.float32)).cuda()
-    c = torch.from_numpy(rng.standard_normal(
-        (cs.N_CORPUS, cs.DIM)).astype(np.float32)).cuda()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(cs.SEED)
-    big = torch.randn((cs.BIG_ROWS, cs.DIM), generator=gen, device="cuda")
-    qbig = {b: torch.randn((b, cs.DIM), generator=gen, device="cuda")
-            for b in (8, 256)}
-    cp, cbp = F.prepare_corpus(c, "cosine", precision="bf16x3")
-    qp = F.prepare_queries(q, "cosine", "bf16x3")
-    cpb, cbpb = F.prepare_corpus(big, "cosine", precision="bf16x3")
-    # (label, f32 q, f32 c, prepared q, c, bias, k, listed (tiles, tn, br))
-    cells = [(f"canonical k={k}", q, c, qp, cp, cbp, k, None)
-             for k in (10, 100, 512)]
-    cells += [(f"2M x 256 batch {b} k=10", qbig[b], big,
-               F.prepare_queries(qbig[b], "cosine", "bf16x3"), cpb, cbpb,
-               10, None) for b in (8, 256)]
-    gen2 = torch.Generator(device="cuda")
-    gen2.manual_seed(cs.SEED + 2)
-    c2, queries2 = cs._blobs(torch, gen2, cs.BIG_ROWS, cs.DIM)
-    proxy = pmt.ClusteredCorpus(c2)
-    del c2
-    q2 = queries2(cs.N_QUERIES)
-    qr, lqp, lcp, lcbp, core, tiles, br = cs._listed_operands(
-        F, proxy, q2, 10, cs.PROBE)
-    assert core == "bf16x3", core
-    cells.append(("2M x 256 f32 clustered probe 0.05 1000 q k=10", qr,
-                  None, lqp, lcp, lcbp, 10,
-                  (tiles, proxy.layout.tn, br)))
 
-    def geometry(qp_, cp_, k, listed, tm=None):
-        m = qp_.shape[0]
-        if listed is None:
-            return F.kernel_geometry(m, cp_.shape[0], k, "bf16x3", dev, tm,
-                                     dim=cs.DIM)
-        tiles_, tn, br_ = listed
-        tm = tm or F.listed_tile_rows(m, k, br_)
-        return F.kernel_geometry(m, tiles_.shape[1] * tn, k, "bf16x3", dev,
-                                 tm, listed=True, dim=cs.DIM)
+    def geometry(cell, tm=None):
+        m = cell.qp.shape[0]
+        if cell.listed is None:
+            return F.kernel_geometry(m, cell.cp.shape[0], cell.k, cell.core,
+                                     dev, tm, dim=cell.dim)
+        tiles, tn, br = cell.listed
+        tm = tm or F.listed_tile_rows(m, cell.k, br)
+        return F.kernel_geometry(m, tiles.shape[1] * tn, cell.k, cell.core,
+                                 dev, tm, listed=True, dim=cell.dim)
 
-    def launch(qp_, cp_, cb_, k, listed, geo):
+    def launch(cell, geo):
         tm, splits, tps = geo
-        extra = () if listed is None else listed
-        return F.fused_topk_partial(qp_, cp_, cb_, None, k, "bf16x3",
-                                    splits, tps, tm, *extra)
+        extra = () if cell.listed is None else cell.listed
+        return F.fused_topk_partial(cell.qp, cell.cp, cell.cbp, None, cell.k,
+                                    cell.core, splits, tps, tm, *extra)
 
-    # Bits at one geometry (this tree's; forced tiles on the canonical
-    # operands).
-    checks = [(f"canonical k=10 at tm {tm}", qp, cp, cbp, 10, None,
-               F.launch_geometry(cs.N_QUERIES, cs.N_CORPUS, 10, sms, 2, tm))
-              for tm in (16, 32, 64)]
-    use("change")
-    checks += [(label, qp_, cp_, cb_, k, listed,
-                geometry(qp_, cp_, k, listed))
-               for label, _, _, qp_, cp_, cb_, k, listed in cells]
-    for label, qp_, cp_, cb_, k, listed, geo in checks:
+    def bits(label, cell, geo):
         outs = {}
         for name in libs:
-            use(name)
-            outs[name] = launch(qp_, cp_, cb_, k, listed, geo)
+            if name != "noselect":
+                use(name)
+                outs[name] = launch(cell, geo)
         torch.cuda.synchronize()
-        pv, pi = outs["parent"]
-        v, i = outs["change"]
-        equal = torch.equal(v, pv) and torch.equal(i, pi)
-        fin = torch.isfinite(pv)
-        diff = float((v[fin] - pv[fin]).abs().max()) if fin.any() else 0
-        print(f"bits: {label} (tm={geo[0]}, splits={geo[1]}): change "
-              f"against the parent: equal {equal}, largest score "
-              f"difference {diff:.3g}")
-        if not equal:
-            raise RuntimeError(f"{label}: the change differs from the "
-                               f"parent on the same mma.sync products")
+        pv, pi = outs.pop("parent")
+        for name, (v, i) in outs.items():
+            equal = torch.equal(v, pv) and torch.equal(i, pi)
+            print(f"bits: {label} (tm={geo[0]}, splits={geo[1]}): {name} "
+                  f"against the parent: equal {equal}")
+            if not equal:
+                raise RuntimeError(f"{label}: {name}'s split lists differ "
+                                   f"from the parent's")
 
     order = list(libs) + list(reversed(list(libs)))
-    for label, qf, cf, qp_, cp_, cb_, k, listed in cells:
-        times = {}
-        for name in order:
-            use(name)
-            geo = geometry(qp_, cp_, k, listed)
-            ms = cs.cuda_ms(lambda: launch(qp_, cp_, cb_, k, listed, geo),
-                            reps=args.reps)
-            times.setdefault(name, []).append((ms, geo))
-        m, n = qp_.shape[0], cp_.shape[0]
-        rows = n if listed is None else listed[0].shape[1] * listed[1]
-        lists = 1 if listed is None else listed[0].shape[0]
-        splits = times["change"][0][1][1]
-        bound = cs._bound(lists * rows * (cp_.shape[1] * 2 + 4) + qp_.nbytes
-                          + m * splits * k * 8, 3 * 2 * m * rows * cs.DIM,
-                          "bfloat16")
-        if listed is None:
-            qn = qf / qf.norm(dim=1, keepdim=True)
-            cn = cf / cf.norm(dim=1, keepdim=True)
-            zero = torch.zeros(n, device="cuda")
+    for group in groups:
+        cells = BUILDERS[group](cs, F, dev)
+        torch.cuda.synchronize()
+        use("change")
+        if group == "canonical":
+            # Every query tile each k can take.
+            for cell in cells:
+                for tm in (16, 32, 64):
+                    if F.query_tile_rows(1000, cell.k) >= tm:
+                        bits(f"{cell.label} at tm {tm}", cell,
+                             F.launch_geometry(cs.N_QUERIES, cs.N_CORPUS,
+                                               cell.k, sms, 2, tm))
+        use("change")
+        for cell in cells:
+            bits(cell.label, cell, geometry(cell))
+        if args.bits_only:
+            continue
+        for cell in cells:
+            times = {}
+            for name in order:
+                use(name)
+                geo = geometry(cell)
+                ms = cs.cuda_ms(lambda: launch(cell, geo), reps=args.reps)
+                times.setdefault(name, []).append((ms, geo))
+            use("change")
+            m, k = cell.qp.shape[0], cell.k
+            if cell.listed is None:
+                lists, rows = 1, cell.cp.shape[0]
+            else:
+                lists = cell.listed[0].shape[0]
+                rows = cell.listed[0].shape[1] * cell.listed[1]
+            splits = times["change"][0][1][1]
+            row_bytes = cell.cp.shape[1] * cell.cp.element_size() + 4 * (
+                cell.cbp.shape[0] if cell.cbp.ndim == 2 else 1)
+            passes, peak = ((1, "float32_cuda_cores")
+                            if cell.core == "highest" else
+                            (3 if cell.core == "bf16x3" else 2, "bfloat16"))
+            bound = cs._bound(lists * rows * row_bytes + cell.qp.nbytes
+                              + m * splits * k * 8,
+                              passes * 2 * m * rows * cell.dim, peak)
+            if cell.lib_q is not None:
+                zero = torch.zeros(cell.lib_c.shape[0], device="cuda",
+                                   dtype=cell.lib_c.dtype)
 
-            def library():
-                with exact_matmul():
-                    return torch.topk(torch.addmm(zero, qn, cn.T), k, dim=1)
+                def library():
+                    with exact_matmul():
+                        return torch.topk(torch.addmm(zero, cell.lib_q,
+                                                      cell.lib_c.T), k, dim=1)
 
-            lib = f"{cs.cuda_ms(library, reps=10):.4f} ms"
-        else:
-            lib = "in chip_smoke.py phase 6"
-        print(f"[{card}] {label}: " + "; ".join(
-            f"{name} {' / '.join(f'{ms:.4f}' for ms, _ in ts)} ms (tm "
-            f"{ts[0][1][0]}, splits {ts[0][1][1]})"
-            for name, ts in times.items())
-            + f" | bound {bound[0]:.4f} ms ({bound[1]}) | torch.addmm + "
-            f"torch.topk f32 {lib}")
+                lib = (f"{cs.cuda_ms(library, reps=10):.4f} ms "
+                       f"({str(cell.lib_c.dtype).split('.')[-1]} rows)")
+            else:
+                lib = "in chip_smoke.py phase 6"
+            print(f"[{card}] {cell.label}: " + "; ".join(
+                f"{name} {' / '.join(f'{ms:.4f}' for ms, _ in ts)} ms (tm "
+                f"{ts[0][1][0]}, splits {ts[0][1][1]})"
+                for name, ts in times.items())
+                + f" | bound {bound[0]:.4f} ms ({bound[1]}) | torch.addmm + "
+                f"torch.topk {lib}")
+        del cells
+        torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
     print("ab_kernel_a: done")
     return 0

@@ -184,6 +184,9 @@ HIGHEST_EDGES = ((9, 129, 1), (33, 700, 3), (20, 1100, 4), (65, 1300, 5),
 HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
                  (16, 10), (16, 100), (16, 512), (16, 1024))
 BF16X3_PLANS = HIGHEST_PLANS
+# The one instantiation of kernel A known to spill (8 B stored, 32 B
+# loaded; ROADMAP.md): phase 1 fails on a spill in any other.
+KNOWN_SPILL = "fused_topk_stored_kernel<16, 2, listed, insert>"
 # The per-tile staging kernel A's bf16x3 core ran before the ring
 # (tile_scores.cuh::scores_bf16x3, which kernel D still runs), writing
 # every score: the reference the ring's mma.sync consumer must equal bit
@@ -338,13 +341,16 @@ def _ptxas_summary(log: str):
                       r"((?:fused_topk_partial|fused_topk_stored|"
                       r"fused_topk_wgmma|fused_topk_f32|topk_merge_tree|"
                       r"topk_merge_best|matmul|floor_stacks)_kernel)"
-                      r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?", line)
+                      r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?(?:Lb(\d)E)?",
+                      line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
             if m.group(1) == "matmul_kernel":
                 args = CORES[int(args)]
             if m.group(4) is not None:
                 args += ", listed" if m.group(4) == "1" else ", dense"
+            if m.group(5) is not None:   # kernel A's selection
+                args += ", append" if m.group(5) == "1" else ", insert"
             name, spill = m.group(1) + (f"<{args}>" if args else ""), ""
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -381,14 +387,12 @@ def phase_build():
     log = str(_build.build_info["log"])
     for line in _ptxas_summary(log):
         print("  ptxas: " + line)
-    # The warpgroup consumer (the stored cores at tm 64): no spills, and
-    # no wgmma that ptxas had to serialize.
+    # Kernel A: no instantiation spills but the one known (bf16c listed at
+    # query tile 16), and no wgmma that ptxas had to serialize.
     for line in _ptxas_summary(log):
-        require("fused_topk_wgmma" not in line or "spills" not in line,
-                f"the warpgroup consumer spills: {line}")
-        require(not re.match(r"fused_topk_(stored|wgmma)_kernel<\d+, [17],",
-                             line) or "spills" not in line,
-                f"kernel A's bf16x3 core spills: {line}")
+        require(not re.match(r"fused_topk_(stored|wgmma|f32)_kernel<", line)
+                or line.startswith(KNOWN_SPILL) or "spills" not in line,
+                f"kernel A spills: {line}")
     for line in log.splitlines():
         if "wgmma" in line and "serialized" in line:
             print("  ptxas: " + line.strip())
@@ -612,6 +616,75 @@ def _ring_edges(F, torch, gen, err):
                                   tn, m, err, "a list past the corpus, "
                                   + what, scale=scale, exact=tie)
                     cases += 3
+    torch.cuda.synchronize()
+    return cases
+
+
+# Kernel A's appending selection (k > 16): the k it is held at, and masks
+# of (valid rows a tile) over a split's first tiles that put exactly the
+# slack's entries, or one more, in it before the next tile (the empty
+# carry takes every valid score): k=100 (a slack of 100) and k=512 (192).
+SELECT_KS = (17, 32, 33, 100, 128, 129, 256, 512, 1024)
+SLACK_EDGES = ((100, (64, 36)), (100, (64, 37)), (512, (64, 64, 64)),
+               (512, (64, 64, 63, 1)), (512, (64, 64, 63, 2)),
+               (17, (17, 1)), (17, (18,)))
+
+
+def _selection_edges(F, torch, gen, err):
+    """Kernel A's appending selection against its plain version, bit for
+    bit on integer tie data: every k of SELECT_KS in the bf16x3, highest
+    and int8c cores (int8c at 65 queries: the warpgroup consumer's 4-tile
+    steps), at the main path's geometry, in splits of one and two tiles
+    (shorter than k), half the query rows zero, with a mask that drops a
+    third of the rows and every row of whole splits, and walking a list;
+    then the slack's edges (SLACK_EDGES), each split filling it exactly
+    and one entry past.  Returns the cases."""
+    cases = 0
+    m_of = {"bf16x3": 37, "highest": 37, "int8c": 65}
+    n, dim = 3000, 56
+    keep = torch.rand((n,), generator=gen, device="cuda") < 0.66
+    keep[n // 3: n // 3 + 640] = False
+    masks = (None, F.pad_mask_row(keep, n))
+    layout, tn = -(-n // 128), 128
+    tiles = torch.tensor([list(range(0, layout, 2))], dtype=torch.int32,
+                         device="cuda")
+    for precision, m in m_of.items():
+        q, c = _tie_data(torch, gen, m, n, dim)
+        q[::2] = 0.0
+        qp = F.prepare_queries(q, "dot", precision)
+        cp, cbp = F.prepare_corpus(c, "dot", precision=precision)
+        for k in SELECT_KS:
+            tm = F.query_tile_rows(m, k)
+            for mask in masks:
+                what = (f"selection m={m} n={n} k={k} {precision} "
+                        f"mask={mask is not None}")
+                _check_kernels(F, qp, cp, cbp, mask, k, precision, err, what,
+                               exact=True)
+                for tps in (1, 2):
+                    splits = -(-n // (tps * F._TN))
+                    pv, pi = F.fused_topk_partial(qp, cp, cbp, mask, k,
+                                                  precision, splits, tps, tm)
+                    compare(pv, pi, *F.fused_topk_partial_plain(
+                        qp, cp, cbp, mask, k, precision, splits, tps),
+                        exact=True, what=f"splits of {tps} tiles, " + what)
+                _check_listed(F, qp, cp, cbp, mask, k, precision, tiles, tn,
+                              m, err, "listed " + what, exact=True)
+                cases += 4
+        for k, counts in SLACK_EDGES:
+            tps = len(counts) + 2
+            rows = tps * F._TN
+            valid = torch.ones(rows, dtype=torch.bool, device="cuda")
+            for t, cnt in enumerate(counts):
+                valid[t * F._TN + cnt:(t + 1) * F._TN] = False
+            mask = F.pad_mask_row(valid.repeat(-(-n // rows))[:n], n)
+            splits = -(-n // rows)
+            pv, pi = F.fused_topk_partial(qp, cp, cbp, mask, k, precision,
+                                          splits, tps,
+                                          F.query_tile_rows(m, k))
+            compare(pv, pi, *F.fused_topk_partial_plain(
+                qp, cp, cbp, mask, k, precision, splits, tps), exact=True,
+                what=f"slack edge k={k} tiles {counts} {precision}")
+            cases += 1
     torch.cuda.synchronize()
     return cases
 
@@ -979,6 +1052,14 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
         ties += _check_shape(F, torch, gen, q, c, (1, 10, 100), err,
                              "ragged", tie=True, precisions=F.CORES)
     edges = _ring_edges(F, torch, gen, err)
+    t0 = time.perf_counter()
+    selection = _selection_edges(F, torch, gen, err)
+    print(f"phase 2: kernel A's appending selection: {selection} cases "
+          f"bit-identical to its plain version (k={SELECT_KS}; bf16x3, "
+          f"highest, int8c at query tile 64 in 4-tile steps; main geometry, "
+          f"splits of 1 and 2 tiles, zero query rows, masked rows and whole "
+          f"splits, a tile list; the slack filled exactly and one past at "
+          f"k=17/100/512); {time.perf_counter() - t0:.1f} s")
     _check_quantizers(F, torch, gen)
     t0 = time.perf_counter()
     merges, grouped, shared = _merge_sweep(F, torch, gen)
@@ -1201,12 +1282,11 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
     cn = c / c.norm(dim=1, keepdim=True)
     zero = torch.zeros(N_CORPUS, device="cuda")
 
-    def library():
+    def library(k):
         with exact_matmul():
-            return torch.topk(torch.addmm(zero, qn, cn.T), 10, dim=1)
+            return torch.topk(torch.addmm(zero, qn, cn.T), k, dim=1)
 
-    lib = cuda_ms(library)
-    shape = f"{N_QUERIES}x{N_CORPUS}x{DIM} cosine k=10"
+    libs = {k: cuda_ms(lambda: library(k)) for k in (10, 100, 512)}
     per_kernel = {}
     for k, precision in CANON_TIERS:
         qp = F.prepare_queries(q, "cosine", precision)
@@ -1228,18 +1308,20 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                                       splits, tps, tm)
         b = cuda_ms(lambda: F.topk_merge(pv, pi, k))
         b_plain = cuda_ms(lambda: F.topk_merge_plain(pv, pi, k))
-        if k == 10:
+        if k == 10 or precision == "highest":
+            # The kernels line: each core at k=10, highest at k=100 and
+            # 512 too (the appending selection).
             passes, peak = ((3, "bfloat16") if precision == "bf16x3"
                             else (1, "float32_cuda_cores"))
             a_bound = _bound(
                 qp.nbytes + cp.nbytes + cbp.nbytes + pv.nbytes + pi.nbytes,
                 passes * 2 * N_QUERIES * N_CORPUS * DIM, peak)
-            per_kernel[precision] = _entry(
-                a, a_plain, lib, "torch.addmm + torch.topk (f32)", a_bound,
-                shape)
-            print(f"phase 6: [{card}] canonical k=10 {precision}: kernel A "
+            per_kernel[precision + ("" if k == 10 else f".k{k}")] = _entry(
+                a, a_plain, libs[k], "torch.addmm + torch.topk (f32)",
+                a_bound, f"{N_QUERIES}x{N_CORPUS}x{DIM} cosine k={k}")
+            print(f"phase 6: [{card}] canonical k={k} {precision}: kernel A "
                   f"bound {a_bound[0]:.4f} ms ({a_bound[1]}); library "
-                  f"torch.addmm + torch.topk {lib:.4f} ms")
+                  f"torch.addmm + torch.topk {libs[k]:.4f} ms")
         if (k, precision) == CANON_TIERS[0]:
             # A call timed by events, as every entry is; kernel B finishes
             # well before a call's Python enqueue does, so its device time
@@ -2609,6 +2691,12 @@ def main() -> int:
                      "launches": launches[core], "max_abs_err": err[core]},
                     **per_kernel[core])
                for core in F.CORES]
+    kernels += [dict({"name": f"fused_topk_partial.highest.k{k}",
+                      "route": "cuda", "source": KERNEL_SRC + "fused_topk.cu",
+                      "replaces": f"{TPU_KERNEL}:{CORE_LINE['highest']}",
+                      "launches": launches["highest"],
+                      "max_abs_err": err["highest"]},
+                     **per_kernel[f"highest.k{k}"]) for k in (100, 512)]
     kernels += [dict({"name": f"fused_topk_partial.{core}.wgmma",
                       "route": "cuda", "source": KERNEL_SRC + "ring_wgmma.cuh",
                       "replaces": f"{TPU_KERNEL}:{CORE_LINE[core]}",

@@ -77,11 +77,10 @@
 // query once a block where it fits (PERF.md has the times; the fragments
 // are still re-read per warp).  The selection looks only at the tile
 // scores that beat the row's current k-th value (strict >, so a later
-// index never displaces an equal earlier one), which after the first tiles
-// of a split is a small fraction of them.  A few are inserted one by one,
-// each a warp-wide count and shift of the sorted carry; many (the first
-// tiles of a split) are sorted in the warp and merged into the carry in
-// one pass.
+// index never displaces an equal earlier one).  Up to k = 16 they are
+// inserted into the sorted carry; above it they are appended to a slack
+// and compacted into the carry in batches (the selection's section below
+// says why).
 //
 // "highest" needs 5.1 G f32 FMA at the canonical shape, 0.076 ms at the
 // 67 TFLOP/s FMA peak.  The per-tile core it replaced staged each tile with
@@ -96,7 +95,7 @@
 // (a 4 x 8 tile read less and ran no faster; 32 features a position at
 // query tile 64 beat 16; an 8 x 8 tile spills at two blocks an SM), and
 // the selection, on the same warps, takes about a third of the canonical
-// k=10 time and most of it at k >= 100.
+// k=10 time and about half at k >= 100.
 //
 // The stored cores serve corpora too large for f32.  At the 10M x 768
 // north-star shape a batch-8 int8 request must read 7.68 GB of codes plus
@@ -151,8 +150,61 @@ namespace {
 
 constexpr int kINT32_MAX = 0x7fffffff;
 
+// ---------------------------------------------------------------------------
+// The selection and carry.
+//
+// Each query row keeps a carry of k entries in shared memory, sorted by
+// (value desc, index asc), ready to write out.  Its k-th value is the
+// row's threshold: a tile's score is a candidate only if it beats it
+// (strict >, so a later index never displaces an equal earlier one, and
+// NaN and -inf never enter).  One warp takes a row's turn on each tile.
+//
+// k up to kInsertMaxK inserts the candidates one by one (select_tile): a
+// warp-wide count and shift of the carry each, or, for many, a sort of
+// the tile's 64 and one merge pass.  Above it, each is O(k / 32) a
+// candidate or O(k) a tile, and at the canonical shape a sixth to a
+// quarter of a split's scores are candidates.  There the candidates are
+// appended (append_tile): a ballot and a prefix count place them at the
+// end of the row's unsorted slack, with no search and no shift.  When the
+// slack cannot take a tile's candidates, the slack and the tile are
+// compacted at once (compact_row): 128 keys at a time sorted in registers
+// by a bitonic network, then merged into the carry by bitonic merges of
+// carry chunks in registers, which raises the threshold.  At the end of
+// the split the slack is compacted once more.  The order is decided on
+// exact 64-bit keys (sel_key), so the carry is the insertion's bit for
+// bit, and nothing needs re-running.  Each kernel is built twice, with
+// the insertion and with the appending selection (APPEND), so that
+// neither carries the other's code and registers.
+//
+// The slack lives in the block's own output rows, part_v / part_i[row]
+// [split][0, slack_entries(k)) (k entries a row, unused until the carry
+// is written out, L2-resident in practice): the shared memory plans leave
+// no room for one at the canonical query tile 64, k = 100, without losing
+// two blocks an SM (PERF.md).  Shared memory keeps the insertion's
+// layout: the score tile, the carry, then 2 kWarps kTN words for the
+// insertion's merge lists, of which the slack's counts take TM.
+// ---------------------------------------------------------------------------
+
+// The largest k that inserts; larger k appends (chosen by measurement on
+// the H100, PERF.md).
+constexpr int kInsertMaxK = 16;
+// Slack entries a row at most.
+constexpr int kSlackMax = 192;
+
+__host__ __device__ constexpr bool appends(int k) { return k > kInsertMaxK; }
+
+// Slack entries of a row at this k: with a tile's 64 scores they fill two
+// batches of 128 keys (k >= kSlackMax) or one (k >= 64), else the row's
+// k output slots.  Chosen by measurement on the H100 (PERF.md): at k =
+// 100 a slack of 100 (two batches a compaction, the second mostly empty)
+// cost more than one of 64; at k = 512 a slack of 64 cost more than one
+// of 192.
+__host__ __device__ constexpr int slack_entries(int k) {
+  return k >= kSlackMax ? kSlackMax : k >= 64 ? 64 : k;
+}
+
 // Shared memory after the staging: the score tile, the carry, the merge
-// lists.
+// lists (the slack's counts).
 __host__ __device__ inline size_t tail_bytes(int tm, int k) {
   return (size_t)tm * (kTN + 1) * sizeof(float)              // score tile
        + 2 * (size_t)tm * k * sizeof(float)                  // carry
@@ -271,10 +323,10 @@ __device__ __noinline__ void carry_merge(float* cv, int* ci, int k, float s0,
   __syncwarp();
 }
 
-// Merge one TM x TN score tile into the carries: one warp per query row.
-// Few candidates (scores above the row's k-th value) are inserted one by
-// one in index order; many are merged at once (carry_merge), which costs
-// a sort of the 64 plus one pass over the carry.
+// The inserting selection of one TM x TN score tile (k <= kInsertMaxK):
+// one warp per query row.  Few candidates are inserted one by one in
+// index order; many are merged at once (carry_merge), which costs a sort
+// of the 64 plus one pass over the carry.
 template <int TM>
 __device__ inline void select_tile(const float* St, float* Cv, int* Ci,
                                    float* lv, int* li, int k, int n0,
@@ -308,6 +360,271 @@ __device__ inline void select_tile(const float* St, float* Cv, int* Ci,
       }
     }
   }
+}
+
+// The order of the selection as one 64-bit key, the greater the better:
+// the high word holds the value's orderable bits, -0.0 taken as +0.0 (so
+// the order is the float compare's), the low word ~(2 index + [the value
+// is -0.0]), so the lower index wins a tie and the key gives back the
+// value's bits.  Real entries' keys are distinct and above kEmptyKey, the
+// key of an empty slot (-inf, INT32_MAX).  fused_topk.select_keys is the
+// host's mirror.
+__device__ inline uint64_t sel_key(float v, int i) {
+  uint32_t u = __float_as_uint(v);
+  const uint32_t nz = u == 0x80000000u;
+  if (nz) u = 0u;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((uint64_t)u << 32) | (uint32_t)~(2u * (uint32_t)i + nz);
+}
+
+constexpr uint64_t kEmptyKey = 0x007fffff00000001ull;
+
+__device__ inline float key_value(uint64_t key) {
+  const uint32_t h = (uint32_t)(key >> 32);
+  uint32_t u = (h & 0x80000000u) ? (h & 0x7fffffffu) : ~h;
+  if (u == 0u && ((uint32_t)key & 1u) == 0u) u = 0x80000000u;   // -0.0
+  return __uint_as_float(u);
+}
+
+__device__ inline int key_index(uint64_t key) {
+  return (int)(~(uint32_t)key >> 1);
+}
+
+// One stage of a bitonic network over 32 E keys, key e * 32 + lane in
+// a[e]: keys x and x ^ STRIDE compare; where x & SIZE is clear the block
+// runs best first (the key whose x has the STRIDE bit clear keeps the
+// greater), elsewhere worst first.
+template <int E, int SIZE, int STRIDE>
+__device__ __forceinline__ void key_stage(uint64_t (&a)[E], int lane) {
+  if constexpr (STRIDE >= 32) {   // two of the lane's registers
+    constexpr int R = STRIDE / 32;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((e & R) != 0) continue;
+      const bool best_first = ((e * 32) & SIZE) == 0;
+      const uint64_t x = a[e], y = a[e + R];
+      const bool swap = best_first ? x < y : y < x;
+      a[e] = swap ? y : x;
+      a[e + R] = swap ? x : y;
+    }
+  } else {   // one register of two lanes
+    const bool low = (lane & STRIDE) == 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool best_first = ((e * 32 + lane) & SIZE) == 0;
+      const uint64_t y = __shfl_xor_sync(0xffffffffu, a[e], STRIDE);
+      const bool greater = low == best_first;
+      a[e] = (a[e] > y) == greater ? a[e] : y;
+    }
+  }
+}
+
+// Stages STRIDE, STRIDE / 2, ..., 1 of the network: with SIZE above 32 E,
+// a bitonic sequence of 32 E keys sorted best first.
+template <int E, int SIZE, int STRIDE>
+__device__ __forceinline__ void key_merge(uint64_t (&a)[E], int lane) {
+  if constexpr (STRIDE > 0) {
+    key_stage<E, SIZE, STRIDE>(a, lane);
+    key_merge<E, SIZE, STRIDE / 2>(a, lane);
+  }
+}
+
+// Sort 32 E keys best first (blocks of SIZE and up).
+template <int E, int SIZE = 2>
+__device__ __forceinline__ void key_sort(uint64_t (&a)[E], int lane) {
+  if constexpr (SIZE <= 32 * E) {
+    key_merge<E, SIZE, SIZE / 2>(a, lane);
+    key_sort<E, SIZE * 2>(a, lane);
+  }
+}
+
+// Merge the sorted keys a (32 E, best first, empty slots last) into the
+// carry row (cv, ci) of k sorted entries, keeping the best k.  From the
+// first entry the best key beats, chunk by chunk of 32 E entries: the
+// chunk, reversed after a, is a bitonic sequence; its better half, sorted,
+// goes back in the chunk's place and its worse half goes on to the next
+// chunk.  Whole warp calls.
+template <int E>
+__device__ inline void merge_into_carry(float* cv, int* ci, int k,
+                                        uint64_t (&a)[E], int lane) {
+  constexpr int P = 32 * E;
+  const uint64_t top = __shfl_sync(0xffffffffu, a[0], 0);
+  if (top == kEmptyKey) return;
+  int pos = 0, hi = k;   // the entries better than every key stay
+  while (pos < hi) {
+    const int mid = (pos + hi) >> 1;
+    if (sel_key(cv[mid], ci[mid]) > top) pos = mid + 1; else hi = mid;
+  }
+  for (; pos < k; pos += P) {
+    uint64_t b[E];   // the chunk, reversed
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int p = pos + P - 1 - (e * 32 + lane);
+      b[e] = p < k ? sel_key(cv[p], ci[p]) : kEmptyKey;
+    }
+    __syncwarp();   // every read of the chunk before its writes
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const uint64_t x = a[e], y = b[e];
+      a[e] = x > y ? x : y;
+      b[e] = x > y ? y : x;
+    }
+    key_merge<E, 2 * P, P / 2>(a, lane);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int p = pos + e * 32 + lane;
+      if (p < k) {
+        cv[p] = key_value(a[e]);
+        ci[p] = key_index(a[e]);
+      }
+    }
+    // The worse half holds real keys while the carry below is full.
+    bool real = false;
+#pragma unroll
+    for (int e = 0; e < E; ++e) real |= b[e] != kEmptyKey;
+    if (pos + P >= k || !__any_sync(0xffffffffu, real)) break;
+    key_merge<E, 2 * P, P / 2>(b, lane);
+#pragma unroll
+    for (int e = 0; e < E; ++e) a[e] = b[e];
+  }
+  __syncwarp();
+}
+
+// The keys of a compaction, 32 E of them: with `tile`, the tile's
+// candidates (c0, c1: scores s0, s1 of corpus rows n0 + lane and n0 + 32 +
+// lane) as keys lane and 32 + lane, then the slack's nb entries (sv, si);
+// empty slots after.
+template <int E>
+__device__ __forceinline__ void compact_keys(uint64_t (&a)[E],
+                                             const float* sv, const int* si,
+                                             int nb, bool tile, float s0,
+                                             float s1, bool c0, bool c1,
+                                             int n0, int lane) {
+  const int base = tile ? 64 : 0;   // the slack's first key
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int x = e * 32 + lane;
+    if (e < 2 && tile) {
+      a[e] = (e ? c1 : c0) ? sel_key(e ? s1 : s0, n0 + x) : kEmptyKey;
+    } else {
+      const int j = x - base;
+      a[e] = j >= 0 && j < nb ? sel_key(sv[j], si[j]) : kEmptyKey;
+    }
+  }
+}
+
+// Keys a lane of a compaction batch: 4 (batches of 128 keys), but 2 (of
+// 64) in the int4 core's walk at query tile 32, where ptxas found no
+// registers for 4 beside the walk's (it spilled).
+__host__ __device__ constexpr int compact_lanes(int tm, int core) {
+  return core == kInt4c && tm == 32 ? 2 : 4;
+}
+
+// Compact a row: the tile's candidates (with `tile`) and the slack's nb
+// entries, in batches of 32 E keys (E a lane: the tile and the slack's
+// first 32 E - 64 entries, then the slack's next 32 E), each sorted in
+// registers and merged into the carry.  Whole warp calls.  Inline, at
+// few keys a lane: as a call, ptxas saved the walk's live registers
+// around it, and with 8 keys a lane it spilled.
+template <int E>
+__device__ __forceinline__ void compact_row(float* cv, int* ci, int k,
+                                            const float* sv, const int* si,
+                                            int nb, bool tile, float s0,
+                                            float s1, bool c0, bool c1,
+                                            int n0, int lane) {
+  int first = 0;   // the batch's first slack entry
+#pragma unroll 1
+  for (;;) {
+    uint64_t a[E];
+    const int take = tile ? 32 * E - 64 : 32 * E;
+    compact_keys<E>(a, sv + first, si + first, min(nb - first, take), tile,
+                    s0, s1, c0, c1, n0, lane);
+    key_sort<E>(a, lane);
+    merge_into_carry<E>(cv, ci, k, a, lane);
+    first += take;
+    tile = false;
+    if (first >= nb) break;
+  }
+}
+
+// The appending selection's state: the carries (TM x k values at Cv, then
+// TM x k indices), then, in the insertion's merge lists' place, each
+// row's slack count; the slack of query row r is its output row's first
+// slack_entries(k) slots.  The kernels pass Cv and their arguments, and
+// everything else is derived here, so the walk keeps none of it live.
+template <int TM>
+__device__ inline int* carry_ids(float* Cv, int k) {
+  return reinterpret_cast<int*>(Cv + (size_t)TM * k);
+}
+template <int TM>
+__device__ inline int* slack_counts(float* Cv, int k) {
+  return carry_ids<TM>(Cv, k) + (size_t)TM * k;
+}
+
+// The appending selection of one TM x kTN score tile (k > kInsertMaxK):
+// one warp per query row.  A row's candidates go to the end of its slack;
+// when the slack cannot take them, the slack and the tile compact into
+// the carry at once.  part_v, part_i, row0, splits, split: the kernel's
+// output and the block's place in it.  The slack's place, its count and
+// the carry's indices are derived where they are used: held across the
+// row loop they cost the walks registers they do not have.
+template <int TM, int E>
+__device__ inline void append_tile(const float* St, float* Cv, int k, int n0,
+                                   int rows_valid, int warp, int lane,
+                                   float* part_v, int* part_i, int row0,
+                                   int splits, int split) {
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    float* cv = Cv + (size_t)r * k;
+    const float s0 = St[r * (kTN + 1) + lane];
+    const float s1 = St[r * (kTN + 1) + 32 + lane];
+    const float kth = cv[k - 1];
+    const bool c0 = s0 > kth, c1 = s1 > kth;
+    const unsigned b0 = __ballot_sync(0xffffffffu, c0);
+    const unsigned b1 = __ballot_sync(0xffffffffu, c1);
+    const int cnt = __popc(b0) + __popc(b1);
+    if (cnt == 0) continue;
+    int* count = slack_counts<TM>(Cv, k) + r;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k;
+    const int nb = *count;
+    if (nb + cnt > slack_entries(k)) {
+      compact_row<E>(cv, carry_ids<TM>(Cv, k) + (size_t)r * k, k,
+                     part_v + o, part_i + o, nb, true, s0, s1, c0, c1, n0,
+                     lane);
+      if (lane == 0) *count = 0;
+    } else {
+      const unsigned below = (1u << lane) - 1u;
+      if (c0) {
+        const size_t j = o + nb + __popc(b0 & below);
+        part_v[j] = s0;
+        part_i[j] = n0 + lane;
+      }
+      if (c1) {
+        const size_t j = o + nb + __popc(b0) + __popc(b1 & below);
+        part_v[j] = s1;
+        part_i[j] = n0 + 32 + lane;
+      }
+      if (lane == 0) *count = nb + cnt;
+    }
+    __syncwarp();
+  }
+}
+
+// The appending selection's end of a split, after the walk's last
+// barrier: compact what each row's slack still holds, then a barrier
+// before the carries are written out over it.
+template <int TM, int E>
+__device__ inline void flush_slack(float* Cv, int k, int rows_valid, int warp,
+                                   int lane, float* part_v, int* part_i,
+                                   int row0, int splits, int split) {
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const int nb = slack_counts<TM>(Cv, k)[r];
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k;
+    if (nb > 0)
+      compact_row<E>(Cv + (size_t)r * k,
+                     carry_ids<TM>(Cv, k) + (size_t)r * k, k, part_v + o,
+                     part_i + o, nb, false, 0.f, 0.f, false, false, 0, lane);
+  }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -443,7 +760,7 @@ __device__ inline void f32_products(const float* qr, int qs, const float* cr,
 // The highest core's walk: the ring, the register tiles, then the
 // selection of each of the step's tiles in walk order.  Two blocks an SM:
 // f32_plan keeps their shared memory, the bound their registers.
-template <int TM, bool LISTED>
+template <int TM, bool LISTED, bool APPEND>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_topk_f32_kernel(const float* __restrict__ q,
                       const float* __restrict__ c,
@@ -502,6 +819,9 @@ fused_topk_f32_kernel(const float* __restrict__ q,
     Cv[e] = -INFINITY;
     Ci[e] = kINT32_MAX;
   }
+  if constexpr (APPEND)   // the slack counts
+    for (int r = tid; r < TM; r += kThreads)
+      reinterpret_cast<int*>(Lv)[r] = 0;
 
   // The producer: the next position (its step's first tile, its chunk)
   // into stage `to`; one commit group a position, empty or not.  The first
@@ -579,13 +899,19 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                 epilogue(acc[i][j], n0 + col + 8 * j, n, nullptr, cb, mask);
       }
       __syncthreads();
-      select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
-                      rows_valid, warp, lane);
+      if constexpr (APPEND)
+        append_tile<TM, 4>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
+                        part_i, row0, splits, split);
+      else
+        select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
+                        rows_valid, warp, lane);
     }
   }
   cp_async_wait<0>();
   __syncthreads();
-
+  if constexpr (APPEND)
+    flush_slack<TM, 4>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
+                    splits, split);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -600,7 +926,7 @@ fused_topk_f32_kernel(const float* __restrict__ q,
 // their registers.  LISTED instantiates the probed walk apart from the
 // dense one: sharing one instantiation moved the dense cores' register
 // allocation and slowed some of them by up to 13 % on the H100 (PERF.md).
-template <int TM, int CORE, bool LISTED>
+template <int TM, int CORE, bool LISTED, bool APPEND>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          const void* __restrict__ cp,
@@ -641,14 +967,25 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
     Cv[e] = -INFINITY;
     Ci[e] = kINT32_MAX;
   }
+  if constexpr (APPEND)   // the slack counts
+    for (int r = tid; r < TM; r += kThreads)
+      reinterpret_cast<int*>(Lv)[r] = 0;
   ring_walk<TM, CORE, LISTED>(
       qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
       m, n, dim, c_ld, ck, t_begin, t_end, stages, q_resident, vec,
       [&](int, int n0) {
-        select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k, n0,
-                        rows_valid, warp, lane);
+        if constexpr (APPEND)
+          append_tile<TM, compact_lanes(TM, CORE)>(
+              St, Cv, k, n0, rows_valid, warp, lane, part_v, part_i, row0,
+              splits, split);
+        else
+          select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k,
+                          n0, rows_valid, warp, lane);
       });
-
+  if constexpr (APPEND)
+    flush_slack<TM, compact_lanes(TM, CORE)>(Cv, k, rows_valid, warp, lane,
+                                             part_v, part_i, row0, splits,
+                                             split);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -661,7 +998,7 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
 // warpgroup products of ring_wgmma.cuh as consumer, each warpgroup on its
 // own kernel tiles (kWgTiles a step), the same selection on each tile's
 // scores in walk order.
-template <int TM, int CORE, bool LISTED>
+template <int TM, int CORE, bool LISTED, bool APPEND>
 __global__ void __launch_bounds__(kThreads, kWgBlocks)
 fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
                         const void* __restrict__ cp,
@@ -701,6 +1038,9 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
     Cv[e] = -INFINITY;
     Ci[e] = kINT32_MAX;
   }
+  if constexpr (APPEND)   // the slack counts
+    for (int r = tid; r < TM; r += kThreads)
+      reinterpret_cast<int*>(Lv)[r] = 0;
   wg_walk<CORE, LISTED>(
       qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
       m, n, dim, c_ld, ck, t_begin, t_end, stages, vec,
@@ -708,12 +1048,20 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
         // A row's warp takes the step's tiles in order.
 #pragma unroll 1
         for (int j = 0; j < kWgTiles; ++j)
-          if (step.n0[j] >= 0)
-            select_tile<TM>(St + j * TM * (kTN + 1), Cv, Ci, Lv + warp * kTN,
-                            Li + warp * kTN, k, step.n0[j], rows_valid, warp,
-                            lane);
+          if (step.n0[j] >= 0) {
+            if constexpr (APPEND)
+              append_tile<TM, 4>(St + j * TM * (kTN + 1), Cv, k, step.n0[j],
+                              rows_valid, warp, lane, part_v, part_i, row0,
+                              splits, split);
+            else
+              select_tile<TM>(St + j * TM * (kTN + 1), Cv, Ci,
+                              Lv + warp * kTN, Li + warp * kTN, k,
+                              step.n0[j], rows_valid, warp, lane);
+          }
       });
-
+  if constexpr (APPEND)
+    flush_slack<TM, 4>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
+                    splits, split);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -766,21 +1114,26 @@ RingPlan stored_plan(int k, int c_ld) {
   }
 }
 
-// Kernel<TM, CORE, LISTED>, its shared memory (0 where it cannot fit) and
-// its ring.
+// Kernel<TM, CORE, LISTED, appends(k)>, its shared memory (0 where it
+// cannot fit) and its ring.
 template <int TM, int CORE, bool LISTED>
 auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
   plan = stored_plan<TM, CORE>(k, c_ld);
   bytes = plan.bytes;
+  const bool app = appends(k);
   if constexpr (wgmma_core<TM, CORE>()) {
-    return fused_topk_wgmma_kernel<TM, CORE, LISTED>;
+    return app ? fused_topk_wgmma_kernel<TM, CORE, LISTED, true>
+               : fused_topk_wgmma_kernel<TM, CORE, LISTED, false>;
   } else if constexpr (CORE == kHighest) {
-    return fused_topk_f32_kernel<TM, LISTED>;
+    return app ? fused_topk_f32_kernel<TM, LISTED, true>
+               : fused_topk_f32_kernel<TM, LISTED, false>;
   } else {
     if constexpr (CORE == kBf16x3 && TM != 32)
       if (ring_core<TM, CORE>(k, c_ld) == kBf16x3W)
-        return fused_topk_stored_kernel<TM, kBf16x3W, LISTED>;
-    return fused_topk_stored_kernel<TM, CORE, LISTED>;
+        return app ? fused_topk_stored_kernel<TM, kBf16x3W, LISTED, true>
+                   : fused_topk_stored_kernel<TM, kBf16x3W, LISTED, false>;
+    return app ? fused_topk_stored_kernel<TM, CORE, LISTED, true>
+               : fused_topk_stored_kernel<TM, CORE, LISTED, false>;
   }
 }
 

@@ -920,6 +920,65 @@ def tail_bytes(tm: int, k: int) -> int:
     return tm * (_TN + 1) * 4 + 2 * tm * k * 4 + 2 * 8 * _TN * 4
 
 
+# Kernel A's selection (``csrc/fused_topk.cu``): k up to INSERT_MAX_K
+# inserts each candidate into the row's sorted carry; a larger k appends
+# the candidates to a slack of ``slack_entries(k)`` entries a row (kept in
+# the block's own k output slots) and compacts the slack into the carry
+# when a tile's candidates do not fit, and at the end of the split.
+INSERT_MAX_K, SLACK_MAX = 16, 192
+
+
+def compact_lanes(tm: int, precision: str) -> int:
+    """Keys a lane of one compaction batch of kernel A (``compact_lanes``
+    in the source): 4 (batches of 128 keys), 2 for the int4 core at query
+    tile 32."""
+    return 2 if precision == "int4c" and tm == 32 else 4
+
+
+def slack_entries(k: int) -> int:
+    """Slack entries a row of kernel A's appending selection: with a
+    tile's 64 scores they fill 256 keys (k >= SLACK_MAX) or 128 (k >= 64),
+    else the row's k output slots."""
+    return SLACK_MAX if k >= SLACK_MAX else 64 if k >= 64 else k
+
+
+_HI = 1 << 32
+
+
+def select_keys(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Kernel A's order keys (``sel_key`` in the source) of f32 ``values``
+    and int32 ``indices``, the greater the better: the high word the
+    value's orderable bits with -0.0 taken as +0.0, the low word ~(2 index
+    + [the value is -0.0]).  Returned as int64 less 2^63, so that int64
+    order is the keys' unsigned order."""
+    u = values.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & (_HI - 1)
+    nz = u == 0x80000000
+    u = torch.where(nz, torch.zeros_like(u), u)
+    hi = torch.where(u >= 0x80000000, ~u & (_HI - 1), u | 0x80000000)
+    lo = ~(2 * indices.to(torch.int64) + nz.to(torch.int64)) & (_HI - 1)
+    return (hi - (1 << 31)) * _HI + lo
+
+
+def key_values(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 values of ``select_keys`` keys, -0.0 included."""
+    hi = (keys >> 32) + (1 << 31)
+    lo = keys & (_HI - 1)
+    u = torch.where(hi >= 0x80000000, hi & 0x7FFFFFFF, ~hi & (_HI - 1))
+    u = torch.where((u == 0) & (lo & 1 == 0), torch.full_like(u, 0x80000000),
+                    u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def key_indices(keys: torch.Tensor) -> torch.Tensor:
+    """The int32 indices of ``select_keys`` keys."""
+    return ((~(keys & (_HI - 1)) & (_HI - 1)) >> 1).to(torch.int32)
+
+
+# The key of an empty slot (-inf, INT32_MAX), below every real key.
+EMPTY_KEY = (0x007FFFFF - (1 << 31)) * _HI + 1
+
+
 # Kernel A's warpgroup consumer (``csrc/ring_wgmma.cuh``): the
 # same ring of raw bytes, WG_TILES kernel tiles a step (WG_TPW for each of
 # two warpgroups), the query columns as wgmma core matrices, at most
