@@ -97,7 +97,23 @@ Phases, each printing one line or a few:
    256; the floors JSON goes to ``build/floors.json``), counted; and each
    core's time at its experiment's shape beside kernel A's there, its
    plain version's, the library yardstick's and the bound (D's bf16x3
-   still stages per tile: ``scores_bf16x3``).
+   still stages per tile: ``scores_bf16x3``);
+11. corpus mutation, each path with its own phase 5 counts: phase 7's
+   10M x 768 int8 corpus built from its first 9,990,000 rows with
+   ``capacity=10_000_000``, its last 10,000 rows added back in 10 adds
+   of 1,000 from a CUDA tensor (the storage and the prepared form keep
+   their addresses), 10,000 rows updated and 100,000 ids deleted, then
+   phase 7's four requests held to a float64 oracle over the live stored
+   rows with no deleted id returned; kernel A and the requests timed at
+   capacity 1.01 n, at capacity=None and on the mutated corpus, in
+   turns; phase 4's 2M x 256 f32 corpus grown by one add past capacity,
+   then held to the float64 oracle; phase 8's 10M x 768 int8 blob
+   mixture built with 64 reserve tiles, 100,000 rows added (placed in
+   tile-tail slack, claimed reserve tiles and appended tiles, all
+   required), 10,000 updated and 10,000 deleted, probed and exhaustive
+   requests held to the float64 oracle over the live visited rows, then
+   ``rebuild()`` (drift 0, no dead tile, the same exhaustive ids); each
+   mutation call's host time and probed recall@10 before and after.
 
 The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
 listed), kernel B (``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``,
@@ -1482,24 +1498,29 @@ def _wide_tie_corpus(pmt, F, torch, tier, gen, chunk=1 << 20):
     return pmt.Corpus(rows, storage="bf16")
 
 
-def _oracle_stored(F, torch, corpus, q, k, chunk=250_000):
+def _oracle_stored(F, torch, corpus, q, k, chunk=250_000, alive=None):
     """float64 cosine top-k over what the tier stores: the codes for int8
     and int4 (their scale cancels), the prepared rows for bf16 (rows
     normalised in f32 and rounded to bf16, which the kernel scores as
-    they are)."""
+    they are); its n rows, without the rows ``alive`` (a device bool over
+    the n rows) marks False."""
     qn = q.double()
     qn = qn / qn.norm(dim=1, keepdim=True)
     rows_all = (corpus._prepared_for(F.Metric.COSINE)[0]
                 if corpus.storage == "bf16" else corpus._device)
     best_v, best_i = [], []
     for r0 in range(0, corpus.n, chunk):
-        blk = rows_all[r0:r0 + chunk]
+        r1 = min(corpus.n, r0 + chunk)
+        blk = rows_all[r0:r1]
         if corpus.storage == "int4":
             blk = F.unpack_int4(blk, corpus.dim)
         rows = blk.double()
         if corpus.storage != "bf16":
             rows = rows / rows.norm(dim=1, keepdim=True)
-        v, i = torch.topk(qn @ rows.T, k, dim=1)
+        s = qn @ rows.T
+        if alive is not None:
+            s[:, ~alive[r0:r1]] = float("-inf")
+        v, i = torch.topk(s, k, dim=1)
         best_v.append(v)
         best_i.append(i + r0)
     v, order = torch.sort(torch.cat(best_v, dim=1), dim=1, descending=True,
@@ -1700,9 +1721,9 @@ def _blobs(torch, gen, rows, dim, chunk=1 << 20):
         c[r0:r1].normal_(generator=gen)
         c[r0:r1] += centres[label]
 
-    def queries(m):
-        label = torch.randint(0, CENTRES, (m,), generator=gen, device="cuda")
-        return centres[label] + torch.randn((m, dim), generator=gen,
+    def queries(m, g=gen):
+        label = torch.randint(0, CENTRES, (m,), generator=g, device="cuda")
+        return centres[label] + torch.randn((m, dim), generator=g,
                                             device="cuda")
 
     return c, queries
@@ -1744,6 +1765,8 @@ def _oracle_visited(F, torch, cc, qr, k, tiles, br, chunk=250_000):
     original row ids: (indices, scores) on the host."""
     perm = cc._perm_dev.long()
     tn = cc.layout.tn
+    dead = (None if cc._tombstones is None
+            else torch.from_numpy(cc._tombstones).to("cuda"))
     out_i, out_v = [], []
     for b in range(-(-qr.shape[0] // br)):
         qb = qr[b * br:(b + 1) * br].double()
@@ -1754,6 +1777,8 @@ def _oracle_visited(F, torch, cc, qr, k, tiles, br, chunk=250_000):
             pos = (tiles[b].long()[:, None] * tn
                    + torch.arange(tn, device="cuda")).reshape(-1)
         pos = pos[perm[pos] >= 0]
+        if dead is not None:   # tombstoned rows never match
+            pos = pos[~dead[perm[pos]]]
         best_v, best_i = [], []
         for r0 in range(0, pos.shape[0], chunk):
             p = pos[r0:r0 + chunk]
@@ -1770,9 +1795,9 @@ def _oracle_visited(F, torch, cc, qr, k, tiles, br, chunk=250_000):
     return (torch.cat(out_i).cpu().numpy(), torch.cat(out_v).cpu().numpy())
 
 
-def _request_checked(F, torch, cc, q, k, probe, label):
+def _request_checked(F, torch, cc, q, k, probe, label, phase=8):
     """One ``ClusteredCorpus.topk`` request held to the float64 oracle over
-    the rows its blocks visited.  Returns (indices, host ms)."""
+    the live rows its blocks visited.  Returns (indices, scores)."""
     t0 = time.perf_counter()
     idx, scores = cc.topk(q, k, probe=probe)
     host = (time.perf_counter() - t0) * 1e3
@@ -1784,11 +1809,11 @@ def _request_checked(F, torch, cc, q, k, probe, label):
         ref_i, ref_v = ref_i[inv], ref_v[inv]
     gate(idx, scores, ref_i, ref_v, label)
     share = 1.0 if tiles is None else tiles.shape[1] / cc.n_tiles
-    print(f"phase 8: {label}: passes the float64 oracle gate over the "
+    print(f"phase {phase}: {label}: passes the float64 oracle gate over the "
           f"{share:.4f} of tiles each of its {-(-q.shape[0] // br)} "
           f"list(s) visited (first request {host:.1f} ms host"
           f"{', routed' if order is not None else ''})")
-    return idx
+    return idx, scores
 
 
 def _listed_operands(F, cc, q, k, probe):
@@ -1923,7 +1948,7 @@ def phase_clustered(pmt, F, torch, card, err):
         for probe in (PROBE, None):
             results[(batch, k, probe)] = _request_checked(
                 F, torch, wide, q[:batch], k, probe,
-                f"{label} batch {batch} k={k} probe={probe}")
+                f"{label} batch {batch} k={k} probe={probe}")[0]
     for k in (10, 100):
         _request_checked(F, torch, proxy, q2, k, PROBE,
                          f"{label2} batch {N_QUERIES} k={k} probe={PROBE}")
@@ -2636,6 +2661,314 @@ def phase_floor(F, torch, card):
     return entries
 
 
+# Corpus mutation (phase 11).  The dense corpus is phase 7's, built without
+# its last MUT_ADDS x MUT_ADD_ROWS rows, which come back through add;
+# updated rows and ids are drawn from MUT_SEED.
+MUT_SEED = SEED + 1
+MUT_ADDS, MUT_ADD_ROWS = 10, 1_000
+MUT_UPDATES, MUT_DELETES = 10_000, 100_000
+# The clustered corpus is phase 8's, with a reserve of dead tiles.
+CL_RESERVE, CL_ADDS, CL_UPDATES, CL_DELETES = 64, 100_000, 10_000, 10_000
+# Capacity beside capacity=None: reserved rows the kernels walk as -inf.
+CAP_SHARE = 1.01
+
+
+def _host_ms(torch, fn):
+    """(fn(), host ms of the call, ending in a device synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _counted(F, what, cores, wgmma=False, tiles=False):
+    """The launch counts since the last reset: kernels A (in ``cores``,
+    the warpgroup consumer and the tile lists as asked) and B ran, the
+    plain versions did not.  Returns (launches, core launches)."""
+    launched, by_core = dict(F.launches), dict(F.core_launches)
+    print(f"phase 5: launches on the {what} path: {launched}, by core "
+          f"{by_core}")
+    for core in cores:
+        require(by_core[core] > 0, f"{core} never launched on the {what} "
+                f"path")
+    names = (["topk_merge"] + (["fused_topk_partial_wgmma"] if wgmma else [])
+             + (["fused_topk_partial_tiles"] if tiles else []))
+    for name in names:
+        require(launched[name] > 0, f"{name} never launched on the {what} "
+                f"path")
+    for name in ("fused_topk_plain", "fused_topk_partial_plain",
+                 "topk_merge_plain"):
+        require(launched[name] == 0, f"{name} ran on the {what} path")
+    return launched, by_core
+
+
+def _kernel_a_ms(F, torch, corpus, qb, k, alive=None):
+    """Kernel A alone on a dense handle's cosine operands (every stored
+    row, its capacity included; ``alive`` as the mask the handle gives)."""
+    core = corpus._effective_precision()
+    cp, cbp = corpus._prepared_for(F.Metric.COSINE)
+    qp = F.prepare_queries(qb, "cosine", core)
+    mask = None if alive is None else F.pad_mask_row(alive, cp.shape[0])
+    tm, splits, tps = F.kernel_geometry(qb.shape[0], cp.shape[0], k, core,
+                                        qp.device, dim=corpus.dim)
+    return cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, mask, k, core,
+                                                splits, tps, tm),
+                   reps=10, warmup=2)
+
+
+def _request_ms(corpus, qb, k, reps=5):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        corpus.topk(qb, k)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _mutation_dense(pmt, F, torch, card):
+    """The 10M x 768 int8 corpus with capacity: 10 adds from a CUDA tensor
+    (in place), an update, a delete, then phase 7's requests held to the
+    float64 oracle over the live stored rows; capacity beside
+    capacity=None.  Returns the launches of its path."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    q = torch.randn((256, WIDE_DIM), generator=gen, device="cuda")
+    c = _wide_f32(torch)
+    keep = WIDE_ROWS - MUT_ADDS * MUT_ADD_ROWS
+    label = f"{WIDE_ROWS}x{WIDE_DIM} int8 capacity={WIDE_ROWS}"
+    corpus, built = _host_ms(torch, lambda: pmt.Corpus(
+        c[:keep], storage="int8", capacity=WIDE_ROWS))
+    print(f"phase 11: {label}: built from the first {keep} rows in "
+          f"{built:.1f} ms host: {corpus!r}")
+
+    # The mutation path: count only its launches.
+    F.reset_launch_counts()
+    corpus.topk(q[:8], 10)   # the cosine form exists before the adds
+    held = (corpus._device, corpus._scales) + corpus._prepared_for(
+        F.Metric.COSINE)
+    ptrs = [t.data_ptr() for t in held]
+    del held
+    add_ms = []
+    for i in range(MUT_ADDS):
+        r0 = keep + i * MUT_ADD_ROWS
+        n, ms = _host_ms(torch, lambda: corpus.add(c[r0:r0 + MUT_ADD_ROWS]))
+        add_ms.append(ms)
+    require(n == WIDE_ROWS, f"{label}: {n} rows after the adds")
+    now = [t.data_ptr() for t in (corpus._device, corpus._scales)
+           + corpus._prepared_for(F.Metric.COSINE)]
+    require(now == ptrs, f"{label}: an add within capacity reallocated the "
+            f"storage or a prepared form")
+    rng = np.random.default_rng(MUT_SEED)
+    g43 = torch.Generator(device="cuda")
+    g43.manual_seed(MUT_SEED)
+    ids = rng.choice(WIDE_ROWS, MUT_UPDATES, replace=False)
+    rows = torch.randn((MUT_UPDATES, WIDE_DIM), generator=g43, device="cuda")
+    _, upd_ms = _host_ms(torch, lambda: corpus.update(ids, rows))
+    dead = rng.choice(WIDE_ROWS, MUT_DELETES, replace=False)
+    _, del_ms = _host_ms(torch, lambda: corpus.delete(dead))
+    print(f"phase 11: [{card}] {label}: add of {MUT_ADD_ROWS} rows "
+          f"(CUDA tensor) median {statistics.median(add_ms):.3f} ms host "
+          f"(of {MUT_ADDS}: {', '.join(f'{t:.3f}' for t in add_ms)}); update "
+          f"of {MUT_UPDATES} rows {upd_ms:.3f} ms; delete of {MUT_DELETES} "
+          f"ids {del_ms:.3f} ms; storage and prepared form written in "
+          f"place: {corpus!r}")
+    del rows
+    alive = torch.ones(WIDE_ROWS, dtype=torch.bool, device="cuda")
+    alive[torch.from_numpy(dead).to("cuda")] = False
+    for batch, k in WIDE_REQUESTS["int8"]:
+        (idx, scores), ms = _host_ms(torch, lambda: corpus.topk(q[:batch],
+                                                               k))
+        ref_idx, ref_scores = _oracle_stored(F, torch, corpus, q[:batch], k,
+                                             alive=alive)
+        gate(idx, scores, ref_idx, ref_scores, f"{label} batch={batch} k={k}")
+        require(not np.isin(idx, dead).any(),
+                f"{label} batch={batch} k={k}: a deleted row was returned")
+        print(f"phase 11: {label} batch {batch} k={k}: passes the float64 "
+              f"oracle gate over the live stored rows, no deleted id "
+              f"({ms:.1f} ms host)")
+    torch.cuda.synchronize()
+    launched, by_core = _counted(F, f"{label} mutation", ("int8c",),
+                                 wgmma=True)
+
+    # Capacity against capacity=None on the same rows, in turns.
+    plain = pmt.Corpus(c, storage="int8")
+    reserved = pmt.Corpus(c, storage="int8",
+                          capacity=int(CAP_SHARE * WIDE_ROWS))
+    del c
+    torch.cuda.empty_cache()
+    times = {}
+    handles = (("capacity=None", plain, None),
+               (f"capacity={CAP_SHARE} n", reserved, None),
+               ("mutated (capacity=n, 1 % deleted)", corpus, alive))
+    for name, h, mk in handles + handles[::-1]:
+        t = times.setdefault(name, {"a": [], "r8": [], "r256": []})
+        t["a"].append(_kernel_a_ms(F, torch, h, q, 100, mk))
+        t["r8"].append(_request_ms(h, q[:8], 10))
+        t["r256"].append(_request_ms(h, q, 100))
+    for name, t in times.items():
+        print(f"phase 11: [{card}] {WIDE_ROWS}x{WIDE_DIM} int8 {name}: "
+              f"kernel A batch 256 k=100 "
+              f"{' / '.join(f'{x:.3f}' for x in t['a'])} ms device; "
+              f"request batch 8 k=10 "
+              f"{' / '.join(f'{x:.3f}' for x in t['r8'])} ms host, batch "
+              f"256 k=100 {' / '.join(f'{x:.3f}' for x in t['r256'])} ms "
+              f"host (in turns: first and second pass)")
+    return launched, by_core
+
+
+def _mutation_growth(pmt, torch):
+    """Phase 4's 2M x 256 f32 corpus (the bf16x3 default core) built
+    without its last MUT_ADD_ROWS rows at capacity n; one add past
+    capacity, then batch 8 k=10 held to the float64 oracle."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    c = torch.randn((BIG_ROWS, DIM), generator=gen, device="cuda")
+    q = torch.randn((8, DIM), generator=gen, device="cuda")
+    keep = BIG_ROWS - MUT_ADD_ROWS
+    corpus = pmt.Corpus(c[:keep])
+    corpus.topk(q, 10)   # a prepared form exists before the growth
+    _, add_ms = _host_ms(torch, lambda: corpus.add(c[keep:]))
+    require(corpus._cap == 2 * keep and not corpus._prepared,
+            f"growth: capacity {corpus._cap}, prepared forms kept")
+    (idx, scores), first = _host_ms(torch, lambda: corpus.topk(q, 10))
+    ref_idx, ref_scores = _oracle_on_card(torch, q, c, 10)
+    gate(idx, scores, ref_idx, ref_scores, "growth batch=8 k=10")
+    print(f"phase 11: {BIG_ROWS}x{DIM} f32: add of {MUT_ADD_ROWS} rows past "
+          f"capacity {keep} took {add_ms:.3f} ms host (capacity now "
+          f"{corpus._cap}); batch 8 k=10 passes the float64 oracle gate "
+          f"({first:.1f} ms host, the re-prep included)")
+    return add_ms
+
+
+def _placement(before, after, ids):
+    """Rows ``ids`` placed in (tile-tail slack, claimed dead tiles,
+    appended tiles)."""
+    pos = after.row_pos[ids].astype(np.int64)
+    old = pos < before.n_padded
+    dead = np.zeros(pos.size, bool)
+    dead[old] = before.tile_cluster[pos[old] // before.tn] == -1
+    return int((old & ~dead).sum()), int(dead.sum()), int((~old).sum())
+
+
+def _recall(got, exact):
+    return np.mean([len(set(a) & set(b)) / exact.shape[1]
+                    for a, b in zip(got.astype(np.int64),
+                                    exact.astype(np.int64))])
+
+
+def _mutation_clustered(pmt, F, torch, card):
+    """Phase 8's 10M x 768 int8 blob mixture built with CL_RESERVE dead
+    tiles: an add from the mixture (reaching slack, reserve and appended
+    tiles), an update, a delete, probed and exhaustive requests held to
+    the float64 oracle over the live visited rows, then ``rebuild()``.
+    Returns the launches of its path."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    c, queries = _blobs(torch, gen, WIDE_ROWS, WIDE_DIM)
+    cc = pmt.ClusteredCorpus(c, storage="int8", reserve_tiles=CL_RESERVE)
+    del c
+    torch.cuda.empty_cache()
+    q = queries(256)
+    label = f"{WIDE_ROWS}x{WIDE_DIM} int8 clustered"
+    print(f"phase 11: {label} built with reserve_tiles={CL_RESERVE}: {cc!r}")
+    g43 = torch.Generator(device="cuda")
+    g43.manual_seed(MUT_SEED)
+    rng = np.random.default_rng(MUT_SEED)
+
+    # The mutation path: count only its launches.
+    F.reset_launch_counts()
+    before, n0 = cc.layout, cc.n
+    rows = queries(CL_ADDS, g43)
+    _, add_ms = _host_ms(torch, lambda: cc.add(rows))
+    placed = _placement(before, cc.layout, np.arange(n0, cc.n))
+    del before, rows
+    require(all(placed), f"{label}: add placed {placed} rows in slack, "
+            f"claimed reserve and appended tiles; each must be reached")
+    ids = rng.choice(cc.n, CL_UPDATES, replace=False)
+    rows = queries(CL_UPDATES, g43)
+    _, upd_ms = _host_ms(torch, lambda: cc.update(ids, rows))
+    dead = rng.choice(cc.n, CL_DELETES, replace=False)
+    _, del_ms = _host_ms(torch, lambda: cc.delete(dead))
+    del rows
+    print(f"phase 11: [{card}] {label}: add of {CL_ADDS} rows {add_ms:.3f} ms "
+          f"host ({placed[0]} into tile-tail slack, {placed[1]} into claimed "
+          f"reserve tiles, {placed[2]} into appended tiles); update of "
+          f"{CL_UPDATES} rows {upd_ms:.3f} ms; delete of {CL_DELETES} ids "
+          f"{del_ms:.3f} ms; drift {cc.drift:.5f}: {cc!r}")
+
+    def checked(batch, k, probe, when):
+        got = _request_checked(F, torch, cc, q[:batch], k, probe,
+                               f"{label} {when} batch {batch} k={k} "
+                               f"probe={probe}", phase=11)
+        require(not np.isin(got[0], dead).any(),
+                f"{label} {when}: a deleted row was returned")
+        return got
+
+    for batch, k in ((8, 10), (256, 100)):
+        checked(batch, k, PROBE, "before rebuild")
+    exact = checked(8, 10, None, "before rebuild")
+    recall = [_recall(cc.topk(q[:8], 10, probe=PROBE)[0], exact[0])]
+    tiles, clusters = cc.n_tiles, cc.clusters
+    _, rb_ms = _host_ms(torch, lambda: cc.rebuild())
+    require(cc.drift == 0.0, f"{label}: drift {cc.drift} after rebuild")
+    # Compacted: no dead or appended tiles, each cluster in the fewest
+    # whole tiles its rows need (the default cluster count follows n, so
+    # the tile count may move either way).
+    need = int(np.sum(-(-cc.layout.counts // cc.layout.tn)))
+    require(cc.n_tiles == need, f"{label}: {cc.n_tiles} tiles after "
+            f"rebuild, the clusters need {need}")
+    after = checked(8, 10, None, "after rebuild")
+    gate(after[0], after[1], exact[0].astype(np.int64), exact[1],
+         f"{label}: exhaustive results across rebuild")
+    checked(8, 10, PROBE, "after rebuild")
+    recall.append(_recall(cc.topk(q[:8], 10, probe=PROBE)[0], after[0]))
+    torch.cuda.synchronize()
+    launched, by_core = _counted(F, f"{label} mutation", ("int8c",),
+                                 tiles=True)
+    print(f"phase 11: [{card}] {label}: rebuild() {rb_ms:.1f} ms host, "
+          f"{tiles} -> {cc.n_tiles} tiles (no dead tile left), "
+          f"{clusters} -> {cc.clusters} clusters; the "
+          f"exhaustive batch 8 k=10 gives the same ids (ties aside); probed "
+          f"recall@10 against the exhaustive scan, batch 8, probe {PROBE}: "
+          f"{recall[0]:.4f} before, {recall[1]:.4f} after (reported, not "
+          f"gated)")
+    return launched, by_core
+
+
+# Kernels-line entries that phase 11's paths launch, by its count keys.
+MUTATION_KEYS = {"fused_topk_partial.int8c": "int8c",
+                 "fused_topk_partial.int8c.wgmma": "int8c.wgmma",
+                 "fused_topk_partial.bf16x3": "bf16x3",
+                 "topk_merge": "topk_merge",
+                 "fused_topk_partial.tiles": "tiles"}
+
+
+def phase_mutation(pmt, F, torch, card):
+    """Phase 11: corpus mutation at full width, each path with its own
+    phase 5 counts.  Returns the launches to add to the kernels line, by
+    its keys ("int8c", "int8c.wgmma", "bf16x3", "topk_merge", "tiles")."""
+    t0 = time.perf_counter()
+    dense, dense_core = _mutation_dense(pmt, F, torch, card)
+    torch.cuda.empty_cache()
+    F.reset_launch_counts()
+    _mutation_growth(pmt, torch)
+    torch.cuda.synchronize()
+    grown, grown_core = _counted(F, f"{BIG_ROWS}x{DIM} f32 growth",
+                                 ("bf16x3",))
+    torch.cuda.empty_cache()
+    cl, cl_core = _mutation_clustered(pmt, F, torch, card)
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s host in all")
+    return {"int8c": dense_core["int8c"] + cl_core["int8c"],
+            "int8c.wgmma": (dense["fused_topk_partial_wgmma"]
+                            + cl["fused_topk_partial_wgmma"]),
+            "bf16x3": grown_core["bf16x3"],
+            "topk_merge": (dense["topk_merge"] + grown["topk_merge"]
+                           + cl["topk_merge"]),
+            "tiles": cl["fused_topk_partial_tiles"]}
+
+
 def main() -> int:
     import torch
 
@@ -2718,6 +3051,10 @@ def main() -> int:
                         **per_kernel["tiles"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
     kernels += phase_floor(F, torch, card)
+    torch.cuda.empty_cache()
+    mutation = phase_mutation(pmt, F, torch, card)
+    for entry in kernels:
+        entry["launches"] += mutation.get(MUTATION_KEYS.get(entry["name"]), 0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

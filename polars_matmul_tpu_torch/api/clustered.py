@@ -33,10 +33,11 @@ from ..ops.cluster import (ClusterLayout, assign_rows, assign_rows_native,
                            permute_rows, probe_tiles, resolve_probe)
 from ..ops.metrics import Metric
 from ..utils.profiling import annotate
-from .search import (_F32, ArrayLike, DeviceLike, _as_input,
-                     _empty_topk, _is_half, _not_ported, _to_host, _to_torch,
-                     _torch_dtype, _validate_mask, compute_dtype,
-                     prepare_stored, quantize_stored, resolve_device)
+from .search import (_F32, ArrayLike, DeviceLike, _as_input, _check_width,
+                     _empty_topk, _host_ids, _is_half, _not_ported, _repeats,
+                     _to_host, _to_torch, _torch_dtype, _validate_mask,
+                     compute_dtype, prepare_stored, quantize_stored,
+                     resolve_device)
 
 _TIER_CORE = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
 
@@ -45,6 +46,23 @@ def _is_float(dtype) -> bool:
     if isinstance(dtype, torch.dtype):
         return dtype.is_floating_point
     return np.issubdtype(dtype, np.floating)
+
+
+def _gather_rows(c: ArrayLike, ids: np.ndarray) -> torch.Tensor:
+    """Rows ``ids`` of ``c`` as f32, where ``c`` lies."""
+    if isinstance(c, torch.Tensor):
+        return c[torch.from_numpy(ids).to(c.device)].to(torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(c[ids], dtype=np.float32))
+
+
+def _f32_rows(r: ArrayLike) -> ArrayLike:
+    """Float rows as f32 where they lie (NumPy on the host, a tensor on
+    its own device)."""
+    if not _is_float(r.dtype):
+        raise ValueError("ClusteredCorpus requires float embeddings")
+    if isinstance(r, torch.Tensor):
+        return r.to(torch.float32)
+    return np.ascontiguousarray(r, dtype=np.float32)
 
 
 class ClusteredCorpus:
@@ -67,8 +85,13 @@ class ClusteredCorpus:
 
     ``device=`` as on ``Corpus``: a torch tensor is clustered and stored
     on its own device unless asked otherwise, NumPy goes to "cuda".
-    ``mesh=``, ``from_arrow``, ``add``, ``update`` and ``rebuild`` raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+    ``add`` and ``update`` place rows by the fitted centroids (no refit;
+    ``drift`` counts them) and ``rebuild`` refits on the live rows, all
+    on the handle's device, with the JAX package's placement, so that the
+    same steps from the same saved file give the same layout.  ``mesh=``
+    and ``from_arrow`` raise ``NotImplementedError`` naming the ROADMAP
+    item that ports them.
     """
 
     def __init__(self, embeddings: ArrayLike, *,
@@ -110,7 +133,9 @@ class ClusteredCorpus:
             clusters = self._default_clusters(self.n)
 
         # Cluster: sampled k-means, then the chunked assignment of all rows.
-        cent = self._fit_sampled(c, int(min(clusters, self.n)), sample_rows,
+        cent = self._fit_sampled(lambda ids: _gather_rows(c, ids),
+                                 np.arange(self.n),
+                                 int(min(clusters, self.n)), sample_rows,
                                  kmeans_iters, seed)
         self._set_centroids(cent)
         scales = None
@@ -158,21 +183,17 @@ class ClusteredCorpus:
         """Constructor default: about four layout tiles per cluster."""
         return max(1, -(-n // (4 * self._tn)))
 
-    def _fit_sampled(self, c: ArrayLike, clusters: int, sample_rows: int,
-                     kmeans_iters: int, seed: int) -> torch.Tensor:
-        """k-means on at most ``sample_rows`` rows drawn from ``seed`` (the
-        JAX package's draw), on the handle's device.  kmeans clamps the
-        cluster count to the sample size."""
+    def _fit_sampled(self, get_rows, ids: np.ndarray, clusters: int,
+                     sample_rows: int, kmeans_iters: int,
+                     seed: int) -> torch.Tensor:
+        """k-means on at most ``sample_rows`` of ``ids`` drawn from
+        ``seed`` (the JAX package's draw; ``get_rows(ids)`` gives their
+        values), on the handle's device.  kmeans clamps the cluster count
+        to the sample size."""
         rng = np.random.default_rng(seed)
-        ids = np.arange(self.n)
-        if self.n > sample_rows:
+        if ids.size > sample_rows:
             ids = rng.choice(ids, sample_rows, replace=False)
-        if isinstance(c, torch.Tensor):
-            rows = c[torch.from_numpy(ids).to(c.device)]
-        else:
-            rows = torch.from_numpy(np.ascontiguousarray(c[ids],
-                                                         dtype=np.float32))
-        x = rows.to(device=self.device, dtype=torch.float32)
+        x = get_rows(ids).to(device=self.device, dtype=torch.float32)
         return kmeans(x, clusters, iters=kmeans_iters, seed=seed)[0]
 
     def _set_centroids(self, cent) -> None:
@@ -198,6 +219,12 @@ class ClusteredCorpus:
         self._base = base.to(dev)
         self._scales = None if scales is None else scales.to(
             device=dev, dtype=torch.float32)
+        self._layout_changed()
+
+    def _layout_changed(self) -> None:
+        """Refresh the device copies of ``self.layout`` and drop every
+        cache derived from the layout or the payload."""
+        dev = self.device
         self._perm_dev = torch.from_numpy(self.layout.perm).to(dev)
         self._tile_cluster_dev = torch.from_numpy(
             self.layout.tile_cluster).to(dev)
@@ -221,8 +248,11 @@ class ClusteredCorpus:
 
     @property
     def drift(self) -> float:
-        """Share of rows added or updated since the centroids were fit
-        (carried by saved files; this port adds and updates nothing yet)."""
+        """Rows added or updated since the centroids were last fit
+        (construction, ``rebuild``, or the fit a loaded file carries),
+        over the current row count: those rows were placed by stale
+        centroids, so probed recall may decay as it grows.  Exhaustive
+        search never degrades; ``rebuild()`` refits and resets it."""
         return self._drift_rows / max(1, self.n)
 
     @property
@@ -230,14 +260,227 @@ class ClusteredCorpus:
         return 0 if self._tombstones is None else int(self._tombstones.sum())
 
     # -- mutation ---------------------------------------------------------
-    def add(self, rows) -> int:
-        raise _not_ported("ClusteredCorpus.add", 3)
+    def add(self, rows: ArrayLike) -> int:
+        """Append rows; returns the new row count (ids ``n..n+m-1``).
 
-    def update(self, indices, rows) -> None:
-        raise _not_ported("ClusteredCorpus.update", 3)
+        Each row joins its nearest centroid's cluster (no refit): it fills
+        that cluster's tile-tail slack first, then a claimed dead tile
+        (``reserve_tiles``, lowest id first), then whole tiles appended
+        at the end of the layout.  The rows are scattered into the stored
+        payload on the device; prepared forms rebuild on the next query."""
+        r = _as_input(rows)
+        _check_width(r, self.dim)
+        cf = _f32_rows(r)
+        m = r.shape[0]
+        if m == 0:
+            return self.n
+        ids = np.arange(self.n, self.n + m, dtype=np.int64)
+        self._place_and_scatter(ids, cf, assign_rows(cf, self.centroids))
+        if self._tombstones is not None:
+            self._tombstones = np.concatenate(
+                [self._tombstones, np.zeros(m, bool)])
+        self.n += m
+        self._drift_rows += m
+        return self.n
 
-    def rebuild(self, **kwargs) -> "ClusteredCorpus":
-        raise _not_ported("ClusteredCorpus.rebuild", 3)
+    def update(self, indices, rows: ArrayLike) -> None:
+        """Overwrite rows in place by original id (upsert).  Rows keep
+        their ids but move to their new nearest cluster; the slots they
+        leave become slack that later adds and updates refill.  Updating a
+        tombstoned row revives it."""
+        idx = _host_ids(indices)
+        r = _as_input(rows)
+        _check_width(r, self.dim)
+        if idx.size != r.shape[0]:
+            raise ValueError(f"got {idx.size} indices for {r.shape[0]} rows")
+        if idx.size == 0:
+            return
+        if not np.issubdtype(idx.dtype, np.integer):
+            raise ValueError(
+                f"update indices must be integers, got dtype {idx.dtype}")
+        if idx.min() < 0 or idx.max() >= self.n:
+            raise ValueError(
+                f"update indices must be in [0, {self.n}); got "
+                f"[{idx.min()}, {idx.max()}]")
+        if _repeats(idx):
+            raise ValueError("update indices must be unique")
+        cf = _f32_rows(r)
+        self._place_and_scatter(idx.astype(np.int64), cf,
+                                assign_rows(cf, self.centroids),
+                                free_first=True)
+        self._drift_rows += int(idx.size)
+        if self._tombstones is not None and self._tombstones[idx].any():
+            self._tombstones[idx] = False
+            self._perm_mask_dev = None
+
+    def _quantize_native(self, cf: ArrayLike):
+        """f32 rows -> (storage-native rows, scales or None), quantized
+        where they lie (see ``quantize_stored``)."""
+        if self.storage in ("int8", "int4"):
+            return quantize_stored(cf, self.storage, self.dim, self.device,
+                                   self._chunk_rows)
+        vals = torch.as_tensor(cf)
+        return (vals.to(torch.bfloat16) if self.storage == "bf16"
+                else vals), None
+
+    def _place_and_scatter(self, ids: np.ndarray, cf: ArrayLike,
+                           assign: np.ndarray,
+                           free_first: bool = False) -> None:
+        """Place rows ``ids`` in their assigned clusters (``_place``),
+        grow the payload by the appended tiles, scatter the
+        storage-native rows into it on the device, and refresh what hangs
+        off the layout."""
+        n_old = self.layout.n_padded
+        pos = self._place(ids, assign, free_first=free_first)
+        ext = self.layout.n_padded - n_old
+        vals, scales = self._quantize_native(cf)
+        dev = self.device
+        if ext:
+            self._base = torch.cat([self._base, self._base.new_zeros(
+                (ext,) + tuple(self._base.shape[1:]))])
+            if self._scales is not None:
+                self._scales = torch.cat([self._scales,
+                                          self._scales.new_ones(ext)])
+        pos_d = torch.from_numpy(pos).to(dev)
+        self._base[pos_d] = torch.as_tensor(vals).to(
+            device=dev, dtype=self._base.dtype)
+        if scales is not None:
+            self._scales[pos_d] = torch.as_tensor(scales).to(dev)
+        self._layout_changed()
+
+    def _place(self, ids: np.ndarray, assign: np.ndarray,
+               free_first: bool = False) -> np.ndarray:
+        """Host placement (the JAX package's ``_place``, slot for slot):
+        give each id a position in the layout, in its cluster's tile-tail
+        slack first, then in claimed dead tiles (relabelled to the
+        cluster, lowest id first), then in whole tiles appended at the
+        end; install the grown ``self.layout`` and return the (m,)
+        positions.  ``free_first`` first releases the ids' current
+        positions to slack (update: a moved row's old slot can be reused
+        within the same batch)."""
+        lay, tn = self.layout, self._tn
+        perm = lay.perm.copy()
+        counts = lay.counts.copy()
+        row_pos = lay.row_pos.copy()
+        tile_cluster = lay.tile_cluster.copy()
+        if free_first:
+            old = row_pos[ids].astype(np.int64)
+            perm[old] = -1
+            np.subtract.at(counts, tile_cluster[old // tn], 1)
+        n_old = perm.shape[0]
+        # Slack positions grouped by their tile's cluster, ascending within
+        # a cluster (a stable sort of ascending positions).
+        slack_pos = np.flatnonzero(perm < 0)
+        slack_cl = tile_cluster[slack_pos // tn]
+        by_cl = np.argsort(slack_cl, kind="stable")
+        slack_pos, slack_cl = slack_pos[by_cl], slack_cl[by_cl]
+        dead_tiles = np.flatnonzero(tile_cluster == -1)
+        next_dead = 0
+
+        m = ids.shape[0]
+        pos = np.full(m, -1, np.int64)
+        append_tiles, ext_perm = [], []
+        next_pos = n_old
+        order = np.argsort(assign, kind="stable")
+        a_sorted = assign[order]
+        for cl in np.unique(assign):
+            sel = order[np.searchsorted(a_sorted, cl):
+                        np.searchsorted(a_sorted, cl, side="right")]
+            sl = slack_pos[np.searchsorted(slack_cl, cl):
+                           np.searchsorted(slack_cl, cl, side="right")]
+            take = min(sl.size, sel.size)
+            pos[sel[:take]] = sl[:take]
+            over = sel[take:]
+            while over.size and next_dead < dead_tiles.size:
+                t = int(dead_tiles[next_dead])
+                next_dead += 1
+                tile_cluster[t] = cl
+                take2 = min(tn, over.size)
+                pos[over[:take2]] = t * tn + np.arange(take2,
+                                                       dtype=np.int64)
+                over = over[take2:]
+            if over.size:
+                nt = -(-over.size // tn)
+                append_tiles.extend([int(cl)] * nt)
+                pos[over] = next_pos + np.arange(over.size, dtype=np.int64)
+                ep = np.full(nt * tn, -1, np.int32)
+                ep[: over.size] = ids[over]
+                ext_perm.append(ep)
+                next_pos += nt * tn
+            counts[cl] += sel.size
+        infill = pos < n_old
+        perm[pos[infill]] = ids[infill].astype(np.int32)
+        if ext_perm:
+            perm = np.concatenate([perm] + ext_perm)
+        if append_tiles:
+            tile_cluster = np.concatenate(
+                [tile_cluster, np.array(append_tiles, np.int32)])
+        top = int(ids.max()) + 1
+        if top > row_pos.shape[0]:
+            row_pos = np.concatenate([
+                row_pos, np.empty(top - row_pos.shape[0], np.int32)])
+        row_pos[ids] = pos.astype(np.int32)
+        self.layout = ClusterLayout(perm, row_pos, tile_cluster, counts, tn)
+        return pos
+
+    def rebuild(self, *, clusters: Optional[int] = None, seed: int = 0,
+                kmeans_iters: int = 8,
+                sample_rows: int = 131072) -> "ClusteredCorpus":
+        """Refit the centroids on the live rows and lay the corpus out
+        anew, on the handle's device: drift recovery after heavy ``add``
+        / ``update`` traffic.  The storage-native rows are permuted into
+        the new layout, never quantized again, so exhaustive results are
+        the same before and after; row ids and tombstones stay.
+        ``clusters=None`` is the constructor's default for the current
+        row count.  Resets ``drift``."""
+        n = self.n
+        if clusters is None:
+            clusters = self._default_clusters(n)
+        elif int(clusters) < 1:
+            raise ValueError(f"clusters must be >= 1, got {clusters}")
+        self._prepared, self._dense = {}, None
+        dev = self.device
+        # The stored rows in original row order.
+        old_pos = torch.from_numpy(
+            self.layout.row_pos[:n].astype(np.int64)).to(dev)
+        orig = self._base[old_pos]
+        orig_scales = (None if self._scales is None
+                       else self._scales[old_pos])
+
+        def values(ids: np.ndarray) -> torch.Tensor:
+            """f32 values of rows ``ids`` (dequantized codes)."""
+            sel = torch.from_numpy(ids.astype(np.int64)).to(dev)
+            rows = orig[sel]
+            if self.storage == "int8":
+                return rows.to(torch.float32) * orig_scales[sel, None]
+            if self.storage == "int4":
+                return dequant_int4(rows, orig_scales[sel], self.dim)
+            return rows.to(torch.float32)
+
+        live_ids = (np.arange(n) if self._tombstones is None
+                    else np.flatnonzero(~self._tombstones))
+        if live_ids.size == 0:
+            live_ids = np.arange(n)   # all tombstoned: fit on the bytes
+        self._set_centroids(self._fit_sampled(
+            values, live_ids, int(min(clusters, live_ids.size)),
+            sample_rows, kmeans_iters, seed))
+        if orig_scales is not None:
+            assign = assign_rows_native(orig, orig_scales, self.centroids,
+                                        self.storage, self.dim)
+        else:
+            assign = assign_rows(orig, self.centroids)
+        self.layout = cluster_layout(assign, self.clusters, self._tn)
+        perm = torch.from_numpy(self.layout.perm).to(dev)
+        base = permute_rows(orig, perm)
+        del orig
+        scales = None
+        if orig_scales is not None:
+            scales = torch.where(perm >= 0, permute_rows(orig_scales, perm),
+                                 torch.ones((), device=dev))
+        self._striped_for = self._stripe_lt = None
+        self._install(base, scales)
+        self._drift_rows = 0
+        return self
 
     @classmethod
     def from_arrow(cls, column, **kwargs) -> "ClusteredCorpus":
@@ -247,7 +490,7 @@ class ClusteredCorpus:
         """Tombstone rows by original id; they stop matching at once
         (through the mask, no re-clustering).  Returns the number newly
         deleted."""
-        idx = np.asarray(indices, dtype=np.int64).reshape(-1)
+        idx = _host_ids(indices).astype(np.int64)
         if idx.size and (idx.min() < 0 or idx.max() >= self.n):
             raise IndexError(
                 f"delete index out of range for corpus of {self.n} rows")
@@ -442,15 +685,6 @@ class ClusteredCorpus:
         return self
 
     # -- operations -------------------------------------------------------
-    def _check_queries(self, q) -> None:
-        if q.ndim != 2 or q.shape[1] != self.dim:
-            raise ValueError(
-                f"Dimension mismatch: left has "
-                f"{q.shape[1] if q.ndim == 2 else tuple(q.shape)} "
-                f"dimensional vectors, right has {self.dim} dimensional "
-                f"vectors"
-            )
-
     def matmul(self, queries: ArrayLike) -> np.ndarray:
         """Raw pairwise Q . C^T (n_q, n) in original row order, on the
         stored (dequantized) rows; deleted rows still score, as on
@@ -459,7 +693,7 @@ class ClusteredCorpus:
         dt = compute_dtype(q.dtype, self.dtype)
         if q.shape[0] == 0:
             return np.empty((0, self.n), dtype=dt)
-        self._check_queries(q)
+        _check_width(q, self.dim)
         row_pos = torch.from_numpy(
             self.layout.row_pos[: self.n].astype(np.int64)).to(self.device)
         with annotate("pmm.clustered.matmul"):
@@ -488,7 +722,7 @@ class ClusteredCorpus:
         q = _as_input(queries)
         if q.shape[0] == 0:
             return np.empty((0, 0), np.uint32), np.empty((0, 0), np.float64)
-        self._check_queries(q)
+        _check_width(q, self.dim)
         user_mk = _validate_mask(mask, self.n)
         kk = min(int(k), self.n)
         if kk <= 0:

@@ -112,6 +112,31 @@ def _validate_pair(q: ArrayLike, c: ArrayLike) -> None:
         raise ValueError("Zero-dimensional vectors")
 
 
+def _host_ids(indices) -> np.ndarray:
+    """Row ids as a flat host array (ids index the host tombstones and
+    layout)."""
+    if isinstance(indices, torch.Tensor):
+        indices = indices.cpu().numpy()
+    return np.asarray(indices).reshape(-1)
+
+
+def _repeats(ids: np.ndarray) -> bool:
+    """Whether an id occurs twice (a sort: ``np.unique`` imports
+    ``numpy.ma`` on its first call, a tenth of a second)."""
+    s = np.sort(ids)
+    return bool((s[1:] == s[:-1]).any())
+
+
+def _check_width(x, dim: int) -> None:
+    """Rows (queries, or rows to add) of a handle's width."""
+    if x.ndim != 2 or x.shape[1] != dim:
+        raise ValueError(
+            f"Dimension mismatch: left has "
+            f"{x.shape[1] if x.ndim == 2 else tuple(x.shape)} "
+            f"dimensional vectors, right has {dim} dimensional vectors"
+        )
+
+
 def _validate_mask(mask, n: int):
     if mask is None:
         return None
@@ -261,20 +286,23 @@ def _row_block(x: ArrayLike, r0: int, r1: int) -> torch.Tensor:
 
 
 def quantize_stored(c: ArrayLike, storage: str, dim: int,
-                    device: torch.device, chunk_rows: int):
+                    device: torch.device, chunk_rows: int,
+                    rows: Optional[int] = None):
     """(codes, scales) of float rows for an "int8" or "int4" tier: NumPy
     by the host quantizers (codes stay NumPy, so that the caller uploads
     quantized bytes), a tensor by the torch ones on its own device, in
-    row chunks, into tensors on ``device``."""
+    row chunks, into tensors on ``device`` of ``rows`` rows (default n;
+    codes 0 and scale 1 past n)."""
     int4 = storage == "int4"
     ck, dpp, _ = feature_geometry(dim)
     if not isinstance(c, torch.Tensor):
         return (_quantize_rows_int4_np(c, ck, dpp) if int4
                 else _quantize_rows_np(c))
     n = c.shape[0]
-    codes = torch.empty((n, dpp // 2 if int4 else dim), dtype=torch.int8,
+    rows = n if rows is None else rows
+    codes = torch.zeros((rows, dpp // 2 if int4 else dim), dtype=torch.int8,
                         device=device)
-    scales = torch.empty(n, dtype=torch.float32, device=device)
+    scales = torch.ones(rows, dtype=torch.float32, device=device)
     for r0 in range(0, n, chunk_rows):
         r1 = min(n, r0 + chunk_rows)
         qc, sc = (quantize_int4(c[r0:r1], ck) if int4
@@ -348,8 +376,12 @@ class Corpus:
     the tier's form is held as it is, on its own device unless
     ``device=`` says otherwise.
 
-    ``mesh=``, ``capacity=``, ``add``, ``update`` and ``delete`` raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    ``capacity`` reserves stored rows for ``add``: rows in [n, capacity)
+    are zeros (scale 1) whose prepared bias is -inf, so the kernels walk
+    the whole buffer and never select them.  ``add``, ``update`` and
+    ``delete`` mutate the handle in place, with the JAX package's
+    semantics and errors.  ``mesh=`` raises ``NotImplementedError`` naming
+    the ROADMAP item that ports it.
     """
 
     def __init__(self, embeddings: ArrayLike, *, mesh=None,
@@ -400,47 +432,68 @@ class Corpus:
                 "or pre-packed int4 embeddings")
         if mesh is not None:
             raise _not_ported("Corpus(mesh=...)", 6)
-        if capacity is not None:
-            raise _not_ported("Corpus(capacity=...)", 3)
         self.config = cfg
         self.storage = storage
         self.n, self.dim = c.shape
         if prepacked_int4:
             self.dim = int(dim)
+        # Stored rows (and int8 / int4 scales) are allocated at _cap rows.
+        self._cap = (self.n if capacity is None
+                     else max(int(capacity), self.n))
         self.dtype = (_F32 if storage != "f32" or _is_f32(c.dtype)
                       else _F64)
         self.device = resolve_device(device, c)
         # Rows a chunk of ingestion or prep handles (its f32 temporaries
         # take about prep_chunk_bytes).
         self._chunk_rows = max(1, cfg.prep_chunk_bytes // (4 * self.dim))
-        # int8 / int4: the (n,) f32 per-row dequant scale.
+        # int8 / int4: the (_cap,) f32 per-row dequant scale.
         self._scales: Optional[torch.Tensor] = None
         if storage == "f32":
-            self._device = _to_torch(c, self.dtype, self.device)
+            self._device = self._with_capacity(
+                _to_torch(c, self.dtype, self.device))
         elif storage == "bf16":
             self._device = self._store_bf16(c)
         elif int8_in:
-            self._device = _to_torch(c, None, self.device)
-            self._scales = _to_torch(scales, _F32, self.device)
+            self._device = self._with_capacity(_to_torch(c, None,
+                                                         self.device))
+            self._scales = self._with_capacity(
+                _to_torch(scales, _F32, self.device), fill=1.0)
         else:
             self._device, self._scales = self._quantize(c)
+        # A caller's tensor held as it is: copied before the first write.
+        self._borrowed = any(
+            isinstance(x, torch.Tensor) and y is not None
+            and x.data_ptr() == y.data_ptr()
+            for x, y in ((c, self._device), (scales, self._scales)))
         # Dequantized f32 rows of a bf16 / int8 / int4 corpus, built only
         # for matmul and the reference path (k > max_fused_k,
         # use_pallas=False): the f32 bytes, once.
         self._f32_view: Optional[torch.Tensor] = None
-        # Rows deleted in a corpus saved by the JAX package (Corpus.load):
-        # excluded from every topk through the mask path.
+        # Tombstoned rows (delete, or a loaded file's): excluded from
+        # every topk through the mask path.
         self._tombstones: Optional[np.ndarray] = None
         self._alive: Optional[torch.Tensor] = None
-        # (metric, kernel precision) -> (cp, cbp) on the device.
+        # (metric, kernel precision) -> (cp, cbp) on the device, _cap rows.
         self._prepared = {}
+
+    def _with_capacity(self, t: torch.Tensor, fill: float = 0.0
+                       ) -> torch.Tensor:
+        """``t`` on the device in a buffer of ``_cap`` rows, ``fill``
+        past its own (copied from where ``t`` lies, so that a host
+        tensor goes straight into the device buffer)."""
+        if t.shape[0] == self._cap:
+            return t.to(self.device)
+        out = torch.full((self._cap,) + tuple(t.shape[1:]), fill,
+                         dtype=t.dtype, device=self.device)
+        out[: t.shape[0]].copy_(t)
+        return out
 
     def _store_bf16(self, c: ArrayLike) -> torch.Tensor:
         """bf16 rows on the device, rounded from f32 (float64 input
         rounds to f32 first, as in the JAX package), in row chunks."""
         if isinstance(c, torch.Tensor) and c.dtype == torch.bfloat16:
-            return c.to(self.device)
-        out = torch.empty((self.n, self.dim), dtype=torch.bfloat16,
+            return self._with_capacity(c)
+        out = torch.zeros((self._cap, self.dim), dtype=torch.bfloat16,
                           device=self.device)
         for r0 in range(0, self.n, self._chunk_rows):
             r1 = min(self.n, r0 + self._chunk_rows)
@@ -449,28 +502,147 @@ class Corpus:
         return out
 
     def _quantize(self, c: ArrayLike):
-        """(codes, scales) on the device from float rows (see
-        ``quantize_stored``)."""
+        """(codes, scales) on the device from float rows, at ``_cap``
+        rows (see ``quantize_stored``)."""
         codes, scales = quantize_stored(c, self.storage, self.dim,
-                                        self.device, self._chunk_rows)
-        return (torch.as_tensor(codes).to(self.device),
-                torch.as_tensor(scales).to(self.device))
+                                        self.device, self._chunk_rows,
+                                        rows=self._cap)
+        return (self._with_capacity(torch.as_tensor(codes)),
+                self._with_capacity(torch.as_tensor(scales), fill=1.0))
 
     def __len__(self) -> int:
         return self.n
 
     def __repr__(self) -> str:
+        extras = []
+        if self._cap > self.n:
+            extras.append(f"capacity={self._cap}")
+        if self.deleted_count:
+            extras.append(f"deleted={self.deleted_count}")
+        extra = (", " + ", ".join(extras)) if extras else ""
         return (f"Corpus({self.n}x{self.dim}, storage={self.storage!r}, "
-                f"device={str(self.device)!r})")
+                f"device={str(self.device)!r}{extra})")
 
-    def add(self, rows) -> int:
-        raise _not_ported("Corpus.add", 3)
+    # -- mutation ---------------------------------------------------------
+    def _apply_row_mutation(self, r: ArrayLike, pos) -> None:
+        """Write rows ``r`` at ``pos`` (a slice for add, a device index
+        tensor for update) into the stored buffer and every cached
+        prepared form, in place.  The prep is row-wise, so preparing only
+        the new rows is exact.  A prepared form whose cp is the storage
+        itself (codes; rows a prep keeps as stored) takes only its bias
+        rows: a prepared row written there would corrupt the corpus.  A
+        caller's tensor held as the storage is copied first."""
+        if self._borrowed:
+            self._device = self._device.clone()
+            if self._scales is not None:
+                self._scales = self._scales.clone()
+            self._prepared.clear()
+            self._borrowed = False
+        scales = None
+        if self.storage in ("int8", "int4"):
+            codes, scales = quantize_stored(r, self.storage, self.dim,
+                                            self.device, self._chunk_rows)
+            src = torch.as_tensor(codes).to(self.device)
+            scales = torch.as_tensor(scales).to(self.device)
+            self._device[pos] = src
+            self._scales[pos] = scales
+        else:
+            rows32 = _to_torch(r, _F32, self.device)
+            if self.dtype == _F64:
+                # float64 handles take the rows at full precision (and
+                # stay on the reference path: they have no prepared forms).
+                stored = _to_torch(r, _F64, self.device)
+            else:
+                stored = rows32.to(self._device.dtype)
+            self._device[pos] = stored
+            # bf16: prepare from the stored (rounded) rows, so that a write
+            # and a later prep from storage score the same bits.
+            src = stored if self.storage == "bf16" else rows32
+        self._f32_view = None
+        for (metric, precision), (cp, cbp) in self._prepared.items():
+            cpc, cbc = prepare_corpus(src, metric, precision=precision,
+                                      scales=scales)
+            if cp.data_ptr() != self._device.data_ptr():
+                cp[pos] = cpc
+            cbp[..., pos] = cbc
 
-    def update(self, indices, rows) -> None:
-        raise _not_ported("Corpus.update", 3)
+    def add(self, rows: ArrayLike) -> int:
+        """Append rows; returns the new row count (ids ``n..n+m-1``).
+
+        Within capacity the rows are written in place into the stored
+        buffer and every cached prepared form (no buffer is reallocated).
+        Past capacity the capacity doubles (``max(2 * cap, new_n)``): the
+        buffers are reallocated and the prepared forms rebuild lazily."""
+        r = _as_input(rows)
+        _check_width(r, self.dim)
+        m = r.shape[0]
+        if m == 0:
+            return self.n
+        new_n = self.n + m
+        if new_n > self._cap:
+            self._cap = max(2 * self._cap, new_n)
+            self._device = self._with_capacity(self._device[: self.n])
+            if self._scales is not None:
+                self._scales = self._with_capacity(self._scales[: self.n],
+                                                   fill=1.0)
+            self._prepared.clear()
+            self._f32_view = None
+        self._apply_row_mutation(r, slice(self.n, new_n))
+        if self._tombstones is not None:
+            self._tombstones = np.concatenate(
+                [self._tombstones, np.zeros(m, dtype=bool)])
+            self._alive = None
+        self.n = new_n
+        return new_n
+
+    def update(self, indices, rows: ArrayLike) -> None:
+        """Overwrite rows in place by id (upsert): the stored buffer and
+        every cached prepared form.  Ids must be integers, unique and in
+        [0, n).  Updating a tombstoned row revives it."""
+        idx = _host_ids(indices)
+        r = _as_input(rows)
+        _check_width(r, self.dim)
+        if idx.size != r.shape[0]:
+            raise ValueError(
+                f"got {idx.size} indices for {r.shape[0]} rows")
+        if idx.size == 0:
+            return
+        if not np.issubdtype(idx.dtype, np.integer):
+            raise ValueError(
+                f"update indices must be integers, got dtype {idx.dtype}")
+        if idx.min() < 0 or idx.max() >= self.n:
+            raise ValueError(
+                f"update indices must be in [0, {self.n}); got "
+                f"[{idx.min()}, {idx.max()}]")
+        if _repeats(idx):
+            raise ValueError("update indices must be unique")
+        pos = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        self._apply_row_mutation(r, pos)
+        if self._tombstones is not None and self._tombstones[idx].any():
+            self._tombstones[idx] = False
+            self._alive = None
 
     def delete(self, indices) -> int:
-        raise _not_ported("Corpus.delete", 3)
+        """Tombstone rows by id: they never match again (topk only;
+        ``matmul`` still scores them).  The stored rows and prepared forms
+        are untouched.  Returns the total number of tombstoned rows."""
+        idx = _host_ids(indices)
+        if idx.size and not np.issubdtype(idx.dtype, np.integer):
+            raise ValueError(
+                f"delete indices must be integers, got dtype {idx.dtype}")
+        if idx.size and (idx.min() < 0 or idx.max() >= self.n):
+            raise ValueError(
+                f"delete indices must be in [0, {self.n}); got "
+                f"[{idx.min()}, {idx.max()}]")
+        if self._tombstones is None:
+            self._tombstones = np.zeros(self.n, dtype=bool)
+        self._tombstones[idx] = True
+        self._alive = None
+        return int(self._tombstones.sum())
+
+    @property
+    def deleted_count(self) -> int:
+        return 0 if self._tombstones is None else int(self._tombstones.sum())
 
     def _effective_precision(self) -> str:
         """The kernel core this handle runs: a quantized tier always runs
@@ -482,29 +654,35 @@ class Corpus:
 
     def _dense_device(self) -> torch.Tensor:
         """(n, dim) rows in the compute dtype for matmul and the reference
-        path: the f32 corpus itself, else a cached dequantized f32 view."""
+        path: the f32 corpus itself, else a cached dequantized f32 view
+        (the capacity rows left out)."""
+        rows = self._device[: self.n]
         if self.storage == "f32":
-            return self._device
+            return rows
         if self._f32_view is None:
             if self.storage == "int8":
-                dense = (self._device.to(torch.float32)
-                         * self._scales[:, None])
+                dense = (rows.to(torch.float32)
+                         * self._scales[: self.n, None])
             elif self.storage == "int4":
-                dense = dequant_int4(self._device, self._scales, self.dim)
+                dense = dequant_int4(rows, self._scales[: self.n], self.dim)
             else:
-                dense = self._device.to(torch.float32)
+                dense = rows.to(torch.float32)
             self._f32_view = dense
         return self._f32_view
 
     def _prepared_for(self, metric: Metric):
         """Cached (cp, cbp) of ``prepare_stored`` for this metric and the
-        handle's core."""
+        handle's core, over all ``_cap`` stored rows.  The capacity rows
+        get bias -inf in the last cbp row (a quantized core's scale row
+        above it stays finite: 0 * -inf would be NaN)."""
         precision = self._effective_precision()
         key = (metric.value, precision)
         if key not in self._prepared:
-            self._prepared[key] = prepare_stored(
-                self._device, self._scales, metric, precision,
-                self._chunk_rows)
+            cp, cbp = prepare_stored(self._device, self._scales, metric,
+                                     precision, self._chunk_rows)
+            if cbp.shape[-1] > self.n:
+                (cbp[-1] if cbp.ndim == 2 else cbp)[self.n:] = float("-inf")
+            self._prepared[key] = (cp, cbp)
         return self._prepared[key]
 
     def _combined_mask(self, user_mk) -> Optional[torch.Tensor]:
@@ -514,15 +692,6 @@ class Corpus:
         if self._alive is None:
             self._alive = torch.from_numpy(~self._tombstones).to(self.device)
         return self._alive if mk is None else (mk & self._alive)
-
-    def _check_queries(self, q) -> None:
-        if q.ndim != 2 or q.shape[1] != self.dim:
-            raise ValueError(
-                f"Dimension mismatch: left has "
-                f"{q.shape[1] if q.ndim == 2 else tuple(q.shape)} "
-                f"dimensional vectors, right has {self.dim} dimensional "
-                f"vectors"
-            )
 
     def topk(self, queries: ArrayLike, k: int,
              metric: Union[str, Metric] = "cosine", *, mask=None
@@ -534,7 +703,7 @@ class Corpus:
         q = _as_input(queries)
         if q.shape[0] == 0:
             return np.empty((0, 0), np.uint32), np.empty((0, 0), np.float64)
-        self._check_queries(q)
+        _check_width(q, self.dim)
         user_mk = _validate_mask(mask, self.n)
         kk = min(int(k), self.n)
         if kk <= 0:
@@ -570,7 +739,7 @@ class Corpus:
         if q.shape[0] == 0:
             return np.empty((0, self.n), dtype=compute_dtype(q.dtype,
                                                              self.dtype))
-        self._check_queries(q)
+        _check_width(q, self.dim)
         dt = compute_dtype(q.dtype, self.dtype)
         with annotate("pmm.matmul"):
             out = pairwise_matmul(_to_torch(q, dt, self.device),
@@ -580,10 +749,11 @@ class Corpus:
 
     def save(self, path) -> None:
         """Persist to ``path`` (.npz) in the JAX package's format, which its
-        ``Corpus.load`` reads back: the tier's own bytes (bf16 as
-        ``data_u16`` bits, int8 codes or packed int4 with ``scales``) and
-        the tombstones."""
-        data = self._device.cpu()
+        ``Corpus.load`` reads back: the tier's own bytes of the n rows
+        (bf16 as ``data_u16`` bits, int8 codes or packed int4 with
+        ``scales``) and the tombstones.  Capacity is not saved: pass
+        ``capacity=`` again to ``load``."""
+        data = self._device[: self.n].cpu()
         arrays = {"n": np.int64(self.n), "dim": np.int64(self.dim),
                   "storage": np.array(self.storage)}
         if self.storage == "bf16":
@@ -592,7 +762,7 @@ class Corpus:
         else:
             arrays["data"] = data.numpy()
         if self._scales is not None:
-            arrays["scales"] = self._scales.cpu().numpy()
+            arrays["scales"] = self._scales[: self.n].cpu().numpy()
         if self._tombstones is not None:
             arrays["tombstones"] = self._tombstones
         with open(path, "wb") as f:

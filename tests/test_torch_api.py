@@ -197,15 +197,19 @@ def test_unported_corpus_features_raise():
         assert h.storage == storage and h.dtype == np.float32
         _same(h.topk(q, 4, "dot"), pmt.Corpus(c, storage=storage).topk(
             q, 4, "dot"))
-    for kw in ({"mesh": object()}, {"capacity": 1000},
-               {"storage": "int8", "mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"mesh": object()}, {"storage": "int8", "mesh": object()},
+               {"mesh": object(), "capacity": 1000}):
+        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
             pt.Corpus(c, device=CPU, **kw)
-    h = pt.Corpus(c, device=CPU)
-    for call in (lambda: h.add(c[:2]), lambda: h.update([0], c[:1]),
-                 lambda: h.delete([0])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # Capacity and the mutations are ported: they answer like the JAX
+    # package.
+    h = pt.Corpus(c, device=CPU, capacity=1000)
+    j = pmt.Corpus(c, capacity=1000)
+    for x in (h, j):
+        assert x.add(c[:2]) == c.shape[0] + 2
+        x.update([0], c[1:2])
+        assert x.delete([1]) == 1
+    _same(h.topk(q, 4, "dot"), j.topk(q, 4, "dot"))
 
 
 def test_search_config_fields_match_jax():
