@@ -113,7 +113,24 @@ Phases, each printing one line or a few:
    required), 10,000 updated and 10,000 deleted, probed and exhaustive
    requests held to the float64 oracle over the live visited rows, then
    ``rebuild()`` (drift 0, no dead tile, the same exhaustive ids); each
-   mutation call's host time and probed recall@10 before and after.
+   mutation call's host time and probed recall@10 before and after;
+12. the Arrow path on raw buffers (``interop.buffers``, no pyarrow
+   needed), counted like phase 5: a 2,000,000 x 768 f32 values buffer in
+   host memory from NumPy seed 42, described as a FixedSizeList (its
+   extraction a view) and as a List<f32> with int32 offsets at array
+   offset 3, 0.1 % of its rows null (the first not at bit 0 of its
+   byte), packed by the native packer (``interop/csrc/pmm_native.cpp``,
+   built with g++, required); ``Corpus.from_arrow`` of the first (f32;
+   256 queries at k=10 and 100 through ``topk_buffers``, the result
+   buffers' layout checked, held to the float64 oracle) and of the second
+   (int8; batch 8 k=10 held to the oracle over the stored codes, null
+   rows stored as zeros and scored 0), ``ClusteredCorpus.from_arrow`` of
+   the first (batch 8 k=10 probe 0.05 over the visited rows);
+   ``matmul_buffers`` at 1000 x 10,000 x 256 from columns and a handle
+   against a float64 product; host times of the extraction, upload,
+   prep, requests (``topk_buffers`` beside ``Corpus.topk``) and assembly;
+   where pyarrow imports, ``topk_arrow`` and ``Corpus.from_arrow`` on
+   ``pa`` arrays equal to the buffer path.
 
 The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
 listed), kernel B (``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``,
@@ -143,6 +160,8 @@ from pathlib import Path
 import numpy as np
 
 SEED = 42
+# The package's zero-norm guard for cosine (ops.metrics.cosine_eps, f32).
+ZERO_NORM = 1e-6
 N_QUERIES, N_CORPUS, DIM = 1000, 10_000, 256
 BIG_ROWS = 2_000_000
 # The full-width path: the north-star corpus of BASELINE.json.
@@ -1503,7 +1522,8 @@ def _oracle_stored(F, torch, corpus, q, k, chunk=250_000, alive=None):
     and int4 (their scale cancels), the prepared rows for bf16 (rows
     normalised in f32 and rounded to bf16, which the kernel scores as
     they are); its n rows, without the rows ``alive`` (a device bool over
-    the n rows) marks False."""
+    the n rows) marks False.  A zero row (an Arrow column's null row)
+    scores 0, as the package scores a row of norm <= ZERO_NORM."""
     qn = q.double()
     qn = qn / qn.norm(dim=1, keepdim=True)
     rows_all = (corpus._prepared_for(F.Metric.COSINE)[0]
@@ -1516,7 +1536,8 @@ def _oracle_stored(F, torch, corpus, q, k, chunk=250_000, alive=None):
             blk = F.unpack_int4(blk, corpus.dim)
         rows = blk.double()
         if corpus.storage != "bf16":
-            rows = rows / rows.norm(dim=1, keepdim=True)
+            norm = rows.norm(dim=1, keepdim=True)
+            rows = torch.where(norm > ZERO_NORM, rows / norm, 0.0)
         s = qn @ rows.T
         if alive is not None:
             s[:, ~alive[r0:r1]] = float("-inf")
@@ -1795,11 +1816,15 @@ def _oracle_visited(F, torch, cc, qr, k, tiles, br, chunk=250_000):
     return (torch.cat(out_i).cpu().numpy(), torch.cat(out_v).cpu().numpy())
 
 
-def _request_checked(F, torch, cc, q, k, probe, label, phase=8):
-    """One ``ClusteredCorpus.topk`` request held to the float64 oracle over
-    the live rows its blocks visited.  Returns (indices, scores)."""
+def _request_checked(F, torch, cc, q, k, probe, label, phase=8,
+                     request=None):
+    """One ``ClusteredCorpus.topk`` request (or ``request()``, another
+    entry point's (indices, scores) of the same request) held to the
+    float64 oracle over the live rows its blocks visited.  Returns
+    (indices, scores)."""
     t0 = time.perf_counter()
-    idx, scores = cc.topk(q, k, probe=probe)
+    idx, scores = (request() if request is not None
+                   else cc.topk(q, k, probe=probe))
     host = (time.perf_counter() - t0) * 1e3
     order, qr, tiles, br = _probe_plan(cc, q, k, probe)
     ref_i, ref_v = _oracle_visited(F, torch, cc, qr, k, tiles, br)
@@ -2969,6 +2994,239 @@ def phase_mutation(pmt, F, torch, card):
             "tiles": cl["fused_topk_partial_tiles"]}
 
 
+# Arrow interop (phase 12): one host values buffer of ARROW_ROWS x WIDE_DIM
+# f32 from SEED (an embedding column at the north star's width), described
+# by its buffers as a FixedSizeList (a view) and as a List<f32> with int32
+# offsets after ARROW_OFFSET empty rows, sliced there, ARROW_NULL_SHARE of
+# its rows null (packed by the native packer).  The phase drives the
+# buffer layer, the code under topk_arrow that needs no pyarrow.
+ARROW_ROWS, ARROW_OFFSET, ARROW_NULL_SHARE = 2_000_000, 3, 0.001
+ARROW_QUERIES = 256
+# Kernels-line entries that phase 12's path launches, by its count keys.
+ARROW_KEYS = {"fused_topk_partial.bf16x3": "bf16x3",
+              "fused_topk_partial.int8c": "int8c",
+              "topk_merge": "topk_merge",
+              "fused_topk_partial.tiles": "tiles"}
+
+
+def _arrow_columns(B):
+    """The host values buffer as (rows, dim), its FixedSizeList and List
+    columns, the List's null rows (the first not at bit 0 of its byte;
+    drawn from SEED + 12) and ARROW_QUERIES query rows (from SEED)."""
+    rng = np.random.default_rng(SEED)
+    values = np.empty(ARROW_ROWS * WIDE_DIM, np.float32)
+    rng.standard_normal(dtype=np.float32, out=values)
+    fsl = B.EmbeddingColumn(length=ARROW_ROWS, values=values,
+                            list_size=WIDE_DIM)
+    offsets = np.zeros(ARROW_OFFSET + ARROW_ROWS + 1, np.int32)
+    offsets[ARROW_OFFSET:] = (np.arange(ARROW_ROWS + 1, dtype=np.int32)
+                              * WIDE_DIM)
+    pick = np.random.default_rng(SEED + 12)
+    nulls = np.sort(pick.choice(ARROW_ROWS - 1, int(ARROW_NULL_SHARE
+                                                    * ARROW_ROWS),
+                                replace=False) + 1)
+    valid = np.ones(ARROW_OFFSET + ARROW_ROWS, bool)
+    valid[ARROW_OFFSET + nulls] = False
+    require((ARROW_OFFSET + nulls[0]) % 8 != 0,
+            "the first null row sits at bit 0 of its byte")
+    lst = B.EmbeddingColumn(length=ARROW_ROWS, values=values,
+                            offsets=offsets, offset=ARROW_OFFSET,
+                            validity=np.packbits(valid, bitorder="little"))
+    queries = rng.standard_normal((ARROW_QUERIES, WIDE_DIM),
+                                  dtype=np.float32)
+    return values.reshape(ARROW_ROWS, WIDE_DIM), fsl, lst, nulls, queries
+
+
+def _check_packed(packed, rows, nulls, chunk=1 << 17):
+    """The packed List column: the values rows, the null rows zeros."""
+    require(packed.shape == rows.shape and packed.dtype == np.float32,
+            f"packed {packed.shape} {packed.dtype}")
+    require(not packed[nulls].any(), "a null row was not packed as zeros")
+    keep = np.ones(rows.shape[0], bool)
+    keep[nulls] = False
+    for r0 in range(0, rows.shape[0], chunk):
+        same = (packed[r0:r0 + chunk] == rows[r0:r0 + chunk]).all(axis=1)
+        require(bool(same[keep[r0:r0 + chunk]].all()),
+                f"packed rows from {r0} differ from the values buffer")
+
+
+def _topk_result(out, m, k):
+    """(indices, scores) of ``TopkBuffers`` holding m lists of k, after
+    checking their layout: int32 offsets i * k, a u32 index child and an
+    f64 score child."""
+    require(out.offsets.dtype == np.int32 and np.array_equal(
+        out.offsets, np.arange(m + 1) * k), "top-k offsets are not i * k")
+    require(out.index.dtype == np.uint32 and out.index.shape == (m * k,),
+            f"index child {out.index.dtype} {out.index.shape}")
+    require(out.score.dtype == np.float64 and out.score.shape == (m * k,),
+            f"score child {out.score.dtype} {out.score.shape}")
+    return out.index.reshape(m, k), out.score.reshape(m, k)
+
+
+def _median_ms(torch, fn, reps=5):
+    return statistics.median(_host_ms(torch, fn)[1] for _ in range(reps))
+
+
+def _arrow_dense(pmt, F, torch, B, topk_buffers, fsl, lst, nulls, queries,
+                 card):
+    """Corpus.from_arrow of the FixedSizeList (f32) and of the List with
+    nulls (int8), requests through topk_buffers held to float64 oracles."""
+    label = f"{ARROW_ROWS}x{WIDE_DIM}"
+    q_dev = torch.from_numpy(queries).cuda()
+    qcol, q8 = B.matrix_column(queries), B.matrix_column(queries[:8])
+    corpus, up_ms = _host_ms(torch, lambda: pmt.Corpus.from_arrow(fsl))
+    _, prep_ms = _host_ms(torch, lambda: corpus._prepared_for(
+        F.Metric.COSINE))
+    for k in (10, 100):
+        out, ms = _host_ms(torch, lambda: topk_buffers(qcol, corpus, k))
+        idx, scores = _topk_result(out, ARROW_QUERIES, k)
+        ref_idx, ref_scores = _oracle_on_card(torch, q_dev, corpus._device,
+                                              k)
+        gate(idx, scores, ref_idx, ref_scores,
+             f"{label} f32 FixedSizeList batch 256 k={k}")
+        print(f"phase 12: {label} f32 Corpus.from_arrow(FixedSizeList), "
+              f"topk_buffers batch {ARROW_QUERIES} k={k} cosine: offsets, "
+              f"u32 index and f64 score children as Arrow lays them out; "
+              f"passes the float64 oracle gate ({ms:.1f} ms host)")
+    times = {"topk_buffers": [], "Corpus.topk": []}
+    for _ in range(2):
+        times["topk_buffers"].append(_median_ms(
+            torch, lambda: topk_buffers(q8, corpus, 10)))
+        times["Corpus.topk"].append(_median_ms(
+            torch, lambda: corpus.topk(queries[:8], 10)))
+    idx, scores = corpus.topk(queries, 100)
+    asm_ms = _median_ms(torch, lambda: B.topk_to_buffers(idx, scores))
+    del corpus
+    torch.cuda.empty_cache()
+    print(f"phase 12: [{card}] {label} f32: Corpus.from_arrow (upload) "
+          f"{up_ms:.1f} ms host, cosine prep {prep_ms:.1f} ms; batch 8 "
+          f"k=10 through topk_buffers "
+          f"{' / '.join(f'{t:.3f}' for t in times['topk_buffers'])} ms "
+          f"host, Corpus.topk on the same NumPy matrix "
+          f"{' / '.join(f'{t:.3f}' for t in times['Corpus.topk'])} ms "
+          f"(medians of 5, in turns); assembly of batch 256 k=100 "
+          f"{asm_ms:.3f} ms host")
+
+    c8, up8_ms = _host_ms(torch, lambda: pmt.Corpus.from_arrow(
+        lst, storage="int8"))
+    dead = torch.from_numpy(nulls).cuda()
+    require(not bool(c8._device[dead].any()),
+            "a null row is not stored as zero codes")
+    out, ms = _host_ms(torch, lambda: topk_buffers(q8, c8, 10))
+    idx, scores = _topk_result(out, 8, 10)
+    ref_idx, ref_scores = _oracle_stored(F, torch, c8, q_dev[:8], 10)
+    gate(idx, scores, ref_idx, ref_scores,
+         f"{label} int8 List with nulls batch 8 k=10")
+    print(f"phase 12: [{card}] {label} int8 Corpus.from_arrow(List, "
+          f"{nulls.size} null rows, offset {ARROW_OFFSET}): packed, "
+          f"quantized and uploaded in {up8_ms:.1f} ms host; topk_buffers "
+          f"batch 8 k=10 passes the float64 oracle gate over the stored "
+          f"codes, null rows stored as zeros ({ms:.1f} ms host)")
+    del c8
+    torch.cuda.empty_cache()
+
+
+def phase_arrow(pmt, F, torch, q_np, c_np, card):
+    """Phase 12: the Arrow path on raw buffers at ARROW_ROWS x WIDE_DIM,
+    counted like phase 5, and matmul_buffers at the canonical shape.
+    Returns the launches to add to the kernels line, by ARROW_KEYS'
+    values."""
+    from polars_matmul_tpu_torch.api.arrow_ops import (matmul_buffers,
+                                                       topk_buffers)
+    from polars_matmul_tpu_torch.interop import buffers as B
+    from polars_matmul_tpu_torch.interop import native
+
+    t0 = time.perf_counter()
+    rows, fsl, lst, nulls, queries = _arrow_columns(B)
+    made = time.perf_counter() - t0
+    view, view_ms = _host_ms(torch, lambda: B.extract_matrix(fsl))
+    require(view.shape == rows.shape and view.__array_interface__["data"][0]
+            == rows.__array_interface__["data"][0],
+            "the FixedSizeList extraction is not a view of its buffer")
+    packs = dict(B.packs)
+    packed, pack_ms = _host_ms(torch, lambda: B.extract_matrix(lst))
+    require(B.packs == dict(packs, native=packs["native"] + 1),
+            f"the List column did not take the native packer: {B.packs}, "
+            f"{native.build_info}")
+    _check_packed(packed, rows, nulls)
+    del packed, view
+    print(f"phase 12: [{card}] {ARROW_ROWS}x{WIDE_DIM} f32 values buffer "
+          f"made in {made:.1f} s host (NumPy, seed {SEED}); extraction: the "
+          f"FixedSizeList a view ({view_ms:.4f} ms host), the List (int32 "
+          f"offsets, array offset {ARROW_OFFSET}, {nulls.size} null rows, "
+          f"the first at bit {(ARROW_OFFSET + nulls[0]) % 8} of its byte) "
+          f"packed by the native packer in {pack_ms:.1f} ms host, every row "
+          f"checked ({native.build_info['library']})")
+
+    # The Arrow path: count only its launches.
+    F.reset_launch_counts()
+    _arrow_dense(pmt, F, torch, B, topk_buffers, fsl, lst, nulls, queries,
+                 card)
+    cc, cl_ms = _host_ms(torch, lambda: pmt.ClusteredCorpus.from_arrow(fsl))
+    q8 = B.matrix_column(queries[:8])
+    _request_checked(
+        F, torch, cc, torch.from_numpy(queries[:8]).cuda(), 10, PROBE,
+        f"{ARROW_ROWS}x{WIDE_DIM} f32 ClusteredCorpus.from_arrow("
+        f"FixedSizeList) topk_buffers batch 8 k=10 probe={PROBE}",
+        phase=12, request=lambda: _topk_result(
+            topk_buffers(q8, cc, 10, probe=PROBE), 8, 10))
+    print(f"phase 12: [{card}] ClusteredCorpus.from_arrow built in "
+          f"{cl_ms:.1f} ms host: {cc!r}")
+    del cc
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launched, by_core = _counted(F, f"{ARROW_ROWS}x{WIDE_DIM} Arrow",
+                                 ("bf16x3", "int8c"), tiles=True)
+    require(B.packs["native"] == packs["native"] + 2
+            and B.packs["plain"] == packs["plain"],
+            f"packs on the Arrow path: {B.packs}")
+
+    # matmul_buffers at the canonical shape, from columns and a handle.
+    mq, mc = B.matrix_column(q_np), B.matrix_column(c_np)
+    qd, cd = torch.from_numpy(q_np).cuda(), torch.from_numpy(c_np).cuda()
+    for what, corpus in (("columns", mc), ("a Corpus handle",
+                                           pmt.Corpus(c_np))):
+        out, ms = _host_ms(torch, lambda: matmul_buffers(mq, corpus))
+        require(out.list_size == N_CORPUS and out.offsets is None
+                and out.values.dtype == np.float32
+                and out.values.shape == (N_QUERIES * N_CORPUS,),
+                f"matmul_buffers ({what}): {out.list_size} "
+                f"{out.values.dtype} {out.values.shape}")
+        panel = torch.from_numpy(out.values.reshape(N_QUERIES, N_CORPUS))
+        _check_product(torch, panel.cuda(), qd, cd, "highest",
+                       f"matmul_buffers from {what}")
+        print(f"phase 12: matmul_buffers {N_QUERIES}x{N_CORPUS}x{DIM} f32 "
+              f"from {what}: a FixedSizeList[{N_CORPUS}] panel within the "
+              f"float64 product's tolerance ({ms:.1f} ms host)")
+
+    try:
+        import pyarrow as pa
+    except ImportError:
+        print("phase 12: pyarrow is not installed on this machine: the "
+              "pyarrow adapter (topk_arrow, matmul_arrow, from_arrow on pa "
+              "arrays) is left to the CPU tests (tests/test_torch_interop.py)")
+    else:
+        col = pa.FixedSizeListArray.from_arrays(pa.array(rows.reshape(-1)),
+                                                WIDE_DIM)
+        qa = pa.FixedSizeListArray.from_arrays(
+            pa.array(queries[:8].reshape(-1)), WIDE_DIM)
+        corpus = pmt.Corpus.from_arrow(col)
+        got = pmt.topk_arrow(qa, corpus, 10).flatten()
+        want = topk_buffers(q8, corpus, 10)
+        require(np.array_equal(np.asarray(got.field("index")), want.index)
+                and np.array_equal(np.asarray(got.field("score")),
+                                   want.score),
+                "topk_arrow differs from topk_buffers on the same column")
+        print(f"phase 12: topk_arrow and Corpus.from_arrow on pyarrow "
+              f"{pa.__version__} arrays equal topk_buffers on their buffers")
+        del corpus
+        torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s host in all")
+    return {"bf16x3": by_core["bf16x3"], "int8c": by_core["int8c"],
+            "topk_merge": launched["topk_merge"],
+            "tiles": launched["fused_topk_partial_tiles"]}
+
+
 def main() -> int:
     import torch
 
@@ -3053,8 +3311,12 @@ def main() -> int:
     kernels += phase_floor(F, torch, card)
     torch.cuda.empty_cache()
     mutation = phase_mutation(pmt, F, torch, card)
+    torch.cuda.empty_cache()
+    arrow = phase_arrow(pmt, F, torch, q, c, card)
     for entry in kernels:
-        entry["launches"] += mutation.get(MUTATION_KEYS.get(entry["name"]), 0)
+        name = entry["name"]
+        entry["launches"] += (mutation.get(MUTATION_KEYS.get(name), 0)
+                              + arrow.get(ARROW_KEYS.get(name), 0))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

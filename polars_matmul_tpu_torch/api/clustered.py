@@ -90,8 +90,8 @@ class ClusteredCorpus:
     ``drift`` counts them) and ``rebuild`` refits on the live rows, all
     on the handle's device, with the JAX package's placement, so that the
     same steps from the same saved file give the same layout.  ``mesh=``
-    and ``from_arrow`` raise ``NotImplementedError`` naming the ROADMAP
-    item that ports them.
+    raises ``NotImplementedError`` naming the ROADMAP item that ports
+    it.
     """
 
     def __init__(self, embeddings: ArrayLike, *,
@@ -484,7 +484,13 @@ class ClusteredCorpus:
 
     @classmethod
     def from_arrow(cls, column, **kwargs) -> "ClusteredCorpus":
-        raise _not_ported("ClusteredCorpus.from_arrow", 4)
+        """A clustered corpus straight from an Arrow (or polars) embedding
+        column or its buffers, with ``Corpus.from_arrow``'s extraction and
+        the constructor's keywords (``clusters=``, ``storage=``,
+        ``config=``, ``device=``, ...)."""
+        from ..interop.arrow import extract_embedding_column
+
+        return cls(extract_embedding_column(column), **kwargs)
 
     def delete(self, indices: ArrayLike) -> int:
         """Tombstone rows by original id; they stop matching at once

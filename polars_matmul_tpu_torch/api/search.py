@@ -342,6 +342,19 @@ def prepare_stored(c: torch.Tensor, scales: Optional[torch.Tensor], metric,
     return cp, cbp
 
 
+def _holds(held: Optional[torch.Tensor], x) -> bool:
+    """Whether ``held`` is the caller's ``x`` itself: the same tensor
+    memory, or a NumPy array that ``torch.from_numpy`` viewed (a CPU
+    handle keeps that view, read-only arrays included)."""
+    if held is None:
+        return False
+    if isinstance(x, torch.Tensor):
+        return x.data_ptr() == held.data_ptr()
+    return (isinstance(x, np.ndarray) and x.size > 0
+            and held.device.type == "cpu"
+            and x.__array_interface__["data"][0] == held.data_ptr())
+
+
 def _scales_vector(scales, n: int):
     scales = (scales.to(torch.float32) if isinstance(scales, torch.Tensor)
               else np.asarray(scales, dtype=np.float32)).reshape(-1)
@@ -460,11 +473,10 @@ class Corpus:
                 _to_torch(scales, _F32, self.device), fill=1.0)
         else:
             self._device, self._scales = self._quantize(c)
-        # A caller's tensor held as it is: copied before the first write.
-        self._borrowed = any(
-            isinstance(x, torch.Tensor) and y is not None
-            and x.data_ptr() == y.data_ptr()
-            for x, y in ((c, self._device), (scales, self._scales)))
+        # A caller's tensor or NumPy array held as it is: copied before
+        # the first write.
+        self._borrowed = any(_holds(y, x) for x, y in
+                             ((c, self._device), (scales, self._scales)))
         # Dequantized f32 rows of a bf16 / int8 / int4 corpus, built only
         # for matmul and the reference path (k > max_fused_k,
         # use_pallas=False): the f32 bytes, once.
@@ -767,6 +779,19 @@ class Corpus:
             arrays["tombstones"] = self._tombstones
         with open(path, "wb") as f:
             np.savez(f, **arrays)
+
+    @classmethod
+    def from_arrow(cls, column, **kwargs) -> "Corpus":
+        """A resident corpus straight from an Arrow (or polars) embedding
+        column, or from its buffers (an ``interop.buffers.EmbeddingColumn``,
+        no ``pyarrow`` needed): a FixedSizeList of float32 with no nulls
+        is held without a copy, every other column is packed, nulls as
+        0.0.  Takes the constructor's keywords (``storage=``,
+        ``capacity=``, ``config=``, ``device=``, ...).  The handle then
+        serves ``topk_arrow`` / ``matmul_arrow`` and ``.pmm``."""
+        from ..interop.arrow import extract_embedding_column
+
+        return cls(extract_embedding_column(column), **kwargs)
 
     @classmethod
     def load(cls, path, *, mesh=None, capacity: Optional[int] = None,

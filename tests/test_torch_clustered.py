@@ -511,11 +511,9 @@ def test_unported_features_raise():
     _, c = blobs(np.random.default_rng(13), 300, 2, 8)
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         pt.ClusteredCorpus(c, mesh=object(), device=CPU)
-    for call, item in ((lambda: pt.ClusteredCorpus.from_arrow(None), 4),
-                       (lambda: pt.ClusteredCorpus.load("x", mesh=object()),
-                        6)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        pt.ClusteredCorpus.load("x", mesh=object())
+    # from_arrow is ported (tests/test_torch_interop.py).
     # add / update / rebuild are ported (tests/test_torch_lifecycle.py).
     h = pt.ClusteredCorpus(c, clusters=2, device=CPU)
     assert h.add(c[:2]) == c.shape[0] + 2

@@ -272,6 +272,29 @@ def test_borrowed_tensor_and_float64_rows():
     _same(h64.topk(q, 5, "euclidean"), j64.topk(q, 5, "euclidean"))
 
 
+@pytest.mark.parametrize("dtype,writeable", [(np.float32, True),
+                                             (np.float64, True),
+                                             (np.float32, False)])
+def test_update_never_writes_the_callers_array(dtype, writeable):
+    """A CPU handle holds a NumPy corpus as a view (``torch.from_numpy``):
+    ``update`` copies it first and leaves the caller's array, read-only
+    or not, bit for bit as it was, as the JAX package (whose arrays are
+    copies) does."""
+    rng = np.random.default_rng(12)
+    c = rng.standard_normal((40, 12)).astype(dtype)
+    before = c.copy()
+    c.flags.writeable = writeable
+    rows = rng.standard_normal((2, 12)).astype(dtype)
+    h = pt.Corpus(c, device=CPU)
+    j = pmt.Corpus(c, config=PLAIN)
+    for handle in (h, j):
+        handle.update([0, 7], rows)
+    assert c.tobytes() == before.tobytes()
+    q = rng.standard_normal((3, 12)).astype(dtype)
+    for metric in METRICS:
+        _same(h.topk(q, 5, metric), j.topk(q, 5, metric))
+
+
 def test_corpus_repr_and_counts_match_jax():
     rng = np.random.default_rng(9)
     c = rng.standard_normal((10, 8)).astype(np.float32)
