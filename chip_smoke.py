@@ -130,7 +130,20 @@ Phases, each printing one line or a few:
    against a float64 product; host times of the extraction, upload,
    prep, requests (``topk_buffers`` beside ``Corpus.topk``) and assembly;
    where pyarrow imports, ``topk_arrow`` and ``Corpus.from_arrow`` on
-   ``pa`` arrays equal to the buffer path.
+   ``pa`` arrays equal to the buffer path;
+13. sharded search (``parallel``), every leg counted like phase 5, on
+   meshes that name the one card several times: phase 7's 10M x 768 int8
+   codes (quantized chunk by chunk as phase 7 draws them) on 4 shards,
+   batch 8 and 256 at k=10 and 100 through both merges (allgather and
+   ring), each held to the unsharded handle on the same codes and, at
+   batch 8, to the float64 oracle; the merges' own times; the same codes
+   with ``capacity=`` on both handles, 1,000 rows added, 10,000 updated,
+   100,000 deleted, compared again; phase 4's 2M x 256 corpus on a 2 x 2
+   mesh at batch 256 k=10 in bf16x3 and highest, ``distributed_matmul``
+   at 1000 x 10,000 x 256 against float64; phase 8's 2M x 256 f32 blob
+   mixture as a ``ClusteredCorpus`` on 4 shards (exhaustive requests equal
+   the dense scan, probe 0.05 recall reported); a one-rank NCCL process
+   group carrying the canonical request through both merges.
 
 The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
 listed), kernel B (``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``,
@@ -808,7 +821,7 @@ def _per_tile_bits(F, torch):
 def _check_quantizers(F, torch, gen):
     """The torch quantizers on the card against the host NumPy ones, bit
     for bit, on one ingestion chunk (zero rows included)."""
-    from polars_matmul_tpu_torch.api import search as S
+    from polars_matmul_tpu_torch.kernels import storage as S
 
     for dim in (WIDE_DIM, 4200):
         c = torch.randn((4096, dim), generator=gen, device="cuda")
@@ -935,13 +948,32 @@ def sorted_lists(torch, gen, m, splits, k, mode, device="cuda"):
     return v.contiguous(), idx.to(torch.int32).contiguous()
 
 
+def shuffled_lists(torch, gen, m, splits, k, device="cuda"):
+    """``sorted_lists`` on tie data, each list still ordered by (value
+    desc, index asc) but the lists of each row in a random order, so their
+    index ranges no longer ascend from list to list: the lists the ring
+    merge of sharded search hands kernel B."""
+    v, i = sorted_lists(torch, gen, m, splits, k, "padded", device)
+    order = torch.argsort(torch.rand((m, splits), generator=gen,
+                                     device=device), dim=1)
+    order = order[:, :, None].expand(m, splits, k)
+    return (torch.gather(v, 1, order).contiguous(),
+            torch.gather(i, 1, order).contiguous())
+
+
+# Out-of-order lists of the sweep: (m, splits, k).
+MERGE_SHUFFLED = ((1, 2, 10), (8, 4, 10), (8, 4, 100), (37, 33, 16),
+                  (256, 2, 100), (1000, 8, 128))
+
+
 def _merge_sweep(F, torch, gen):
     """Kernel B against its plain version, bit for bit, on sorted lists
     with ascending split ranges (``sorted_lists``): at every shape of the
     sweep on integer tie data, and on one of random values, padded lists,
     wholly -inf lists and rows, and -inf entries with real indices, in
-    turn; then lists past the kernel's limits, which it must refuse.
-    Returns (cases, grouped cases, cases of several rows a block)."""
+    turn; on lists out of index order (``shuffled_lists``); then lists
+    past the kernel's limits, which it must refuse.  Returns (cases,
+    grouped cases, cases of several rows a block)."""
     sms = F.device_sms(torch.device("cuda"))
     others = [mode for mode in MERGE_MODES if mode != "ties"]
     cases = grouped = shared = 0
@@ -961,6 +993,12 @@ def _merge_sweep(F, torch, gen):
                     grouped += groups > 1
                     shared += rows > 1
                 del pv, pi
+    for m, splits, k in MERGE_SHUFFLED:
+        pv, pi = shuffled_lists(torch, gen, m, splits, k)
+        compare(*F.topk_merge(pv, pi, k), *F.topk_merge_plain(pv, pi, k),
+                exact=True, what=f"kernel B out-of-order lists m={m} "
+                f"splits={splits} k={k}")
+        cases += 1
     for splits, k in ((2, 4097), (F._MAX_SPLITS + 1, 10)):
         pv = torch.zeros((1, splits, k), device="cuda")
         pi = torch.zeros((1, splits, k), dtype=torch.int32, device="cuda")
@@ -3227,6 +3265,357 @@ def phase_arrow(pmt, F, torch, q_np, c_np, card):
             "tiles": launched["fused_topk_partial_tiles"]}
 
 
+
+# Sharded search (phase 13): SHARDS mesh positions on the one card (a mesh
+# may repeat a device), phase 7's int8 codes, phase 4's f32 corpus on a
+# 2 x 2 mesh, phase 8's 2M x 256 f32 blob mixture clustered on SHARDS
+# shards, and a one-rank NCCL process group.
+SHARDS = 4
+SHARD_MERGES = ("allgather", "ring")
+SHARD_ADDS, SHARD_UPDATES, SHARD_DELETES = 1_000, 10_000, 100_000
+# Kernels-line entries that phase 13's paths launch, by its count keys.
+SHARD_KEYS = {"fused_topk_partial.int8c": "int8c",
+              "fused_topk_partial.int8c.wgmma": "int8c.wgmma",
+              "fused_topk_partial.bf16x3": "bf16x3",
+              "fused_topk_partial.highest": "highest",
+              "topk_merge": "topk_merge",
+              "fused_topk_partial.tiles": "tiles"}
+
+
+def _wide_codes(F, torch, chunk=1 << 20):
+    """Phase 7's int8 codes and scales of the 10M x 768 corpus, quantized
+    chunk by chunk as ``_wide_f32`` draws the rows (the f32 matrix is
+    never whole), and the f32 values of its last SHARD_ADDS rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    codes = torch.empty((WIDE_ROWS, WIDE_DIM), dtype=torch.int8,
+                        device="cuda")
+    scales = torch.empty(WIDE_ROWS, device="cuda")
+    buf = torch.empty((chunk, WIDE_DIM), device="cuda")
+    for r0 in range(0, WIDE_ROWS, chunk):
+        r1 = min(WIDE_ROWS, r0 + chunk)
+        blk = buf[: r1 - r0]
+        blk.normal_(generator=gen)
+        codes[r0:r1], scales[r0:r1] = F.quantize_int8(blk)
+    return codes, scales, blk[-SHARD_ADDS:].clone()
+
+
+def _same_result(torch, got, want, what):
+    """Two handles' (indices, scores) on the same rows agree: the kernel
+    tolerance, indices equal except at ties (``compare``).  Returns (the
+    largest score difference, whether both are bit-identical)."""
+    (gi, gv), (wi, wv) = got, want
+    err = compare(torch.from_numpy(gv), torch.from_numpy(gi.astype(np.int64)),
+                  torch.from_numpy(wv), torch.from_numpy(wi.astype(np.int64)),
+                  what=what)
+    return err, bool(np.array_equal(gi, wi) and np.array_equal(gv, wv))
+
+
+def _shard_parts_ms(F, torch, sharded, plain, q, k):
+    """CUDA-event ms of the parts of one request on this sharded handle:
+    kernel A over every shard (their sum) beside kernel A over the
+    unsharded handle's rows, kernel B on the S shard lists (the allgather
+    merge), and the S (S - 1) two-list merges of the ring."""
+    from polars_matmul_tpu_torch.parallel import sharded as SH
+
+    sc = sharded._device
+    cfg = sharded.config.with_updates(precision="int8c")
+    forms = sc.prepared_for(F.Metric.COSINE, cfg, "int8c")
+    keys = sorted(forms, key=lambda x: x[0])
+    qp = F.prepare_queries(q, "cosine", "int8c")
+    a_shards = 0.0
+    for key in keys:
+        cp, cbp = forms[key]
+        tm, splits, tps = F.kernel_geometry(q.shape[0], cp.shape[0], k,
+                                            "int8c", q.device, dim=sc.dim)
+        a_shards += cuda_ms(lambda: F.fused_topk_partial(
+            qp, cp, cbp, None, k, "int8c", splits, tps, tm), reps=5,
+            warmup=1)
+    a_plain = _kernel_a_ms(F, torch, plain, q, k)
+    lists = [SH._offset(*F.select_prepared(q, *forms[key], k, "cosine",
+                                           config=cfg, precision="int8c"),
+                        key[0] * sc.ns, k, float("-inf")) for key in keys]
+    gather = cuda_ms(lambda: SH._kernel_merge(lists, k), reps=10)
+    pairs = SHARDS * (SHARDS - 1)
+    ring = cuda_ms(lambda: [SH._kernel_merge(lists[:2], k)
+                            for _ in range(pairs)], reps=10)
+    return a_shards, a_plain, gather, ring
+
+
+def _shard_wide(pmt, F, torch, card):
+    """Phase 7's 10M x 768 int8 codes over SHARDS shards of the card, both
+    merges, held to the unsharded handle and (batch 8) to the float64
+    oracle; then capacity=, adds, an update and a delete on both handles.
+    Returns the launches of its sharded requests."""
+    label = f"{WIDE_ROWS}x{WIDE_DIM} int8 on {SHARDS} shards"
+    (codes, scales, tail), made = _host_ms(torch,
+                                           lambda: _wide_codes(F, torch))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    q = torch.randn((256, WIDE_DIM), generator=gen, device="cuda")
+    mesh = pmt.make_mesh(1, SHARDS, devices=["cuda:0"] * SHARDS)
+    plain = pmt.Corpus(codes, storage="int8", scales=scales)
+    sharded, built = _host_ms(torch, lambda: pmt.Corpus(
+        codes, storage="int8", scales=scales, mesh=mesh))
+    print(f"phase 13: {label}: codes made from seed {SEED} in {made:.1f} ms "
+          f"host; {sharded!r} over {mesh!r}, sharded on the card in "
+          f"{built:.1f} ms host, {sharded._device.ns} rows a shard")
+
+    # The sharded path: count only its launches.
+    F.reset_launch_counts()
+    results = {}
+    for merge in SHARD_MERGES:
+        sharded.config = sharded.config.with_updates(merge=merge)
+        for batch, k in WIDE_REQUESTS["int8"]:
+            results[(merge, batch, k)] = sharded.topk(q[:batch], k)
+    torch.cuda.synchronize()
+    launched, by_core = _counted(F, f"{label} sharded", ("int8c",),
+                                 wgmma=True)
+    for (merge, batch, k), got in results.items():
+        what = f"{label} {merge} batch {batch} k={k}"
+        err, same = _same_result(torch, got, plain.topk(q[:batch], k), what)
+        line = (f"phase 13: {what}: matches the unsharded handle (max abs "
+                f"diff {err:.3g}, bit-identical {same})")
+        if batch == 8:
+            gate(*got, *_oracle_stored(F, torch, plain, q[:8], k), what)
+            line += ", passes the float64 oracle gate over the stored rows"
+        print(line)
+    for merge in SHARD_MERGES:
+        sharded.config = sharded.config.with_updates(merge=merge)
+        for batch, k in WIDE_REQUESTS["int8"]:
+            ms = [_request_ms(h, q[:batch], k) for h in (sharded, plain,
+                                                         sharded, plain)]
+            print(f"phase 6: [{card}] {label} {merge} batch {batch} k={k}: "
+                  f"request {ms[0]:.3f} / {ms[2]:.3f} ms host, unsharded "
+                  f"{ms[1]:.3f} / {ms[3]:.3f} ms (median of 5, in turns)")
+    for batch, k in ((8, 10), (256, 100)):
+        a_shards, a_plain, gather, ring = _shard_parts_ms(
+            F, torch, sharded, plain, q[:batch], k)
+        print(f"phase 6: [{card}] {label} batch {batch} k={k}: kernel A "
+              f"over the {SHARDS} shards {a_shards:.4f} ms in all, over the "
+              f"unsharded rows {a_plain:.4f} ms; the merge, kernel B on "
+              f"({batch}, {SHARDS}, {k}) lists, {gather:.4f} ms a call; the "
+              f"ring's {SHARDS * (SHARDS - 1)} two-list merges {ring:.4f} ms")
+        sharded.config = sharded.config.with_updates(merge="allgather")
+        host = _request_ms(sharded, q[:batch], k)
+        profile_request(torch, lambda: sharded.topk(q[:batch], k),
+                        f"{label} allgather batch {batch} k={k}", card, host)
+    del sharded, plain
+    torch.cuda.empty_cache()
+
+    # capacity=: the same mutations on a sharded and an unsharded handle.
+    keep = WIDE_ROWS - SHARD_ADDS
+    cap_sh = pmt.Corpus(codes[:keep], storage="int8", scales=scales[:keep],
+                        capacity=WIDE_ROWS, mesh=mesh)
+    cap_plain = pmt.Corpus(codes[:keep], storage="int8",
+                           scales=scales[:keep], capacity=WIDE_ROWS)
+    del codes, scales
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(MUT_SEED)
+    ids = rng.choice(keep, SHARD_UPDATES, replace=False)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(MUT_SEED)
+    rows = torch.randn((SHARD_UPDATES, WIDE_DIM), generator=g,
+                       device="cuda")
+    dead = rng.choice(WIDE_ROWS, SHARD_DELETES, replace=False)
+    times = {}
+    for name, h in (("sharded", cap_sh), ("unsharded", cap_plain)):
+        h.topk(q[:8], 10)   # the cosine form exists before the mutations
+        _, add = _host_ms(torch, lambda: h.add(tail))
+        _, upd = _host_ms(torch, lambda: h.update(ids, rows))
+        _, dele = _host_ms(torch, lambda: h.delete(dead))
+        times[name] = (add, upd, dele)
+        require(h.n == WIDE_ROWS, f"{label}: {name} holds {h.n} rows")
+    print(f"phase 13: [{card}] {label} capacity={WIDE_ROWS}: add of "
+          f"{SHARD_ADDS} / update of {SHARD_UPDATES} / delete of "
+          f"{SHARD_DELETES} ms host, sharded "
+          f"{' / '.join(f'{t:.3f}' for t in times['sharded'])}, unsharded "
+          f"{' / '.join(f'{t:.3f}' for t in times['unsharded'])}: {cap_sh!r}")
+    alive = torch.ones(WIDE_ROWS, dtype=torch.bool, device="cuda")
+    alive[torch.from_numpy(dead).to("cuda")] = False
+    F.reset_launch_counts()
+    for merge in SHARD_MERGES:
+        cap_sh.config = cap_sh.config.with_updates(merge=merge)
+        for batch, k in WIDE_REQUESTS["int8"]:
+            what = f"{label} mutated {merge} batch {batch} k={k}"
+            got = cap_sh.topk(q[:batch], k)
+            err, same = _same_result(torch, got, cap_plain.topk(q[:batch], k),
+                                     what)
+            require(not np.isin(got[0], dead).any(),
+                    f"{what}: a deleted row was returned")
+            line = (f"phase 13: {what}: matches the unsharded handle (max "
+                    f"abs diff {err:.3g}, bit-identical {same}), no deleted "
+                    f"id")
+            if batch == 8:
+                gate(*got, *_oracle_stored(F, torch, cap_plain, q[:8], k,
+                                           alive=alive), what)
+                line += ", passes the float64 oracle gate over the live rows"
+            print(line)
+    torch.cuda.synchronize()
+    mutated, mut_core = _counted(F, f"{label} mutated", ("int8c",),
+                                 wgmma=True)
+    del cap_sh, cap_plain, rows, alive
+    torch.cuda.empty_cache()
+    return {"int8c": by_core["int8c"] + mut_core["int8c"],
+            "int8c.wgmma": (launched["fused_topk_partial_wgmma"]
+                            + mutated["fused_topk_partial_wgmma"]),
+            "topk_merge": launched["topk_merge"] + mutated["topk_merge"]}
+
+
+def _shard_f32(pmt, F, torch, q_np, c_np, card):
+    """Phase 4's 2M x 256 corpus on a 2 x 2 mesh (two query blocks, two
+    shards), batch 256 k=10 in bf16x3 and highest, held to the unsharded
+    handle and the float64 oracle; ``distributed_matmul`` at the canonical
+    shape against a float64 product.  Returns the launches of its sharded
+    requests."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    c = torch.randn((BIG_ROWS, DIM), generator=gen, device="cuda")
+    g3 = torch.Generator(device="cuda")
+    g3.manual_seed(SEED + 3)
+    q = torch.randn((256, DIM), generator=g3, device="cuda")
+    mesh = pmt.make_mesh(2, 2, devices=["cuda:0"] * 4)
+    label = f"{BIG_ROWS}x{DIM} f32 on a 2x2 mesh"
+    ref = _oracle_on_card(torch, q, c, 10)
+    launched = {"bf16x3": 0, "highest": 0, "topk_merge": 0}
+    for precision in ("bf16x3", "highest"):
+        cfg = pmt.SearchConfig(precision=precision)
+        plain = pmt.Corpus(c, config=cfg)
+        sharded = pmt.Corpus(c, config=cfg, mesh=mesh)
+        F.reset_launch_counts()
+        got = sharded.topk(q, 10)
+        torch.cuda.synchronize()
+        counts, cores = _counted(F, f"{label} {precision}", (precision,))
+        launched[precision] += cores[precision]
+        launched["topk_merge"] += counts["topk_merge"]
+        what = f"{label} {precision} batch 256 k=10"
+        err, same = _same_result(torch, got, plain.topk(q, 10), what)
+        gate(*got, *ref, what)
+        ms = [_request_ms(h, q, 10) for h in (sharded, plain, sharded,
+                                              plain)]
+        print(f"phase 13: {what}: matches the unsharded handle (max abs "
+              f"diff {err:.3g}, bit-identical {same}), passes the float64 "
+              f"oracle gate")
+        print(f"phase 6: [{card}] {what}: request {ms[0]:.3f} / "
+              f"{ms[2]:.3f} ms host, unsharded {ms[1]:.3f} / {ms[3]:.3f} ms "
+              f"(median of 5, in turns)")
+        del plain, sharded
+    del c
+    torch.cuda.empty_cache()
+    qc, cc = torch.from_numpy(q_np).cuda(), torch.from_numpy(c_np).cuda()
+    sc = pmt.shard_corpus(cc, mesh)
+    out = pmt.distributed_matmul(qc, sc, mesh)
+    _check_product(torch, out, qc, cc, "highest",
+                   f"distributed_matmul {N_QUERIES}x{N_CORPUS}x{DIM}")
+    mm = cuda_ms(lambda: pmt.distributed_matmul(qc, sc, mesh))
+    lib = cuda_ms(lambda: torch.matmul(qc, cc.T))
+    print(f"phase 13: [{card}] distributed_matmul {N_QUERIES}x{N_CORPUS}x"
+          f"{DIM} on the 2x2 mesh: within the float64 gate; {mm:.4f} ms "
+          f"(CUDA events) beside torch.matmul f32 unsharded {lib:.4f} ms")
+    return launched
+
+
+def _shard_clustered(pmt, F, torch, card):
+    """Phase 8's 2M x 256 f32 blob mixture as a ClusteredCorpus on SHARDS
+    shards: exhaustive requests equal the dense scan, probed recall@10
+    against them reported.  Returns the launches of its requests."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    c, queries = _blobs(torch, gen, BIG_ROWS, DIM)
+    mesh = pmt.make_mesh(1, SHARDS, devices=["cuda:0"] * SHARDS)
+    clustered, built = _host_ms(torch, lambda: pmt.ClusteredCorpus(
+        c, mesh=mesh))
+    single = pmt.ClusteredCorpus(c)
+    dense = pmt.Corpus(c)
+    del c
+    q = queries(256)
+    label = f"{BIG_ROWS}x{DIM} f32 clustered on {SHARDS} shards"
+    print(f"phase 13: {label}: {clustered!r} built in {built:.1f} ms host "
+          f"({clustered._lt} tiles a shard, striped)")
+    F.reset_launch_counts()
+    results = {(batch, probe): clustered.topk(q[:batch], 10, probe=probe)
+               for batch in (8, 256) for probe in (None, PROBE)}
+    torch.cuda.synchronize()
+    launched, cores = _counted(F, f"{label}", ("bf16x3",), tiles=True)
+    for batch in (8, 256):
+        what = f"{label} exhaustive batch {batch} k=10"
+        err, same = _same_result(torch, results[(batch, None)],
+                                 dense.topk(q[:batch], 10), what)
+        exact = results[(batch, None)][0].astype(np.int64)
+        got = results[(batch, PROBE)][0].astype(np.int64)
+        one = single.topk(q[:batch], 10, probe=PROBE)[0].astype(np.int64)
+        recall, recall_one = (np.mean([len(set(a) & set(b)) / 10
+                                       for a, b in zip(x, exact)])
+                              for x in (got, one))
+        ms = [_request_ms(h, q[:batch], 10) for h in (clustered, dense)]
+        probed = [_host_ms(torch, lambda: h.topk(q[:batch], 10,
+                                                 probe=PROBE))[1]
+                  for h in (clustered, single) for _ in range(5)]
+        print(f"phase 13: {what}: equals the dense scan (max abs diff "
+              f"{err:.3g}, bit-identical {same}); probe {PROBE} recall@10 "
+              f"against it {recall:.4f}, unsharded ClusteredCorpus "
+              f"{recall_one:.4f} (reported, not gated)")
+        print(f"phase 6: [{card}] {label} batch {batch} k=10: exhaustive "
+              f"request {ms[0]:.3f} ms host (dense Corpus {ms[1]:.3f}); "
+              f"probe {PROBE} {statistics.median(probed[:5]):.3f} ms "
+              f"(unsharded ClusteredCorpus "
+              f"{statistics.median(probed[5:]):.3f})")
+    del clustered, single, dense
+    torch.cuda.empty_cache()
+    return {"bf16x3": cores["bf16x3"], "topk_merge": launched["topk_merge"],
+            "tiles": launched["fused_topk_partial_tiles"]}
+
+
+def _shard_nccl(pmt, torch, q_np, c_np):
+    """A one-rank NCCL process group (``init_distributed`` with the JAX
+    package's keywords) carrying one request of each merge: the
+    collectives' code runs, on the card."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pmt.init_distributed(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0)
+    try:
+        require(torch.distributed.get_backend() == "nccl",
+                f"backend {torch.distributed.get_backend()}")
+        mesh = pmt.make_mesh(1, SHARDS, devices=["cuda:0"] * SHARDS)
+        require(mesh.distributed, "the mesh did not see the process group")
+        sc = pmt.shard_corpus(torch.from_numpy(c_np).cuda(), mesh)
+        ref = numpy_oracle(q_np, c_np, 10)
+        for merge in SHARD_MERGES:
+            v, i = pmt.distributed_topk(torch.from_numpy(q_np).cuda(), sc,
+                                        10, "cosine", mesh,
+                                        pmt.SearchConfig(merge=merge))
+            gate(i.cpu().numpy(), v.cpu().numpy().astype(np.float64), *ref,
+                 f"one-rank NCCL {merge}")
+        print(f"phase 13: a one-rank NCCL group ({mesh!r}) carried the "
+              f"canonical request through both merges; passes the float64 "
+              f"oracle gate")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_sharded(pmt, F, torch, q_np, c_np, card):
+    """Phase 13: sharded search on the one card, each leg with its own
+    phase 5 counts.  Returns the launches to add to the kernels line, by
+    its keys ("int8c", "int8c.wgmma", "bf16x3", "highest", "topk_merge",
+    "tiles")."""
+    t0 = time.perf_counter()
+    total = {}
+    legs = (lambda: _shard_wide(pmt, F, torch, card),
+            lambda: _shard_f32(pmt, F, torch, q_np, c_np, card),
+            lambda: _shard_clustered(pmt, F, torch, card))
+    for leg in legs:
+        for key, n in leg().items():
+            total[key] = total.get(key, 0) + n
+        torch.cuda.empty_cache()
+    _shard_nccl(pmt, torch, q_np, c_np)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s host in all")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3313,10 +3702,13 @@ def main() -> int:
     mutation = phase_mutation(pmt, F, torch, card)
     torch.cuda.empty_cache()
     arrow = phase_arrow(pmt, F, torch, q, c, card)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(pmt, F, torch, q, c, card)
     for entry in kernels:
         name = entry["name"]
         entry["launches"] += (mutation.get(MUTATION_KEYS.get(name), 0)
-                              + arrow.get(ARROW_KEYS.get(name), 0))
+                              + arrow.get(ARROW_KEYS.get(name), 0)
+                              + sharded.get(SHARD_KEYS.get(name), 0))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

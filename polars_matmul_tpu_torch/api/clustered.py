@@ -27,16 +27,18 @@ from ..kernels.fused_topk import (INT32_MAX, dequant_int4,
                                   layout_tile_rows, max_fused_k,
                                   probe_block_rows, supports)
 from ..kernels.matmul import pairwise_matmul
+from ..kernels.storage import prepare_stored, quantize_stored
 from ..ops import reference
 from ..ops.cluster import (ClusterLayout, assign_rows, assign_rows_native,
                            centroid_scores, cluster_layout, kmeans,
                            permute_rows, probe_tiles, resolve_probe)
 from ..ops.metrics import Metric
+from ..parallel.sharded import (ShardedCorpus, distributed_matmul,
+                                distributed_topk, place_shards)
 from ..utils.profiling import annotate
 from .search import (_F32, ArrayLike, DeviceLike, _as_input, _check_width,
-                     _empty_topk, _host_ids, _is_half, _not_ported, _repeats,
-                     _to_host, _to_torch, _torch_dtype, _validate_mask,
-                     compute_dtype, prepare_stored, quantize_stored,
+                     _empty_topk, _host_ids, _is_half, _repeats, _to_host,
+                     _to_torch, _torch_dtype, _validate_mask, compute_dtype,
                      resolve_device)
 
 _TIER_CORE = {"bf16": "bf16c", "int8": "int8c", "int4": "int4c"}
@@ -89,9 +91,18 @@ class ClusteredCorpus:
     ``add`` and ``update`` place rows by the fitted centroids (no refit;
     ``drift`` counts them) and ``rebuild`` refits on the live rows, all
     on the handle's device, with the JAX package's placement, so that the
-    same steps from the same saved file give the same layout.  ``mesh=``
-    raises ``NotImplementedError`` naming the ROADMAP item that ports
-    it.
+    same steps from the same saved file give the same layout.
+
+    ``mesh=`` (``parallel.make_mesh``) lays the tiles out for the mesh as
+    the JAX package does (dead tiles so that every shard holds the same
+    whole number of tiles, the reserve included, then a round-robin
+    stripe of the tiles over the shards, so every shard holds a slice of
+    every cluster) and serves requests by ``distributed_topk`` with an
+    equal probe budget a shard.  On a mesh, ``add`` scatters in place
+    while the rows fit slack or reserve tiles, else gathers, appends and
+    re-shards; ``update`` writes rows in place at their current slots;
+    ``rebuild`` re-shards the new layout.  The handle's device is the
+    mesh's home device (``device=`` is not taken).
     """
 
     def __init__(self, embeddings: ArrayLike, *,
@@ -115,8 +126,9 @@ class ClusteredCorpus:
                 "ClusteredCorpus requires float embeddings (clustering "
                 "needs the values; pre-quantized codes belong on Corpus)"
             )
-        if mesh is not None:
-            raise _not_ported("ClusteredCorpus(mesh=...)", 6)
+        if mesh is not None and device is not None:
+            raise ValueError("device= and mesh= are exclusive: a mesh "
+                             "handle lives on the mesh's devices")
         if clusters is not None and int(clusters) < 1:
             raise ValueError(f"clusters must be >= 1, got {clusters}")
         if int(reserve_tiles) < 0:
@@ -124,9 +136,13 @@ class ClusteredCorpus:
                 f"reserve_tiles must be >= 0, got {reserve_tiles}")
         self.config = cfg
         self.storage = storage
+        self.mesh = mesh
         self.n, self.dim = c.shape
         self.dtype = _F32   # f32 or quantized: the kernel path
-        self.device = resolve_device(device, c)
+        self.device = (mesh.home if mesh is not None
+                       else resolve_device(device, c))
+        # The tile stripe of a mesh layout (``_align_layout_for_mesh``).
+        self._striped_for = self._stripe_lt = None
         self._tn = layout_tile_rows(self.dim, cfg, 1)
         self._chunk_rows = max(1, cfg.prep_chunk_bytes // (4 * self.dim))
         if clusters is None:
@@ -154,9 +170,11 @@ class ClusteredCorpus:
         self.layout: ClusterLayout = cluster_layout(assign, self.clusters,
                                                     self._tn)
         # Dead tiles (cluster -1) appended as the growth reserve of a later
-        # add; kept so that save files carry it.
+        # add; kept so that save files carry it.  A mesh layout folds the
+        # reserve into its alignment instead.
         self._reserve_tiles = int(reserve_tiles)
-        self._extend_dead_tiles(self._reserve_tiles)
+        if mesh is None:
+            self._extend_dead_tiles(self._reserve_tiles)
 
         # The permuted storage-native rows: gathered where the source lies
         # (a NumPy source on the host, so only the result is uploaded).
@@ -172,11 +190,9 @@ class ClusteredCorpus:
             live = (perm >= 0).to(scales.device)
             scales_p = torch.where(live, permute_rows(scales, perm),
                                    torch.ones((), device=scales.device))
-        self._install(base, scales_p)
+        self._install_payload(base, scales_p)
         self._tombstones: Optional[np.ndarray] = None
         self._drift_rows = 0
-        self._striped_for = None   # saved mesh layouts: written back as read
-        self._stripe_lt = None
 
     # -- construction -----------------------------------------------------
     def _default_clusters(self, n: int) -> int:
@@ -211,15 +227,111 @@ class ClusteredCorpus:
                               np.full(r_tiles, -1, np.int32)])
         self.layout = ClusterLayout(perm, lay.row_pos, tcl, lay.counts, tn)
 
-    def _install(self, base: torch.Tensor,
-                 scales: Optional[torch.Tensor]) -> None:
-        """Put a permuted payload matching ``self.layout`` on the device and
-        drop every cache derived from the layout."""
+    def _install_payload(self, base: torch.Tensor,
+                         scales: Optional[torch.Tensor]) -> None:
+        """Put a permuted payload matching ``self.layout`` on the device,
+        or, on a mesh, align and stripe the layout for it and shard the
+        payload re-ordered to match; drop every cache derived from the
+        layout."""
+        if self.mesh is not None:
+            g = self._align_layout_for_mesh()
+            if g is not None:
+                # Position len(base) selects the appended zero row.
+                gi = torch.from_numpy(g).to(base.device)
+                base = torch.cat([base, base.new_zeros(
+                    (1,) + tuple(base.shape[1:]))])[gi]
+                if scales is not None:
+                    scales = torch.cat([scales, scales.new_ones(1)])[gi]
+            self._install_mesh_payload(base, scales)
+            return
         dev = self.device
         self._base = base.to(dev)
         self._scales = None if scales is None else scales.to(
             device=dev, dtype=torch.float32)
         self._layout_changed()
+
+    # -- mesh construction ------------------------------------------------
+    def _align_layout_for_mesh(self) -> Optional[np.ndarray]:
+        """Make the layout mesh-ready (the JAX package's, slot for slot):
+        pad with dead tiles (cluster -1) so that every shard owns the same
+        whole number of tiles, the ``reserve_tiles`` reserve included,
+        then stripe the tiles round-robin over the shards, so that a
+        cluster's consecutive tiles land on consecutive shards (the probe
+        budget is a shard's: without the stripe a cluster-contiguous
+        layout would put a query's tiles on one shard).  An existing
+        stripe is undone first, and the dead tiles re-derived.  Returns
+        the row gather (new padded position -> old one, the old height for
+        a dead row), or None where the layout is already aligned and
+        striped for this mesh."""
+        lay = self.layout
+        tn = self._tn
+        n_shards = self.mesh.shape[self.config.mesh_axes[1]]
+        n_t = lay.n_tiles
+        old_rows = lay.perm.shape[0]
+        src_tile = np.arange(n_t, dtype=np.int64)  # canonical -> current
+        if self._striped_for and self._stripe_lt:
+            s0, lt0 = self._striped_for, self._stripe_lt
+            t0 = s0 * lt0
+            if t0 <= n_t:
+                t = np.arange(t0, dtype=np.int64)
+                src_tile[:t0] = (t % s0) * lt0 + t // s0
+        live_t = src_tile[lay.tile_cluster[src_tile] != -1]
+        if live_t.size:
+            src_tile = live_t
+        tc = src_tile.size
+        lt = max(1, -(-(tc + self._reserve_tiles) // n_shards))
+        total = lt * n_shards
+        self._lt = lt
+        if n_t == total and (n_shards == 1
+                             or (self._striped_for == n_shards
+                                 and self._stripe_lt == lt)):
+            return None
+        self._striped_for = n_shards
+        self._stripe_lt = lt
+        # New position j (shard j // lt, slot j % lt) takes canonical tile
+        # (j % lt) * n_shards + j // lt; past the live tiles, dead padding.
+        j = np.arange(total, dtype=np.int64)
+        ct = (j % lt) * n_shards + j // lt
+        old_tile = np.where(ct >= tc, n_t, src_tile[np.minimum(ct, tc - 1)])
+        gather = np.minimum(
+            (old_tile[:, None] * tn
+             + np.arange(tn, dtype=np.int64)).reshape(-1), old_rows)
+        perm = np.concatenate(
+            [lay.perm, np.full(1, -1, np.int32)])[gather]
+        tcl = np.concatenate(
+            [lay.tile_cluster, np.full(1, -1, np.int32)])[
+                np.minimum(old_tile, n_t)]
+        row_pos = lay.row_pos.copy()
+        live = perm >= 0
+        row_pos[perm[live]] = np.flatnonzero(live).astype(np.int32)
+        self.layout = ClusterLayout(perm, row_pos, tcl, lay.counts, tn)
+        return gather
+
+    def _install_mesh_payload(self, base: torch.Tensor,
+                              scales: Optional[torch.Tensor]) -> None:
+        """Shard a permuted payload matching the aligned layout (its
+        whole padded height) over the mesh's corpus axis."""
+        axis = self.config.mesh_axes[1]
+        n_padded = self.layout.n_padded
+        n_shards = self.mesh.shape[axis]
+        ns = n_padded // n_shards
+        quant = self.storage in ("int8", "int4")
+        self._sharded = ShardedCorpus(
+            place_shards(base, self.mesh, axis, ns), n_padded, n_shards, ns,
+            base.shape[1], base.dtype,
+            scales=None if scales is None else place_shards(
+                scales, self.mesh, axis, ns, 1.0, torch.float32),
+            dim=self.dim if quant else None,
+            storage=self.storage if quant else "f32")
+        self._base = self._scales = None
+        self._layout_changed()
+
+    def _native(self, device=None):
+        """(permuted storage-native rows, scales or None) of the current
+        layout: the device payload, or the gathered shards of a mesh."""
+        if self.mesh is not None:
+            return self._sharded.gather(self.mesh, device)
+        return self._base, self._scales
 
     def _layout_changed(self) -> None:
         """Refresh the device copies of ``self.layout`` and drop every
@@ -238,9 +350,12 @@ class ClusteredCorpus:
         return self.n
 
     def __repr__(self) -> str:
+        where = (f"shards={self.mesh.shape[self.config.mesh_axes[1]]}"
+                 if self.mesh is not None
+                 else f"device={str(self.device)!r}")
         return (f"ClusteredCorpus(n={self.n}, dim={self.dim}, "
                 f"clusters={self.clusters}, tiles={self.layout.n_tiles}, "
-                f"storage={self.storage!r}, device={str(self.device)!r})")
+                f"storage={self.storage!r}, {where})")
 
     @property
     def n_tiles(self) -> int:
@@ -267,7 +382,11 @@ class ClusteredCorpus:
         that cluster's tile-tail slack first, then a claimed dead tile
         (``reserve_tiles``, lowest id first), then whole tiles appended
         at the end of the layout.  The rows are scattered into the stored
-        payload on the device; prepared forms rebuild on the next query."""
+        payload on the device; prepared forms rebuild on the next query.
+        On a mesh, rows that fit slack or claimed dead tiles are
+        scattered into their shards and the shards' prepared forms in
+        place; appended tiles make it gather the payload, splice the rows
+        in and re-shard (re-striping, so the new tiles spread too)."""
         r = _as_input(rows)
         _check_width(r, self.dim)
         cf = _f32_rows(r)
@@ -275,7 +394,11 @@ class ClusteredCorpus:
         if m == 0:
             return self.n
         ids = np.arange(self.n, self.n + m, dtype=np.int64)
-        self._place_and_scatter(ids, cf, assign_rows(cf, self.centroids))
+        assign = assign_rows(cf, self.centroids)
+        if self.mesh is not None:
+            self._mesh_add(ids, cf, assign)
+        else:
+            self._place_and_scatter(ids, cf, assign)
         if self._tombstones is not None:
             self._tombstones = np.concatenate(
                 [self._tombstones, np.zeros(m, bool)])
@@ -305,9 +428,16 @@ class ClusteredCorpus:
         if _repeats(idx):
             raise ValueError("update indices must be unique")
         cf = _f32_rows(r)
-        self._place_and_scatter(idx.astype(np.int64), cf,
-                                assign_rows(cf, self.centroids),
-                                free_first=True)
+        if self.mesh is not None:
+            # In place at the rows' current slots, without moving them:
+            # exhaustive results are exact either way, and the stale
+            # placement is what ``drift`` counts.
+            self._sharded.scatter(self.layout.row_pos[idx].astype(np.int64),
+                                  cf, self.config)
+        else:
+            self._place_and_scatter(idx.astype(np.int64), cf,
+                                    assign_rows(cf, self.centroids),
+                                    free_first=True)
         self._drift_rows += int(idx.size)
         if self._tombstones is not None and self._tombstones[idx].any():
             self._tombstones[idx] = False
@@ -322,6 +452,33 @@ class ClusteredCorpus:
         vals = torch.as_tensor(cf)
         return (vals.to(torch.bfloat16) if self.storage == "bf16"
                 else vals), None
+
+    def _mesh_add(self, ids: np.ndarray, cf: ArrayLike,
+                  assign: np.ndarray) -> None:
+        """``add`` on a mesh: place the rows, then scatter them in place
+        where the padded height held, else gather, splice and re-shard."""
+        n_old = self.layout.n_padded
+        pos = self._place(ids, assign)
+        if self.layout.n_padded == n_old:
+            self._sharded.scatter(pos, cf, self.config)
+            self._layout_changed()
+            return
+        base, scales = self._native()
+        vals, vscales = self._quantize_native(cf)
+        dev = base.device
+        pos_d = torch.from_numpy(pos).to(dev)
+        new_base = base.new_zeros((self.layout.n_padded,)
+                                  + tuple(base.shape[1:]))
+        new_base[:n_old] = base
+        new_base[pos_d] = torch.as_tensor(vals).to(device=dev,
+                                                   dtype=base.dtype)
+        new_scales = None
+        if scales is not None:
+            new_scales = scales.new_ones(self.layout.n_padded)
+            new_scales[:n_old] = scales
+            new_scales[pos_d] = torch.as_tensor(vscales).to(dev)
+        del base, scales
+        self._install_payload(new_base, new_scales)
 
     def _place_and_scatter(self, ids: np.ndarray, cf: ArrayLike,
                            assign: np.ndarray,
@@ -443,9 +600,10 @@ class ClusteredCorpus:
         # The stored rows in original row order.
         old_pos = torch.from_numpy(
             self.layout.row_pos[:n].astype(np.int64)).to(dev)
-        orig = self._base[old_pos]
-        orig_scales = (None if self._scales is None
-                       else self._scales[old_pos])
+        base_all, scales_all = self._native()
+        orig = base_all[old_pos]
+        orig_scales = None if scales_all is None else scales_all[old_pos]
+        del base_all, scales_all
 
         def values(ids: np.ndarray) -> torch.Tensor:
             """f32 values of rows ``ids`` (dequantized codes)."""
@@ -478,7 +636,7 @@ class ClusteredCorpus:
             scales = torch.where(perm >= 0, permute_rows(orig_scales, perm),
                                  torch.ones((), device=dev))
         self._striped_for = self._stripe_lt = None
-        self._install(base, scales)
+        self._install_payload(base, scales)
         self._drift_rows = 0
         return self
 
@@ -599,13 +757,33 @@ class ClusteredCorpus:
                                           mask=mk)
         return _to_host(vals, self._row_ids(idx))
 
+    def _mesh_topk(self, q: ArrayLike, kk: int, metric: Metric, probe,
+                   user_mk) -> Tuple[np.ndarray, np.ndarray]:
+        """Sharded probed or exhaustive top-k: ``probe`` resolves against
+        a shard's tile count (an equal budget a shard), the shards merge
+        in permuted space, and the positions map back to row ids.  The
+        mask is always given: it kills slack and dead-tile rows, whose
+        prepared bias the sharded prep leaves finite."""
+        p_local, exhaustive = resolve_probe(probe, self._lt)
+        pr = (None if exhaustive else
+              (self.centroids, self._tile_cluster_dev, int(p_local),
+               self._tn))
+        mk = self._permuted_mask(user_mk)
+        vals, idx = distributed_topk(
+            _to_torch(q, _F32, self.device), self._sharded, kk, metric,
+            self.mesh, self.config,
+            mask=self._live_dev if mk is None else mk, probe=pr)
+        return _to_host(vals, self._row_ids(idx))
+
     # -- persistence ------------------------------------------------------
     def save(self, path) -> None:
         """Persist to ``path`` (.npz) in the JAX package's format, which its
         ``ClusteredCorpus.load`` reads: the storage-native permuted rows
         (slack rows included), the layout, the centroids and the
-        tombstones."""
-        base = self._base.cpu()
+        tombstones.  A mesh handle gathers its shards (every rank takes
+        part) and writes its stripe."""
+        base, scales = self._native("cpu")
+        base = base.cpu()
         arrays = {
             "n": np.int64(self.n),
             "dim": np.int64(self.dim),
@@ -622,8 +800,8 @@ class ClusteredCorpus:
                 np.uint16)
         else:
             arrays["data"] = base.numpy()
-        if self._scales is not None:
-            arrays["scales"] = self._scales.cpu().numpy()
+        if scales is not None:
+            arrays["scales"] = scales.cpu().numpy()
         if self._tombstones is not None:
             arrays["tombstones"] = self._tombstones
         if self._drift_rows:
@@ -643,9 +821,12 @@ class ClusteredCorpus:
         rows, layout and centroids are installed as they are (no
         clustering, no quantization), so probed results match the saved
         handle's.  ``config`` steers only the query side; the layout tile
-        is the file's."""
-        if mesh is not None:
-            raise _not_ported("ClusteredCorpus.load(mesh=...)", 6)
+        is the file's.  ``mesh=`` shards it (the layout gains dead
+        alignment tiles and the stripe if the mesh needs them; results are
+        unchanged: dead rows never match)."""
+        if mesh is not None and device is not None:
+            raise ValueError("device= and mesh= are exclusive: a mesh "
+                             "handle lives on the mesh's devices")
         with np.load(path, allow_pickle=False) as z:
             storage = str(z["storage"])
             if storage == "bf16":
@@ -673,7 +854,9 @@ class ClusteredCorpus:
         self.storage = storage
         self.n, self.dim = n, dim
         self.dtype = _F32
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None else resolve_device(
+            device)
         self._tn = tn
         self._chunk_rows = max(1, self.config.prep_chunk_bytes // (4 * dim))
         row_pos = np.empty(n, np.int32)
@@ -684,7 +867,7 @@ class ClusteredCorpus:
                                                         np.float32)))
         self._striped_for, self._stripe_lt = striped_for, stripe_lt
         self._reserve_tiles = reserve_tiles
-        self._install(base, scales)
+        self._install_payload(base, scales)
         self._tombstones = (None if tomb is None or not tomb.any()
                             else tomb.astype(bool))
         self._drift_rows = drift_rows
@@ -703,10 +886,15 @@ class ClusteredCorpus:
         row_pos = torch.from_numpy(
             self.layout.row_pos[: self.n].astype(np.int64)).to(self.device)
         with annotate("pmm.clustered.matmul"):
-            panel = pairwise_matmul(
-                _to_torch(q, dt, self.device),
-                self._dense_view().to(_torch_dtype(dt)),
-                precision=self.config.precision)
+            if self.mesh is not None:
+                panel = distributed_matmul(_to_torch(q, dt, self.device),
+                                           self._sharded, self.mesh,
+                                           self.config)
+            else:
+                panel = pairwise_matmul(
+                    _to_torch(q, dt, self.device),
+                    self._dense_view().to(_torch_dtype(dt)),
+                    precision=self.config.precision)
             return panel[:, row_pos].cpu().numpy()
 
     def topk(self, queries: ArrayLike, k: int,
@@ -746,6 +934,9 @@ class ClusteredCorpus:
                 inv[order] = np.arange(order.size)
                 return (np.ascontiguousarray(i_r[inv]),
                         np.ascontiguousarray(v_r[inv]))
+        if self.mesh is not None:
+            with annotate(f"pmm.clustered.topk.{metric.value}"):
+                return self._mesh_topk(q, kk, metric, probe, user_mk)
         p, exhaustive = resolve_probe(probe, self.layout.n_tiles)
         sup = supports(q.shape, (self.n, self.dim), torch.float32, kk, cfg)
         if not sup and self.storage != "f32" and kk <= max_fused_k(cfg):

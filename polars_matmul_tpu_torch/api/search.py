@@ -25,10 +25,12 @@ from ..config import SearchConfig, resolve
 from ..kernels.fused_topk import (dequant_int4, feature_geometry,
                                   fused_topk, fused_topk_prepared,
                                   kernel_precision, max_fused_k,
-                                  prepare_corpus, quantize_int4,
-                                  quantize_int8, supports)
+                                  prepare_corpus, supports)
 from ..kernels.matmul import pairwise_matmul
+from ..kernels.storage import prepare_stored, quantize_stored
 from ..ops.metrics import Metric
+from ..parallel.sharded import (distributed_matmul, distributed_topk,
+                                shard_corpus)
 from ..utils.profiling import annotate, call_stats
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -37,12 +39,6 @@ DeviceLike = Union[str, torch.device, None]
 _F32 = np.dtype(np.float32)
 _F64 = np.dtype(np.float64)
 _HALF_TORCH = (torch.float16, torch.bfloat16)
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to polars_matmul_tpu_torch yet "
-        f"(ROADMAP.md queue 1, item {item})")
 
 
 def resolve_device(device: DeviceLike, *arrays) -> torch.device:
@@ -228,118 +224,12 @@ def _is_int8(dtype) -> bool:
     return np.dtype(dtype) == np.int8
 
 
-def _quantize_rows_int4_np(c: np.ndarray, ck: int, dpp: int):
-    """Host per-row symmetric int4 quantization, nibble-packed per feature
-    chunk (the layout of ``kernels.fused_topk.quantize_int4``), in row
-    chunks so the f32 / int32 temporaries stay bounded."""
-    n, dim = c.shape
-    packed = np.empty((n, dpp // 2), np.int8)
-    scales = np.empty(n, np.float32)
-    step = max(1, (64 << 20) // max(dpp * 4, 1))
-    for r0 in range(0, n, step):
-        blk = np.asarray(c[r0:r0 + step], dtype=np.float32)
-        amax = np.abs(blk).max(axis=1)
-        sc = np.where(amax > 0, amax / 7.0, 1.0).astype(np.float32)
-        codes = np.clip(np.rint(blk / sc[:, None]), -7, 7).astype(np.int32)
-        codes = np.pad(codes, ((0, 0), (0, dpp - dim)))
-        ch = codes.reshape(codes.shape[0], dpp // ck, ck)
-        packed[r0:r0 + step] = ((ch[:, :, : ck // 2] & 0xF)
-                                | ((ch[:, :, ck // 2:] & 0xF) << 4)
-                                ).astype(np.int8).reshape(
-                                    codes.shape[0], dpp // 2)
-        scales[r0:r0 + step] = sc
-    return packed, scales
-
-
-def _unpack_int4_np(packed: np.ndarray, ck: int, dim: int) -> np.ndarray:
-    """Host inverse of the int4 packing -> int codes (n, dim)."""
-    n = packed.shape[0]
-    p32 = packed.astype(np.int32).reshape(n, -1, ck // 2)
-    lo = ((p32 & 0xF) ^ 8) - 8
-    hi = (((p32 >> 4) & 0xF) ^ 8) - 8
-    return np.concatenate([lo, hi], axis=2).reshape(n, -1)[:, :dim]
-
-
-def _quantize_rows_np(c: np.ndarray):
-    """Host per-row symmetric int8 quantization (``quantize_int8``'s
-    semantics), in row chunks so the f32 temporary stays bounded; the
-    corpus then uploads a quarter of the f32 bytes."""
-    n, dim = c.shape
-    codes = np.empty((n, dim), np.int8)
-    scales = np.empty(n, np.float32)
-    step = max(1, (64 << 20) // max(dim * 4, 1))
-    for r0 in range(0, n, step):
-        blk = np.asarray(c[r0:r0 + step], dtype=np.float32)
-        amax = np.abs(blk).max(axis=1)
-        s = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
-        codes[r0:r0 + step] = np.rint(blk / s[:, None]).astype(np.int8)
-        scales[r0:r0 + step] = s
-    return codes, scales
-
-
 def _row_block(x: ArrayLike, r0: int, r1: int) -> torch.Tensor:
     """Rows [r0, r1) of ``x`` as a tensor on its own device (the CPU for
     NumPy)."""
     if isinstance(x, torch.Tensor):
         return x[r0:r1]
     return _to_torch(x[r0:r1], None, torch.device("cpu"))
-
-
-def quantize_stored(c: ArrayLike, storage: str, dim: int,
-                    device: torch.device, chunk_rows: int,
-                    rows: Optional[int] = None):
-    """(codes, scales) of float rows for an "int8" or "int4" tier: NumPy
-    by the host quantizers (codes stay NumPy, so that the caller uploads
-    quantized bytes), a tensor by the torch ones on its own device, in
-    row chunks, into tensors on ``device`` of ``rows`` rows (default n;
-    codes 0 and scale 1 past n)."""
-    int4 = storage == "int4"
-    ck, dpp, _ = feature_geometry(dim)
-    if not isinstance(c, torch.Tensor):
-        return (_quantize_rows_int4_np(c, ck, dpp) if int4
-                else _quantize_rows_np(c))
-    n = c.shape[0]
-    rows = n if rows is None else rows
-    codes = torch.zeros((rows, dpp // 2 if int4 else dim), dtype=torch.int8,
-                        device=device)
-    scales = torch.ones(rows, dtype=torch.float32, device=device)
-    for r0 in range(0, n, chunk_rows):
-        r1 = min(n, r0 + chunk_rows)
-        qc, sc = (quantize_int4(c[r0:r1], ck) if int4
-                  else quantize_int8(c[r0:r1]))
-        codes[r0:r1].copy_(qc)
-        scales[r0:r1].copy_(sc)
-    return codes, scales
-
-
-def prepare_stored(c: torch.Tensor, scales: Optional[torch.Tensor], metric,
-                   precision: str, chunk_rows: int):
-    """``prepare_corpus`` of stored rows in row chunks, so that no prep
-    holds a full-size f32 temporary.  Where the prep leaves the rows as
-    stored (int8 / int4 codes, bf16 rows for dot and euclidean, f32 rows
-    for "highest" dot and euclidean) cp is the storage itself and only the
-    bias or scale | bias rows are computed."""
-    n = c.shape[0]
-    cp = cbp = None
-    for r0 in range(0, n, chunk_rows):
-        r1 = min(n, r0 + chunk_rows)
-        chunk = c[r0:r1]
-        sc = None if scales is None else scales[r0:r1]
-        cpc, cbc = prepare_corpus(chunk, metric, precision=precision,
-                                  scales=sc)
-        if r1 - r0 == n:
-            return cpc, cbc
-        if cp is None:
-            shared = cpc.data_ptr() == chunk.data_ptr()
-            cp = c if shared else torch.empty(
-                (n,) + tuple(cpc.shape[1:]), dtype=cpc.dtype,
-                device=c.device)
-            cbp = torch.empty(tuple(cbc.shape[:-1]) + (n,),
-                              dtype=cbc.dtype, device=c.device)
-        if cp is not c:
-            cp[r0:r1] = cpc
-        cbp[..., r0:r1] = cbc
-    return cp, cbp
 
 
 def _holds(held: Optional[torch.Tensor], x) -> bool:
@@ -393,8 +283,16 @@ class Corpus:
     are zeros (scale 1) whose prepared bias is -inf, so the kernels walk
     the whole buffer and never select them.  ``add``, ``update`` and
     ``delete`` mutate the handle in place, with the JAX package's
-    semantics and errors.  ``mesh=`` raises ``NotImplementedError`` naming
-    the ROADMAP item that ports it.
+    semantics and errors.
+
+    ``mesh=`` (``parallel.make_mesh``) shards the stored rows over the
+    mesh's corpus axis (``parallel.shard_corpus``, the JAX package's
+    padding) and serves ``topk`` / ``matmul`` by ``distributed_topk`` /
+    ``distributed_matmul``; the handle's device is the mesh's home device
+    (``device=`` is not taken).  On a mesh, ``add`` needs ``capacity=``
+    and never grows past it, ``update`` writes each row into its shard
+    and the shard's prepared forms in place, ``delete`` tombstones, and
+    ``save`` gathers the shards, as in the JAX package.
     """
 
     def __init__(self, embeddings: ArrayLike, *, mesh=None,
@@ -443,9 +341,11 @@ class Corpus:
             raise ValueError(
                 "scales= is only meaningful with pre-quantized int8 "
                 "or pre-packed int4 embeddings")
-        if mesh is not None:
-            raise _not_ported("Corpus(mesh=...)", 6)
+        if mesh is not None and device is not None:
+            raise ValueError("device= and mesh= are exclusive: a mesh "
+                             "handle lives on the mesh's devices")
         self.config = cfg
+        self.mesh = mesh
         self.storage = storage
         self.n, self.dim = c.shape
         if prepacked_int4:
@@ -455,13 +355,21 @@ class Corpus:
                      else max(int(capacity), self.n))
         self.dtype = (_F32 if storage != "f32" or _is_f32(c.dtype)
                       else _F64)
-        self.device = resolve_device(device, c)
+        self.device = (mesh.home if mesh is not None
+                       else resolve_device(device, c))
         # Rows a chunk of ingestion or prep handles (its f32 temporaries
         # take about prep_chunk_bytes).
         self._chunk_rows = max(1, cfg.prep_chunk_bytes // (4 * self.dim))
         # int8 / int4: the (_cap,) f32 per-row dequant scale.
         self._scales: Optional[torch.Tensor] = None
-        if storage == "f32":
+        if mesh is not None:
+            # A ShardedCorpus; every reserved row is usable (quantized
+            # shards round their height up, so there may be more than
+            # asked for).
+            self._device = self._shard(c, scales, int8_in, capacity)
+            if capacity is not None:
+                self._cap = self._device.shape[0]
+        elif storage == "f32":
             self._device = self._with_capacity(
                 _to_torch(c, self.dtype, self.device))
         elif storage == "bf16":
@@ -474,9 +382,10 @@ class Corpus:
         else:
             self._device, self._scales = self._quantize(c)
         # A caller's tensor or NumPy array held as it is: copied before
-        # the first write.
-        self._borrowed = any(_holds(y, x) for x, y in
-                             ((c, self._device), (scales, self._scales)))
+        # the first write (shards are always copies).
+        self._borrowed = mesh is None and any(
+            _holds(y, x) for x, y in ((c, self._device),
+                                      (scales, self._scales)))
         # Dequantized f32 rows of a bf16 / int8 / int4 corpus, built only
         # for matmul and the reference path (k > max_fused_k,
         # use_pallas=False): the f32 bytes, once.
@@ -499,6 +408,31 @@ class Corpus:
                          dtype=t.dtype, device=self.device)
         out[: t.shape[0]].copy_(t)
         return out
+
+    def _shard(self, c: ArrayLike, scales, int8_in: bool,
+               capacity: Optional[int]):
+        """The stored rows as a ShardedCorpus over ``self.mesh``: float
+        rows quantized or rounded where they lie (NumPy on the host, so
+        that only the tier's bytes are uploaded, a shard at a time; a
+        tensor on its own device), then split."""
+        if self.storage in ("int8", "int4"):
+            if not int8_in:
+                where = (c.device if isinstance(c, torch.Tensor)
+                         else torch.device("cpu"))
+                c, scales = quantize_stored(c, self.storage, self.dim,
+                                            where, self._chunk_rows)
+            return shard_corpus(c, self.mesh, self.config, scales=scales,
+                                storage=self.storage, dim=self.dim,
+                                capacity=capacity)
+        if isinstance(c, torch.Tensor):
+            rows = c.to(torch.float32 if self.storage == "bf16"
+                        else _torch_dtype(self.dtype))
+        else:
+            rows = np.asarray(c, dtype=_F32 if self.storage == "bf16"
+                              else self.dtype)
+        if self.storage == "bf16":
+            rows = torch.as_tensor(rows).to(torch.bfloat16)
+        return shard_corpus(rows, self.mesh, self.config, capacity=capacity)
 
     def _store_bf16(self, c: ArrayLike) -> torch.Tensor:
         """bf16 rows on the device, rounded from f32 (float64 input
@@ -532,8 +466,10 @@ class Corpus:
         if self.deleted_count:
             extras.append(f"deleted={self.deleted_count}")
         extra = (", " + ", ".join(extras)) if extras else ""
+        where = ("mesh" if self.mesh is not None
+                 else f"device={str(self.device)!r}")
         return (f"Corpus({self.n}x{self.dim}, storage={self.storage!r}, "
-                f"device={str(self.device)!r}{extra})")
+                f"{where}{extra})")
 
     # -- mutation ---------------------------------------------------------
     def _apply_row_mutation(self, r: ArrayLike, pos) -> None:
@@ -584,22 +520,42 @@ class Corpus:
         Within capacity the rows are written in place into the stored
         buffer and every cached prepared form (no buffer is reallocated).
         Past capacity the capacity doubles (``max(2 * cap, new_n)``): the
-        buffers are reallocated and the prepared forms rebuild lazily."""
+        buffers are reallocated and the prepared forms rebuild lazily.
+
+        A mesh handle adds only when built with ``capacity=``, and never
+        past it: the rows are scattered into the shards that own the next
+        global positions, in place."""
+        if self.mesh is not None and not self._device.has_capacity:
+            raise ValueError(
+                "add() on a mesh-sharded Corpus requires the handle to "
+                "be built with capacity= (reserved rows are what make "
+                "sharded growth an in-place scatter)"
+            )
         r = _as_input(rows)
         _check_width(r, self.dim)
         m = r.shape[0]
         if m == 0:
             return self.n
         new_n = self.n + m
-        if new_n > self._cap:
-            self._cap = max(2 * self._cap, new_n)
-            self._device = self._with_capacity(self._device[: self.n])
-            if self._scales is not None:
-                self._scales = self._with_capacity(self._scales[: self.n],
-                                                   fill=1.0)
-            self._prepared.clear()
-            self._f32_view = None
-        self._apply_row_mutation(r, slice(self.n, new_n))
+        if self.mesh is not None:
+            if new_n > self._cap:
+                raise ValueError(
+                    f"add() exceeds the mesh handle's capacity "
+                    f"({self.n} + {m} > {self._cap}); rebuild (or "
+                    f"save/load) with a larger capacity="
+                )
+            self._device.scatter(np.arange(self.n, new_n), r, self.config)
+            self._device.n_true = new_n
+        else:
+            if new_n > self._cap:
+                self._cap = max(2 * self._cap, new_n)
+                self._device = self._with_capacity(self._device[: self.n])
+                if self._scales is not None:
+                    self._scales = self._with_capacity(
+                        self._scales[: self.n], fill=1.0)
+                self._prepared.clear()
+                self._f32_view = None
+            self._apply_row_mutation(r, slice(self.n, new_n))
         if self._tombstones is not None:
             self._tombstones = np.concatenate(
                 [self._tombstones, np.zeros(m, dtype=bool)])
@@ -628,8 +584,11 @@ class Corpus:
                 f"[{idx.min()}, {idx.max()}]")
         if _repeats(idx):
             raise ValueError("update indices must be unique")
-        pos = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        self._apply_row_mutation(r, pos)
+        if self.mesh is not None:
+            self._device.scatter(idx.astype(np.int64), r, self.config)
+        else:
+            pos = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            self._apply_row_mutation(r, pos)
         if self._tombstones is not None and self._tombstones[idx].any():
             self._tombstones[idx] = False
             self._alive = None
@@ -724,6 +683,12 @@ class Corpus:
         dt = _F32 if half_q else compute_dtype(q.dtype, self.dtype)
         cfg = self.config
         mk = self._combined_mask(user_mk)
+        if self.mesh is not None:
+            with annotate(f"pmm.topk.{metric.value}"):
+                vals, idx = distributed_topk(
+                    _to_torch(q, dt, self.device), self._device, kk, metric,
+                    self.mesh, cfg, mask=mk)
+                return _to_host(vals, idx)
         sup = supports(q.shape, (self.n, self.dim), dt, kk, cfg)
         if (not sup and self.storage != "f32" and dt == _F32
                 and kk <= max_fused_k(cfg)):
@@ -753,6 +718,12 @@ class Corpus:
                                                              self.dtype))
         _check_width(q, self.dim)
         dt = compute_dtype(q.dtype, self.dtype)
+        if self.mesh is not None:
+            with annotate("pmm.matmul"):
+                out = distributed_matmul(_to_torch(q, dt, self.device),
+                                         self._device, self.mesh,
+                                         self.config)
+            return out.cpu().numpy()
         with annotate("pmm.matmul"):
             out = pairwise_matmul(_to_torch(q, dt, self.device),
                                   self._dense_device().to(_torch_dtype(dt)),
@@ -764,8 +735,15 @@ class Corpus:
         ``Corpus.load`` reads back: the tier's own bytes of the n rows
         (bf16 as ``data_u16`` bits, int8 codes or packed int4 with
         ``scales``) and the tombstones.  Capacity is not saved: pass
-        ``capacity=`` again to ``load``."""
-        data = self._device[: self.n].cpu()
+        ``capacity=`` again to ``load``.  A mesh handle gathers its shards
+        (every rank takes part); the file loads on one device or on a
+        mesh."""
+        if self.mesh is not None:
+            data, scales = self._device.gather(self.mesh, "cpu")
+            data = data[: self.n]
+        else:
+            data = self._device[: self.n].cpu()
+            scales = self._scales
         arrays = {"n": np.int64(self.n), "dim": np.int64(self.dim),
                   "storage": np.array(self.storage)}
         if self.storage == "bf16":
@@ -773,8 +751,8 @@ class Corpus:
                 np.uint16)
         else:
             arrays["data"] = data.numpy()
-        if self._scales is not None:
-            arrays["scales"] = self._scales[: self.n].cpu().numpy()
+        if scales is not None:
+            arrays["scales"] = scales[: self.n].cpu().numpy()
         if self._tombstones is not None:
             arrays["tombstones"] = self._tombstones
         with open(path, "wb") as f:
@@ -798,7 +776,8 @@ class Corpus:
              config: Optional[SearchConfig] = None,
              device: DeviceLike = None) -> "Corpus":
         """Rebuild a corpus saved by either package's ``Corpus.save``, from
-        its stored bytes (codes are not quantized again)."""
+        its stored bytes (codes are not quantized again); ``mesh=``
+        shards it."""
         with np.load(path, allow_pickle=False) as z:
             storage = str(z["storage"])
             if storage == "bf16":
@@ -812,7 +791,8 @@ class Corpus:
         # NumPy's default device, also for the bf16 bits read as a tensor.
         obj = cls(data, mesh=mesh, storage=storage, scales=scales, dim=dim4,
                   capacity=capacity, config=config,
-                  device=resolve_device(device))
+                  device=device if mesh is not None
+                  else resolve_device(device))
         if tomb is not None and tomb.any():
             obj._tombstones = tomb.astype(bool)
         return obj

@@ -746,18 +746,18 @@ def _partial_plain(qp, cp, cbp, mask, k: int, precision: str, splits: int,
 
 
 def topk_merge_plain(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
-    """Plain version of kernel B: top-k of the union of the split lists.
-
-    Splits cover ascending corpus ranges and each list is ordered, so a
-    stable sort of the concatenation keeps lowest-index-first ties.
+    """Plain version of kernel B: top-k of the union of the split lists,
+    ordered by the keys kernel B compares, (value desc, index asc), with
+    INT32_MAX as the index of every -inf value.  The lists' indices need
+    not ascend from list to list (the ring merge of sharded search hands
+    it lists in visiting order).
     """
     launches["topk_merge_plain"] += 1
     m = part_v.shape[0]
     v = part_v.reshape(m, -1)
     i = part_i.reshape(m, -1)
-    sv, order = torch.sort(v, dim=1, descending=True, stable=True)
-    vals = sv[:, :k]
-    return _finish(vals, torch.gather(i, 1, order[:, :k]), k)
+    i = torch.where(v == _NEG_INF, torch.full_like(i, INT32_MAX), i)
+    return _finish(*reference.topk_two_key(v, i, k), k)
 
 
 # ---------------------------------------------------------------------------
@@ -1395,6 +1395,27 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
     raises the JAX package's ValueError for an explicit selection outside
     it, dense and probed alike.
     """
+    if q.dtype != torch.float32:
+        # Half-precision queries: upcast on the device, so the kernels and
+        # the euclidean finalize run f32.
+        q = q.float()
+    vals, idx = select_prepared(q, cp, cbp, k, metric, mask=mask,
+                                config=config, precision=precision,
+                                tiles=tiles, tn=tn)
+    return _finalize(q, vals, Metric.parse(metric)), idx
+
+
+def select_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
+                    k: int, metric, *, mask=None,
+                    config: Optional[SearchConfig] = None,
+                    precision: Optional[str] = None,
+                    tiles=None, tn: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_topk_prepared`` without the euclidean finalize: the
+    kernels' own scores, higher is better (2 q.c - |c|^2 for euclidean),
+    best first, -inf where a slot is unfilled.  Lists of these merge
+    exactly by (score desc, index asc) before one finalize, which is how
+    sharded search merges its shards."""
     cfg = resolve(config)
     metric = Metric.parse(metric)
     if k > max_fused_k(cfg):
@@ -1409,8 +1430,6 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
             f"corpus was prepared as {cp.dtype}; precision {precision!r} "
             f"takes {_CORPUS_DTYPE[precision]}")
     if q.dtype != torch.float32:
-        # Half-precision queries: upcast on the device, so the kernels and
-        # the euclidean finalize run f32.
         q = q.float()
     m, dim = q.shape
     tn = tn or layout_tile_rows(dim, cfg, k)
@@ -1437,9 +1456,8 @@ def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
     mask_u8 = None if mask is None else pad_mask_row(
         torch.as_tensor(mask, device=q.device), cbp.shape[-1])
     with annotate(f"pmm.fused_topk.{metric.value}"):
-        vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision, tiles,
-                                 tn, block_rows)
-    return _finalize(q, vals, metric), idx
+        return fused_select(qp, cp, cbp, mask_u8, k, precision, tiles, tn,
+                            block_rows)
 
 
 def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
@@ -1469,6 +1487,12 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
             mask, device=q.device).to(torch.bool)
         return reference.topk_search(q, c, k, metric, mask=mk)
     precision = kernel_precision(cfg.precision)
+    if c.is_floating_point() and c.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+        # f32 queries take the fused path whatever the corpus's float
+        # width, as in the JAX package: a float64 or float16 corpus is
+        # rounded to f32 for the prep.
+        c = c.to(torch.float32)
     cp, cbp = prepare_corpus(c, metric, precision=precision)
     # The JAX package's one-shot path pads the corpus to this tile height.
     bq, bn = effective_tiles(cfg, k)

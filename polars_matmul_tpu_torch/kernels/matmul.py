@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ..ops.reference import exact_matmul
+from ..ops.reference import exact_matmul, mixed_matmul
 from .fused_topk import _ptr, split_hi_lo
 
 # Kernel C's cores, in the order of the CUDA source's Core enum.
@@ -44,10 +44,12 @@ def reset_launch_counts() -> None:
 
 def pairwise_matmul(q: torch.Tensor, c: torch.Tensor, *,
                     precision: str = "highest") -> torch.Tensor:
-    """Q . C^T in the inputs' dtype.  ``precision`` is accepted for
-    signature parity: this product is always exact (never TF32)."""
-    with exact_matmul():
-        return torch.matmul(q, c.T)
+    """Q . C^T in the queries' dtype, as the JAX package's
+    ``dot_general(..., preferred_element_type=q.dtype)``: operands of two
+    dtypes multiply in their promoted dtype, and the product is cast to
+    q's.  ``precision`` is accepted for signature parity: this product is
+    always exact (never TF32)."""
+    return mixed_matmul(q, c)
 
 
 def pallas_matmul_plain(q: torch.Tensor, c: torch.Tensor,

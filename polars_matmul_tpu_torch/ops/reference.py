@@ -45,10 +45,14 @@ def exact_matmul():
          torch.backends.cudnn.allow_tf32) = prev
 
 
-def _dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Q . C^T in the inputs' dtype, never TF32."""
+def mixed_matmul(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Q . C^T in q's dtype, never TF32: the JAX package's
+    ``preferred_element_type=q.dtype``.  Operands of two dtypes multiply
+    in their promoted dtype (float32 x float64 in float64, bfloat16 x
+    float32 in float32) and the product is cast to q's dtype."""
+    dt = torch.promote_types(q.dtype, c.dtype)
     with exact_matmul():
-        return torch.matmul(q, c.T)
+        return torch.matmul(q.to(dt), c.to(dt).T).to(q.dtype)
 
 
 def pairwise_scores(q: torch.Tensor, c: torch.Tensor,
@@ -60,7 +64,7 @@ def pairwise_scores(q: torch.Tensor, c: torch.Tensor,
     computes exact products in the input dtype.
     """
     metric = Metric.parse(metric)
-    d = _dot(q, c)
+    d = mixed_matmul(q, c)
     if metric is Metric.DOT:
         return d
     if metric is Metric.COSINE:
@@ -84,6 +88,21 @@ def topk_from_scores(scores: torch.Tensor, k: int,
     vals, idx = torch.sort(scores, dim=1, descending=higher_is_better,
                            stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def topk_two_key(vals: torch.Tensor, idx: torch.Tensor, k: int,
+                 higher_is_better: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k per row of (vals, idx) pairs by explicit (score, index) keys:
+    best score first, the lower index first among equal scores, whatever
+    order the pairs come in.  A stable sort by index, then a stable sort
+    by score, orders every pair by its own key."""
+    by_index = torch.sort(idx, dim=1, stable=True).indices
+    vals = torch.gather(vals, 1, by_index)
+    idx = torch.gather(idx, 1, by_index)
+    order = torch.sort(vals, dim=1, descending=higher_is_better,
+                       stable=True).indices[:, :k]
+    return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
 
 
 def topk_search(q: torch.Tensor, c: torch.Tensor, k: int,

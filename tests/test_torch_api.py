@@ -197,10 +197,21 @@ def test_unported_corpus_features_raise():
         assert h.storage == storage and h.dtype == np.float32
         _same(h.topk(q, 4, "dot"), pmt.Corpus(c, storage=storage).topk(
             q, 4, "dot"))
-    for kw in ({"mesh": object()}, {"storage": "int8", "mesh": object()},
-               {"mesh": object(), "capacity": 1000}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            pt.Corpus(c, device=CPU, **kw)
+    # mesh= is ported: the same arguments build a sharded handle that
+    # answers like the JAX package's on its mesh (tests/test_torch_parallel.py
+    # holds the rest); only device= with a mesh is refused.
+    import jax
+
+    meshes = (pt.make_mesh(1, 8, devices=["cpu"] * 8),
+              pmt.make_mesh(1, 8, devices=jax.devices()[:8]))
+    for kw in ({}, {"storage": "int8"}, {"capacity": 1000}):
+        h, j = (lib.Corpus(c, mesh=mesh, **kw)
+                for lib, mesh in zip((pt, pmt), meshes))
+        assert repr(h) == repr(j)
+        _same(h.topk(q, 4, "dot"), j.topk(q, 4, "dot"),
+              **({"rtol": 2e-4, "atol": 2e-4} if kw else {}))
+    with pytest.raises(ValueError, match="device= and mesh= are exclusive"):
+        pt.Corpus(c, device=CPU, mesh=meshes[0])
     # Capacity and the mutations are ported: they answer like the JAX
     # package.
     h = pt.Corpus(c, device=CPU, capacity=1000)

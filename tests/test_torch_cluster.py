@@ -18,7 +18,7 @@ import torch
 from polars_matmul_tpu.config import SearchConfig as JConfig
 from polars_matmul_tpu.ops import cluster as JC
 from polars_matmul_tpu_torch import SearchConfig
-from polars_matmul_tpu_torch.api import search as psearch
+from polars_matmul_tpu_torch.kernels import storage as pstorage
 from polars_matmul_tpu_torch.kernels import fused_topk as F
 from polars_matmul_tpu_torch.ops import cluster as PC
 
@@ -148,8 +148,8 @@ def test_assign_rows_match_jax():
 def test_assign_rows_native_match_jax(storage):
     x, centers = _separated(6, dim=300)
     ck, dpp, _ = F.feature_geometry(300)
-    codes, scales = (psearch._quantize_rows_np(x) if storage == "int8"
-                     else psearch._quantize_rows_int4_np(x, ck, dpp))
+    codes, scales = (pstorage._quantize_rows_np(x) if storage == "int8"
+                     else pstorage._quantize_rows_int4_np(x, ck, dpp))
     got = PC.assign_rows_native(codes, scales, _t(centers), storage, 300,
                                 chunk_rows=128)
     want = JC.assign_rows_native(codes, scales, centers, storage, 300,

@@ -507,12 +507,25 @@ def test_constructor_and_query_errors_match_jax():
     assert ic.shape == (8, 600)
 
 
-def test_unported_features_raise():
-    _, c = blobs(np.random.default_rng(13), 300, 2, 8)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        pt.ClusteredCorpus(c, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        pt.ClusteredCorpus.load("x", mesh=object())
+def test_unported_features_raise(tmp_path):
+    q, c = blobs(np.random.default_rng(13), 300, 2, 8)
+    # mesh= is ported (tests/test_torch_clustered_mesh.py): the same
+    # arguments build, save and load a sharded handle as in the JAX package;
+    # only device= with a mesh is refused.
+    import jax
+
+    mesh = pt.make_mesh(1, 2, devices=[CPU] * 2)
+    jmesh = pmt.make_mesh(1, 2, devices=jax.devices()[:2])
+    j = pmt.ClusteredCorpus(c, clusters=2, mesh=jmesh)
+    j.save(tmp_path / "jax.npz")
+    h = pt.ClusteredCorpus.load(tmp_path / "jax.npz", mesh=mesh)
+    assert repr(h) == repr(j)
+    i, _ = h.topk(q, 4)
+    np.testing.assert_array_equal(i, j.topk(q, 4)[0])
+    assert repr(pt.ClusteredCorpus(c, clusters=2, mesh=mesh)).endswith(
+        "shards=2)")
+    with pytest.raises(ValueError, match="device= and mesh= are exclusive"):
+        pt.ClusteredCorpus(c, mesh=mesh, device=CPU)
     # from_arrow is ported (tests/test_torch_interop.py).
     # add / update / rebuild are ported (tests/test_torch_lifecycle.py).
     h = pt.ClusteredCorpus(c, clusters=2, device=CPU)

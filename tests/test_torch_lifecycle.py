@@ -30,7 +30,7 @@ import polars_matmul_tpu as pmt
 import polars_matmul_tpu_torch as pt
 from polars_matmul_tpu.config import SearchConfig as JConfig
 from polars_matmul_tpu_torch import SearchConfig
-from polars_matmul_tpu_torch.api import search as psearch
+from polars_matmul_tpu_torch.kernels import storage as pstorage
 from polars_matmul_tpu_torch.kernels import fused_topk as F
 
 from conftest import assert_topk_equivalent
@@ -67,12 +67,12 @@ def _served(shadow, storage):
     if storage == "bf16":
         return torch.from_numpy(shadow).to(torch.bfloat16).double().numpy()
     if storage == "int8":
-        codes, scales = psearch._quantize_rows_np(shadow)
+        codes, scales = pstorage._quantize_rows_np(shadow)
         return codes.astype(np.float64) * scales[:, None]
     if storage == "int4":
         ck, dpp, _ = F.feature_geometry(shadow.shape[1])
-        packed, scales = psearch._quantize_rows_int4_np(shadow, ck, dpp)
-        codes = psearch._unpack_int4_np(packed, ck, shadow.shape[1])
+        packed, scales = pstorage._quantize_rows_int4_np(shadow, ck, dpp)
+        codes = pstorage._unpack_int4_np(packed, ck, shadow.shape[1])
         return codes.astype(np.float64) * scales[:, None]
     return shadow.astype(np.float64)
 
@@ -227,7 +227,7 @@ def test_writes_land_in_place(storage, precision, metrics, aliased):
     # Each written form equals a prep of the stored rows, bit for bit, and
     # the prep of a fresh handle on those rows.
     for (metric, core), (cp, cbp) in h._prepared.items():
-        fresh = psearch.prepare_stored(h._device, h._scales,
+        fresh = pstorage.prepare_stored(h._device, h._scales,
                                        F.Metric.parse(metric), core, 10**6)
         assert torch.equal(cp, fresh[0]) and torch.equal(cbp, fresh[1])
     q = rng.standard_normal((4, 40)).astype(np.float32)

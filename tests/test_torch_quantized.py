@@ -19,7 +19,7 @@ import torch
 from polars_matmul_tpu.api import search as jsearch
 from polars_matmul_tpu.config import SearchConfig as JConfig
 from polars_matmul_tpu_torch import SearchConfig
-from polars_matmul_tpu_torch.api import search as psearch
+from polars_matmul_tpu_torch.kernels import storage as pstorage
 from polars_matmul_tpu_torch.kernels import fused_topk as F
 
 from conftest import assert_topk_equivalent
@@ -65,7 +65,7 @@ def test_quantize_int8_bit_identical_to_jax(dim):
     np.testing.assert_array_equal(codes.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(scales.numpy(), np.asarray(js))
     assert scales[3] == 1.0 and (codes[3] == 0).all()
-    hc, hs = psearch._quantize_rows_np(c)
+    hc, hs = pstorage._quantize_rows_np(c)
     np.testing.assert_array_equal(hc, codes.numpy())
     np.testing.assert_array_equal(hs, scales.numpy())
     # The JAX package's host quantizer (f64 input takes its NumPy branch).
@@ -84,7 +84,7 @@ def test_quantize_int4_bit_identical_to_jax(dim):
     jp, js = JF.quantize_int4(jnp.asarray(c), ck)
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(scales.numpy(), np.asarray(js))
-    hp, hs = psearch._quantize_rows_int4_np(c, ck, dpp)
+    hp, hs = pstorage._quantize_rows_int4_np(c, ck, dpp)
     np.testing.assert_array_equal(hp, packed.numpy())
     np.testing.assert_array_equal(hs, scales.numpy())
     jhp, jhs = jsearch._quantize_rows_int4_np(c.astype(np.float64), ck, dpp)
@@ -92,7 +92,7 @@ def test_quantize_int4_bit_identical_to_jax(dim):
     np.testing.assert_array_equal(hs, jhs)
     codes = F.unpack_int4(packed, dim).numpy()
     np.testing.assert_array_equal(codes, jsearch._unpack_int4_np(hp, ck, dim))
-    np.testing.assert_array_equal(codes, psearch._unpack_int4_np(hp, ck, dim))
+    np.testing.assert_array_equal(codes, pstorage._unpack_int4_np(hp, ck, dim))
     assert codes.min() >= -7 and codes.max() <= 7
     np.testing.assert_array_equal(
         F.dequant_int4(packed, scales, dim).numpy(),

@@ -14,7 +14,7 @@ import torch
 
 import polars_matmul_tpu as pmt
 import polars_matmul_tpu_torch as pt
-from polars_matmul_tpu_torch.api import search as psearch
+from polars_matmul_tpu_torch.kernels import storage as pstorage
 from polars_matmul_tpu_torch.kernels import fused_topk as F
 
 from conftest import assert_topk_equivalent
@@ -76,7 +76,7 @@ def test_corpus_tier_mask_and_half_queries_match_jax(storage):
 
 def test_prequantized_int8_and_prepacked_int4_match_jax():
     q, c = _data(seed=43, dim=300)
-    codes, scales = psearch._quantize_rows_np(c)
+    codes, scales = pstorage._quantize_rows_np(c)
     h = pt.Corpus(codes, storage="int8", scales=scales, device=CPU)
     j = pmt.Corpus(codes, storage="int8", scales=scales)
     np.testing.assert_array_equal(_stored(h), codes)
@@ -88,7 +88,7 @@ def test_prequantized_int8_and_prepacked_int4_match_jax():
     _same(ht.topk(q, 10, "cosine"), j.topk(q, 10, "cosine"))
 
     ck, dpp, _ = F.feature_geometry(300)
-    packed, scales4 = psearch._quantize_rows_int4_np(c, ck, dpp)
+    packed, scales4 = pstorage._quantize_rows_int4_np(c, ck, dpp)
     h4 = pt.Corpus(packed, storage="int4", scales=scales4, dim=300,
                    device=CPU)
     j4 = pmt.Corpus(packed, storage="int4", scales=scales4, dim=300)
@@ -108,8 +108,8 @@ def _err(fn, *args, **kw):
 
 def test_constructor_errors_match_jax():
     _, c = _data(n=20, dim=48)
-    codes, scales = psearch._quantize_rows_np(c)
-    packed, sc4 = psearch._quantize_rows_int4_np(c, 128, 128)
+    codes, scales = pstorage._quantize_rows_np(c)
+    packed, sc4 = pstorage._quantize_rows_int4_np(c, 128, 128)
     cases = [
         ((codes,), {}),
         ((codes,), {"storage": "bf16"}),
