@@ -80,8 +80,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_topk_merge.restype = i
     lib.pmm_topk_merge_plan.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.pmm_topk_merge_plan.restype = i
-    lib.pmm_matmul.argtypes = [p, p, p, i, i, i, i, p]
-    lib.pmm_matmul.restype = i
+    lib.pmm_matmul_plan.argtypes = [i, i, i, i, p]
+    lib.pmm_matmul_plan.restype = i
+    lib.pmm_matmul_highest.argtypes = [p, p, p, i, i, i, p]
+    lib.pmm_matmul_highest.restype = i
+    lib.pmm_split_pad.argtypes = [p, p, p, i, i, i, p]
+    lib.pmm_split_pad.restype = i
+    lib.pmm_matmul_bf16x3.argtypes = [p, p, p, p, i, i, i, p]
+    lib.pmm_matmul_bf16x3.restype = i
     lib.pmm_floor_stacks.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.pmm_floor_stacks.restype = i
     lib.pmm_floor_blocks_per_sm.argtypes = [i, i, i, i]

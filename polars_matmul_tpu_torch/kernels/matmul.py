@@ -6,19 +6,27 @@
 - ``pallas_matmul``: the JAX package's hand-written tiled product
   (``_mm_kernel``, a benchmark and a template for fused epilogues).  Here
   it is kernel C, ``csrc/matmul.cu``, written by hand for Hopper, with two
-  cores: ``"highest"`` (f32 FFMA on the CUDA cores) and ``"bf16x3"`` (each
-  operand split into bf16 hi | lo while staged, three ``mma.sync`` bf16
-  products accumulated in f32, the arithmetic of kernel A's bf16x3 core).
-  CUDA tensors launch kernel C, CPU tensors run ``pallas_matmul_plain``,
-  and any other device raises.  Launches are counted in ``launches`` and,
-  per core, in ``core_launches``.
+  cores: ``"highest"`` (f32 FFMA on the CUDA cores, fed by a cp.async
+  ring) and ``"bf16x3"`` (the arithmetic of kernel A's bf16x3 core: three
+  bf16 products accumulated in f32).  Above 128 queries bf16x3 splits
+  both operands once a call into padded bf16 [hi | lo] rows
+  (``split_pad``), then runs ``wgmma`` products fed by TMA; at 128 or
+  fewer it runs the ``mma.sync`` body that splits as it stages, which is
+  faster there.  CUDA tensors launch kernel C, CPU tensors run
+  ``pallas_matmul_plain``, and any other device raises.  Launches are
+  counted in ``launches``, per core in ``core_launches``, per body in
+  ``body_launches``; the split's in ``split_launches``.
+- ``launch_plan``: the launch kernel C makes at a shape, as its source
+  works it out (``pmm_matmul_plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as TF
 
 from ..ops.reference import exact_matmul, mixed_matmul
 from .fused_topk import _ptr, split_hi_lo
@@ -34,12 +42,86 @@ _CORE = {"default": "highest", "high": "highest", "highest": "highest",
 launches = {"pallas_matmul": 0, "pallas_matmul_plain": 0}
 # Kernel C's launches by core (each also counts in launches).
 core_launches = {core: 0 for core in CORES}
+# Kernel C's bodies, in the order of the source's Body enum: the f32
+# ring ("highest"), TMA + wgmma and mma.sync ("bf16x3").
+BODIES = ("ffma", "wgmma", "mma")
+# Kernel C's launches by body (each also counts in core_launches).
+body_launches = {body: 0 for body in BODIES}
+# The wgmma body's split of both operands (one launch a product).
+split_launches = {"split_pad": 0, "split_pad_plain": 0}
+
+# Split rows are whole boxes of this many features (the TMA's 128 bytes).
+BOX = 64
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, core_launches):
+    for counts in (launches, core_launches, body_launches, split_launches):
         for key in counts:
             counts[key] = 0
+
+
+# The fields of kernel C's launch plan (``pmm_matmul_plan``): q rows and
+# c rows a tile, the body (an index of BODIES), the group of q tiles of
+# the tile order, ring stages, blocks, dynamic shared memory bytes.
+PLAN_FIELDS = ("bm", "bn", "body", "group", "stages", "blocks", "smem")
+
+
+def launch_plan(m: int, n: int, dim: int, core: str) -> dict:
+    """The launch kernel C makes for (m, n, dim) in ``core`` on the
+    current card, as the source works it out (``pmm_matmul_plan``)."""
+    from ._build import load_library
+
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    if load_library().pmm_matmul_plan(m, n, dim, CORES.index(core),
+                                      plan) != 0:
+        raise ValueError(f"kernel C takes no {(m, n, dim, core)}")
+    out = dict(zip(PLAN_FIELDS, plan))
+    out["body"] = BODIES[out["body"]]
+    return out
+
+
+def padded_dim(dim: int) -> int:
+    """Features of each half of a split row: dim rounded up to whole
+    64-feature boxes."""
+    return -(-dim // BOX) * BOX
+
+
+def split_pad_plain(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split kernel: ``split_hi_lo`` of each f32
+    operand zero-padded to ``padded_dim(dim)`` features, q's rows then
+    c's: bf16 (m + n, 2 dp), each row [hi | lo]."""
+    split_launches["split_pad_plain"] += 1
+    pad = padded_dim(q.shape[1]) - q.shape[1]
+    return torch.cat([split_hi_lo(TF.pad(x, (0, pad))) for x in (q, c)])
+
+
+def split_pad(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The split of kernel C's wgmma body, one launch for both contiguous
+    f32 operands of one dim: bf16 (m + n, 2 ``padded_dim(dim)``), as
+    ``split_pad_plain`` gives bit for bit.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return split_pad_plain(q, c)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {q.device}")
+    from ._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        return _split(lib, q, c, ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream))
+
+
+def _split(lib, q: torch.Tensor, c: torch.Tensor, stream) -> torch.Tensor:
+    """``split_pad``'s launch on ``stream``, in the current device."""
+    (m, dim), n = q.shape, c.shape[0]
+    out = torch.empty((m + n, 2 * padded_dim(dim)), dtype=torch.bfloat16,
+                      device=q.device)
+    rc = lib.pmm_split_pad(_ptr(q), _ptr(c), _ptr(out), m, n, dim, stream)
+    if rc != 0:
+        raise RuntimeError(f"split_pad launch failed: error {rc}")
+    split_launches["split_pad"] += 1
+    return out
 
 
 def pairwise_matmul(q: torch.Tensor, c: torch.Tensor, *,
@@ -74,8 +156,18 @@ def pallas_matmul_plain(q: torch.Tensor, c: torch.Tensor,
         return qh @ ch.T + (qh @ cl.T + ql @ ch.T)
 
 
+@functools.lru_cache(maxsize=1024)
+def _body(m: int, n: int, dim: int, core: str, device: int) -> str:
+    """The body kernel C runs at (m, n, dim) in ``core`` on card
+    ``device``, the current one (the plan counts its SMs)."""
+    return launch_plan(m, n, dim, core)["body"]
+
+
 def _kernel_c(q: torch.Tensor, c: torch.Tensor, core: str) -> torch.Tensor:
-    """Kernel C on contiguous f32 CUDA operands: (m, n) f32."""
+    """Kernel C on contiguous f32 CUDA operands: (m, n) f32, in the body
+    of its launch plan.  The wgmma body runs on the split's buffer, whose
+    rows its tensor maps need 16-byte aligned, which the padding
+    guarantees."""
     from ._build import load_library
 
     lib = load_library()
@@ -83,13 +175,22 @@ def _kernel_c(q: torch.Tensor, c: torch.Tensor, core: str) -> torch.Tensor:
     n = c.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pmm_matmul(_ptr(q), _ptr(c), _ptr(out), m, n, dim,
-                            CORES.index(core), ctypes.c_void_p(stream))
+        body = _body(m, n, dim, core, torch.cuda.current_device())
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if core == "highest":
+            rc = lib.pmm_matmul_highest(_ptr(q), _ptr(c), _ptr(out), m, n,
+                                        dim, stream)
+        else:
+            split = _split(lib, q, c, stream) if body == "wgmma" else None
+            if split is not None and split.data_ptr() % 16:
+                raise RuntimeError("the split rows are not 16-byte aligned")
+            rc = lib.pmm_matmul_bf16x3(_ptr(q), _ptr(c), _ptr(split),
+                                       _ptr(out), m, n, dim, stream)
     if rc != 0:
         raise RuntimeError(f"pallas_matmul launch failed: error {rc}")
     launches["pallas_matmul"] += 1
     core_launches[core] += 1
+    body_launches[body] += 1
     return out
 
 
@@ -108,8 +209,8 @@ def pallas_matmul(q, c, *, block_m: int = 256, block_n: int = 512,
     (m, n or dim 0) raises.
 
     ``block_m`` / ``block_n`` / ``block_k`` must be positive; they size
-    the JAX kernel's grid but not kernel C's tiles (128 x 128 outputs a
-    block, its own feature stages), as ``config.py`` says of ``block_q``.
+    the JAX kernel's grid but not kernel C's tiles (``launch_plan``), as
+    ``config.py`` says of ``block_q``.
     """
     for name, b in (("block_m", block_m), ("block_n", block_n),
                     ("block_k", block_k)):

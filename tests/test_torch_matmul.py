@@ -220,3 +220,73 @@ def test_exports_match_jax():
     assert PK.pallas_matmul is M.pallas_matmul
     assert JK.pallas_matmul is JM.pallas_matmul
     assert pt.matmul_torch is M.pairwise_matmul
+
+
+# The bf16x3 core's split (kernel C's Hopper redesign): its plain version
+# and padding.
+
+@pytest.mark.parametrize("dim", [1, 56, 300, 4100])
+def test_split_pad_plain_is_the_jax_split_padded(dim):
+    """``split_pad_plain`` is the JAX package's ``_split_hi_lo`` of each
+    operand bit for bit, each half zero-padded to whole 64-feature boxes,
+    and hi + lo is x but for lo's rounding to bf16: x - hi is exact in
+    f32 and at most half a bf16 ulp of x, so lo is within 2^-9 of it
+    relatively, 2^-18 of |x| (bounded here by 2^-17)."""
+    from polars_matmul_tpu.kernels.fused_topk import _split_hi_lo
+
+    q, c = _data(5, 7, dim)
+    dp = M.padded_dim(dim)
+    got = M.split_pad_plain(torch.from_numpy(q), torch.from_numpy(c))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (12, 2 * dp)
+    bits = got.view(torch.int16).numpy().view(np.uint16)
+    halves = got.float().numpy()
+    for rows, x in ((slice(0, 5), q), (slice(5, 12), c)):
+        want = np.asarray(_split_hi_lo(jnp.asarray(x))).view(np.uint16)
+        np.testing.assert_array_equal(bits[rows, :dim], want[:, :dim])
+        np.testing.assert_array_equal(bits[rows, dp:dp + dim], want[:, dim:])
+        assert not bits[rows, dim:dp].any()
+        assert not bits[rows, dp + dim:].any()
+        joined = halves[rows, :dim] + halves[rows, dp:dp + dim]
+        assert np.all(np.abs(joined - x) <= 2.0 ** -17 * np.abs(x))
+
+
+def test_split_pad_on_cpu_runs_and_counts_the_plain_version():
+    q, c = (torch.from_numpy(x) for x in _data(3, 4, 70))
+    M.reset_launch_counts()
+    got = M.split_pad(q, c)
+    assert M.split_launches == {"split_pad": 0, "split_pad_plain": 1}
+    assert torch.equal(got.view(torch.int16),
+                       M.split_pad_plain(q, c).view(torch.int16))
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        M.split_pad(q.to("meta"), c.to("meta"))
+
+
+@pytest.mark.parametrize("dim,dp", [(1, 64), (56, 64), (64, 64), (65, 128),
+                                    (300, 320), (768, 768), (4100, 4160)])
+def test_padded_dim(dim, dp):
+    assert M.padded_dim(dim) == dp
+
+
+def test_ab_tool_imports_no_jax_and_needs_a_card():
+    """``tools/ab_matmul.py`` (kernel C, parent against change on the
+    card) imports nothing of JAX and refuses to run without a card."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys; import polars_matmul_tpu_torch.tools.ab_matmul; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'polars_matmul_tpu' or "
+            "m.startswith('polars_matmul_tpu.')]; assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(root)))
+    assert r.returncode == 0, r.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from polars_matmul_tpu_torch.tools import ab_matmul
+
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        ab_matmul.main(root / "build" / "parent")
