@@ -28,7 +28,7 @@ Phases, each printing one line or a few:
    cores at their rings' edges (dims 1, 3, 4, 5, 255, 257 and 768, query
    tiles 16, 32 and 64, k up to 512, the same splits and lists); the
    bf16x3 ring's mma.sync consumer against the per-tile staging it
-   replaced (``scores_bf16x3``, which kernel D still runs), every score
+   replaced (``scores_bf16x3``, kept as this reference), every score
    bit for bit on the canonical and 2M x 256 operands at query tiles 16,
    32 and 64; the
    on-card quantizers against the host NumPy ones, bit for bit; kernel B
@@ -94,17 +94,23 @@ Phases, each printing one line or a few:
    time, an all-defaults ``topk_torch`` adopting it, held to a float64
    oracle); explicit selections outside their envelope raising the JAX
    package's errors, dense and probed;
-10. the attribution kit: kernel D (``csrc/floor.cu``, ``floor_stacks``)
-   against its plain version in every core (bf16x3, int8c, int4c,
-   int4-rint, int4-raw), at levels 0, 1, 4 and 5, every id rule (global,
-   segmented, tile-local) and posu setting, over ragged shapes, integer tie
-   data bit for bit; then its main path, the three experiments of
-   ``polars_matmul_tpu_torch/tools`` at their JAX sizes (the canonical
-   floor, 2M x 256 int8 at batch 256, 2M x 768 int8 / int4 at batch 8 and
-   256; the floors JSON goes to ``build/floors.json``), counted; and each
-   core's time at its experiment's shape beside kernel A's there, its
-   plain version's, the library yardstick's and the bound (D's bf16x3
-   still stages per tile: ``scores_bf16x3``);
+10. the attribution kit: kernel D (``csrc/floor.cu``, ``floor_stacks``,
+   on kernel A's consumers): its launch plans (consumer, ring, stages,
+   shared memory, register levels) held to the host mirror; against its
+   plain version in every core (bf16x3, int8c, int4c, int4-rint,
+   int4-raw), at levels 0, 1, 4 and 5, every id rule (global, segmented,
+   tile-local) and posu setting, over ragged shapes, integer tie data bit
+   for bit; its stored cores at query tile 64 on the warpgroup consumer
+   (33, 65 and 300 queries, n not a whole number of steps, levels 0-3, a
+   segment restarting inside a step); its bf16x3 core on kernel A's ring
+   (both forms) against the per-tile staging's stacks bit for bit; then
+   its main path, the three experiments of ``polars_matmul_tpu_torch/
+   tools`` at their JAX sizes (the canonical floor, 2M x 256 int8 at batch
+   256, 2M x 768 int8 / int4 at batch 8 and 256; the floors JSON goes to
+   ``build/floors.json``), counted; and each core's time at its
+   experiment's shape beside D at levels 0 there, kernel A's (and A minus
+   D(0)), its plain version's, the library yardstick's and the bound, with
+   its consumer and blocks an SM;
 11. corpus mutation, each path with its own phase 5 counts: phase 7's
    10M x 768 int8 corpus built from its first 9,990,000 rows with
    ``capacity=10_000_000``, its last 10,000 rows added back in 10 adds
@@ -247,10 +253,16 @@ BF16X3_PLANS = HIGHEST_PLANS
 # The one instantiation of kernel A known to spill (8 B stored, 32 B
 # loaded; ROADMAP.md): phase 1 fails on a spill in any other.
 KNOWN_SPILL = "fused_topk_stored_kernel<16, 2, listed, insert>"
-# The per-tile staging kernel A's bf16x3 core ran before the ring
-# (tile_scores.cuh::scores_bf16x3, which kernel D still runs), writing
-# every score: the reference the ring's mma.sync consumer must equal bit
-# for bit.
+# Kernel D's levels=0 form of the int4 family at query tile 32 keeps eight
+# running maxima beside a ring at its 128 registers and spills 4 B (off the
+# experiments' path: batches of 17-32); phase 1 fails on a spill in any
+# other form that holds its state in registers.
+FLOOR_KNOWN_SPILLS = tuple(
+    f"floor_stacks_kernel<32, {core}, ring, row maxima in registers>"
+    for core in ("int4c", "int4-rint", "int4-raw"))
+# The per-tile staging kernels A and D's bf16x3 cores ran before the ring
+# (tile_scores.cuh::scores_bf16x3), writing every score: the reference the
+# ring's mma.sync consumer must equal bit for bit (phases 2 and 10).
 PER_TILE_CU = r"""
 #include "tile_scores.cuh"
 
@@ -295,6 +307,9 @@ extern "C" int per_tile_scores(const void* q, const void* c, const float* cb,
 """
 # nvcc of PER_TILE_CU, started beside the kernels' build (phase 1).
 _per_tile = {}
+# Kernel D's ring cores by the CUDA source's Core value (ptxas lines).
+FLOOR_CORES = {1: "bf16x3", 3: "int8c", 4: "int4c", 5: "int4-rint",
+               6: "int4-raw", 7: "bf16x3w"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -396,6 +411,17 @@ def _ptxas_summary(log: str):
     static shared memory; its dynamic shared memory is its plan's)."""
     lines, name, spill, kc = [], None, "", False
     for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?floor_stacks_kernel"
+                      r"ILi(\d+)ELi(\d+)ELi(\d)ELi(n?\d)E", line)
+        if m:   # kernel D: <query tile, core, consumer, stacks>
+            stacks = ("row maxima in registers" if m.group(4) == "n1"
+                      else "stacks in shared memory" if m.group(4) == "0"
+                      else f"{m.group(4)} levels in registers")
+            name = (f"floor_stacks_kernel<{m.group(1)}, "
+                    f"{FLOOR_CORES.get(int(m.group(2)), m.group(2))}, "
+                    f"{('ring', 'wgmma')[int(m.group(3))]}, {stacks}>")
+            spill, kc = "", False
+            continue
         m = re.search(r"Compiling entry function '\w*?"
                       r"(matmul_f32_kernel|matmul_wgmma_kernel|"
                       r"matmul_mma_kernel|split_pad_kernel)"
@@ -409,7 +435,7 @@ def _ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '\w*?"
                       r"((?:fused_topk_partial|fused_topk_stored|"
                       r"fused_topk_wgmma|fused_topk_f32|topk_merge_tree|"
-                      r"topk_merge_best|floor_stacks)_kernel)"
+                      r"topk_merge_best)_kernel)"
                       r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?(?:Lb(\d)E)?",
                       line)
         if m:
@@ -467,6 +493,17 @@ def phase_build():
     for line in log.splitlines():
         if "wgmma" in line and "serialized" in line:
             print("  ptxas: " + line.strip())
+    # Kernel D: no spill where its stacks or maxima live in registers
+    # (reg_max keeps to the forms ptxas fits) but the known ones, no
+    # serialised products.
+    for line in _ptxas_summary(log):
+        require(not line.startswith("floor_stacks_kernel<")
+                or "in registers" not in line or "spills" not in line
+                or line.startswith(FLOOR_KNOWN_SPILLS),
+                f"kernel D spills: {line}")
+    require(not any("serialized" in line and "floor_stacks" in line
+                    for line in log.splitlines()),
+            "ptxas serialised kernel D's wgmma products")
     # Kernel C: no spill in any of its kernels, no serialised products.
     for line in _ptxas_summary(log):
         require(not re.match(r"(matmul_f32|matmul_wgmma|matmul_mma|split_pad)"
@@ -786,6 +823,36 @@ def _tile_lists(torch, scores, k):
     return v.contiguous(), i.to(torch.int32)
 
 
+def _per_tile_lib():
+    """The per-tile reference (``PER_TILE_CU``), loaded once its build
+    (started in phase 1) is done."""
+    import ctypes
+
+    if "lib" not in _per_tile:
+        proc = _per_tile["proc"]
+        log = proc.communicate()[0]
+        require(proc.returncode == 0, f"the per-tile reference did not "
+                f"build:\n{log}")
+        lib = ctypes.CDLL(str(_per_tile["so"]))
+        lib.per_tile_scores.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.per_tile_scores.restype = ctypes.c_int
+        _per_tile["lib"] = lib
+    return _per_tile["lib"]
+
+
+def _per_tile_scores(torch, qp, cp, cb):
+    """Every bf16x3 score of [hi | lo] operands by the per-tile staging,
+    (m, n) f32 (cb the (n,) bias row)."""
+    m, n, dim = qp.shape[0], cp.shape[0], qp.shape[1] // 2
+    ref = torch.empty((m, n), device="cuda")
+    rc = _per_tile_lib().per_tile_scores(
+        qp.data_ptr(), cp.data_ptr(), cb.data_ptr(), ref.data_ptr(), m, n,
+        dim, torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"per-tile reference launch failed: error {rc}")
+    return ref
+
+
 def _per_tile_bits(F, torch):
     """The bf16x3 ring's mma.sync consumer against the per-tile staging it
     replaced (``PER_TILE_CU``): every score, bit for bit, in one-tile
@@ -793,16 +860,6 @@ def _per_tile_bits(F, torch):
     position: ``ring_core``'s k), on the canonical cosine operands and on
     the 2M x 256 ones (batch 8, 32 and 64 of phase 4's queries).  Returns
     the cases."""
-    import ctypes
-
-    proc = _per_tile["proc"]
-    log = proc.communicate()[0]
-    require(proc.returncode == 0, f"the per-tile reference did not build:\n"
-            f"{log}")
-    lib = ctypes.CDLL(str(_per_tile["so"]))
-    lib.per_tile_scores.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.per_tile_scores.restype = ctypes.c_int
     rng = np.random.default_rng(SEED)
     q = torch.from_numpy(rng.standard_normal(
         (N_QUERIES, DIM)).astype(np.float32)).cuda()
@@ -823,12 +880,8 @@ def _per_tile_bits(F, torch):
                                (q256[:64], big, "2M batch 64", (64,))):
         qp = F.prepare_queries(qf, "cosine", "bf16x3")
         cp, cbp = F.prepare_corpus(cf, "cosine", precision="bf16x3")
-        m, n = qp.shape[0], cp.shape[0]
-        ref = torch.empty((m, n), device="cuda")
-        rc = lib.per_tile_scores(
-            qp.data_ptr(), cp.data_ptr(), cbp.data_ptr(), ref.data_ptr(), m,
-            n, DIM, torch.cuda.current_stream().cuda_stream)
-        require(rc == 0, f"per-tile reference launch failed: error {rc}")
+        n = cp.shape[0]
+        ref = _per_tile_scores(torch, qp, cp, cbp)
         tiles = -(-n // 64)
         for tm in tms:
             for k in forms[tm]:
@@ -2713,6 +2766,184 @@ def _compare_floor(D, F, torch, err):
     return cases, ties
 
 
+# Kernel D at query tile 64 (the warpgroup consumer for its stored cores):
+# (m, n, dim, tn, k) with 33, 65 and 300 queries, n not a whole number of
+# 256-row steps (18, 21 and 11 kernel tiles), a dim that takes the
+# element-wise loads (100); FLOOR_WG_RESET's segments (tn 640: a restart
+# every 16,000 rows) restart inside a step of some split, its n found for
+# this card's geometry.  Levels 0, 1 (in registers), 2 (in shared memory,
+# two scores a load) and 3, the deepest that keeps the warpgroup consumer
+# for the int4 family (int8c takes the tile-64 ring there).
+FLOOR_WG_SHAPES = ((33, 1100, 100, 128, 10), (65, 1300, 256, 256, 100),
+                   (300, 700, 768, 128, 10))
+FLOOR_WG_RESET = (65, 64, 640, 10)
+FLOOR_WG_LEVELS = (0, 1, 2, 3)
+FLOOR_STORED = ("int8c", "int4c", "int4-rint", "int4-raw")
+# Kernel D's bf16x3 core on kernel A's ring against the per-tile staging
+# the parent ran (PER_TILE_CU): (m, n, dim, tn, k) at query tiles 16 (m 9,
+# and k=512), 32 (m 20) and 64 (m 65, 300), both ring forms, dims 256,
+# 300 (not a multiple of a position) and 768.
+FLOOR_BITS_SHAPES = ((9, 1300, 256, 128, 10), (20, 700, 300, 256, 100),
+                     (65, 1100, 256, 128, 10), (300, 5000, 768, 1024, 10),
+                     (64, 40_000, 256, 2048, 512))
+
+
+def _floor_plans(D, torch):
+    """Kernel D's launch plans from the source (``pmm_floor_plan``) against
+    the host mirror (``floor.floor_plan``) at every query tile and core, a
+    spread of levels and dims.  Returns the cases."""
+    import ctypes
+
+    from polars_matmul_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    cases = 0
+    for tm in (16, 32, 64):
+        for core in D.CORES:
+            for levels in (0, 1, 2, 3, 4, 5, 8, 16):
+                for dim in (56, 256, 300, 768):
+                    got = (ctypes.c_int * 7)()
+                    rc = lib.pmm_floor_plan(tm, D._CORE_ENUM[core], levels,
+                                            D.corpus_width(core, dim), got)
+                    want = D.floor_plan(tm, core, levels, dim)
+                    what = f"tm={tm} {core} L{levels} dim {dim}"
+                    if rc != 0:
+                        require(want[2] == 0, f"kernel D's plan {what}: the "
+                                f"source fits none, the host {want}")
+                        continue
+                    got = (D.CONSUMERS[got[0]], FLOOR_CORES[got[1]], got[2],
+                           got[3], bool(got[4]), got[5], got[6])
+                    require(got == want, f"kernel D's plan {what}: source "
+                            f"{got}, host {want}")
+                    cases += 1
+    return cases
+
+
+def _midstep_rows(D, F, torch, core, levels, m, dim, tn, k):
+    """Corpus rows at which kernel D's segmented stacks restart inside a
+    wgmma step of some split at this card's geometry (None where the
+    launch takes no wgmma step)."""
+    seg = D.segment_rows(tn)
+    for n in range(seg + 500, 4 * seg, 500):
+        tm, _, tps = D.floor_geometry(m, n, core, levels, k,
+                                      torch.device("cuda"), dim=dim)
+        if D.floor_consumer(tm, core, levels) != "wgmma":
+            return None
+        for b in range(seg // 64, -(-n // 64), seg // 64):
+            t0 = b // tps * tps
+            if t0 < b and (b - t0) % F.WG_TILES:
+                return n
+    return None
+
+
+def _compare_floor_wgmma(D, F, torch, err):
+    """Kernel D's stored cores at query tile 64 against the plain version:
+    FLOOR_WG_SHAPES in every stored core at FLOOR_WG_LEVELS, every id rule,
+    posu on tie data, real data within _check_floor's tolerance and
+    integer tie data bit for bit; then each (core, levels) that takes the
+    warpgroup consumer with a segment restarting inside a step.  Requires
+    the warpgroup consumer at levels 0-2 in every stored core and at 3 in
+    the int4 family.  Returns (cases, tie cases, mid-step resets)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    runs = [(shape, FLOOR_STORED, FLOOR_WG_LEVELS) for shape in
+            FLOOR_WG_SHAPES]
+    m, dim, tn, k = FLOOR_WG_RESET
+    midstep = 0
+    for core in FLOOR_STORED:
+        for levels in FLOOR_WG_LEVELS[1:]:
+            n = _midstep_rows(D, F, torch, core, levels, m, dim, tn, k)
+            if n is not None:
+                runs.append(((m, n, dim, tn, k), (core,), (levels,)))
+                midstep += 1
+    cases = ties = 0
+    wg = set()
+    for (m, n, dim, tn, k), cores, levels_set in runs:
+        for tie in (False, True):
+            if tie:
+                q = torch.randint(-2, 3, (m, dim), generator=gen,
+                                  device="cuda").float()
+                c = torch.randint(-2, 3, (n, dim), generator=gen,
+                                  device="cuda").float()
+            else:
+                q = torch.randn((m, dim), generator=gen, device="cuda")
+                c = torch.randn((n, dim), generator=gen, device="cuda")
+            for core in cores:
+                qp, cp, cb = _floor_operands(D, F, torch, q, c, core, gen,
+                                             tie)
+                for levels in levels_set:
+                    tm = D.floor_geometry(m, n, core, levels, k, dev,
+                                          dim=dim)[0]
+                    if D.floor_consumer(tm, core, levels) == "wgmma":
+                        wg.add((core, levels))
+                    for ids in D.IDS:
+                        for posu in (False, True):
+                            if ((posu and not tie) or (levels == 0 and (
+                                    ids, posu) != ("global", False)) or (
+                                    levels and ids == "global"
+                                    and -(-n // 128) > 128)):
+                                continue
+                            _check_floor(
+                                D, torch, qp, cp, cb, core, levels, tn, ids,
+                                posu, k, err, f"tile 64: m={m} n={n} dim={dim}"
+                                f" tn={tn} {core} L{levels} {ids} posu={posu}"
+                                f" tie={tie}", tie)
+                            if tie:
+                                ties += 1
+                            else:
+                                cases += 1
+    torch.cuda.synchronize()
+    want = {(core, levels) for core in FLOOR_STORED for levels in (0, 1, 2)}
+    want |= {(core, 3) for core in FLOOR_STORED if core != "int8c"}
+    require(want <= wg, f"kernel D took the warpgroup consumer only at "
+            f"{sorted(wg)}")
+    require(midstep >= len(want) - len(FLOOR_STORED), f"kernel D: only "
+            f"{midstep} segment restarts inside a wgmma step")
+    return cases, ties, midstep
+
+
+def _floor_ring_bits(D, F, torch):
+    """Kernel D's bf16x3 core (kernel A's ring) against the per-tile
+    staging the parent ran: every split's levels and out from the
+    per-tile scores (``floor.stacks_of_scores``), bit for bit, over
+    FLOOR_BITS_SHAPES at levels 0, 1, 2, 5 and every id rule.  Requires
+    both ring forms.  Returns the cases."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    cases, forms = 0, set()
+    for m, n, dim, tn, k in FLOOR_BITS_SHAPES:
+        q = torch.randn((m, dim), generator=gen, device="cuda")
+        c = torch.randn((n, dim), generator=gen, device="cuda")
+        qp, cp, cb = _floor_operands(D, F, torch, q, c, "bf16x3", gen, False)
+        ref = _per_tile_scores(torch, qp, cp, cb[0])
+        for levels in (0, 1, 2, 5):
+            for ids in D.IDS:
+                if ((levels == 0 and ids != "global")
+                        or (levels and ids == "global" and -(-n // 128) > 128)):
+                    continue
+                tm, splits, tps = D.floor_geometry(m, n, "bf16x3", levels, k,
+                                                   dev, dim=dim)
+                forms.add(D.floor_plan(tm, "bf16x3", levels, dim)[1])
+                out, lv = D.floor_stacks(qp, cp, cb, core="bf16x3",
+                                         levels=levels, tn=tn, ids=ids,
+                                         k_geometry=k)
+                want = D.stacks_of_scores(
+                    lambda c0, c1: ref[:, c0:c1], m, n, n, levels=levels,
+                    tn=tn, ids=ids, splits=splits, tiles_per_split=tps)
+                require(torch.equal(out, want[0]) and torch.equal(lv, want[1]),
+                        f"kernel D bf16x3 m={m} n={n} dim={dim} tm={tm} "
+                        f"L{levels} {ids}: differs from the per-tile "
+                        f"staging's stacks")
+                cases += 1
+        del ref
+    torch.cuda.synchronize()
+    require(forms == {"bf16x3", "bf16x3w"}, f"kernel D's ring forms checked: "
+            f"{forms}")
+    return cases
+
+
 def _floor_library(D, torch, qh, rows, bias, levels, tn, ids, posu):
     """The library yardstick of kernel D: torch.addmm on bf16 rows, the
     pack, then torch.topk over each cell's groups (a segment's, when
@@ -2728,13 +2959,21 @@ def _floor_library(D, torch, qh, rows, bias, levels, tn, ids, posu):
 def _floor_entry(D, torch, name, qp, cp, cb, core, levels, tn, ids, posu, k,
                  ms, a_ms, a_core, launches, err, card):
     """Kernel D's JSON entry at one experiment's shape: its time (from the
-    experiment), its plain version's and the library's, the bound, and
-    kernel A's time there.  Checks D against its plain version first."""
+    experiment), D at levels=0 there (its consumer may differ), its plain
+    version's and the library's, the bound, and kernel A's time there.
+    Checks D against its plain version first."""
+    from polars_matmul_tpu_torch.tools import median_ms
+
     _check_floor(D, torch, qp, cp, cb, core, levels, tn, ids, posu, k, err,
                  f"{name} main-path shape", False)
     m, n, dim = qp.shape[0], cp.shape[0], qp.shape[1] // 2
     geo = D.floor_geometry(m, n, core, levels, k, qp.device,
                            dim=qp.shape[1] // 2)
+    consumer = D.floor_consumer(geo[0], core, levels)
+    tm0 = D.floor_geometry(m, n, core, 0, k, qp.device, dim=dim)[0]
+    consumer0 = D.floor_consumer(tm0, core, 0)
+    d0 = median_ms(lambda: D.floor_stacks(qp, cp, cb, core=core, levels=0,
+                                          tn=tn, ids=ids, k_geometry=k), 10)
     plain = cuda_ms(lambda: D.floor_stacks_plain(
         qp, cp, cb, core=core, levels=levels, tn=tn, ids=ids, posu=posu,
         splits=geo[1], tiles_per_split=geo[2]), reps=3, warmup=1)
@@ -2757,9 +2996,11 @@ def _floor_entry(D, torch, name, qp, cp, cb, core, levels, tn, ids, posu, k,
     blocks = D._occupancy[(qp.device.index, geo[0], core, levels,
                            qp.shape[1] // 2)]
     print(f"phase 10: [{card}] kernel D {name} ({m}x{n}x{dim} {core} "
-          f"L{levels} {ids}{' posu' if posu else ''}; tm={geo[0]}, "
-          f"splits={geo[1]}, {blocks} block(s)/SM): {ms:.4f} ms, kernel A "
-          f"({a_core}) there {a_ms:.4f} ms, plain {plain:.3f} ms, library "
+          f"L{levels} {ids}{' posu' if posu else ''}; tm={geo[0]} "
+          f"{consumer}, splits={geo[1]}, {blocks} block(s)/SM): {ms:.4f} ms; "
+          f"D(0) {d0:.4f} ms (tm={tm0} {consumer0}), D(L) - D(0) "
+          f"{ms - d0:+.4f} ms; kernel A ({a_core}) there {a_ms:.4f} ms, "
+          f"A - D(0) {a_ms - d0:+.4f} ms; plain {plain:.3f} ms, library "
           f"torch.addmm + pack + torch.topk {lib:.4f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]})")
     entry = _entry(ms, plain, lib, "torch.addmm on bf16 rows + pack + "
@@ -2768,7 +3009,9 @@ def _floor_entry(D, torch, name, qp, cp, cb, core, levels, tn, ids, posu, k,
     return dict({"name": f"floor_stacks.{core}", "route": "cuda",
                  "source": KERNEL_SRC + "floor.cu", "replaces": FLOOR_SRC,
                  "launches": launches[core], "max_abs_err": err[core],
-                 "kernel_a_ms": a_ms, "blocks_per_sm": blocks}, **entry)
+                 "consumer": consumer, "kernel_a_ms": a_ms, "d0_ms": d0,
+                 "kernel_a_minus_d0_ms": a_ms - d0, "blocks_per_sm": blocks},
+                **entry)
 
 
 def phase_floor(F, torch, card):
@@ -2781,17 +3024,28 @@ def phase_floor(F, torch, card):
     from polars_matmul_tpu_torch.tools import exp_b256, exp_floor, exp_int4
 
     t0 = time.perf_counter()
+    plans = _floor_plans(D, torch)
+    print(f"phase 10: kernel D's launch plans (consumer, ring, stages, "
+          f"shared memory, levels in registers) equal the host mirror's in "
+          f"{plans} cases")
     err = {core: 0.0 for core in D.CORES}
     cases, ties = _compare_floor(D, F, torch, err)
     print(f"phase 10: kernel D matches its plain version in {cases} ragged "
           f"cases (every core, levels {FLOOR_LEVELS}, every id rule and "
-          f"posu setting; its bf16x3 core still stages per tile, "
-          f"scores_bf16x3, not on kernel A's ring; "
-          f"decoded levels within atol {ATOL} + rtol {RTOL} x "
+          f"posu setting; decoded levels within atol {ATOL} + rtol {RTOL} x "
           f"max(|score|, row term scale) + {PACK_RTOL:.3g} x |score|, ids "
           f"exact where clear) and {ties} integer tie cases bit for bit; "
-          f"global ids past 128 groups raise; took "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"global ids past 128 groups raise")
+    cases, ties, midstep = _compare_floor_wgmma(D, F, torch, err)
+    print(f"phase 10: kernel D at query tile 64 (the stored cores on the "
+          f"warpgroup consumer at levels {FLOOR_WG_LEVELS}, int8c's level 3 "
+          f"on the ring) matches its plain version in {cases} ragged cases "
+          f"and {ties} tie cases bit for bit, {midstep} of them with a "
+          f"segment restarting inside a step")
+    bits = _floor_ring_bits(D, F, torch)
+    print(f"phase 10: kernel D's bf16x3 core on kernel A's ring (both "
+          f"forms) equals the per-tile staging's stacks bit for bit in "
+          f"{bits} cases; the checks took {time.perf_counter() - t0:.1f} s")
 
     # The main path: the three experiments.  Count only their launches.
     t1 = time.perf_counter()

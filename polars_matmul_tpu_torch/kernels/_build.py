@@ -92,6 +92,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_floor_stacks.restype = i
     lib.pmm_floor_blocks_per_sm.argtypes = [i, i, i, i]
     lib.pmm_floor_blocks_per_sm.restype = i
+    lib.pmm_floor_plan.argtypes = [i, i, i, i, p]
+    lib.pmm_floor_plan.restype = i
 
 
 def _build(so: Path) -> str:

@@ -1,8 +1,10 @@
 // Kernel A's stored cores (bf16c, int8c, int4c) at query tile 64: the ring
 // of raw corpus bytes (tile_scores.cuh) as producer, warpgroup products
-// (wgmma.mma_async, sm_90a) as consumer.  Kernel D and the 16- and 32-row
-// query tiles keep tile_scores.cuh's mma.sync consumer (ring_walk), and
-// so does bf16x3 at every tile (fused_topk.cu, wgmma_core).
+// (wgmma.mma_async, sm_90a) as consumer.  Kernel D's stored cores (int8c
+// and the int4 family) take it there too wherever its tail fits beside two
+// stages (floor.cu, floor_plan).  The 16- and 32-row query tiles keep
+// tile_scores.cuh's mma.sync consumer (ring_walk), and so does bf16x3 at
+// every tile (fused_topk.cu, wgmma_core).
 //
 // The operands swap.  The corpus rows are wgmma's M side and the queries
 // its N side: each of the block's two warpgroups owns two 64-row kernel

@@ -5,9 +5,10 @@
 // include these very functions; only kernel D instantiates the two decodes
 // of the int4 experiment (kInt4Rint, kInt4Raw).
 //
-// The cores ("bf16x3" three bf16 products of [hi | lo] halves: kernel A
-// streams them through the ring below, kernel D stages them per tile
-// (scores_bf16x3); "bf16c", "int8c", "int4c" a stored corpus whose raw
+// The cores ("bf16x3" three bf16 products of [hi | lo] halves, streamed
+// through the ring below by kernels A and D; scores_bf16x3, the per-tile
+// staging it replaced, stays as the reference chip_smoke.py holds the ring
+// to; "bf16c", "int8c", "int4c" a stored corpus whose raw
 // bytes stream through a ring across tiles and become bf16 as they are
 // read out, two products qh.c + ql.c; "highest" the f32 corpus through the
 // same ring, kernel A only) and the int4 layout are described at the top
@@ -65,8 +66,8 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// Shared memory of kernel D's per-tile bf16x3 operand tiles (the ring's
-// cores': ring_bytes).
+// Shared memory of the per-tile bf16x3 operand tiles of scores_bf16x3 (the
+// ring's cores': ring_bytes).
 __host__ __device__ inline size_t operand_bytes(int tm, int core) {
   return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
 }
@@ -143,8 +144,9 @@ __device__ inline void load_tile_vec(const uint16_t* __restrict__ src,
 }
 
 // Score tile of the bf16x3 core into St (epilogue applied), staged per
-// tile: kernel D's.  Kernel A's ring (ring_products) keeps its k slots and
-// its order of products, so both give the same scores bit for bit.
+// tile: the reference of chip_smoke.py (no kernel instantiates it).  The
+// ring (ring_products) keeps its k slots and its order of products, so
+// both give the same scores bit for bit.
 template <int TM>
 __device__ inline void scores_bf16x3(const uint16_t* __restrict__ q,
                                      const uint16_t* __restrict__ c,
@@ -710,7 +712,7 @@ __device__ inline void ring_walk(const uint16_t* __restrict__ q,
   const int row_bytes = (int)ld, chunks = ring_chunks(TM, CORE, row_bytes);
   // ring_plan never keeps a 64-row query tile resident; the bf16x3 walk
   // needs the registers that knowing so at compile time frees (ptxas spilled
-  // without it; kernel D's tile-64 walks keep their code).
+  // without it; the stored cores' tile-64 ring walks keep their code).
   if constexpr (hilo_core(CORE) && TM == 64) q_resident = false;
   const int qs = query_stride(q_resident ? chunks * QC : QC, CORE);
   const size_t stage = ring_stage_bytes(TM, CORE, q_resident);

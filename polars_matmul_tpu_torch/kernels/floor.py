@@ -37,10 +37,15 @@ otherwise.
 
 Kernel D runs kernel A's geometry: its query tile (``query_tile_rows(m,
 k_geometry)``, narrowed where the stacks would not fit in shared memory),
-its 64-row corpus tiles, and splits sized by D's own occupancy.  Besides
-out it returns every split's levels, (m, splits, L, 128) int32, or for
-``levels=0`` the (m, ceil(n / tn)) tile maxima as order-preserving ints
-(``_f32_to_u`` of the bits; ``decode_ordered``).
+its 64-row corpus tiles, and splits sized by D's own occupancy; and
+kernel A's consumers (``floor_plan``): the stored cores at query tile 64
+on the warpgroup consumer (``wgmma``) wherever D's tail fits beside two of
+its stages, everything else on the ``mma.sync`` ring, bf16x3 at 32 or 64
+features a position by kernel A's ``ring_core`` rule.  Up to
+``reg_max`` stack levels live in registers, deeper ones in shared
+memory.  Besides out it returns every split's levels, (m, splits, L, 128)
+int32, or for ``levels=0`` the (m, ceil(n / tn)) tile maxima as
+order-preserving ints (``_f32_to_u`` of the bits; ``decode_ordered``).
 
 CUDA tensors go to the kernel, CPU tensors to ``floor_stacks_plain``, any
 other device raises.  ``launches`` counts each.
@@ -165,18 +170,87 @@ def segment_rows(tn: int) -> int:
     return _SEGMENT_ROWS // tn * tn if tn <= _SEGMENT_ROWS else tn
 
 
+# Kernel D's consumers (enum values of the CUDA source's Consumer): kernel
+# A's mma.sync ring and its warpgroup consumer.
+CONSUMERS = ("ring", "wgmma")
+_STORED = ("int8c",) + _INT4
+
+
+def reg_max(tm: int, core: str, consumer: str) -> int:
+    """The most stack levels a launch holds in registers (``reg_max`` in
+    the source; deeper stacks live in shared memory), chosen on the H100:
+    one beside the warpgroup consumer's accumulators, two on the mma.sync
+    ring at query tile 16 and at 32 but for the int4 family (more
+    spilled), none on the tile-64 ring (one block an SM, slower)."""
+    if consumer == "wgmma":
+        return 1
+    return 0 if tm == 64 or (tm == 32 and core in _INT4) else 2
+
+
+def register_levels(tm: int, core: str, levels: int, consumer: str) -> int:
+    """Stack levels a launch holds in registers (``reg_levels`` in the
+    source): all of them up to ``reg_max``, else none."""
+    return levels if 1 <= levels <= reg_max(tm, core, consumer) else 0
+
+
+def tail_bytes(tm: int, core: str, levels: int, consumer: str) -> int:
+    """Shared memory after the staging (``floor_tail_bytes`` in the
+    source): the score tiles (a wgmma step's four), then the stacks where
+    they live in shared memory (levels 0 keeps its maxima in
+    registers)."""
+    tiles = F.WG_TILES if consumer == "wgmma" else 1
+    stacks = (0 if levels == 0 or register_levels(tm, core, levels, consumer)
+              else levels * tm * _LANES * 4)
+    return tiles * tm * (_TN + 1) * 4 + stacks
+
+
+def floor_consumer(tm: int, core: str, levels: int) -> str:
+    """The consumer kernel D's launch takes: "wgmma" for a stored core at
+    query tile 64 where its tail fits beside two stages, else "ring"."""
+    if (tm == F.WG_TM and core in _STORED and 2 * F.wg_stage_bytes(core)
+            + tail_bytes(tm, core, levels, "wgmma") <= _MAX_SMEM):
+        return "wgmma"
+    return "ring"
+
+
+def floor_plan(tm: int, core: str, levels: int, dim: int):
+    """(consumer, the core its ring streams, stages, bytes a stage, query
+    resident, shared memory, levels in registers) of kernel D's launch for
+    queries of ``dim`` features (``floor_plan`` in the source,
+    ``pmm_floor_plan``): the warpgroup consumer with the most stages that
+    fit beside its tail; else kernel A's ``ring_plan`` beside D's tail,
+    bf16x3 streaming "bf16x3w" (64 features a position) at query tiles 16
+    and 64 where that ring keeps two blocks an SM.  Stages 0 where nothing
+    fits."""
+    consumer = floor_consumer(tm, core, levels)
+    tail = tail_bytes(tm, core, levels, consumer)
+    reg = register_levels(tm, core, levels, consumer)
+    if consumer == "wgmma":
+        stage = F.wg_stage_bytes(core)
+        stages = min(F.WG_STAGES, (_MAX_SMEM - tail) // stage)
+        return consumer, core, stages, stage, False, stages * stage + tail, \
+            reg
+    c_ld = corpus_width(core, dim)
+    ring = core
+    if core == "bf16x3" and tm != 32:
+        wide = F.ring_plan(tm, "bf16x3w", c_ld, tail)
+        if wide[0] and F._SMEM_PER_SM // (wide[3] + F._SMEM_PER_BLOCK) >= 2:
+            ring = "bf16x3w"
+    stages, stage, resident, nbytes = F.ring_plan(tm, ring, c_ld, tail)
+    return consumer, ring, stages, stage, resident, nbytes, reg
+
+
 def smem_bytes(tm: int, core: str, levels: int) -> int:
-    """Kernel D's least shared memory (``floor_smem`` in the source, which
-    takes more where it fits): bf16x3's operand tiles of 32 features, rows
-    padded by 8, or a stored core's ring of two stages with the query
-    columns in each; the score tile; the stacks or the running tile
-    maxima."""
-    if core == "bf16x3":
-        staging = 2 * (tm + _TN) * (32 + 8) * 2
+    """Kernel D's least shared memory (``floor_plan`` takes more stages
+    where they fit): two stages of its consumer's ring (on the mma.sync
+    ring the query columns in each, 32 features a position for bf16x3),
+    then its tail (``tail_bytes``)."""
+    consumer = floor_consumer(tm, core, levels)
+    if consumer == "wgmma":
+        staging = 2 * F.wg_stage_bytes(core)
     else:   # two stages, query not resident: independent of dim
         staging = F.ring_staging(tm, core, 1, False, 2)[1]
-    work = levels * tm * _LANES * 4 if levels else tm * 4
-    return staging + tm * (_TN + 1) * 4 + work
+    return staging + tail_bytes(tm, core, levels, consumer)
 
 
 # (device index, tm, core, levels, dim) -> blocks of kernel D one SM holds.
@@ -379,21 +453,33 @@ def floor_stacks_plain(qp: torch.Tensor, cp: torch.Tensor, cb: torch.Tensor,
     sort of its packed values (over the split's last segment, when
     segmented); for ``levels=0`` the tile maxima and their sum."""
     launches["floor_stacks_plain"] += 1
-    m, n = qp.shape[0], cp.shape[0]
-    dev = qp.device
+    return stacks_of_scores(
+        lambda c0, c1: floor_scores_plain(qp, cp, cb, core, c0, c1),
+        qp.shape[0], cp.shape[0], F._plain_rows(qp), levels=levels, tn=tn,
+        ids=ids, posu=posu, splits=splits, tiles_per_split=tiles_per_split)
+
+
+def stacks_of_scores(scores, m: int, n: int, chunk: int, *, levels: int,
+                     tn: int, ids: str = "global", posu: bool = False,
+                     splits: int = 1, tiles_per_split: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``floor_stacks_plain``'s outputs from ``scores(c0, c1)``, the (m,
+    c1 - c0) f32 scores of corpus rows [c0, c1), asked for about
+    ``chunk`` rows at a time."""
     if levels == 0:
-        return _maxima_plain(qp, cp, cb, core, tn)
+        return _maxima_plain(scores, m, n, chunk, tn)
     tps = tiles_per_split or -(-n // _TN)
     rows = tps * _TN
-    per = max(1, F._plain_rows(qp) // rows)
+    per = max(1, chunk // rows)
     out_levels = []
     for s0 in range(0, splits, per):
         s1 = min(splits, s0 + per)
         c0, c1 = s0 * rows, min(n, s1 * rows)
-        s = floor_scores_plain(qp, cp, cb, core, c0, c1)
+        s = scores(c0, c1)
         out_levels.append(_levels_plain(s, c0, tn, n, ids, posu, s0, s1,
                                         rows, levels))
     lv = torch.cat(out_levels, dim=1)
+    dev = lv.device
     seg = segment_rows(tn)
     last = torch.clamp(torch.arange(1, splits + 1, device=dev) * rows,
                        max=n) - 1
@@ -404,16 +490,15 @@ def floor_stacks_plain(qp: torch.Tensor, cp: torch.Tensor, cb: torch.Tensor,
     return top.amax(dim=1).contiguous(), lv
 
 
-def _maxima_plain(qp, cp, cb, core: str, tn: int):
+def _maxima_plain(scores, m: int, n: int, chunk: int, tn: int):
     """levels=0: (out (m, 128) int32, the (m, ceil(n / tn)) tile maxima as
     order-preserving ints): each row's sum over tn-row tiles of
     int32(tile max), wrapping as an int32 sum."""
-    m, n = qp.shape[0], cp.shape[0]
-    step = max(tn, F._plain_rows(qp) // tn * tn)
+    step = max(tn, chunk // tn * tn)
     maxima = []
     for c0 in range(0, n, step):
         c1 = min(n, c0 + step)
-        s = floor_scores_plain(qp, cp, cb, core, c0, c1)
+        s = scores(c0, c1)
         s = torch.nn.functional.pad(s, (0, -(c1 - c0) % tn),
                                     value=float("-inf"))
         maxima.append(s.reshape(m, -1, tn).amax(dim=2))

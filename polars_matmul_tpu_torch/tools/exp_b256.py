@@ -85,7 +85,8 @@ def main(device: str = "cuda", n: int = N, dim: int = DIM, b: int = B,
         res[tag] = median_ms(lambda: D.floor_stacks(
             qp, cp, cb, core="int8c", levels=levels, tn=tn, ids="segmented",
             posu=posu, k_geometry=k), iters)
-        emit({"tag": tag, "ms": res[tag], "tm": geo[0], "splits": geo[1]})
+        emit({"tag": tag, "ms": res[tag], "tm": geo[0], "splits": geo[1],
+              "consumer": D.floor_consumer(geo[0], "int8c", levels)})
 
     if dev.type == "cuda":
         tm, splits, tps = F.kernel_geometry(b, cp.shape[0], k, "int8c", dev,

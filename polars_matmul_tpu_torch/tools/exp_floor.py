@@ -93,6 +93,8 @@ def main(device: str = "cuda", out: Optional[Path] = DEFAULT_OUT,
             k_geometry=k), iters)
         geometry[tag] = {"tm": geo[0], "splits": geo[1], "tn": tn,
                          "levels": levels, "rows": cp.shape[0],
+                         "consumer": D.floor_consumer(geo[0], "bf16x3",
+                                                      levels),
                          "kernel_a_ms": kernel_a_ms(qp, cp, cb, k, "bf16x3",
                                                     iters)}
         emit({"program": tag, "ms": res[tag], **geometry[tag]})

@@ -96,7 +96,9 @@ def main(device: str = "cuda", n: int = N, dim: int = DIM, k: int = K,
                 qp, cp, cb, core=core, levels=1, tn=tn, ids="tile-local",
                 k_geometry=k), iters)
             row = {"tag": f"{tag}-b{b}", "ms": ms, "tm": geo[0],
-                   "splits": geo[1], "corpus_gb": cp.nbytes / 1e9}
+                   "splits": geo[1],
+                   "consumer": D.floor_consumer(geo[0], core, 1),
+                   "corpus_gb": cp.nbytes / 1e9}
             if hbm:
                 row["hbm_bound_ms"] = cp.nbytes / hbm * 1e3
                 row["fraction_of_bound"] = row["hbm_bound_ms"] / ms

@@ -75,21 +75,21 @@ def _split(x: np.ndarray):
     return _bf16(bits.view(np.uint16))
 
 
-def _run_jax(kernel, q, c, cb, tn, scratch, **kw):
+def _run_jax(kernel, q, c, cb, tn, scratch, tm=TM, **kw):
     """One ``tools/`` kernel in interpret mode, the BlockSpecs of its
-    ``measure*`` function."""
+    ``measure*`` function (query tile ``tm``)."""
     m, n = q.shape[0], c.shape[0]
     call = pl.pallas_call(
-        functools.partial(kernel, tm=TM, tn=tn, **kw),
-        grid=(m // TM, n // tn),
+        functools.partial(kernel, tm=tm, tn=tn, **kw),
+        grid=(m // tm, n // tn),
         in_specs=[
-            pl.BlockSpec((TM, q.shape[1]), lambda i, j: (i, 0)),
+            pl.BlockSpec((tm, q.shape[1]), lambda i, j: (i, 0)),
             pl.BlockSpec((tn, c.shape[1]), lambda i, j: (j, 0)),
             pl.BlockSpec((cb.shape[0], tn), lambda i, j: (0, j)),
         ],
-        out_specs=[pl.BlockSpec((TM, 128), lambda i, j: (i, 0))],
+        out_specs=[pl.BlockSpec((tm, 128), lambda i, j: (i, 0))],
         out_shape=[jax.ShapeDtypeStruct((m, 128), jnp.int32)],
-        scratch_shapes=[pltpu.VMEM((scratch, TM, 128), jnp.int32)],
+        scratch_shapes=[pltpu.VMEM((scratch, tm, 128), jnp.int32)],
         interpret=True,
     )
     with jax.enable_x64(False):
@@ -146,23 +146,23 @@ def _decoded(p: np.ndarray, posu: bool) -> np.ndarray:
     return bits.view(np.float32).astype(np.float64)
 
 
-def _data(kind, n, dim, seed):
+def _data(kind, n, dim, seed, m=M):
     """Queries and corpus rows: N(0, 1) with unit queries ("real") or
     queries of norm 1000 ("scaled", so that the levels=0 sums are large
     and their truncation shows), or integers in [-9, 9] ("int")."""
     r = np.random.default_rng(seed)
     if kind == "int":
-        return (r.integers(-9, 10, (M, dim)).astype(np.float32),
+        return (r.integers(-9, 10, (m, dim)).astype(np.float32),
                 r.integers(-9, 10, (n, dim)).astype(np.float32))
-    q = r.standard_normal((M, dim)).astype(np.float32)
+    q = r.standard_normal((m, dim)).astype(np.float32)
     c = r.standard_normal((n, dim)).astype(np.float32)
     norm = 1000.0 if kind == "scaled" else 1.0
     return q * (norm / np.linalg.norm(q, axis=1, keepdims=True)), c
 
 
-def _operands(tool, mode, kind, n, tn, posu):
+def _operands(tool, mode, kind, n, tn, posu, m=M):
     """(JAX operands, port operands, port core) of one case."""
-    q, c = _data(kind, n, DIM, seed=n + tn + len(mode))
+    q, c = _data(kind, n, DIM, seed=n + tn + len(mode), m=m)
     qj, qt = _split(q)
     r = np.random.default_rng(5)
     if tool == "exp_floor":
@@ -226,28 +226,36 @@ CASES = [
          f"-{c[8]}" for c in CASES])
 def test_plain_matches_jax_kernel(tool, kernel, mode, levels, ids, posu, n,
                                   tn, kind):
-    jops, tops, core = _operands(tool, mode, kind, n, tn, posu)
+    _check_against_jax(tool, kernel, mode, levels, ids, posu, n, tn, kind)
+
+
+def _check_against_jax(tool, kernel, mode, levels, ids, posu, n, tn, kind,
+                       m=M, jax_tm=TM):
+    """``floor_stacks`` on CPU tensors (the plain version at kernel D's
+    geometry for m queries) against the JAX kernel (query tile jax_tm);
+    returns the geometry."""
+    jops, tops, core = _operands(tool, mode, kind, n, tn, posu, m=m)
     kw = {"levels": levels} if tool != "exp_int4" else {"mode": mode}
     if tool == "exp_b256":
         kw["posu"] = posu
     want = _run_jax(getattr(_tool(tool), kernel), *jops, tn,
-                    max(levels, 1), **kw)
-    tm, splits, tps = D.floor_geometry(M, n, core, levels, 10, CPU,
+                    max(levels, 1), tm=jax_tm, **kw)
+    tm, splits, tps = D.floor_geometry(m, n, core, levels, 10, CPU,
                                        dim=tops[0].shape[1] // 2)
     got, lv = D.floor_stacks(*tops, core=core, levels=levels, tn=tn, ids=ids,
                              posu=posu, k_geometry=10)
     got, lv = got.numpy(), lv.numpy()
-    assert got.shape == (M, 128) and got.dtype == np.int32
+    assert got.shape == (m, 128) and got.dtype == np.int32
     s = D.floor_scores_plain(*tops, core, 0, n).numpy()
     if levels == 0:
         np.testing.assert_array_equal(got, want)
         assert np.abs(want).max() > 0, "the sums are all zero"
-        maxima = s.reshape(M, -1, tn).max(axis=2)
+        maxima = s.reshape(m, -1, tn).max(axis=2)
         np.testing.assert_array_equal(lv, _np_pack(maxima, 1, "none", False))
         np.testing.assert_array_equal(
             got[:, 0], np.trunc(maxima).astype(np.int64).sum(axis=1))
-        return
-    assert lv.shape == (M, splits, levels, 128)
+        return tm, splits, tps
+    assert lv.shape == (m, splits, levels, 128)
     # Level 0 against the JAX kernel.
     a, b = _decoded(got, posu), _decoded(want, posu)
     tol = 2.0 ** -15 * np.abs(b) + 1e-6
@@ -264,6 +272,53 @@ def test_plain_matches_jax_kernel(tool, kernel, mode, levels, ids, posu, n,
     np.testing.assert_array_equal(got, final[:, 0])
     np.testing.assert_array_equal(
         lv, _np_split_levels(p, n, tn, ids, levels, splits, tps))
+    return tm, splits, tps
+
+
+# Kernel D's tile-64 geometry (64 queries; the JAX kernels at query tile
+# 32): (tool, kernel, mode, levels, ids, posu, n, tn, data).  tn = 640
+# restarts the segmented stacks every 16,000 rows, inside a 256-row step
+# of the split that holds row 16,000.
+WG_CASES = [
+    ("exp_b256", "_kernel_build", "build", 0, "segmented", False, 19200, 640,
+     "int"),
+    ("exp_b256", "_kernel_build", "build", 1, "segmented", False, 19200, 640,
+     "real"),
+    ("exp_b256", "_kernel_build", "build", 2, "segmented", True, 19200, 640,
+     "real"),
+    ("exp_b256", "_kernel_build", "build", 3, "segmented", False, 19200, 640,
+     "real"),
+    ("exp_int4", "_kernel_mm", "i32", 1, "tile-local", False, 1280, 640,
+     "real"),
+    ("exp_int4", "_kernel_mm", "rint", 1, "tile-local", False, 1280, 640,
+     "real"),
+    ("exp_floor", "_kernel_ab", "ab", 1, "global", False, 1280, 640, "real"),
+]
+
+
+@pytest.mark.parametrize(
+    "tool,kernel,mode,levels,ids,posu,n,tn,kind", WG_CASES,
+    ids=[f"{c[1]}-{c[2]}-L{c[3]}-{'posu-' if c[5] else ''}n{c[6]}-tn{c[7]}"
+         f"-{c[8]}" for c in WG_CASES])
+def test_plain_at_tile64_geometry_matches_jax_kernel(
+        tool, kernel, mode, levels, ids, posu, n, tn, kind):
+    """The plain version at the splits of kernel D's tile-64 launch (the
+    warpgroup consumer for the stored cores at levels 0-2, the ring for
+    int8c at 3 and for bf16x3) against the JAX kernels; the segmented
+    cases restart a segment inside a 256-row step."""
+    core = {"ab": "bf16x3", "build": "int8c", "i32": "int4c",
+            "rint": "int4-rint"}[mode]
+    tm, splits, tps = _check_against_jax(tool, kernel, mode, levels, ids,
+                                         posu, n, tn, kind, m=64, jax_tm=32)
+    assert tm == 64
+    wgmma = core != "bf16x3" and levels <= 2
+    assert D.floor_consumer(tm, core, levels) == ("wgmma" if wgmma
+                                                 else "ring")
+    if ids == "segmented":
+        b = D.segment_rows(tn) // 64   # the restart's kernel tile
+        assert D.segment_rows(tn) == 16000 and b < -(-n // 64)
+        t0 = b // tps * tps            # its split's first tile
+        assert t0 < b and (b - t0) % F.WG_TILES, (splits, tps)
 
 
 def test_jax_helpers_copied():
@@ -347,3 +402,145 @@ def test_ids_past_seven_bits_raise(n, ids, tn):
     # levels=0 packs no ids: the same operands run.
     D.floor_stacks(qt, ct, cb, core="bf16x3", levels=0, tn=256 if
                    ids == "global" else 1024, ids=ids)
+
+
+# The source's shared memory (csrc/floor.cu, csrc/ring_wgmma.cuh): a
+# wgmma stage is 256 corpus rows at an odd number of 16-byte units (int8:
+# 64 bytes -> 80; int4: 32 -> 48) and 64 x 64 bf16 query columns, hi and
+# lo; its tail four score tiles of 64 x 65 floats.
+_WG_STAGE = {"int8c": 256 * 80 + 2 * 64 * 64 * 2,
+             "int4c": 256 * 48 + 2 * 64 * 64 * 2}
+_WG_TAIL = 4 * 64 * 65 * 4
+
+
+@pytest.mark.parametrize("core", D.CORES)
+@pytest.mark.parametrize("tm", (16, 32, 64))
+def test_floor_consumer(tm, core):
+    """The warpgroup consumer for the four stored cores at query tile 64
+    wherever two stages fit beside D's tail (one stack level in
+    registers, deeper stacks in shared memory), the mma.sync ring
+    everywhere else; the geometry keeps the query tile while a consumer
+    fits."""
+    stage = _WG_STAGE["int8c" if core == "int8c" else "int4c"]
+    for levels in range(0, 7):
+        stacks = 0 if levels <= 1 else levels * 64 * 128 * 4
+        fits = 2 * stage + _WG_TAIL + stacks <= 232448
+        want = ("wgmma" if tm == 64 and core != "bf16x3" and fits
+                else "ring")
+        assert D.floor_consumer(tm, core, levels) == want, levels
+        assert D.floor_plan(tm, core, levels, 768)[0] == want
+    if tm == 64 and core != "bf16x3":
+        deepest = 2 if core == "int8c" else 3
+        assert D.floor_consumer(64, core, deepest) == "wgmma"
+        assert D.floor_consumer(64, core, deepest + 1) == "ring"
+    m = {16: 9, 32: 20, 64: 256}[tm]
+    for levels in (0, 1, 2, 5):
+        got = D.floor_geometry(m, 2_000_000, core, levels, 100, CPU,
+                               dim=256)[0]
+        assert got == tm, (levels, got)
+
+
+def test_smem_bytes_match_the_source():
+    """``smem_bytes`` (two stages of the launch's consumer, then its tail)
+    against the source's arithmetic, written out: the wgmma consumer, the
+    mma.sync ring, and register stacks (one level beside wgmma, two on
+    the ring but none at query tile 64 or for int4 at 32) and the
+    levels=0 maxima, which take no shared memory."""
+    tile64 = 64 * 65 * 4
+    # wgmma: stages, four score tiles, and stacks from two levels.
+    assert D.smem_bytes(64, "int8c", 0) == 2 * _WG_STAGE["int8c"] \
+        + _WG_TAIL == 140288
+    assert D.smem_bytes(64, "int8c", 1) == 140288
+    assert D.smem_bytes(64, "int8c", 2) == 140288 + 2 * 64 * 128 * 4
+    assert D.smem_bytes(64, "int4-raw", 1) == 2 * _WG_STAGE["int4c"] \
+        + _WG_TAIL
+    assert D.smem_bytes(64, "int4c", 3) == 222208
+    # The tile-64 ring (int8: 32 bytes a row -> 48, 32 query columns of 64
+    # bytes -> 96 a row), five levels in shared memory.
+    assert D.smem_bytes(64, "int8c", 5) == 2 * (64 * 48 + 2 * 64 * 96) \
+        + tile64 + 5 * 64 * 128 * 4 == 211200
+    # bf16x3 on the ring, 32 features a position: 128 bytes a row -> 144,
+    # the query's 32 columns 64 bytes -> 80.
+    assert D.smem_bytes(16, "bf16x3", 1) == 2 * (64 * 144 + 2 * 16 * 80) \
+        + 16 * 65 * 4 == 27712 == D.smem_bytes(16, "bf16x3", 0)
+    assert D.smem_bytes(64, "bf16x3", 1) == 2 * (64 * 144 + 2 * 64 * 80) \
+        + tile64 + 64 * 128 * 4
+    assert D.smem_bytes(64, "bf16x3", 4) == 2 * (64 * 144 + 2 * 64 * 80) \
+        + tile64 + 4 * 64 * 128 * 4
+    # int8 at tile 32: 64 bytes a row -> 80, 64 columns of 128 bytes ->
+    # 160; levels 1 and 2 in registers.
+    for levels in (1, 2):
+        assert D.smem_bytes(32, "int8c", levels) == 2 * (64 * 80 + 2 * 32
+                                                         * 160) \
+            + 32 * 65 * 4 == 39040
+    assert D.smem_bytes(32, "int8c", 3) == 39040 + 3 * 32 * 128 * 4
+    # int4 at tile 32 (32 bytes a row -> 48, 64 columns -> 160): its
+    # stacks stay in shared memory.
+    assert D.smem_bytes(32, "int4c", 1) == 2 * (64 * 48 + 2 * 32 * 160) \
+        + 32 * 65 * 4 + 32 * 128 * 4 == 51328
+    most = {(64, "int8c", "wgmma"): 1, (16, "int4c", "ring"): 2,
+            (32, "int4-rint", "ring"): 0, (32, "int8c", "ring"): 2,
+            (64, "bf16x3", "ring"): 0, (64, "int8c", "ring"): 0}
+    for (tm, core, consumer), n in most.items():
+        assert D.reg_max(tm, core, consumer) == n
+        for levels in range(0, 6):
+            assert D.register_levels(tm, core, levels, consumer) == (
+                levels if 1 <= levels <= n else 0)
+
+
+def test_floor_plan_wide_ring_and_narrowing():
+    """bf16x3 streams 64 features a position at query tiles 16 and 64
+    where that ring keeps two blocks an SM (kernel A's ``ring_core`` rule
+    on D's tail), 32 at tile 32 and beside stacks in shared memory at tile
+    64; a stack that fits no consumer at tile 64 narrows the query
+    tile."""
+    assert D.floor_plan(64, "bf16x3", 0, 256)[1:3] == ("bf16x3w", 2)
+    assert D.floor_plan(16, "bf16x3", 1, 256)[1] == "bf16x3w"
+    assert D.floor_plan(32, "bf16x3", 1, 256)[1] == "bf16x3"
+    for levels in (1, 2, 5):
+        assert D.floor_plan(64, "bf16x3", levels, 256)[1] == "bf16x3"
+    for core, levels in (("bf16x3", 8), ("int8c", 8), ("int4c", 10)):
+        assert D.smem_bytes(64, core, levels) > 232448
+        tm = D.floor_geometry(256, 100_000, core, levels, 100, CPU,
+                              dim=256)[0]
+        assert tm < 64 and D.smem_bytes(tm, core, levels) <= 232448
+
+
+def test_ab_floor_tool():
+    """``tools/ab_floor.py`` (kernel D, parent against change on the card)
+    imports nothing of JAX, refuses to run without a card, patches this
+    tree's source once a variant, and times every kernel D launch of the
+    three experiments (27: each level, batch and mode, and levels 0 at
+    each shape)."""
+    import os
+    import re
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys; import polars_matmul_tpu_torch.tools.ab_floor; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'polars_matmul_tpu' or "
+            "m.startswith('polars_matmul_tpu.')]; assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(root)))
+    assert r.returncode == 0, r.stderr
+    from polars_matmul_tpu_torch.kernels import _build
+    from polars_matmul_tpu_torch.tools import ab_floor
+
+    src = (_build._CSRC / "floor.cu").read_text()
+    for name, patches in ab_floor.VARIANTS.items():
+        for pattern, replacement in patches:
+            text, hits = re.subn(pattern, replacement, src, count=1)
+            assert hits == 1 and text != src, name
+    launches = list(ab_floor.entries(CPU))
+    assert len(launches) == 27
+    assert {e[3] for e in launches} == set(D.CORES)
+    assert {e[4] for e in launches} >= {0, 1, 4, 5}
+    assert ab_floor.parent_smem(64, "int8c", 5) == D.smem_bytes(
+        64, "int8c", 5)   # the tile-64 ring with stacks in shared memory
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        ab_floor.main(root / "build" / "parent")
