@@ -32,7 +32,11 @@ Then:
    ``wide`` (10M x 768 int8, phase 7's corpus, batch 8 and 256, k=100),
    ``clustered`` (phase 8's 10M x 768 int8 clustered corpus, probe 0.05,
    batch 256, k=100) and ``lists`` (phase 8's 2M x 256 f32 clustered
-   lists, 1000 queries, probe 0.05, k=10 and 100).
+   lists, probe 0.05: 1000 queries at k=10 and 100, and 32 at k=10, the
+   listed inserting kernel at query tile 32).
+
+A parent older than the carry gate is called with the gate off
+(``_GateOff``); every time here is taken with the gate off.
 
 Needs a CUDA card, nvcc and the parent checkout; prints one line a result.
 """
@@ -68,6 +72,10 @@ VARIANTS = {
     # A slack of at most 64 entries a row.
     "slack64": [(r"constexpr int kSlackMax = \d+;",
                  "constexpr int kSlackMax = 64;")],
+    # The carry gate's vote compiled out of the epilogues (its branch on
+    # prune and its barrier kept): what the vote costs with the gate off.
+    "novote": [(r"(struct CarryGate \{\n  static constexpr bool kGated = )true;",
+                r"\1false;")],
     # A slack of k entries a row up to kSlackMax (the first rule measured).
     "slack-k": [(r"return k >= kSlackMax \? kSlackMax : k >= 64 \? 64 : k;",
                  "return k < kSlackMax ? k : kSlackMax;")],
@@ -85,10 +93,16 @@ def _nvcc(args, src: Path, out: Path) -> subprocess.Popen:
 
 def _plain(name: str) -> str:
     """A mangled name without the anonymous namespace's per-build hash,
-    and without a kernel A's last template argument where it is false
-    (the inserting selection), so that those kernels key as their
-    parents, which had no such argument, did."""
+    without a kernel A's last template argument where it is false (the
+    inserting selection), and without its carry gate's two last
+    parameters (bool, int*), so that those kernels key as their parents,
+    which had neither, did."""
     name = re.sub(r"_GLOBAL__N__[0-9a-f]+_|_INTERNAL_[0-9a-f]+_", "", name)
+    # nvcc 12's anonymous namespace: <n>_<file>_cu_<8-hex hash of the
+    # translation unit>, which differs whenever the source does.
+    name = re.sub(r"^(_ZN)\d+_\w*?_cu_[0-9a-f]{8}(?=\d)", r"\1", name)
+    name = re.sub(r"(fused_topk_(?:f32|stored|wgmma)_kernelI\w*?)"
+                  r"b(?:Pi|S[0-9A-Z]*_)$", r"\1", name)
     return re.sub(r"(fused_topk_(?:f32|stored|wgmma)_kernelI(?:L[ib]\d+E)+?"
                   r"Lb[01]E)Lb0E(EEv)", r"\1\2", name)
 
@@ -155,14 +169,42 @@ def build(parent: Path, work: Path, variants):
             _ptxas(log, name, lines[kind])
     libs = {}
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in srcs:
+    for name, d in srcs.items():
         lib = ctypes.CDLL(str(work / f"{name}.so"))
-        lib.pmm_fused_topk_partial.argtypes = [p] * 8 + [i] * 14 + [p]
+        gated = _has_gate(d / "fused_topk.cu")
+        lib.pmm_fused_topk_partial.argtypes = (
+            [p] * 8 + [i] * (15 if gated else 14) + ([p, p] if gated else [p]))
         lib.pmm_fused_topk_partial.restype = i
         lib.pmm_fused_topk_blocks_per_sm.argtypes = [i] * 5
         lib.pmm_fused_topk_blocks_per_sm.restype = i
-        libs[name] = lib
+        libs[name] = lib if gated else _GateOff(lib)
     return libs, lines
+
+
+def _has_gate(src: Path) -> bool:
+    """Whether the source's ``pmm_fused_topk_partial`` takes the carry
+    gate's arguments (prune, gate_count)."""
+    return re.search(r"int pmm_fused_topk_partial\([^)]*\bprune\b",
+                     src.read_text()) is not None
+
+
+class _GateOff:
+    """A library built from a source older than the carry gate: this
+    tree's wrapper calls ``pmm_fused_topk_partial`` with the gate's two
+    arguments before the stream, which such a build does not take, so
+    the call goes on without them (the gate off, no counter)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def pmm_fused_topk_partial(self, *args):
+        *head, prune, gate_count, stream = args
+        if prune or gate_count.value is not None:
+            raise RuntimeError("this build has no carry gate")
+        return self._lib.pmm_fused_topk_partial(*head, stream)
 
 
 class Cell:
@@ -284,8 +326,12 @@ def _lists(cs, F, dev):
     proxy = pmt.ClusteredCorpus(c)
     del c
     q = queries(cs.N_QUERIES)
+    # Batch 32 at k=10: the bf16x3 core's listed inserting kernel at query
+    # tile 32 (chip_smoke.KNOWN_SPILL).
     return [_listed_cell(cs, F, f"2M x 256 f32 clustered probe 0.05 1000 q "
-                         f"k={k}", proxy, q, k) for k in (10, 100)]
+                         f"k={k}", proxy, q, k) for k in (10, 100)] + [
+        _listed_cell(cs, F, "2M x 256 f32 clustered probe 0.05 batch 32 "
+                     "k=10", proxy, q[:32], 10)]
 
 
 BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,

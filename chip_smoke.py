@@ -36,7 +36,11 @@ Phases, each printing one line or a few:
    1024, m 1 to 1000: tie data, padded and wholly -inf lists, -inf entries
    with real indices; one block a row and several); kernel A
    walking random per-block tile lists (probed search) in every core,
-   and a list of every tile against the dense scan, bit for bit;
+   and a list of every tile against the dense scan, bit for bit; and
+   every launch of kernel A in this phase run again with its carry gate
+   on (``prune``), the split lists equal to the gate off bit for bit
+   (dense, listed, ragged, every core, inserting and appending, both
+   consumers), the count of cases and of skipped tiles printed;
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100 and k=512, in the default precision and precision="highest",
@@ -55,7 +59,13 @@ Phases, each printing one line or a few:
    shapes of the main path's requests (``MERGE_SHAPES``), a call timed
    by CUDA events as every kernel is, and on the device alone (a CUDA
    graph of calls), beside ``torch.topk`` of the flattened lists and its
-   byte bound;
+   byte bound; kernel A with its carry gate on and off in turns (the
+   lists equal bit for bit, the share of tiles the gate skipped, each
+   setting's times and their spread) at the canonical k=10 / 100 / 512,
+   2M x 256 batch 8 / 256 at k=10 / 100, and, in phases 7 and 8, 10M x
+   768 int8 and the clustered int8 corpus at probe 0.05, batch 8 / 256 at
+   k=10 / 100, then whether the gate was ever slower where the JAX
+   package's prune="auto" would turn it on;
 7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
    made on the card from seed 42, stored as int8 (requests of 8 and 256
    queries at k=10 and k=100), int4 and bf16 (8 and 256 queries at
@@ -156,11 +166,23 @@ Phases, each printing one line or a few:
    at 1000 x 10,000 x 256 against float64; phase 8's 2M x 256 f32 blob
    mixture as a ``ClusteredCorpus`` on 4 shards (exhaustive requests equal
    the dense scan, probe 0.05 recall reported); a one-rank NCCL process
-   group carrying the canonical request through both merges.
+   group carrying the canonical request through both merges;
+14. the example scripts (``polars_matmul_tpu_torch/examples``), each
+   ``main`` in this process at its default size, the JAX scripts' TPU
+   sizes (``EXAMPLES``): quickstart; serving at 200,000 x 256;
+   benchmark_topk's ten sweeps around 1000 x 10,000 x 256;
+   benchmark_matmul at 1000 x 10,000 x 256, f32 and f64; benchmark_bigcorpus
+   at 2,000,000 x 256 in four tiers with the carry gate on and off;
+   benchmark_clustered at 2,000,000 x 256 and its drift -> rebuild part;
+   benchmark_scaling at 1,250,000 x 768 on 1, 2 and 4 shards of the card;
+   every check inside a script fails the run; counted like phase 5
+   (kernel A dense, listed, on the warpgroup consumer and gated, kernel B,
+   no plain version).
 
 The kernels: kernel A (``csrc/fused_topk.cu``, five cores, dense and
-listed), kernel B (``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``,
-two cores) and kernel D (``csrc/floor.cu``, five cores; its staging and
+listed, its carry gate a runtime argument), kernel B
+(``csrc/topk_merge.cu``), kernel C (``csrc/matmul.cu``, two cores) and
+kernel D (``csrc/floor.cu``, five cores; its staging and
 products are kernel A's, ``csrc/tile_scores.cuh``).  ``PMM_TPU_CACHE_DIR``
 is set to a fresh directory under ``build/`` before anything runs, so no
 autotune winner of an earlier run changes what the all-defaults paths
@@ -250,9 +272,12 @@ HIGHEST_EDGES = ((9, 129, 1), (33, 700, 3), (20, 1100, 4), (65, 1300, 5),
 HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
                  (16, 10), (16, 100), (16, 512), (16, 1024))
 BF16X3_PLANS = HIGHEST_PLANS
-# The one instantiation of kernel A known to spill (8 B stored, 32 B
-# loaded; ROADMAP.md): phase 1 fails on a spill in any other.
-KNOWN_SPILL = "fused_topk_stored_kernel<16, 2, listed, insert>"
+# The one instantiation of kernel A known to spill (4 B stored, 4 B
+# loaded; ROADMAP.md): phase 1 fails on a spill in any other.  The carry
+# gate's vote moved it here from bf16c listed at query tile 16 (8 B / 32
+# B), which no longer spills; the other forms of the vote spilled here
+# too, or here and elsewhere.
+KNOWN_SPILL = "fused_topk_stored_kernel<32, 1, listed, insert>"
 # Kernel D's levels=0 form of the int4 family at query tile 32 keeps eight
 # running maxima beside a ring at its 128 registers and spills 4 B (off the
 # experiments' path: batches of 17-32); phase 1 fails on a spill in any
@@ -484,8 +509,8 @@ def phase_build():
     log = str(_build.build_info["log"])
     for line in _ptxas_summary(log):
         print("  ptxas: " + line)
-    # Kernel A: no instantiation spills but the one known (bf16c listed at
-    # query tile 16), and no wgmma that ptxas had to serialize.
+    # Kernel A: no instantiation spills but the one known (bf16x3 listed
+    # at query tile 32), and no wgmma that ptxas had to serialize.
     for line in _ptxas_summary(log):
         require(not re.match(r"fused_topk_(stored|wgmma|f32)_kernel<", line)
                 or line.startswith(KNOWN_SPILL) or "spills" not in line,
@@ -1180,6 +1205,23 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
     absolute score difference of each core of kernel A and of kernel B."""
     import torch
 
+    with GateCheck(F, torch) as gate_check:
+        err = _compare_all(F, torch, ms, ns, dims, ks)
+    require(gate_check.listed > 0 and gate_check.wgmma > 0
+            and gate_check.appending > 0,
+            "phase 2 ran no listed, warpgroup or appending launch")
+    print(f"phase 2: kernel A's carry gate: {gate_check.cases} launches of "
+          f"this phase ran again with prune on and gave the split lists "
+          f"of prune off bit for bit ({gate_check.listed} listed, "
+          f"{gate_check.wgmma} on the warpgroup consumer, "
+          f"{gate_check.appending} appending; every core, dense, ragged, "
+          f"tie data); the gate skipped {gate_check.skipped} of "
+          f"{gate_check.gated} tiles")
+    return err
+
+
+def _compare_all(F, torch, ms, ns, dims, ks):
+    """Phase 2's checks (see ``phase_compare``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     err = {name: 0.0 for name in F.CORES + ("topk_merge", "tiles")}
@@ -1388,6 +1430,119 @@ def _entry(ms, plain_ms, library_ms, library_call, bound, shape):
             "bound_by": bound[1], "shape": shape}
 
 
+class GateCheck:
+    """Phase 2's check of kernel A's carry gate (``prune``): while it is
+    active, every launch of kernel A on the card runs a second time with
+    the gate on and its counter, and the split lists must equal the first
+    launch's bit for bit.  ``cases`` counts the launches checked,
+    ``gated`` / ``skipped`` the tiles the gate saw and skipped."""
+
+    def __init__(self, F, torch):
+        self.F, self.torch = F, torch
+        self.cases = self.gated = self.skipped = 0
+        self.listed = self.wgmma = self.appending = 0
+
+    def __enter__(self):
+        F, torch = self.F, self.torch
+        self.launch = launch = F.fused_topk_partial
+
+        def checked(qp, cp, cbp, mask, k, precision, splits, tps, tm,
+                    *rest, prune=False, gate_count=None, **kw):
+            args = (qp, cp, cbp, mask, k, precision, splits, tps, tm) + rest
+            off = launch(*args, prune=prune, gate_count=gate_count, **kw)
+            if prune or not qp.is_cuda:
+                return off
+            count = torch.zeros(2, dtype=torch.int32, device=qp.device)
+            on = launch(*args, prune=True, gate_count=count, **kw)
+            require(torch.equal(on[1], off[1]) and torch.equal(
+                on[0].view(torch.int32), off[0].view(torch.int32)),
+                f"kernel A with the gate on differs from off: m={qp.shape[0]}"
+                f" n={cp.shape[0]} k={k} {precision} tm={tm} splits={splits}"
+                f" listed={bool(rest) or 'tiles' in kw}")
+            gated, skipped = count.tolist()
+            self.cases += 1
+            self.gated += gated
+            self.skipped += skipped
+            self.listed += bool(rest and rest[0] is not None) or (
+                kw.get("tiles") is not None)
+            self.wgmma += F.wgmma_core(tm, precision)
+            self.appending += k > F.INSERT_MAX_K
+            return off
+
+        F.fused_topk_partial = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.F.fused_topk_partial = self.launch
+        return False
+
+
+# Kernel A with the carry gate on and off at the cells of phase 6: each
+# cell's times, skip share and verdict, for the summary and PERF.md.
+GATE_CELLS = []
+GATE_TURNS = 3
+GATE_SRC = TPU_KERNEL + ":1434"
+
+
+def _jax_rule(F, n: int, dim: int, k: int) -> bool:
+    """Whether the JAX package's prune="auto" turns its gate on for a dense
+    request over n rows: at least 16 corpus tiles of its layout tile
+    (fused_topk.py:1995).  The port's "auto" is off (``prune_gate``); this
+    says where the JAX rule would turn the gate on."""
+    from polars_matmul_tpu_torch.config import SearchConfig
+
+    return -(-n // F.layout_tile_rows(dim, SearchConfig(), k)) >= 16
+
+
+def _time_gate(F, torch, card, label, args, jax_rule, reps=10, **kw):
+    """Kernel A (``fused_topk_partial(*args, **kw)``) with the carry gate on
+    and off, in turns (off, on, on, off, ...), CUDA events: the split
+    lists equal bit for bit, the gate's skip share from its counter, the
+    median of each setting's turns and their spread.  ``jax_rule``: the
+    JAX package's "auto" (at least 16 corpus tiles) would turn the gate
+    on here.  Returns the cell."""
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    off = F.fused_topk_partial(*args, **kw)
+    on = F.fused_topk_partial(*args, prune=True, gate_count=count, **kw)
+    require(torch.equal(on[1], off[1]) and torch.equal(
+        on[0].view(torch.int32), off[0].view(torch.int32)),
+        f"{label}: kernel A with the gate on differs from off")
+    gated, skipped = count.tolist()
+    times = {"off": [], "on": []}
+    for turn in range(GATE_TURNS):
+        for setting in (("off", "on") if turn % 2 == 0 else ("on", "off")):
+            times[setting].append(cuda_ms(lambda: F.fused_topk_partial(
+                *args, prune=setting == "on", **kw), reps=reps, warmup=2))
+    med = {key: statistics.median(v) for key, v in times.items()}
+    spread = max(max(v) - min(v) for v in times.values())
+    cell = {"label": label, "off_ms": med["off"], "on_ms": med["on"],
+            "off_turns": times["off"], "on_turns": times["on"],
+            "spread_ms": spread, "skipped": skipped, "gated": gated,
+            "skip_share": skipped / max(1, gated), "jax_rule": jax_rule,
+            "no_worse": med["on"] - med["off"] <= spread}
+    GATE_CELLS.append(cell)
+    print(f"phase 6: [{card}] carry gate, {label}: off "
+          f"{' / '.join(f'{t:.4f}' for t in times['off'])} ms, on "
+          f"{' / '.join(f'{t:.4f}' for t in times['on'])} ms (medians "
+          f"{med['off']:.4f} / {med['on']:.4f}, spread {spread:.4f}); "
+          f"skipped {skipped} of {gated} tiles ({cell['skip_share']:.3f}); "
+          f"the JAX rule turns 'auto' {'on' if jax_rule else 'off'} here; "
+          f"on {'no worse than' if cell['no_worse'] else 'SLOWER than'} off "
+          f"beyond the spread")
+    return cell
+
+
+def _gate_summary(card):
+    """The carry gate's cells: where the JAX rule would turn "auto" on, and
+    whether the gate was slower than off beyond the spread there."""
+    ruled = [c for c in GATE_CELLS if c["jax_rule"]]
+    slower = [c["label"] for c in ruled if not c["no_worse"]]
+    print(f"phase 6: [{card}] carry gate: {len(GATE_CELLS)} cells timed, "
+          f"{len(ruled)} where the JAX rule turns 'auto' on; on slower "
+          f"than off beyond the spread at {len(slower)} of them "
+          f"{slower} ('auto' is off on the card)")
+
+
 def _time_merge(F, torch, card):
     """Kernel B at the shapes of ``MERGE_SHAPES`` (the lists the main
     path's requests give it), on sorted lists of random values: CUDA
@@ -1459,6 +1614,11 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                                             precision, q.device, dim=DIM)
         a = cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, None, k,
                                                  precision, splits, tps, tm))
+        if precision == "bf16x3":
+            _time_gate(F, torch, card, f"canonical k={k} bf16x3 (tm={tm}, "
+                       f"splits={splits})",
+                       (qp, cp, cbp, None, k, precision, splits, tps, tm),
+                       _jax_rule(F, N_CORPUS, DIM, k))
         a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
             qp, cp, cbp, None, k, precision, splits, tps))
         pv, pi = F.fused_topk_partial(qp, cp, cbp, None, k, precision,
@@ -1534,8 +1694,10 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                     "canonical Corpus.topk k=10 highest", card,
                     statistics.median(ts))
     del canon
-    for core in ("bf16x3", "highest"):
-        _time_big(F, torch, corpus_big, requests, card, core)
+    big = {core: _time_big(F, torch, corpus_big, requests, card, core)
+           for core in ("bf16x3", "highest")}
+    per_kernel["gated"] = _time_big_gate(F, torch, corpus_big, requests,
+                                         card, big["bf16x3"])
     for (batch, k), qb in requests.items():
         ts = []
         for _ in range(5):
@@ -1568,6 +1730,7 @@ def _time_big(F, torch, corpus_big, requests, card, core):
     zero = torch.zeros(BIG_ROWS, device="cuda")
     passes, peak = ((3, "bfloat16") if core == "bf16x3"
                     else (1, "float32_cuda_cores"))
+    measured = {}
     for (batch, k), qb in requests.items():
         if k != 10:
             continue
@@ -1600,7 +1763,35 @@ def _time_big(F, torch, corpus_big, requests, card, core):
               f"{ab:.4f} ms, A plain {plain:.3f} ms; bound {bound[0]:.4f} "
               f"ms ({bound[1]}); library torch.addmm + torch.topk (f32) "
               f"{lib:.4f} ms")
+        measured[batch] = (plain, lib, bound)
     del cp, cbp, cn
+    return measured
+
+
+def _time_big_gate(F, torch, corpus_big, requests, card, measured):
+    """Kernel A's bf16x3 core at the 2M x 256 corpus with the carry gate on
+    and off, batch 8 and 256, k=10 and 100.  Returns the kernels line's
+    entry of the gated launch: batch 8 k=10 (``benchmark_bigcorpus``'s
+    first cell), beside the plain version, library call and bound of
+    ``_time_big`` there."""
+    cp, cbp = corpus_big._prepared_for(F.Metric.COSINE)
+    entry = None
+    for (batch, k), qb in requests.items():
+        qp = F.prepare_queries(qb, "cosine", "bf16x3")
+        tm, splits, tps = F.kernel_geometry(batch, BIG_ROWS, k, "bf16x3",
+                                            qp.device, dim=DIM)
+        cell = _time_gate(F, torch, card, f"{BIG_ROWS}x{DIM} batch {batch} "
+                          f"k={k} bf16x3 (tm={tm}, splits={splits})",
+                          (qp, cp, cbp, None, k, "bf16x3", splits, tps, tm),
+                          _jax_rule(F, BIG_ROWS, DIM, k))
+        if (batch, k) == (8, 10):
+            plain, lib, bound = measured[8]
+            entry = _entry(cell["on_ms"], plain, lib,
+                           "torch.addmm + torch.topk (f32)", bound,
+                           f"{BIG_ROWS}x{DIM} cosine batch 8 k=10, prune on "
+                           f"(off {cell['off_ms']:.4f} ms, skip share "
+                           f"{cell['skip_share']:.3f})")
+    return entry
 
 
 def _wide_f32(torch, chunk=1 << 20):
@@ -1815,6 +2006,13 @@ def phase_wide(pmt, F, torch, card, err):
                   f"torch.topk on the dequantised bf16 rows {lib:.3f} ms")
             profile_request(torch, lambda: corpus.topk(qb, k),
                             f"{label} batch {batch} k={k}", card, host)
+            if tier == "int8":
+                tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
+                                                    qp.device, dim=corpus.dim)
+                _time_gate(F, torch, card, f"{label} batch {batch} k={k} "
+                           f"(tm={tm}, splits={splits})",
+                           (qp, cp, cbp, None, k, core, splits, tps, tm),
+                           _jax_rule(F, corpus.n, corpus.dim, k), reps=5)
             if k == 100:
                 tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
                                                     qp.device, dim=corpus.dim)
@@ -2002,6 +2200,10 @@ def _time_probed(F, torch, cc, q, k, card, label):
     args = (qp, cp, cbp, None, k, core, splits, tps)
     a = cuda_ms(lambda: F.fused_topk_partial(*args, tm, tiles, tn, br),
                 reps=10, warmup=2)
+    if core == "int8c":
+        _time_gate(F, torch, card, f"{label} probe {PROBE} batch {m} k={k} "
+                   f"(tm={tm}, splits={splits}, {p} tiles a list)",
+                   args + (tm, tiles, tn, br), p >= 16)
     a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
         *args, tiles, tn, br), reps=3, warmup=1)
     ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, core, tiles,
@@ -4000,6 +4202,66 @@ def phase_sharded(pmt, F, torch, q_np, c_np, card):
     return total
 
 
+# Phase 14: the seven example scripts at their default (TPU) sizes, each
+# with the arguments given here (benchmark_topk's NumPy baseline timed
+# over fewer calls, to keep the phase within a few minutes).
+EXAMPLES = (
+    ("quickstart", []),
+    ("serving", []),
+    ("benchmark_topk", ["--warmup", "1", "--iters", "3"]),
+    ("benchmark_matmul", []),
+    ("benchmark_bigcorpus", []),
+    ("benchmark_clustered", []),
+    ("benchmark_scaling", []),
+)
+
+
+def phase_examples(F, torch, card):
+    """Phase 14: ``polars_matmul_tpu_torch.examples`` on the card, each
+    script's ``main`` in this process (its own checks raise on a wrong
+    result), counted like phase 5.  Returns the launches to add to the
+    kernels line, by entry name."""
+    import importlib
+
+    F.reset_launch_counts()
+    t_all = time.perf_counter()
+    for name, argv in EXAMPLES:
+        mod = importlib.import_module(
+            f"polars_matmul_tpu_torch.examples.{name}")
+        print(f"phase 14: [{card}] python -m polars_matmul_tpu_torch."
+              f"examples.{name} {' '.join(argv)}".rstrip(), flush=True)
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        require(out["device"] == "cuda", f"examples.{name} ran on "
+                f"{out['device']}")
+        print(f"phase 14: examples.{name}: every check passed, "
+              f"{time.perf_counter() - t0:.1f} s host", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    counts, cores = dict(F.launches), dict(F.core_launches)
+    print(f"phase 5: launches on the examples' path: {counts}, by core "
+          f"{cores}; {time.perf_counter() - t_all:.1f} s host")
+    for key in ("fused_topk_partial", "fused_topk_partial_tiles",
+                "fused_topk_partial_wgmma", "fused_topk_partial_gated",
+                "topk_merge"):
+        require(counts[key] > 0, f"{key} never launched on the examples' "
+                                 f"path")
+    for core in ("bf16x3", "bf16c", "int8c", "int4c"):
+        require(cores[core] > 0, f"{core} never launched on the examples' "
+                                 f"path")
+    for key in ("fused_topk_plain", "fused_topk_partial_plain",
+                "topk_merge_plain"):
+        require(counts[key] == 0, f"{key} ran on the examples' path")
+    added = {f"fused_topk_partial.{core}": n for core, n in cores.items()}
+    added.update({"topk_merge": counts["topk_merge"],
+                  "fused_topk_partial.tiles":
+                      counts["fused_topk_partial_tiles"],
+                  "fused_topk_partial.gated":
+                      counts["fused_topk_partial_gated"]})
+    return added
+
+
 def main() -> int:
     import torch
 
@@ -4047,6 +4309,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     per_kernel["tiles"], tiles_launches = phase_clustered(pmt, F, torch,
                                                           card, err)
+    _gate_summary(card)
     launches = dict(cores, **wide_counts)
     launches["topk_merge"] += counts["topk_merge"]
     kernels = [dict({"name": f"fused_topk_partial.{core}", "route": "cuda",
@@ -4080,6 +4343,16 @@ def main() -> int:
                          "launches": tiles_launches,
                          "max_abs_err": err["tiles"]},
                         **per_kernel["tiles"]))
+    # Kernel A with the carry gate on: its launches on the main paths
+    # (phase 14's benchmark_bigcorpus, and wherever prune="auto" turns it
+    # on); its results equal the gate off bit for bit (phase 2), so its
+    # error against the plain version is the bf16x3 core's.
+    kernels.append(dict({"name": "fused_topk_partial.gated", "route": "cuda",
+                         "source": KERNEL_SRC + "fused_topk.cu",
+                         "replaces": GATE_SRC,
+                         "launches": counts["fused_topk_partial_gated"],
+                         "max_abs_err": err["bf16x3"]},
+                        **per_kernel["gated"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
     kernels += phase_floor(F, torch, card)
     torch.cuda.empty_cache()
@@ -4088,11 +4361,17 @@ def main() -> int:
     arrow = phase_arrow(pmt, F, torch, q, c, card)
     torch.cuda.empty_cache()
     sharded = phase_sharded(pmt, F, torch, q, c, card)
+    torch.cuda.empty_cache()
+    examples = phase_examples(F, torch, card)
     for entry in kernels:
         name = entry["name"]
         entry["launches"] += (mutation.get(MUTATION_KEYS.get(name), 0)
                               + arrow.get(ARROW_KEYS.get(name), 0)
-                              + sharded.get(SHARD_KEYS.get(name), 0))
+                              + sharded.get(SHARD_KEYS.get(name), 0)
+                              + examples.get(name, 0))
+    require(all(entry["launches"] > 0 for entry in kernels
+                if entry["name"] == "fused_topk_partial.gated"),
+            "kernel A never launched with the carry gate on a main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,20 @@ On this port:
   but does not raise the fused path's k ceiling: the CUDA kernels hold at
   most 1024 candidates per row, so k > 1024 runs the reference top-k even
   where the JAX package, with ``k_pad`` > 1024, stays fused.
+- ``prune``: kernel A's carry gate (``kernels.fused_topk.prune_gate``),
+  the JAX kernel's exact tile pruning: with it on, a tile in which no
+  row's score beats that row's current k-th value skips the selection;
+  the results are those with it off, bit for bit.  "on" and "off" force
+  it.  "auto" is off on the card (the JAX package turns it on at 16 or
+  more corpus tiles, or listed tiles a query block): on an NVIDIA H100
+  80GB HBM3 at 700 W (``chip_smoke.py`` phase 6, on and off in turns),
+  the gate was slower than off beyond the run's spread in 3 of the 12
+  cells where the JAX rule turns it on (2M x 256 bf16x3 batch 256
+  k=100: 7.488 against 7.402 ms; 10M x 768 int8 batch 256 k=100: 41.965
+  against 41.646 ms; the 10M x 768 int8 clustered corpus at probe 0.05,
+  batch 8 k=10: 0.397 against 0.391 ms), though it saved 5 % at 10M x
+  768 int8 batch 256 k=10 (36.383 against 38.363 ms, 30.5 % of the
+  tiles skipped).
 - ``selection``: every value runs the same exact CUDA selection (kernel A
   carry + kernel B merge); a Hopper-specific strategy is left for later.
   An explicit "gpop", "gstack", "bucket", "stack" or "insert" outside the

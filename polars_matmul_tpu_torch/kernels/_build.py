@@ -70,7 +70,7 @@ def _source_hash() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pmm_fused_topk_partial.argtypes = [p] * 8 + [i] * 14 + [p]
+    lib.pmm_fused_topk_partial.argtypes = [p] * 8 + [i] * 15 + [p, p]
     lib.pmm_fused_topk_partial.restype = i
     lib.pmm_fused_topk_blocks_per_sm.argtypes = [i, i, i, i, i]
     lib.pmm_fused_topk_blocks_per_sm.restype = i

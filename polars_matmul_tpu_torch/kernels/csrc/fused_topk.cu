@@ -628,6 +628,84 @@ __device__ inline void flush_slack(float* Cv, int k, int rows_valid, int warp,
 }
 
 // ---------------------------------------------------------------------------
+// The carry gate: the TPU kernel's exact tile pruning (prune=, fused_topk.py
+// :1434-1478, prune_eff :1995), a runtime argument of every kernel here.
+//
+// On the TPU a tile's selection is k full-width extraction passes, and one
+// max pass decides whether any row's tile maximum beats that row's current
+// k-th value.  Here the selection already drops every score that does not
+// beat its row's k-th value (select_tile, append_tile: s > cv[k - 1]), so
+// what a skipped tile saves is the selection's read-and-compare pass over
+// the score tile, its ballots, and the calls themselves.  While the
+// epilogue writes a tile's scores, each thread compares its scores with
+// their rows' cv[k - 1] (the same strict >), and the barrier that already
+// precedes the selection carries the vote (__syncthreads_or), so the gate
+// adds no barrier.  A tile nobody votes for skips select_tile /
+// append_tile entirely.
+//
+// Exact: the vote reads cv[k - 1] after the previous tile's selection has
+// ended (the walks' barriers order them) and before this tile's begins,
+// the very threshold the selection's filter starts from, and the filter
+// only rises within a tile.  A skipped tile is one in which the filter
+// would admit no score, so the carry, and the split lists written out, are
+// bit for bit those with the gate off: in every core, in both consumers,
+// dense and listed, inserting and appending (the appending selection's
+// cv[k - 1] excludes the slack, so it is stale, but it is its filter's
+// threshold all the same; the slack changes only when a score passes it).
+// On ring_wgmma.cuh's consumer one vote decides a step's four tiles: their
+// selections run in walk order with no barrier between them, so a tile's
+// filter starts at or above the threshold the step's vote read; one
+// decision a step keeps the one barrier, and four would need a shared word
+// per tile cleared between steps.  Query rows past m hold +inf as their
+// k-th value (the carry's initialisation), so they vote for nothing.
+//
+// Row groups: the TPU kernel gates 64-row groups of its query tile at
+// k <= 16 (fused_topk.py:1449-1471).  Kernel A's query tiles are 16, 32
+// or 64 rows, so a block is one such group, at every k.
+//
+// count, when not null, gathers {tiles gated, tiles skipped} (one thread
+// a block adds a tile's, or a step's live tiles'); null costs nothing.
+//
+// The gate holds only kernel arguments, and finds the carry at its fixed
+// offset CV from the score tiles the walk already holds: a pointer of its
+// own, live across the walk, cost the tile-16 bf16x3 ring a spill.
+// ---------------------------------------------------------------------------
+
+template <int CV>
+struct CarryGate {
+  static constexpr bool kGated = true;
+  int k;
+  bool on;
+  int* count;
+  __device__ bool vote(const float* St, int r, float s) const {
+    return on && s > St[CV + r * k + k - 1];
+  }
+  __device__ bool fire(bool v, int tiles) const {
+    if (!on) {
+      __syncthreads();
+      return true;
+    }
+    const bool any = __syncthreads_or(v) != 0;
+    if (count != nullptr && threadIdx.x == 0) {
+      atomicAdd(count, tiles);
+      if (!any) atomicAdd(count + 1, tiles);
+    }
+    return any;
+  }
+};
+
+// The carry's initialisation: (-inf, INT32_MAX) slots, and +inf as the
+// k-th value of the query rows past m, which the gate then never counts
+// (nothing else reads their carry).
+__device__ inline void init_carry(float* Cv, int* Ci, int k, int tm,
+                                  int rows_valid) {
+  for (int e = threadIdx.x; e < tm * k; e += kThreads) {
+    Cv[e] = e < rows_valid * k ? -INFINITY : INFINITY;
+    Ci[e] = kINT32_MAX;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The highest core: exact f32 products on the CUDA cores, fed by the ring
 // of tile_scores.cuh.
 //
@@ -771,7 +849,8 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                       int m, int n, int dim, int k, int splits,
                       int tiles_per_split, int p, int tn_tiles,
                       int block_rows, bool vec, int stages,
-                      bool q_resident) {
+                      bool q_resident, bool prune,
+                      int* __restrict__ gate_count) {
   constexpr int S = f32_step_tiles(TM), R = f32_step_rows(TM);
   constexpr int RB = ring_row_bytes(TM, kHighest);
   constexpr int BK = ring_cols(TM, kHighest);
@@ -815,10 +894,8 @@ fused_topk_f32_kernel(const float* __restrict__ q,
     return t * kTN;
   };
 
-  for (int e = tid; e < TM * k; e += kThreads) {
-    Cv[e] = -INFINITY;
-    Ci[e] = kINT32_MAX;
-  }
+  init_carry(Cv, Ci, k, TM, rows_valid);
+  const CarryGate<TM * (kTN + 1)> gate{k, prune, gate_count};
   if constexpr (APPEND)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
@@ -890,15 +967,22 @@ fused_topk_f32_kernel(const float* __restrict__ q,
       const int n0 = first_row(t0 + t);
       if (n0 < 0) continue;
       if (t > 0) __syncthreads();
+      bool vote = false;   // the gate's, once a row on its largest score
       if (tile == t) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          float best = -INFINITY;
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            St[(qrow + 4 * i) * (kTN + 1) + col + 8 * j] =
+          for (int j = 0; j < 4; ++j) {
+            const float s =
                 epilogue(acc[i][j], n0 + col + 8 * j, n, nullptr, cb, mask);
+            St[(qrow + 4 * i) * (kTN + 1) + col + 8 * j] = s;
+            best = fmaxf(best, s);
+          }
+          vote |= gate.vote(St, qrow + 4 * i, best);
+        }
       }
-      __syncthreads();
+      if (!gate.fire(vote, 1)) continue;
       if constexpr (APPEND)
         append_tile<TM, 4>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
                         part_i, row0, splits, split);
@@ -939,7 +1023,8 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          int m, int n, int dim, int c_ld, int ck, int k,
                          int splits, int tiles_per_split, int p,
                          int tn_tiles, int block_rows, bool vec,
-                         int stages, bool q_resident) {
+                         int stages, bool q_resident, bool prune,
+                         int* __restrict__ gate_count) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int chunks = ring_chunks(TM, CORE, c_ld * ring_elem_bytes(CORE));
   float* St = reinterpret_cast<float*>(
@@ -963,10 +1048,8 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  for (int e = tid; e < TM * k; e += kThreads) {
-    Cv[e] = -INFINITY;
-    Ci[e] = kINT32_MAX;
-  }
+  init_carry(Cv, Ci, k, TM, rows_valid);
+  const CarryGate<TM * (kTN + 1)> gate{k, prune, gate_count};
   if constexpr (APPEND)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
@@ -981,7 +1064,8 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
         else
           select_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, k,
                           n0, rows_valid, warp, lane);
-      });
+      },
+      gate);
   if constexpr (APPEND)
     flush_slack<TM, compact_lanes(TM, CORE)>(Cv, k, rows_valid, warp, lane,
                                              part_v, part_i, row0, splits,
@@ -1011,7 +1095,8 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
                         int m, int n, int dim, int c_ld, int ck, int k,
                         int splits, int tiles_per_split, int p,
                         int tn_tiles, int block_rows, bool vec,
-                        int stages) {
+                        int stages, bool prune,
+                        int* __restrict__ gate_count) {
   static_assert(TM == kWgTM, "the warpgroup consumer takes 64 query rows");
   extern __shared__ __align__(16) unsigned char smem[];
   float* St = reinterpret_cast<float*>(smem + stages * wg_stage_bytes(CORE));
@@ -1034,10 +1119,8 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  for (int e = tid; e < TM * k; e += kThreads) {
-    Cv[e] = -INFINITY;
-    Ci[e] = kINT32_MAX;
-  }
+  init_carry(Cv, Ci, k, TM, rows_valid);
+  const CarryGate<kWgTiles * TM * (kTN + 1)> gate{k, prune, gate_count};
   if constexpr (APPEND)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
@@ -1058,7 +1141,8 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
                               Lv + warp * kTN, Li + warp * kTN, k,
                               step.n0[j], rows_valid, warp, lane);
           }
-      });
+      },
+      gate);
   if constexpr (APPEND)
     flush_slack<TM, 4>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
                     splits, split);
@@ -1142,7 +1226,8 @@ int launch(const void* qp, const void* cp, const float* scale,
            const float* cb, const uint8_t* mask, const int* tiles,
            float* part_v, int* part_i, int m, int n, int dim, int c_ld,
            int ck, int k, int splits, int tiles_per_split, int p,
-           int tn_tiles, int block_rows, cudaStream_t stream) {
+           int tn_tiles, int block_rows, bool prune, int* gate_count,
+           cudaStream_t stream) {
   size_t bytes;
   RingPlan plan{};
   auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bytes, plan);
@@ -1158,7 +1243,7 @@ int launch(const void* qp, const void* cp, const float* scale,
         mask, tiles, part_v, part_i, m, n, dim, k, splits, tiles_per_split,
         p, tn_tiles, block_rows,
         dim % 4 == 0 && aligned(qp, 16) && aligned(cp, 16), plan.stages,
-        plan.q_resident);
+        plan.q_resident, prune, gate_count);
   } else {
     const size_t row_bytes = (size_t)c_ld * ring_elem_bytes(CORE);
     const bool vec = ring_aligned(qp, cp, dim, row_bytes);
@@ -1166,12 +1251,13 @@ int launch(const void* qp, const void* cp, const float* scale,
       kern<<<grid, kThreads, bytes, stream>>>(
           static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
           part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
-          tn_tiles, block_rows, vec, plan.stages);
+          tn_tiles, block_rows, vec, plan.stages, prune, gate_count);
     else
       kern<<<grid, kThreads, bytes, stream>>>(
           static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
           part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
-          tn_tiles, block_rows, vec, plan.stages, plan.q_resident);
+          tn_tiles, block_rows, vec, plan.stages, plan.q_resident, prune,
+          gate_count);
   }
   return (int)cudaGetLastError();
 }
@@ -1239,13 +1325,17 @@ extern "C" {
 // tiles of list row r / block_rows, in list order, and the splits cut the
 // p * tn listed rows.  Every query row must be on a list, and with more
 // than one list, block_rows must be a whole number of tm-row tiles.
+//
+// prune != 0 turns the carry gate on (exact: the lists are those with it
+// off); gate_count, if not null, is two int32 counters the kernel adds
+// {tiles gated, tiles skipped} to.
 int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                            const float* cb, const uint8_t* mask,
                            const int* tiles, float* part_v, int* part_i,
                            int m, int n, int dim, int c_ld, int ck, int k,
                            int splits, int tiles_per_split, int tm, int core,
                            int n_lists, int p, int tn, int block_rows,
-                           void* stream) {
+                           int prune, int* gate_count, void* stream) {
   if (m <= 0 || n <= 0 || dim <= 0 || k <= 0 || splits <= 0 ||
       tiles_per_split <= 0)
     return -1;
@@ -1270,7 +1360,7 @@ int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                   decltype(lc)::value>(
         qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
         k, splits, tiles_per_split, p, tiles != nullptr ? tn / kTN : 0,
-        block_rows, s);
+        block_rows, prune != 0, gate_count, s);
   });
 }
 

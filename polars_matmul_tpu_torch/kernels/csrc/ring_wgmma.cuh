@@ -339,9 +339,11 @@ __device__ inline void wg_pin_all(float (&acc1)[kWgTPW][32],
 // barrier, on_step(step) runs (the tiles' first corpus rows, -1 where a
 // tile is past t_end or its listed id names no rows); the next step's
 // scores wait for a barrier after it.  Listed and the other arguments as
-// in ring_walk; the query tile always rides the ring.  Ends after a
+// in ring_walk; the query tile always rides the ring.  `gate` (NoGate:
+// none) votes on each score of the step's live tiles and may skip on_step
+// at the barrier: one decision a step, for its four tiles.  Ends after a
 // barrier with no copy in flight.
-template <int CORE, bool LISTED, typename OnStep>
+template <int CORE, bool LISTED, typename OnStep, typename Gate = NoGate>
 __device__ inline void wg_walk(const uint16_t* __restrict__ q,
                                const void* __restrict__ cp,
                                const float* __restrict__ scale,
@@ -352,7 +354,7 @@ __device__ inline void wg_walk(const uint16_t* __restrict__ q,
                                unsigned char* smem, float* St, int row0,
                                int m, int n, int dim, int c_ld, int ck,
                                int t_begin, int t_end, int stages, bool vec,
-                               OnStep&& on_step) {
+                               OnStep&& on_step, const Gate& gate = Gate{}) {
   constexpr int RB = wg_row_bytes(CORE), RS = wg_row_stride(CORE);
   constexpr int QC = wg_cols(CORE);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -458,7 +460,9 @@ __device__ inline void wg_walk(const uint16_t* __restrict__ q,
     // 8h of the tile, query column 8i + 2 tig + e.  The epilogue's (see
     // epilogue()), each thread's two rows' scale, bias and mask read once,
     // stored transposed: St row = query, column = corpus row.  Written for
-    // every tile, selected only where it has rows.
+    // every tile, selected only where it has rows (a tile without rows
+    // scores -inf, which votes for nothing).
+    bool vote = false;
 #pragma unroll
     for (int j = 0; j < kWgTPW; ++j) {
       const int n0 = wg ? step.n0[kWgTPW + j] : step.n0[j];
@@ -473,7 +477,8 @@ __device__ inline void wg_walk(const uint16_t* __restrict__ q,
         bias[h] = dead[h] ? 0.f : cb[gn];
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
+        float s[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
@@ -481,11 +486,19 @@ __device__ inline void wg_walk(const uint16_t* __restrict__ q,
           const int col = 16 * wq + g + 8 * h;
           const float d = acc1[j][4 * i + e] + acc2[j][4 * i + e];
           const float p = CORE == kBf16c ? d : __fmul_rn(d, sc[h]);
-          S[qr * (kTN + 1) + col] =
-              dead[h] ? -INFINITY : __fadd_rn(p, bias[h]);
+          s[e] = dead[h] ? -INFINITY : __fadd_rn(p, bias[h]);
+          S[qr * (kTN + 1) + col] = s[e];
         }
+        // One vote a query row, on the larger of its two scores.
+        if constexpr (Gate::kGated)
+          vote |= gate.vote(St, 8 * i + 2 * tig, fmaxf(s[0], s[2])) |
+                  gate.vote(St, 8 * i + 2 * tig + 1, fmaxf(s[1], s[3]));
+      }
     }
-    __syncthreads();
+    int live = 0;
+#pragma unroll
+    for (int j = 0; j < kWgTiles; ++j) live += step.n0[j] >= 0 ? 1 : 0;
+    if (!gate.fire(vote, live)) continue;
     on_step(step);
   }
   cp_async_wait<0>();

@@ -72,6 +72,22 @@ __host__ __device__ inline size_t operand_bytes(int tm, int core) {
   return 2 * (size_t)(tm + kTN) * kBKP * sizeof(uint16_t);  // hi, lo
 }
 
+// The gate of a walk's selection.  A walk asks it whether a score of query
+// row r could enter the row's carry (vote; St is the walk's score tiles,
+// which the carry follows in shared memory), and takes the barrier before
+// the selection through it (fire): false skips the selection of the tile
+// (of the step, on ring_wgmma.cuh's walk).  NoGate, kernel D's, votes
+// nothing and fires on a plain barrier, so a walk without a gate keeps its
+// code; kernel A's gate is CarryGate (fused_topk.cu).
+struct NoGate {
+  static constexpr bool kGated = false;
+  __device__ bool vote(const float*, int, float) const { return false; }
+  __device__ bool fire(bool, int) const {
+    __syncthreads();
+    return true;
+  }
+};
+
 // Epilogue for one score: scale row (int8c / int4c: scale != null) and
 // bias row, then the mask by select (a NaN dot product on a masked row
 // must not reach the selection), -inf past the corpus end.  The product
@@ -687,9 +703,11 @@ __device__ inline void ring_products(const unsigned char* cs,
 // tile list[t / tn_tiles] * tn_tiles + t % tn_tiles, an id outside the
 // layout_tiles naming no rows (never read).  c_ld is the corpus row stride
 // in elements (bf16c, bf16x3) or bytes; ck the int4 feature chunk; stages
-// and q_resident the host's ring_plan.  Ends after a barrier with no copy
-// in flight.
-template <int TM, int CORE, bool LISTED, typename OnTile>
+// and q_resident the host's ring_plan.  `gate` (NoGate: none) votes on each
+// score as it is written and may skip on_tile at the barrier.  Ends after
+// a barrier with no copy in flight.
+template <int TM, int CORE, bool LISTED, typename OnTile,
+          typename Gate = NoGate>
 __device__ inline void ring_walk(const uint16_t* __restrict__ q,
                                  const void* __restrict__ cp,
                                  const float* __restrict__ scale,
@@ -701,7 +719,8 @@ __device__ inline void ring_walk(const uint16_t* __restrict__ q,
                                  int m, int n, int dim, int c_ld, int ck,
                                  int t_begin, int t_end, int stages,
                                  bool q_resident, bool vec,
-                                 OnTile&& on_tile) {
+                                 OnTile&& on_tile,
+                                 const Gate& gate = Gate{}) {
   constexpr int RB = ring_row_bytes(TM, CORE);
   constexpr int RS = ring_row_stride(TM, CORE), QC = ring_cols(TM, CORE);
   constexpr int MT = TM / 16;
@@ -796,18 +815,26 @@ __device__ inline void ring_walk(const uint16_t* __restrict__ q,
       sc[e] = !kScaled || dead[e] ? 1.f : scale[gn];
       bias[e] = dead[e] ? 0.f : cb[gn];
     }
+    // The gate votes once a row on the larger of its two scores (fmaxf
+    // drops a NaN, which beats nothing).
+    bool vote = false;
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MT; ++i) {
+      float s[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = 16 * i + g + (j >= 2 ? 8 : 0);
         const int col = 8 * warp + 2 * tig + (j & 1);
         const float d = acc1[i][j] + acc2[i][j];
         const float p = kScaled ? __fmul_rn(d, sc[j & 1]) : d;
-        St[r * (kTN + 1) + col] =
-            dead[j & 1] ? -INFINITY : __fadd_rn(p, bias[j & 1]);
+        s[j] = dead[j & 1] ? -INFINITY : __fadd_rn(p, bias[j & 1]);
+        St[r * (kTN + 1) + col] = s[j];
       }
-    __syncthreads();
+      if constexpr (Gate::kGated)
+        vote |= gate.vote(St, 16 * i + g, fmaxf(s[0], s[1])) |
+                gate.vote(St, 16 * i + g + 8, fmaxf(s[2], s[3]));
+    }
+    if (!gate.fire(vote, 1)) continue;
     on_tile(t, n0);
   }
   cp_async_wait<0>();

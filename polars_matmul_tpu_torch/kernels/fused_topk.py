@@ -50,10 +50,18 @@ list names (``tiles`` (n_query_blocks, P) int32, ascending, distinct,
 the JAX package's (``layout_tile_rows``, ``probe_block_rows``), so a
 clustered layout and its lists mean the same rows in both packages.
 
+The carry gate (``SearchConfig.prune``, the JAX kernel's exact tile
+pruning): with it on, kernel A skips the selection of a tile in which no
+row's score beats that row's current k-th value.  The split lists are
+those with it off, bit for bit; ``prune_gate`` says when a config turns
+it on.  The plain versions have no gate: their results are the same
+either way.
+
 Every kernel wrapper takes CUDA tensors to its kernel and CPU tensors to
 its plain PyTorch version in this module; any other device raises.  Each
 counts its launches in ``launches`` (kernel A on a tile list apart, as
-``fused_topk_partial_tiles``; kernel A also per core in
+``fused_topk_partial_tiles``, and with the gate on also as
+``fused_topk_partial_gated``; kernel A also per core in
 ``core_launches``).
 """
 
@@ -113,6 +121,8 @@ launches = {
     # Kernel A's launches of the warpgroup consumer (``wgmma_core``:
     # csrc/ring_wgmma.cuh), dense or listed.
     "fused_topk_partial_wgmma": 0,
+    # Kernel A's launches with the carry gate on, dense or listed.
+    "fused_topk_partial_gated": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -1110,6 +1120,15 @@ def stage_plan(tm: int, precision: str, c_ld: int, k: int):
                      tail_bytes(tm, k))
 
 
+def prune_gate(prune: str) -> bool:
+    """Whether kernel A runs with the carry gate: only under ``prune``
+    "on".  "auto" is off on the card: there the gate was slower than off
+    in 3 of the 12 cells where the JAX package's rule (16 or more corpus
+    tiles, fused_topk.py:1995) turns it on (config.py and PERF.md give
+    the times)."""
+    return prune == "on"
+
+
 def listed_tile_rows(m: int, k: int, block_rows: int) -> int:
     """Kernel A's query tile on a tile list: no taller than the rows that
     share a list."""
@@ -1185,15 +1204,27 @@ def _ptr(t: Optional[torch.Tensor]):
 def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
                        splits: int, tiles_per_split: int, tm: int,
                        tiles: Optional[torch.Tensor] = None, tn: int = 0,
-                       block_rows: int = 0):
+                       block_rows: int = 0, prune: bool = False,
+                       gate_count: Optional[torch.Tensor] = None):
     """Kernel A: (m, splits, k) f32 values and int32 indices.
 
     With ``tiles`` (n_lists, P), query rows [b * block_rows, (b + 1) *
     block_rows) walk only the ``tn``-row layout tiles that list row b
     names, in list order (ascending, distinct: then the splits cover
     ascending rows and kernel B's ties stay lowest-index first), and the
-    splits cut the P * tn listed rows."""
+    splits cut the P * tn listed rows.
+
+    ``prune`` runs the kernel with the carry gate on (the same lists, bit
+    for bit).  ``gate_count``, a (2,) int32 tensor on the card, gains
+    {tiles gated, tiles skipped} of a gated launch.  On the CPU both
+    change nothing."""
     _check_operands(qp, cp, cbp, mask, k, precision)
+    if gate_count is not None and (
+            gate_count.dtype != torch.int32 or gate_count.numel() != 2
+            or gate_count.device != qp.device
+            or not gate_count.is_contiguous()):
+        raise ValueError("gate_count must be a contiguous (2,) int32 tensor "
+                         "on the queries' device")
     listed = tiles is not None
     if listed:
         _check_tiles(qp, tiles, tn, block_rows, tm)
@@ -1224,11 +1255,14 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
             _ptr(qp), _ptr(cp), _ptr(scale), _ptr(bias), _ptr(mask),
             _ptr(tiles), _ptr(part_v), _ptr(part_i), m, n, dim, cp.shape[1],
             ck, k, splits, tiles_per_split, tm, CORES.index(precision),
-            n_lists, p, tn, block_rows, ctypes.c_void_p(stream))
+            n_lists, p, tn, block_rows, int(prune), _ptr(gate_count),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
     launches["fused_topk_partial_tiles" if listed
              else "fused_topk_partial"] += 1
+    if prune:
+        launches["fused_topk_partial_gated"] += 1
     if wgmma_core(tm, precision):
         launches["fused_topk_partial_wgmma"] += 1
     core_launches[precision] += 1
@@ -1310,11 +1344,11 @@ def topk_merge(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
 
 def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                  tiles: Optional[torch.Tensor] = None, tn: int = 0,
-                 block_rows: int = 0):
+                 block_rows: int = 0, prune: bool = False):
     """Top-k on prepared operands: kernels A + B for CUDA tensors, the
     plain version for CPU tensors, and an error for any other device.
     ``tiles`` / ``tn`` / ``block_rows``: the tile lists of probed search
-    (see ``fused_topk_partial``)."""
+    (see ``fused_topk_partial``); ``prune``: kernel A's carry gate."""
     _check_operands(qp, cp, cbp, mask, k, precision)
     m = qp.shape[0]
     if m == 0:
@@ -1332,7 +1366,7 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                                           qp.device, dim=_query_dim(
                                               qp, precision))
         part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
-                                            splits, tps, tm)
+                                            splits, tps, tm, prune=prune)
         return topk_merge(part_v, part_i, k)
     tm = listed_tile_rows(m, k, block_rows)
     rows = None
@@ -1351,7 +1385,7 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                                       dim=_query_dim(qp, precision))
     part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
                                         splits, tps, tm, tiles, tn,
-                                        block_rows)
+                                        block_rows, prune=prune)
     vals, idx = topk_merge(part_v, part_i, k)
     return (vals, idx) if rows is None else (vals[rows], idx[rows])
 
@@ -1455,9 +1489,10 @@ def select_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
     qp = prepare_queries(q, metric, precision)
     mask_u8 = None if mask is None else pad_mask_row(
         torch.as_tensor(mask, device=q.device), cbp.shape[-1])
+    prune = prune_gate(cfg.prune)
     with annotate(f"pmm.fused_topk.{metric.value}"):
         return fused_select(qp, cp, cbp, mask_u8, k, precision, tiles, tn,
-                            block_rows)
+                            block_rows, prune=prune)
 
 
 def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,

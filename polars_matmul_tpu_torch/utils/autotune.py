@@ -214,13 +214,15 @@ def _finalize_winner(best: SearchConfig) -> SearchConfig:
 def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     """What a dense ``fused_topk`` launches under ``cfg``: the reference
     path, or kernels A + B in one core (their geometry follows from the
-    shapes and the core alone)."""
-    from ..kernels.fused_topk import kernel_precision, supports
+    shapes and the core alone), with kernel A's carry gate on or off
+    (``prune_gate``); the core comes last."""
+    from ..kernels.fused_topk import kernel_precision, prune_gate, supports
 
     if not cfg.use_pallas or not supports(q.shape, c.shape, q.dtype, k,
                                           cfg):
         return ("reference",)
-    return ("fused", kernel_precision(cfg.precision))
+    gate = ("gated",) if prune_gate(cfg.prune) else ()
+    return ("fused",) + gate + (kernel_precision(cfg.precision),)
 
 
 def _sweep(candidates, cfg0: SearchConfig, q: torch.Tensor,
@@ -299,12 +301,13 @@ def autotune(
     in memory and on disk; ``use_cache=False`` re-measures.
     ``set_default=True`` installs the winner as the process default.
 
-    On this port several candidates launch the same kernels: only
-    ``precision`` picks another core of kernel A, while ``block_q``,
-    ``block_n``, ``selection`` and ``prune`` leave a dense launch as it
-    is.  Each distinct launch is measured once and its time given to
-    every candidate that shares it; on a tie the first candidate in grid
-    order wins, so noise never picks the persisted winner.
+    On this port several candidates launch the same kernels: ``precision``
+    picks another core of kernel A and ``prune`` turns its carry gate on
+    or off (``kernels.fused_topk.prune_gate``), while ``block_q``,
+    ``block_n`` and ``selection`` leave a dense launch as it is.  Each
+    distinct launch is measured once and its time given to every
+    candidate that shares it; on a tie the first candidate in grid order
+    wins, so noise never picks the persisted winner.
 
     ``device``: the card to tune (default "cuda", which raises without
     one).  On "cpu" the kernels' plain versions would be timed, so the
