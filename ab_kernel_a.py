@@ -20,7 +20,8 @@ Then:
 2. bits: each tree's split lists against the parent's at one geometry
    (this tree's), on the canonical operands at every query tile a k can
    take, in the bf16x3 and highest cores, and at each cell's own
-   geometry; they must be equal (the variants' too, but "noselect");
+   geometry; they must be equal (the variants' too, but "noselect",
+   "noproducts" and "nodecode", which change what is selected);
 3. times: kernel A alone (CUDA events, ``chip_smoke.cuda_ms``), each
    build at the geometry its own library's occupancy gives, parent,
    change, variants, then the reverse, beside the bound
@@ -29,7 +30,9 @@ Then:
    512, bf16x3 and highest), ``big`` (2M x 256 f32 at batch 8 and 256,
    k=10 and 100, bf16x3), ``stored`` (the attribution kit's 2M x 768 int8
    operand, ``tools/exp_int4.build``, at batch 256, k=100 and 512),
-   ``wide`` (10M x 768 int8, phase 7's corpus, batch 8 and 256, k=100),
+   ``wide`` (10M x 768 int8, phase 7's corpus, batch 8 at k=100 and 256
+   at k=10 and 100), ``wide-int4`` and ``wide-bf16`` (the same corpus
+   stored as int4 and bf16, batch 256, k=10 and 100),
    ``clustered`` (phase 8's 10M x 768 int8 clustered corpus, probe 0.05,
    batch 256, k=100) and ``lists`` (phase 8's 2M x 256 f32 clustered
    lists, probe 0.05: 1000 queries at k=10 and 100, and 32 at k=10, the
@@ -57,10 +60,29 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("polars_matmul_tpu_torch/kernels/csrc")
-GROUPS = ("canonical", "big", "stored", "wide", "clustered", "lists")
+GROUPS = ("canonical", "big", "stored", "wide", "wide-int4", "wide-bf16",
+          "clustered", "lists")
 # Builds of this tree's fused_topk.cu with a line or two changed: (pattern,
-# replacement) pairs of re.subn, each of which must match once.
+# replacement) pairs of re.subn, each of which must match once, in
+# fused_topk.cu or, given as a third item, another file of csrc/.
 VARIANTS = {
+    # The tile-64 consumer's products compiled out (wg_issue's wgmma; the
+    # fragments are still decoded and consumed, the accumulators stay 0):
+    # what the producer, the decode, the epilogue and a selection of equal
+    # scores take without the products.
+    "noproducts": [(r"wgmma_m64n64k16\(acc1\[j\][^;]*;\s*"
+                    r"wgmma_m64n64k16\(acc2\[j\][^;]*;",
+                    'asm volatile("" :: "r"(x[0]), "r"(x[1]), "r"(x[2]), '
+                    '"r"(x[3]));', "ring_wgmma.cuh")],
+    # The tile-64 consumer's decode compiled out (every A fragment the
+    # bf16 pair 1.0, 1.0; no stage byte read by a thread): what the
+    # producer, the products, the epilogue and a selection of equal scores
+    # take without the decode.
+    "nodecode": [(r"(__device__ inline void wg_decode\([^{]*\{)",
+                  r"\1\n#pragma unroll\n  for (int j = 0; j < kWgTPW; ++j)\n"
+                  r"#pragma unroll\n    for (int s = 0; s < wg_steps(CORE); ++s)\n"
+                  r"#pragma unroll\n      for (int i = 0; i < 4; ++i) "
+                  r"a[j][s][i] = 0x3f803f80u;\n  return;", "ring_wgmma.cuh")],
     # The selection taken out (its share of kernel A): the score tiles are
     # written and nothing selects on them.
     "noselect": [(rf"(__device__ inline void {f}\([^{{]*\{{)",
@@ -94,17 +116,16 @@ def _nvcc(args, src: Path, out: Path) -> subprocess.Popen:
 def _plain(name: str) -> str:
     """A mangled name without the anonymous namespace's per-build hash,
     without a kernel A's last template argument where it is false (the
-    inserting selection), and without its carry gate's two last
-    parameters (bool, int*), so that those kernels key as their parents,
-    which had neither, did."""
+    inserting selection), and a kernel's without its parameters (kernel
+    A's carry gate and the tile-64 ring's tensor maps came as
+    parameters), so that those kernels key as their parents did."""
     name = re.sub(r"_GLOBAL__N__[0-9a-f]+_|_INTERNAL_[0-9a-f]+_", "", name)
     # nvcc 12's anonymous namespace: <n>_<file>_cu_<8-hex hash of the
     # translation unit>, which differs whenever the source does.
     name = re.sub(r"^(_ZN)\d+_\w*?_cu_[0-9a-f]{8}(?=\d)", r"\1", name)
-    name = re.sub(r"(fused_topk_(?:f32|stored|wgmma)_kernelI\w*?)"
-                  r"b(?:Pi|S[0-9A-Z]*_)$", r"\1", name)
+    name = re.sub(r"(_kernelI\w*?EEE)v\w*$", r"\1", name)
     return re.sub(r"(fused_topk_(?:f32|stored|wgmma)_kernelI(?:L[ib]\d+E)+?"
-                  r"Lb[01]E)Lb0E(EEv)", r"\1\2", name)
+                  r"Lb[01]E)Lb0E(EE)$", r"\1\2", name)
 
 
 def _ptxas(log: str, unit: str, out: dict) -> None:
@@ -141,13 +162,14 @@ def build(parent: Path, work: Path, variants):
     for name in variants:
         d = work / f"src-{name}"
         shutil.copytree(ROOT / CSRC, d)
-        text = (d / "fused_topk.cu").read_text()
-        for pattern, replacement in VARIANTS[name]:
-            text, hits = re.subn(pattern, replacement, text, count=1)
+        for pattern, replacement, *where in VARIANTS[name]:
+            path = d / (where[0] if where else "fused_topk.cu")
+            text, hits = re.subn(pattern, replacement, path.read_text(),
+                                 count=1)
             if hits != 1:
                 raise RuntimeError(f"variant {name}: {pattern} is not in "
-                                   f"fused_topk.cu")
-        (d / "fused_topk.cu").write_text(text)
+                                   f"{path.name}")
+            path.write_text(text)
         srcs[name] = d
     procs = {}
     for name, d in srcs.items():
@@ -275,25 +297,40 @@ def _stored(cs, F, dev):
                  qn, rows, dim=exp_int4.DIM) for k in (100, 512)]
 
 
-def _wide(cs, F, dev):
+def _wide_tier(cs, F, dev, tier, shapes):
+    """Cells of phase 7's 10M x 768 corpus stored as ``tier`` at (batch,
+    k) ``shapes``, with chip_smoke's bf16 library rows."""
     import polars_matmul_tpu_torch as pmt
 
     c = cs._wide_f32(torch)
-    corpus = pmt.Corpus(c, storage="int8")
+    corpus = pmt.Corpus(c, storage=tier)
     del c
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED + 1)
     q = torch.randn((256, cs.WIDE_DIM), generator=gen, device=dev)
     cp, cbp = corpus._prepared_for(F.Metric.COSINE)
-    rows = _dequantised(F, cp, cbp)
+    rows = cs._library_rows(F, torch, corpus)
+    core = cs.TIER_CORE[tier]
     cells = []
-    for b in (8, 256):
+    for b, k in shapes:
         qn = (q[:b] / q[:b].norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        cells.append(Cell(f"10M x 768 int8 batch {b} k=100", "int8c",
-                          F.prepare_queries(q[:b], "cosine", "int8c"), cp,
-                          cbp, 100, qn, rows, dim=cs.WIDE_DIM))
+        cells.append(Cell(f"10M x 768 {tier} batch {b} k={k}", core,
+                          F.prepare_queries(q[:b], "cosine", core), cp, cbp,
+                          k, qn, rows, dim=cs.WIDE_DIM))
     return cells
+
+
+def _wide(cs, F, dev):
+    return _wide_tier(cs, F, dev, "int8", ((8, 100), (256, 10), (256, 100)))
+
+
+def _wide_int4(cs, F, dev):
+    return _wide_tier(cs, F, dev, "int4", ((256, 10), (256, 100)))
+
+
+def _wide_bf16(cs, F, dev):
+    return _wide_tier(cs, F, dev, "bf16", ((256, 10), (256, 100)))
 
 
 def _listed_cell(cs, F, label, cc, q, k):
@@ -335,7 +372,8 @@ def _lists(cs, F, dev):
 
 
 BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,
-            "wide": _wide, "clustered": _clustered, "lists": _lists}
+            "wide": _wide, "wide-int4": _wide_int4, "wide-bf16": _wide_bf16,
+            "clustered": _clustered, "lists": _lists}
 
 
 def main(argv=None) -> int:
@@ -413,7 +451,7 @@ def main(argv=None) -> int:
     def bits(label, cell, geo):
         outs = {}
         for name in libs:
-            if name != "noselect":
+            if name not in ("noselect", "noproducts", "nodecode"):
                 use(name)
                 outs[name] = launch(cell, geo)
         torch.cuda.synchronize()

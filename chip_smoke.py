@@ -8,7 +8,9 @@ Phases, each printing one line or a few:
 0. the card (nvidia-smi name and power limit), torch and CUDA versions;
 1. build of the CUDA kernels from this checkout's sources (nvcc, sm_90a,
    one compiler per source, all started together), each instantiation's
-   registers and spills (none allowed in the warpgroup consumer), and the
+   registers and spills (none allowed in the warpgroup consumer), a line
+   for each tile-64 stored instantiation of kernels A and D (registers,
+   spills, its ring's stages, its TMA producer), and the
    stored cores' ring at dim 768 (stages, bytes a stage, the query's
    place, blocks an SM; query tiles 16 and 32 at k=100, 64 at k=10, 100
    and 128), the bf16x3 core's ring (``BF16X3_PLANS``, no spill allowed
@@ -278,6 +280,10 @@ BF16X3_PLANS = HIGHEST_PLANS
 # B), which no longer spills; the other forms of the vote spilled here
 # too, or here and elsewhere.
 KNOWN_SPILL = "fused_topk_stored_kernel<32, 1, listed, insert>"
+# The producer of the stored cores' ring at query tile 64
+# (csrc/ring_wgmma.cuh), in phase 1's lines and the kernels line.
+WG_PRODUCER = ("TMA 2-D bulk-tensor loads from one thread, full / empty "
+               "mbarriers, stages - 1 positions ahead")
 # Kernel D's levels=0 form of the int4 family at query tile 32 keeps eight
 # running maxima beside a ring at its 128 registers and spills 4 B (off the
 # experiments' path: batches of 17-32); phase 1 fails on a spill in any
@@ -486,6 +492,37 @@ def _ptxas_summary(log: str):
     return lines
 
 
+def _tile64_report(F, log: str) -> None:
+    """Phase 1's line for every tile-64 stored instantiation (kernel A's
+    warpgroup consumer, kernel D's wgmma forms): its registers and spills,
+    its ring's stages at dim 768 (kernel A at k=10 / 100 / 128, kernel D
+    at the stack levels of its form) and its producer."""
+    from polars_matmul_tpu_torch.kernels import floor as D
+
+    seen = 0
+    for line in _ptxas_summary(log):
+        a = re.match(r"fused_topk_wgmma_kernel<64, (\d+), ", line)
+        d = re.match(r"floor_stacks_kernel<64, (\S+), wgmma, (.*)>", line)
+        if a:
+            core = F.CORES[int(a.group(1))]
+            stages = "/".join(str(F.wg_plan(core, k)[0])
+                              for k in (10, 100, 128)) + " at k=10/100/128"
+        elif d:
+            core = d.group(1)
+            levels = ((0,) if d.group(2).startswith("row maxima")
+                      else (1,) if d.group(2).startswith("1 levels")
+                      else (2, 3))
+            stages = "/".join(str(D.floor_plan(64, core, lv, WIDE_DIM)[2])
+                              for lv in levels) + " at levels " + "/".join(
+                                  map(str, levels))
+        else:
+            continue
+        seen += 1
+        print(f"  tile 64: {line}; stages {stages}; producer "
+              f"{WG_PRODUCER}")
+    require(seen > 0, "no tile-64 stored instantiation in the build log")
+
+
 def phase_build():
     import ctypes
 
@@ -562,6 +599,7 @@ def phase_build():
                   f"{'resident' if plan[2] else 'in the ring'}, {plan[3]} B "
                   f"of shared memory; blocks an SM {blocks[0]} dense, "
                   f"{blocks[1]} listed")
+    _tile64_report(F, log)
     # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
     core = F.CORES.index("bf16x3")
     for dim in (DIM, WIDE_DIM):
@@ -2975,7 +3013,7 @@ def _compare_floor(D, F, torch, err):
 # every 16,000 rows) restart inside a step of some split, its n found for
 # this card's geometry.  Levels 0, 1 (in registers), 2 (in shared memory,
 # two scores a load) and 3, the deepest that keeps the warpgroup consumer
-# for the int4 family (int8c takes the tile-64 ring there).
+# in every stored core.
 FLOOR_WG_SHAPES = ((33, 1100, 100, 128, 10), (65, 1300, 256, 256, 100),
                    (300, 700, 768, 128, 10))
 FLOOR_WG_RESET = (65, 64, 640, 10)
@@ -3044,8 +3082,8 @@ def _compare_floor_wgmma(D, F, torch, err):
     posu on tie data, real data within _check_floor's tolerance and
     integer tie data bit for bit; then each (core, levels) that takes the
     warpgroup consumer with a segment restarting inside a step.  Requires
-    the warpgroup consumer at levels 0-2 in every stored core and at 3 in
-    the int4 family.  Returns (cases, tie cases, mid-step resets)."""
+    the warpgroup consumer at levels 0-3 in every stored core.  Returns
+    (cases, tie cases, mid-step resets)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 9)
@@ -3096,8 +3134,8 @@ def _compare_floor_wgmma(D, F, torch, err):
                             else:
                                 cases += 1
     torch.cuda.synchronize()
-    want = {(core, levels) for core in FLOOR_STORED for levels in (0, 1, 2)}
-    want |= {(core, 3) for core in FLOOR_STORED if core != "int8c"}
+    want = {(core, levels) for core in FLOOR_STORED
+            for levels in FLOOR_WG_LEVELS}
     require(want <= wg, f"kernel D took the warpgroup consumer only at "
             f"{sorted(wg)}")
     require(midstep >= len(want) - len(FLOOR_STORED), f"kernel D: only "
@@ -3240,8 +3278,8 @@ def phase_floor(F, torch, card):
           f"global ids past 128 groups raise")
     cases, ties, midstep = _compare_floor_wgmma(D, F, torch, err)
     print(f"phase 10: kernel D at query tile 64 (the stored cores on the "
-          f"warpgroup consumer at levels {FLOOR_WG_LEVELS}, int8c's level 3 "
-          f"on the ring) matches its plain version in {cases} ragged cases "
+          f"warpgroup consumer at levels {FLOOR_WG_LEVELS}) matches its "
+          f"plain version in {cases} ragged cases "
           f"and {ties} tie cases bit for bit, {midstep} of them with a "
           f"segment restarting inside a step")
     bits = _floor_ring_bits(D, F, torch)
@@ -4328,7 +4366,7 @@ def main() -> int:
                       "route": "cuda", "source": KERNEL_SRC + "ring_wgmma.cuh",
                       "replaces": f"{TPU_KERNEL}:{CORE_LINE[core]}",
                       "launches": launches[core + ".wgmma"],
-                      "max_abs_err": err[core]},
+                      "max_abs_err": err[core], "producer": WG_PRODUCER},
                      **per_kernel[core + ".wgmma"])
                 for core in STORED]
     kernels.append(dict({"name": "topk_merge", "route": "cuda",

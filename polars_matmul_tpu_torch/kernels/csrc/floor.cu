@@ -141,7 +141,7 @@ inline FloorPlan floor_plan(int tm, int core, int levels, int c_ld) {
   if (tm == kWgTM && stored_core(core)) {
     const size_t tail = floor_tail_bytes(tm, core, levels, kWgmma);
     for (int s = kWgStages; s >= 2; --s) {
-      const size_t b = s * wg_stage_bytes(core) + tail;
+      const size_t b = wg_ring_bytes(core, s) + tail;
       if (b <= kMaxSmem)
         return FloorPlan{kWgmma, core, RingPlan{s, false, b},
                          reg_levels(tm, core, levels, kWgmma)};
@@ -181,7 +181,8 @@ constexpr int kMaxima = -1, kShared = 0;
 template <int TM, int CORE, int CONSUMER, int FORM>
 __global__ void __launch_bounds__(kThreads,
                                   floor_min_blocks<TM, CORE, CONSUMER>())
-floor_stacks_kernel(const uint16_t* __restrict__ qp,
+floor_stacks_kernel(const __grid_constant__ WgMaps maps,
+                    const uint16_t* __restrict__ qp,
                     const void* __restrict__ cp,
                     const float* __restrict__ scale,
                     const float* __restrict__ cb, int* __restrict__ out,
@@ -199,12 +200,13 @@ floor_stacks_kernel(const uint16_t* __restrict__ qp,
   constexpr int kRows = TM / 4;   // a thread's rows in each lane half
   constexpr int REG = FORM > 0 ? FORM : 0;   // levels in registers
   extern __shared__ __align__(16) unsigned char smem[];
-  const size_t staging =
-      kWg ? stages * wg_stage_bytes(CORE)
-          : ring_bytes(TM, CORE,
-                       ring_chunks(TM, CORE, c_ld * ring_elem_bytes(CORE)),
-                       q_resident, stages);
-  float* St = reinterpret_cast<float*>(smem + staging);
+  float* St = kWg ? wg_tail(smem, CORE, stages)
+                  : reinterpret_cast<float*>(
+                        smem + ring_bytes(TM, CORE,
+                                          ring_chunks(TM, CORE,
+                                                      c_ld * ring_elem_bytes(
+                                                          CORE)),
+                                          q_resident, stages));
   int* stack = reinterpret_cast<int*>(St + kTiles * TM * (kTN + 1));
   __shared__ bool last_block;
 
@@ -349,8 +351,9 @@ floor_stacks_kernel(const uint16_t* __restrict__ qp,
     // whole row (ck = dim).  A step's tiles t0 + j are of parity j % 2
     // (steps start kWgTiles apart from t_begin).
     wg_walk<CORE, false>(
-        qp, cp, scale, cb, nullptr, nullptr, 0, 1, smem, St, row0, m, n, dim,
-        c_ld, dim, t_begin, t_end, stages, vec, [&](const WgStep& step) {
+        maps, qp, cp, scale, cb, nullptr, nullptr, 0, 1, smem, St, row0, m,
+        n, dim, c_ld, dim, t_begin, t_end, stages, vec,
+        [&](const WgStep& step) {
           const int t0 = step.n0[0] / kTN;
           if constexpr (FORM == kMaxima) {
 #pragma unroll
@@ -539,9 +542,10 @@ inline bool valid_core(int core) {
 
 extern "C" {
 
-// Returns 0 on success, a cudaError_t after a refused launch, or -1 for
-// arguments the kernel does not take.  qp is bf16 (m, 2 dim) [hi | lo];
-// cp is bf16 (n, 2 dim) [hi | lo] for kBf16x3, int8 (n, dim) codes for
+// Returns 0 on success, a cudaError_t after a refused launch, the
+// CUresult of a tensor map that failed to encode (the warpgroup
+// consumer), or -1 for arguments the kernel does not take.  qp is bf16
+// (m, 2 dim) [hi | lo]; cp is bf16 (n, 2 dim) [hi | lo] for kBf16x3, int8 (n, dim) codes for
 // kInt8c, int8 (n, dim / 2) bytes for the int4 family (byte j: feature j
 // low, feature j + dim / 2 high); c_ld is cp's row stride in elements.
 // scale is the (n,) scale row (null for kBf16x3), cb the (n,) bias row.
@@ -583,14 +587,20 @@ int pmm_floor_stacks(const void* qp, const void* cp, const float* scale,
     constexpr int C = decltype(kc)::value, REG = decltype(rc)::value;
     const int err = prepare<TM, CORE, C, REG>(plan);
     if (err != 0) return err;
-    const bool vec = ring_aligned(qp, cp, dim,
-                                  (size_t)c_ld * ring_elem_bytes(CORE));
+    const size_t row_bytes = (size_t)c_ld * ring_elem_bytes(CORE);
+    const bool vec = ring_aligned(qp, cp, dim, row_bytes);
+    WgMaps maps{};   // read by the warpgroup consumer's loads only
+    if (C == kWgmma && vec) {
+      const int rc = wg_maps(maps, CORE, qp, cp, m, n, dim, row_bytes);
+      if (rc != 0) return rc;
+    }
     dim3 grid((m + TM - 1) / TM, splits);
     floor_stacks_kernel<TM, CORE, C, REG>
         <<<grid, kThreads, plan.ring.bytes, s>>>(
-            static_cast<const uint16_t*>(qp), cp, scale, cb, out, levels_out,
-            done, m, n, dim, c_ld, levels, tn, ids, seg, posu != 0, splits,
-            tiles_per_split, vec, plan.ring.stages, plan.ring.q_resident);
+            maps, static_cast<const uint16_t*>(qp), cp, scale, cb, out,
+            levels_out, done, m, n, dim, c_ld, levels, tn, ids, seg,
+            posu != 0, splits, tiles_per_split, vec, plan.ring.stages,
+            plan.ring.q_resident);
     return (int)cudaGetLastError();
   });
 }

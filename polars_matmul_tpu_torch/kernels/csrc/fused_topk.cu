@@ -118,18 +118,18 @@
 // stored cores could not approach on mma.sync: with a warp owning 8 corpus
 // columns, every warp re-read the whole 64-row [hi | lo] query tile from
 // shared memory for each tile.  Tile 64 now has its own consumer
-// (fused_topk_wgmma_kernel, ring_wgmma.cuh): the same ring of raw bytes as
-// producer; two warpgroups, each decoding two 64-row corpus tiles a step
-// into wgmma's register A operand; the query tile as the B operand, read
-// by the tensor cores through matrix descriptors, so no warp loads it.
-// What bounds it now (PERF.md): the ring.  The query columns ride
-// it (64 query rows x 768 features do not fit beside the carry), so each
-// stage of 256 corpus rows copies as many query bytes as int8 corpus
-// bytes, and each 64-row query tile reads the corpus again: 61 GB through
-// cp.async at 10M x 768 int8, batch 256.  The ring alone (products taken
-// out) takes about two thirds of the kernel's time there; the products
-// hide only partly behind it in the one block an SM, and the selection,
-// on the same warps, adds to both.
+// (fused_topk_wgmma_kernel, ring_wgmma.cuh): two warpgroups, each decoding
+// two 64-row corpus tiles a step into wgmma's register A operand; the
+// query tile as the B operand, read by the tensor cores through matrix
+// descriptors, so no warp loads it.  Its ring is Hopper's: one thread
+// issues 2-D bulk-tensor (TMA) loads of the raw corpus bytes and the
+// query columns, full and empty mbarriers hand each stage between that
+// producer and the two warpgroups, stages - 1 positions ahead, with no
+// block barrier on the ring's path.  The query columns ride the ring (64
+// query rows x 768 features do not fit beside the carry), so each stage
+// of 256 corpus rows loads as many query bytes as int8 corpus bytes, and
+// each 64-row query tile reads the corpus again: 61 GB at 10M x 768 int8,
+// batch 256.  PERF.md has what bounds it.
 // Batches of up to 32 queries and k > 128 keep the mma.sync consumer
 // (query tiles 16 and 32), bound by bytes.
 //
@@ -294,7 +294,11 @@ __device__ inline int count_gt(const float* lv, int cnt, float v) {
 // every carry entry and every candidate at its merged position (carry
 // entries win ties: their indices are lower).  Entries pushed to k or
 // beyond drop out.  Whole warp calls; lv/li are the warp's 64-entry lists.
-// Out of line: its registers stay out of the product's budget.
+// Out of line: its registers stay out of the product's budget.  COPY 1 is
+// the warpgroup kernels' own copy: ptxas fits an out-of-line function's
+// registers to all its callers, and sharing one with them cost the
+// listed bf16x3 ring at query tile 16 a spill on the H100.
+template <int COPY>
 __device__ __noinline__ void carry_merge(float* cv, int* ci, int k, float s0,
                                    float s1, bool c0, bool c1, int cnt,
                                    int n0, int lane, float* lv, int* li) {
@@ -325,9 +329,9 @@ __device__ __noinline__ void carry_merge(float* cv, int* ci, int k, float s0,
 
 // The inserting selection of one TM x TN score tile (k <= kInsertMaxK):
 // one warp per query row.  Few candidates are inserted one by one in
-// index order; many are merged at once (carry_merge), which costs a sort
-// of the 64 plus one pass over the carry.
-template <int TM>
+// index order; many are merged at once (carry_merge<COPY>), which costs a
+// sort of the 64 plus one pass over the carry.
+template <int TM, int COPY = 0>
 __device__ inline void select_tile(const float* St, float* Cv, int* Ci,
                                    float* lv, int* li, int k, int n0,
                                    int rows_valid, int warp, int lane) {
@@ -342,7 +346,7 @@ __device__ inline void select_tile(const float* St, float* Cv, int* Ci,
     const int cnt = __popc(__ballot_sync(0xffffffffu, c0)) +
                     __popc(__ballot_sync(0xffffffffu, c1));
     if (cnt * k_blocks > 32) {
-      carry_merge(cv, ci, k, s0, s1, c0, c1, cnt, n0, lane, lv, li);
+      carry_merge<COPY>(cv, ci, k, s0, s1, c0, c1, cnt, n0, lane, lv, li);
       continue;
     }
 #pragma unroll
@@ -1078,13 +1082,14 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   }
 }
 
-// The stored cores at query tile 64: the same ring as producer, the
-// warpgroup products of ring_wgmma.cuh as consumer, each warpgroup on its
-// own kernel tiles (kWgTiles a step), the same selection on each tile's
-// scores in walk order.
+// The stored cores at query tile 64: ring_wgmma.cuh's ring, filled by
+// TMA loads on the launch's maps (byte by byte where vec is false), and its
+// warpgroup products, each warpgroup on its own kernel tiles (kWgTiles a
+// step), the same selection on each tile's scores in walk order.
 template <int TM, int CORE, bool LISTED, bool APPEND>
 __global__ void __launch_bounds__(kThreads, kWgBlocks)
-fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
+fused_topk_wgmma_kernel(const __grid_constant__ WgMaps maps,
+                        const uint16_t* __restrict__ qp,
                         const void* __restrict__ cp,
                         const float* __restrict__ scale,
                         const float* __restrict__ cb,
@@ -1099,7 +1104,7 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
                         int* __restrict__ gate_count) {
   static_assert(TM == kWgTM, "the warpgroup consumer takes 64 query rows");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* St = reinterpret_cast<float*>(smem + stages * wg_stage_bytes(CORE));
+  float* St = wg_tail(smem, CORE, stages);
   float* Cv = St + kWgTiles * TM * (kTN + 1);
   int* Ci = reinterpret_cast<int*>(Cv + (size_t)TM * k);
   float* Lv = reinterpret_cast<float*>(Ci + (size_t)TM * k);
@@ -1125,8 +1130,8 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
   wg_walk<CORE, LISTED>(
-      qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
-      m, n, dim, c_ld, ck, t_begin, t_end, stages, vec,
+      maps, qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St,
+      row0, m, n, dim, c_ld, ck, t_begin, t_end, stages, vec,
       [&](const WgStep& step) {
         // A row's warp takes the step's tiles in order.
 #pragma unroll 1
@@ -1137,9 +1142,9 @@ fused_topk_wgmma_kernel(const uint16_t* __restrict__ qp,
                               rows_valid, warp, lane, part_v, part_i, row0,
                               splits, split);
             else
-              select_tile<TM>(St + j * TM * (kTN + 1), Cv, Ci,
-                              Lv + warp * kTN, Li + warp * kTN, k,
-                              step.n0[j], rows_valid, warp, lane);
+              select_tile<TM, 1>(St + j * TM * (kTN + 1), Cv, Ci,
+                                 Lv + warp * kTN, Li + warp * kTN, k,
+                                 step.n0[j], rows_valid, warp, lane);
           }
       },
       gate);
@@ -1247,12 +1252,17 @@ int launch(const void* qp, const void* cp, const float* scale,
   } else {
     const size_t row_bytes = (size_t)c_ld * ring_elem_bytes(CORE);
     const bool vec = ring_aligned(qp, cp, dim, row_bytes);
-    if constexpr (wgmma_core<TM, CORE>())
+    if constexpr (wgmma_core<TM, CORE>()) {
+      WgMaps maps{};   // unread where vec is false
+      if (vec) {
+        const int rc = wg_maps(maps, CORE, qp, cp, m, n, dim, row_bytes);
+        if (rc != 0) return rc;
+      }
       kern<<<grid, kThreads, bytes, stream>>>(
-          static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
+          maps, static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
           part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
           tn_tiles, block_rows, vec, plan.stages, prune, gate_count);
-    else
+    } else
       kern<<<grid, kThreads, bytes, stream>>>(
           static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
           part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
@@ -1311,9 +1321,11 @@ int dispatch(int tm, int core, bool listed, F&& f) {
 
 extern "C" {
 
-// Returns 0 on success, a cudaError_t after a refused launch, or -1 for
-// arguments the kernel does not take.  core is a Core: qp is f32 (rows,
-// dim) for kHighest and bf16 (rows, 2*dim) [hi | lo] otherwise; cp is
+// Returns 0 on success, a cudaError_t after a refused launch, the
+// CUresult of a tensor map that failed to encode (the stored cores at
+// query tile 64), or -1 for arguments the kernel does not take.  core is
+// a Core: qp is f32 (rows, dim) for kHighest and bf16 (rows, 2*dim)
+// [hi | lo] otherwise; cp is
 // f32 (rows, dim), bf16 (rows, 2*dim) [hi | lo] for kBf16x3, bf16 (rows,
 // dim) for kBf16c, int8 (rows, dim) for kInt8c, int8 (rows, c_ld) packed
 // nibbles for kInt4c, with c_ld its row stride and ck its feature chunk.

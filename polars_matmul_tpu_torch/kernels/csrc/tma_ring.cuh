@@ -4,7 +4,8 @@
 // mbarrier full / empty pairs, 2-D bulk-tensor loads, matrix descriptors of
 // 128-byte-swizzled K-major tiles, the products themselves and the
 // register hand-over between producer and consumer warpgroups (setmaxnreg).
-// sm_90a only.  Kernel C's bf16x3 core (matmul.cu) is built on it.
+// sm_90a only.  Kernel C's bf16x3 core (matmul.cu) is built on it, and so
+// is the producer of kernel A's and D's tile-64 ring (ring_wgmma.cuh).
 //
 // The shared-memory tile a 2-D load writes with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box 64 bf16 wide is what a K-major wgmma operand of layout type 1
@@ -52,25 +53,35 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A 2-D map of a row-major bf16 matrix (rows, cols) at base with rows
-// `row_bytes` apart: boxes of box_rows x 64 elements, 128-byte swizzle,
-// elements past the matrix read as zero.  base and row_bytes must be
-// multiples of 16.  Returns 0, the CUresult of a failed encoding, or -1
-// without the encoder.
-inline int tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
-                           uint64_t cols, uint64_t row_bytes,
-                           uint32_t box_rows) {
+// A 2-D map of a row-major matrix (rows, cols) of `type` at base with rows
+// `row_bytes` apart: boxes of box_rows x box_cols elements with `swizzle`
+// (a box row no wider than its span), elements past the matrix read as
+// zero.  base and row_bytes must be multiples of 16.  Returns 0, the
+// CUresult of a failed encoding, or -1 without the encoder.
+inline int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* base, uint64_t rows, uint64_t cols,
+                         uint64_t row_bytes, uint32_t box_cols,
+                         uint32_t box_rows, CUtensorMapSwizzle swizzle) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return -1;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     const_cast<void*>(base), dims, strides, box, unit,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return (int)encode(map, type, 2, const_cast<void*>(base), dims, strides,
+                     box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The bf16 map of kernel C's operands: boxes box_rows x 64 elements,
+// 128-byte swizzle.
+inline int tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
+                           uint64_t cols, uint64_t row_bytes,
+                           uint32_t box_rows) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows,
+                       cols, row_bytes, 64, box_rows,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------

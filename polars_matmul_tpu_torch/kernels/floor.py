@@ -207,7 +207,7 @@ def tail_bytes(tm: int, core: str, levels: int, consumer: str) -> int:
 def floor_consumer(tm: int, core: str, levels: int) -> str:
     """The consumer kernel D's launch takes: "wgmma" for a stored core at
     query tile 64 where its tail fits beside two stages, else "ring"."""
-    if (tm == F.WG_TM and core in _STORED and 2 * F.wg_stage_bytes(core)
+    if (tm == F.WG_TM and core in _STORED and F.wg_ring_bytes(core, 2)
             + tail_bytes(tm, core, levels, "wgmma") <= _MAX_SMEM):
         return "wgmma"
     return "ring"
@@ -227,9 +227,10 @@ def floor_plan(tm: int, core: str, levels: int, dim: int):
     reg = register_levels(tm, core, levels, consumer)
     if consumer == "wgmma":
         stage = F.wg_stage_bytes(core)
-        stages = min(F.WG_STAGES, (_MAX_SMEM - tail) // stage)
-        return consumer, core, stages, stage, False, stages * stage + tail, \
-            reg
+        stages = max(s for s in range(2, F.WG_STAGES + 1)
+                     if F.wg_ring_bytes(core, s) + tail <= _MAX_SMEM)
+        return consumer, core, stages, stage, False, \
+            F.wg_ring_bytes(core, stages) + tail, reg
     c_ld = corpus_width(core, dim)
     ring = core
     if core == "bf16x3" and tm != 32:
@@ -247,7 +248,7 @@ def smem_bytes(tm: int, core: str, levels: int) -> int:
     then its tail (``tail_bytes``)."""
     consumer = floor_consumer(tm, core, levels)
     if consumer == "wgmma":
-        staging = 2 * F.wg_stage_bytes(core)
+        staging = F.wg_ring_bytes(core, 2)
     else:   # two stages, query not resident: independent of dim
         staging = F.ring_staging(tm, core, 1, False, 2)[1]
     return staging + tail_bytes(tm, core, levels, consumer)

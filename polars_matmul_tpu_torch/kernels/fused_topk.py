@@ -989,12 +989,14 @@ def key_indices(keys: torch.Tensor) -> torch.Tensor:
 EMPTY_KEY = (0x007FFFFF - (1 << 31)) * _HI + 1
 
 
-# Kernel A's warpgroup consumer (``csrc/ring_wgmma.cuh``): the
-# same ring of raw bytes, WG_TILES kernel tiles a step (WG_TPW for each of
-# two warpgroups), the query columns as wgmma core matrices, at most
-# WG_STAGES stages, one block an SM.
+# Kernel A's warpgroup consumer (``csrc/ring_wgmma.cuh``): a ring filled
+# by TMA loads, WG_TILES kernel tiles a step (WG_TPW for each of two
+# warpgroups), one query box of 64 rows x 16 bf16 a k16 step, hi and lo, at
+# most WG_STAGES stages, each 1024-byte aligned, a full and an empty
+# mbarrier each, one block an SM.
 WG_TM, WG_TPW, WG_STAGES = 64, 2, 8
 WG_TILES = 2 * WG_TPW
+WG_ALIGN, WG_BOX = 1024, 64 * 32
 
 
 def wgmma_core(tm: int, precision: str) -> bool:
@@ -1005,24 +1007,41 @@ def wgmma_core(tm: int, precision: str) -> bool:
 
 
 def wg_cols(precision: str) -> int:
-    """Query columns one stage meets: 64, bf16c 48 (two of its wider
-    stages still fit beside the tallest carry, k = 128)."""
-    return 48 if precision == "bf16c" else 64
+    """Query columns one stage meets: 64, bf16c 32 (its rows then take a
+    swizzle's 64 bytes, and two of its stages at 64 columns would not fit
+    beside the tallest carry, k = 128)."""
+    return 32 if precision == "bf16c" else 64
 
 
 def wg_row_bytes(precision: str) -> int:
-    """Corpus bytes a row of one stage: 2 a column for bf16c, 1 for int8,
-    half for int4."""
+    """Corpus bytes a row of one stage, its box width and its pitch in
+    the stage: 2 a column for bf16c, 1 for int8, half for int4."""
     cols = wg_cols(precision)
     return 2 * cols if precision == "bf16c" else (
         cols // 2 if _packed(precision) else cols)
 
 
+def wg_swizzle(span: int, row, byte):
+    """Where byte ``byte`` of row ``row`` of a box with ``span``-byte rows
+    (32, 64, 128) lands as a 2-D load with that span's swizzle writes it
+    (``wg_swizzle`` in the source): the box's bytes in order, each 16-byte
+    piece's index XORed with bits 7 and up of its offset."""
+    return row * span + (byte ^ ((((row * span) >> 7) & (span // 16 - 1))
+                                 << 4))
+
+
 def wg_stage_bytes(precision: str) -> int:
-    """The step's corpus rows at an odd number of 16-byte units a row,
-    then the hi and lo query columns of 64 rows (bf16)."""
-    return (WG_TILES * _TN * _odd_units(wg_row_bytes(precision), 16)
-            + 2 * WG_TM * wg_cols(precision) * 2)
+    """The step's 256 corpus rows at their box pitch, then a hi and a lo
+    query box (64 rows x 32 bytes) a k16 step."""
+    return (WG_TILES * _TN * wg_row_bytes(precision)
+            + 2 * (wg_cols(precision) // 16) * WG_BOX)
+
+
+def wg_ring_bytes(precision: str, stages: int) -> int:
+    """A ring of ``stages`` stages in shared memory (``wg_ring_bytes``):
+    room to align its first stage to 1024 bytes, the stages, then a full
+    and an empty mbarrier (8 bytes) for each of the most stages."""
+    return WG_ALIGN + stages * wg_stage_bytes(precision) + 2 * WG_STAGES * 8
 
 
 def wg_tail_bytes(k: int) -> int:
@@ -1039,10 +1058,23 @@ def wg_plan(precision: str, k: int):
     stages 0 where none fits."""
     stage = wg_stage_bytes(precision)
     for stages in range(WG_STAGES, 1, -1):
-        nbytes = stages * stage + wg_tail_bytes(k)
+        nbytes = wg_ring_bytes(precision, stages) + wg_tail_bytes(k)
         if nbytes <= MAX_SMEM:
             return stages, stage, False, nbytes
     return 0, 0, False, 0
+
+
+def wg_feature(precision: str, kc: int, col: int, ck: int) -> int:
+    """The feature query column ``col`` of ring chunk ``kc`` holds
+    (``wg_feature`` in the source): in order for bf16c and int8; for int4
+    each 16 stored bytes meet 32 columns, their low nibbles' features then
+    their high ones' (byte j of a ck-wide chunk holds feature j low and
+    j + ck/2 high).  Column 16 s is where k16 step s's query box starts."""
+    if not _packed(precision):
+        return kc * wg_cols(precision) + col
+    b, half = kc * wg_row_bytes(precision) + (col // 32) * 16, ck // 2
+    t, w = b // half, col % 32
+    return t * ck + (b - t * half) + (half + w - 16 if w >= 16 else w)
 
 
 # Kernel A's highest core (``fused_topk_f32_kernel``): the ring carries

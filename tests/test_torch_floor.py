@@ -303,15 +303,15 @@ WG_CASES = [
 def test_plain_at_tile64_geometry_matches_jax_kernel(
         tool, kernel, mode, levels, ids, posu, n, tn, kind):
     """The plain version at the splits of kernel D's tile-64 launch (the
-    warpgroup consumer for the stored cores at levels 0-2, the ring for
-    int8c at 3 and for bf16x3) against the JAX kernels; the segmented
-    cases restart a segment inside a 256-row step."""
+    warpgroup consumer for the stored cores at levels 0-3, the ring for
+    bf16x3) against the JAX kernels; the segmented cases restart a
+    segment inside a 256-row step."""
     core = {"ab": "bf16x3", "build": "int8c", "i32": "int4c",
             "rint": "int4-rint"}[mode]
     tm, splits, tps = _check_against_jax(tool, kernel, mode, levels, ids,
                                          posu, n, tn, kind, m=64, jax_tm=32)
     assert tm == 64
-    wgmma = core != "bf16x3" and levels <= 2
+    wgmma = core != "bf16x3" and levels <= 3
     assert D.floor_consumer(tm, core, levels) == ("wgmma" if wgmma
                                                  else "ring")
     if ids == "segmented":
@@ -405,11 +405,13 @@ def test_ids_past_seven_bits_raise(n, ids, tn):
 
 
 # The source's shared memory (csrc/floor.cu, csrc/ring_wgmma.cuh): a
-# wgmma stage is 256 corpus rows at an odd number of 16-byte units (int8:
-# 64 bytes -> 80; int4: 32 -> 48) and 64 x 64 bf16 query columns, hi and
-# lo; its tail four score tiles of 64 x 65 floats.
-_WG_STAGE = {"int8c": 256 * 80 + 2 * 64 * 64 * 2,
-             "int4c": 256 * 48 + 2 * 64 * 64 * 2}
+# wgmma stage is 256 corpus rows at their box pitch (int8 64 bytes, int4
+# 32) and four query boxes of 64 rows x 16 bf16, hi and lo; a ring of two
+# of them takes 1024 bytes more to align its first stage and 128 for the
+# barriers; the tail is four score tiles of 64 x 65 floats.
+_WG_STAGE = {"int8c": 256 * 64 + 2 * 4 * 64 * 32,
+             "int4c": 256 * 32 + 2 * 4 * 64 * 32}
+_WG_RING = {core: 1024 + 2 * stage + 128 for core, stage in _WG_STAGE.items()}
 _WG_TAIL = 4 * 64 * 65 * 4
 
 
@@ -421,16 +423,16 @@ def test_floor_consumer(tm, core):
     registers, deeper stacks in shared memory), the mma.sync ring
     everywhere else; the geometry keeps the query tile while a consumer
     fits."""
-    stage = _WG_STAGE["int8c" if core == "int8c" else "int4c"]
+    ring = _WG_RING["int8c" if core == "int8c" else "int4c"]
     for levels in range(0, 7):
         stacks = 0 if levels <= 1 else levels * 64 * 128 * 4
-        fits = 2 * stage + _WG_TAIL + stacks <= 232448
+        fits = ring + _WG_TAIL + stacks <= 232448
         want = ("wgmma" if tm == 64 and core != "bf16x3" and fits
                 else "ring")
         assert D.floor_consumer(tm, core, levels) == want, levels
         assert D.floor_plan(tm, core, levels, 768)[0] == want
     if tm == 64 and core != "bf16x3":
-        deepest = 2 if core == "int8c" else 3
+        deepest = 3
         assert D.floor_consumer(64, core, deepest) == "wgmma"
         assert D.floor_consumer(64, core, deepest + 1) == "ring"
     m = {16: 9, 32: 20, 64: 256}[tm]
@@ -440,6 +442,23 @@ def test_floor_consumer(tm, core):
         assert got == tm, (levels, got)
 
 
+@pytest.mark.parametrize("core", ("int8c", "int4c", "int4-rint"))
+@pytest.mark.parametrize("levels", (0, 1, 2, 3))
+def test_floor_plan_wgmma_stages(core, levels):
+    """The warpgroup consumer's ring in kernel D: the most stages (up to
+    eight) whose ring, 1024 bytes of alignment, the stages and 128 bytes
+    of barriers, fits beside D's tail; its shared memory is that ring and
+    the tail."""
+    stage = _WG_STAGE["int8c" if core == "int8c" else "int4c"]
+    stacks = 0 if levels <= 1 else levels * 64 * 128 * 4
+    tail = _WG_TAIL + stacks
+    want = max(s for s in range(2, 9)
+               if 1024 + s * stage + 128 + tail <= 232448)
+    plan = D.floor_plan(64, core, levels, 768)
+    assert plan[:5] == ("wgmma", core, want, stage, False)
+    assert plan[5] == 1024 + want * stage + 128 + tail
+
+
 def test_smem_bytes_match_the_source():
     """``smem_bytes`` (two stages of the launch's consumer, then its tail)
     against the source's arithmetic, written out: the wgmma consumer, the
@@ -447,14 +466,14 @@ def test_smem_bytes_match_the_source():
     the ring but none at query tile 64 or for int4 at 32) and the
     levels=0 maxima, which take no shared memory."""
     tile64 = 64 * 65 * 4
-    # wgmma: stages, four score tiles, and stacks from two levels.
-    assert D.smem_bytes(64, "int8c", 0) == 2 * _WG_STAGE["int8c"] \
-        + _WG_TAIL == 140288
-    assert D.smem_bytes(64, "int8c", 1) == 140288
-    assert D.smem_bytes(64, "int8c", 2) == 140288 + 2 * 64 * 128 * 4
-    assert D.smem_bytes(64, "int4-raw", 1) == 2 * _WG_STAGE["int4c"] \
-        + _WG_TAIL
-    assert D.smem_bytes(64, "int4c", 3) == 222208
+    # wgmma: the ring of two stages, four score tiles, and stacks from two
+    # levels.
+    assert D.smem_bytes(64, "int8c", 0) == _WG_RING["int8c"] + _WG_TAIL \
+        == 133248
+    assert D.smem_bytes(64, "int8c", 1) == 133248
+    assert D.smem_bytes(64, "int8c", 2) == 133248 + 2 * 64 * 128 * 4
+    assert D.smem_bytes(64, "int4-raw", 1) == _WG_RING["int4c"] + _WG_TAIL
+    assert D.smem_bytes(64, "int4c", 3) == 215168
     # The tile-64 ring (int8: 32 bytes a row -> 48, 32 query columns of 64
     # bytes -> 96 a row), five levels in shared memory.
     assert D.smem_bytes(64, "int8c", 5) == 2 * (64 * 48 + 2 * 64 * 96) \

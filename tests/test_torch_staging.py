@@ -178,20 +178,22 @@ def test_int4_chunk_of_a_byte_without_division(half):
 
 
 # Kernel A's stored cores at query tile 64: the warpgroup consumer
-# (``csrc/ring_wgmma.cuh``) on the same ring.
+# (``csrc/ring_wgmma.cuh``) on a ring that TMA loads fill.
 
 
 @pytest.mark.parametrize("core,cols,row_bytes,want", [
-    ("bf16c", 48, 96, 256 * 112 + 2 * 64 * 48 * 2),
-    ("int8c", 64, 64, 256 * 80 + 2 * 64 * 64 * 2),
-    ("int4c", 64, 32, 256 * 48 + 2 * 64 * 64 * 2),
+    ("bf16c", 32, 64, 256 * 64 + 2 * 2 * 64 * 32),
+    ("int8c", 64, 64, 256 * 64 + 2 * 4 * 64 * 32),
+    ("int4c", 64, 32, 256 * 32 + 2 * 4 * 64 * 32),
 ])
 def test_wgmma_stage_bytes(core, cols, row_bytes, want):
     """A stage holds 256 corpus rows (four kernel tiles, two a warpgroup)
-    at an odd number of 16-byte units a row, then the hi and lo query
-    columns they meet (whole k16 steps; int4 whole 16-byte groups)."""
+    at their box pitch, unpadded, then a hi and a lo query box of 64 rows
+    x 16 bf16 for each k16 step of the columns they meet (int4 whole
+    16-byte groups); a whole number of 1024-byte units, so every stage
+    keeps the first one's alignment."""
     assert (F.wg_cols(core), F.wg_row_bytes(core)) == (cols, row_bytes)
-    assert F.wg_stage_bytes(core) == want and want % 16 == 0
+    assert F.wg_stage_bytes(core) == want and want % F.WG_ALIGN == 0
     assert F.WG_TILES * F._TN == 256 and cols % 16 == 0
 
 
@@ -200,14 +202,18 @@ def test_wgmma_stage_bytes(core, cols, row_bytes, want):
 def test_wgmma_plan_one_block_an_sm(core, k):
     """The warpgroup consumer runs one block an SM (its accumulators take
     up to 255 registers a thread), with the most stages that fit beside
-    the carry."""
+    the carry: the ring's bytes are room to align its first stage, the
+    stages, and a full and an empty barrier for each of the most."""
     stages, stage, resident, smem = F.wg_plan(core, k)
     assert not resident
     assert 2 <= stages <= F.WG_STAGES and smem <= F.MAX_SMEM
     assert _blocks(smem) == 1
-    assert smem == stages * stage + F.wg_tail_bytes(k)
+    ring = F.wg_ring_bytes(core, stages)
+    assert ring == 1024 + stages * stage + 2 * F.WG_STAGES * 8
+    assert smem == ring + F.wg_tail_bytes(k)
     assert (stages == F.WG_STAGES
-            or (stages + 1) * stage + F.wg_tail_bytes(k) > F.MAX_SMEM)
+            or F.wg_ring_bytes(core, stages + 1) + F.wg_tail_bytes(k)
+            > F.MAX_SMEM)
 
 
 @pytest.mark.parametrize("core", STORED)
@@ -225,13 +231,13 @@ def test_wgmma_plan_fits_every_tile_64_k(core):
 
 @pytest.mark.parametrize("core,k,want", [
     ("int8c", 10, 4), ("int8c", 100, 3), ("int8c", 128, 2),
-    ("int4c", 10, 5), ("int4c", 100, 3), ("int4c", 128, 3),
-    ("bf16c", 10, 3), ("bf16c", 100, 2), ("bf16c", 128, 2),
+    ("int4c", 10, 6), ("int4c", 100, 4), ("int4c", 128, 3),
+    ("bf16c", 10, 6), ("bf16c", 100, 4), ("bf16c", 128, 3),
 ])
 def test_wgmma_plan_stages(core, k, want):
-    """The stages of the north-star cells: the ring deferring each
-    stage's wait (three stages or more) everywhere but bf16c past k = 10
-    and int8 at k = 128."""
+    """The stages of the north-star cells, each keeping stages - 1
+    positions in flight: int8 at least two, int4 and bf16c (32 columns a
+    stage) at least three."""
     assert F.wg_plan(core, k)[0] == want
 
 
@@ -244,72 +250,152 @@ def test_stage_plan_below_tile_64_is_the_mma_ring(core):
 
 
 # NumPy models of what csrc/ring_wgmma.cuh computes on the card: where a
-# query column lands in a stage (wg_query_offset), each k16 step's matrix
-# descriptor fields, and the feature a stage column holds (wg_feature).
+# stage byte lands (wg_swizzle, the 2-D load's swizzle), each k16 step's
+# matrix descriptor, and the feature a query box column holds
+# (wg_feature).
 
 
-def _query_offset(core, row, col):
-    """Element offset of query (row, column) in a stage's hi or lo
-    columns: 8-row x 8-column core matrices of 128 bytes, row groups
-    outer."""
-    return (((row >> 3) * (F.wg_cols(core) >> 3) + (col >> 3)) * 64
-            + (row & 7) * 8 + (col & 7))
+def _tma_swizzle(span, offset):
+    """The swizzle a 2-D load applies with a box ``span`` bytes wide
+    (CU_TENSOR_MAP_SWIZZLE_32B / 64B / 128B), as the CUDA documentation
+    states it on the byte offset from an aligned base: the 16-byte piece
+    index, bits [4, 4 + w), XORed with bits [7, 7 + w), w = log2(span /
+    16)."""
+    w = {32: 1, 64: 2, 128: 3}[span]
+    mask = (1 << w) - 1
+    return offset ^ (((offset >> 7) & mask) << 4)
+
+
+def _query_offset(core, step, row, col):
+    """Byte offset of query (row, column 16 step + col) in a stage's hi (or
+    lo) boxes: box ``step`` is 64 rows x 32 bytes, 32-byte swizzle."""
+    return step * F.WG_BOX + F.wg_swizzle(32, row, 2 * col)
 
 
 def _step_descriptor(core, step):
-    """(start, leading, stride) byte offsets of k16 step ``step``'s B
-    operand: its first core matrix, the next 8 columns, the next 8 rows
-    (no swizzle, K-major), as wg_issue builds them."""
-    return 256 * step, 128, 16 * F.wg_cols(core)
+    """(start, leading, stride, layout type) of k16 step ``step``'s B
+    operand as wg_desc builds them: the step's box, the leading byte
+    offset unused (16), 8 rows of 32 bytes to the next 8, type 3 (32-byte
+    swizzle)."""
+    return step * F.WG_BOX, 16, 256, 3
 
 
-def _feature(core, kc, col, ck):
-    """The feature query column ``col`` of ring chunk ``kc`` holds: in
-    order for bf16c and int8; for int4 each 16 stored bytes meet 32
-    columns, their low nibbles' features then their high ones' (byte j of
-    a ck-wide chunk holds feature j low and j + ck/2 high)."""
-    if core != "int4c":
-        return kc * F.wg_cols(core) + col
-    b, half = kc * F.wg_row_bytes(core) + (col // 32) * 16, ck // 2
-    t, w = b // half, col % 32
-    return t * ck + (b - t * half) + (half + w - 16 if w >= 16 else w)
+@pytest.mark.parametrize("span", (32, 64, 128))
+def test_wgmma_swizzle_is_the_tma_pattern(span):
+    """wg_swizzle is a bijection of every 8-row group of a box onto
+    itself, equal to the documented TMA swizzle of the row-major offset;
+    and, per row, the piece order it documents: piece p of row r at p XOR
+    (r % 8) for 128 bytes, (r / 2) % 4 for 64, (r / 4) % 2 for 32."""
+    rows = 64
+    r, b = np.meshgrid(np.arange(rows), np.arange(span), indexing="ij")
+    got = F.wg_swizzle(span, r, b)
+    assert np.array_equal(got, _tma_swizzle(span, r * span + b))
+    assert sorted(got.ravel()) == list(range(rows * span))
+    assert np.array_equal(got // (8 * span), r // 8)
+    shift = {128: 0, 64: 1, 32: 2}[span]
+    piece = ((b // 16) ^ ((r >> shift) % (span // 16))) * 16 + b % 16
+    assert np.array_equal(got, r * span + piece)
+
+
+@pytest.mark.parametrize("core", STORED)
+def test_wgmma_fragment_loads_fall_on_distinct_banks(core):
+    """Each of wg_decode's shared-memory loads, over a warp's 32 lanes
+    (rows g and g + 8 of the warp's 16, bytes of thread tig), reads
+    distinct 4-byte words from distinct banks (lanes on one word share
+    it), and stays inside one 16-byte piece: the swizzle keeps the 8 rows
+    of a fragment load apart, which the unpadded 64- and 32-byte pitches
+    alone would not."""
+    rb = F.wg_row_bytes(core)
+    steps = F.wg_cols(core) // 16
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    loads = []   # (row offset, byte of the row, bytes) of each load
+    for wg in (0, 1):
+        for wq in range(4):
+            for j in range(F.WG_TPW):
+                for h in (0, 8):
+                    r = F._TN * (F.WG_TPW * wg + j) + 16 * wq + g + h
+                    for s in range(0, steps, 2 if core == "int4c" else 1):
+                        if core == "bf16c":
+                            for b in (32 * s + 4 * tig, 32 * s + 16 + 4 * tig):
+                                loads.append((r, b, 4))
+                        else:
+                            base = (8 if core == "int4c" else 16) * s \
+                                + 2 * tig
+                            loads += [(r, base, 2), (r, base + 8, 2)]
+    for r, b, size in loads:
+        addr = F.wg_swizzle(rb, r, b)
+        assert np.array_equal(addr // 16, F.wg_swizzle(rb, r, b + size - 1)
+                              // 16)
+        words = addr // 4
+        unique = np.unique(words)
+        assert len(np.unique(unique % 32)) == len(unique), (r, b)
+        # Without the swizzle (the rows at their pitch) rows would collide.
+        plain = np.unique((r * rb + b) // 4)
+        assert len(np.unique(plain % 32)) < len(plain)
+
+
+@pytest.mark.parametrize("core", STORED)
+def test_wgmma_stage_layout_is_aligned(core):
+    """A stage: the four corpus boxes (64 rows at the row pitch) from its
+    1024-byte aligned base, then k16 steps' hi boxes and lo boxes of
+    2048 bytes; each box at a multiple of its swizzle's period (8 rows of
+    its span), so the swizzle a load writes is the one wg_swizzle reads;
+    the barriers after the last stage, 8-byte aligned."""
+    rb, steps = F.wg_row_bytes(core), F.wg_cols(core) // 16
+    corpus = [j * F._TN * rb for j in range(F.WG_TILES)]
+    query = [F.WG_TILES * F._TN * rb + i * F.WG_BOX for i in range(2 * steps)]
+    assert all(o % (8 * rb) == 0 for o in corpus)
+    assert all(o % 256 == 0 for o in query)
+    assert query[-1] + F.WG_BOX == F.wg_stage_bytes(core)
+    for stages in range(2, F.WG_STAGES + 1):
+        bars = F.WG_ALIGN + stages * F.wg_stage_bytes(core)
+        assert bars % 8 == 0
+        assert F.wg_ring_bytes(core, stages) == bars + 2 * F.WG_STAGES * 8
 
 
 @pytest.mark.parametrize("core", STORED)
 def test_wgmma_query_layout_is_core_matrices(core):
-    """The query columns of a stage: every (row, column) at its own
-    offset, 8 columns of a row contiguous (one 16-byte cp.async), a core
-    matrix 128 contiguous bytes."""
-    cols = F.wg_cols(core)
-    r, c = np.meshgrid(np.arange(64), np.arange(cols), indexing="ij")
-    off = _query_offset(core, r, c)
-    assert sorted(off.ravel()) == list(range(64 * cols))
-    assert (off[:, 1:8] - off[:, :1] == np.arange(1, 8)).all()
-    assert (off[:, ::8] % 8 == 0).all()
-    for rg in range(8):
-        for cg in range(cols // 8):
-            block = off[8 * rg:8 * rg + 8, 8 * cg:8 * cg + 8]
-            assert block.min() % 64 == 0
-            assert sorted(block.ravel()) == list(
-                range(block.min(), block.min() + 64))
+    """The query columns of a stage: every (row, column) of every step's
+    box at its own offset, a box 64 rows of 32 bytes, each 8-row group
+    256 contiguous bytes made of two core matrices (8 rows x 16 bytes) of
+    the 32-byte swizzle: a row's 8 columns stay contiguous, the two halves
+    of rows 4-7 swapped."""
+    steps = F.wg_cols(core) // 16
+    st, r, c = np.meshgrid(np.arange(steps), np.arange(64), np.arange(16),
+                           indexing="ij")
+    off = _query_offset(core, st, r, c)
+    assert sorted(off.ravel()) == list(range(0, steps * F.WG_BOX, 2))
+    assert (off[..., 1:8] - off[..., :1] == 2 * np.arange(1, 8)).all()
+    assert (off[..., 8:] - off[..., 8:9] == 2 * np.arange(8)).all()
+    for s in range(steps):
+        for rg in range(8):
+            block = off[s, 8 * rg:8 * rg + 8]
+            assert block.min() == s * F.WG_BOX + 256 * rg
+            for half in (0, 1):
+                cm = block[:, 8 * half:8 * half + 8] // 16
+                assert len(np.unique(cm)) == 8
+        swapped = off[s, 4:8, :8] - off[s, 4:8, 8:]
+        assert (swapped == 16).all() and (off[s, :4, 8:] - off[s, :4, :8]
+                                          == 16).all()
 
 
 @pytest.mark.parametrize("core", STORED)
 def test_wgmma_descriptor_fields_address_the_b_operand(core):
     """Each k16 step's descriptor (start, leading byte offset, stride byte
-    offset) addresses query row n, k slot j as the no-swizzle K-major
-    canonical layout does: start + (n / 8) SBO + (n % 8) 16 + (j / 8) LBO
-    + (j % 8) 2, which must be column 16 step + j of row n."""
-    cols = F.wg_cols(core)
+    offset, layout type 3) addresses query row n, k slot j as the 32-byte
+    swizzled K-major layout does: the row's 32 bytes at start + (n / 8)
+    SBO + (n % 8) 32, its 16-byte pieces swizzled by bit 7 of that
+    offset, which must be column 16 step + j of row n."""
+    steps = F.wg_cols(core) // 16
     n, j = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
-    for step in range(cols // 16):
-        start, lbo, sbo = _step_descriptor(core, step)
-        assert start % 16 == 0 and lbo % 16 == 0 and sbo % 16 == 0
+    for step in range(steps):
+        start, lbo, sbo, layout = _step_descriptor(core, step)
+        assert start % 256 == 0 and sbo % 16 == 0 and layout == 3
         assert max(start, lbo, sbo) >> 4 < 1 << 14   # 14-bit fields
-        addr = start + (n // 8) * sbo + (n % 8) * 16 + (j // 8) * lbo \
-            + (j % 8) * 2
-        assert np.array_equal(addr, 2 * _query_offset(
-            core, n, 16 * step + j))
+        row = (n // 8) * sbo + (n % 8) * 32
+        addr = start + _tma_swizzle(32, row + 2 * j)
+        assert np.array_equal(addr, _query_offset(core, step, n, j))
 
 
 def _a_slot_features(core, kc, step, ck):
@@ -339,8 +425,9 @@ def _a_slot_features(core, kc, step, ck):
     ("int4c", 8192)])
 def test_wgmma_a_and_b_agree_on_the_k_order(core, dim):
     """For every chunk and k16 step, the feature a thread decodes into A
-    slot j is the feature the query column under B slot j holds, int4's
-    nibble order across ck-wide chunks included."""
+    slot j is the feature column j of the step's query box holds (the box
+    starts at wg_feature's column 16 step and holds 16 consecutive
+    features), int4's nibble order across ck-wide chunks included."""
     ck = F.feature_geometry(dim)[0]
     c_ld = F._corpus_width(core, dim)
     row_bytes = c_ld * (2 if core == "bf16c" else 1)
@@ -349,8 +436,78 @@ def test_wgmma_a_and_b_agree_on_the_k_order(core, dim):
     for kc in range(chunks):
         for step in range(F.wg_cols(core) // 16):
             a = _a_slot_features(core, kc, step, ck)
-            b = [_feature(core, kc, 16 * step + j, ck) for j in range(16)]
+            x = F.wg_feature(core, kc, 16 * step, ck)
+            b = [x + j for j in range(16)]
+            assert b == [F.wg_feature(core, kc, 16 * step + j, ck)
+                         for j in range(16)]
             assert list(a) == b, (kc, step)
             seen.update(b)
     width = 2 * c_ld if core == "int4c" else dim
     assert seen == set(range(width))
+
+
+@pytest.mark.parametrize("dim", (256, 768, 4200))
+def test_wgmma_int4_query_boxes_give_the_product(dim):
+    """int4's query in the ring's column order, one box a k16 step from
+    wg_feature's first column (zero past dim, as the maps' out-of-bounds
+    fill gives), against the nibbles in wg_decode's slot order: a NumPy
+    product over the permuted columns equals the product of the unpacked
+    codes with the unpermuted query, and the permutation is wg_feature's
+    column by column."""
+    rng = np.random.default_rng(dim)
+    ck = F.feature_geometry(dim)[0]
+    codes = rng.integers(-7, 8, (64, dim))
+    packed = F.pack_int4(torch.from_numpy(codes), ck).numpy().astype(
+        np.uint8)
+    q = rng.standard_normal((5, dim)).astype(np.float64)
+    c_ld = packed.shape[1]
+    chunks = -(-c_ld // F.wg_row_bytes("int4c"))
+    cols, vals = [], []
+    for kc in range(chunks):
+        for step in range(4):
+            x = F.wg_feature("int4c", kc, 16 * step, ck)
+            box = [x + j for j in range(16)]
+            assert box == [F.wg_feature("int4c", kc, 16 * step + j, ck)
+                           for j in range(16)]
+            cols += box
+            for e in range(16):   # A slot e: byte 16 (step // 2) + e
+                byte = kc * 32 + 16 * (step // 2) + e
+                nib = (packed[:, byte] >> (4 if step % 2 else 0)) & 0xF
+                vals.append(np.where(nib >= 8, nib.astype(np.int64) - 16,
+                                     nib))
+    qp = np.zeros((5, len(cols)))
+    live = np.array(cols) < dim
+    qp[:, live] = q[:, np.array(cols)[live]]
+    got = qp @ np.stack(vals, axis=0)
+    want = q @ codes.T
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+def test_ab_kernel_a_variants_patch_this_tree():
+    """Every variant of ``ab_kernel_a.py`` (``noproducts`` takes the
+    tile-64 consumer's products out of ``ring_wgmma.cuh``) patches this
+    tree's sources once; ``noproducts`` keeps the fragments consumed and
+    leaves no wgmma in wg_issue."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    from polars_matmul_tpu_torch.kernels import _build
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("ab_kernel_a",
+                                                  root / "ab_kernel_a.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    assert "noproducts" in ab.VARIANTS
+    for name, patches in ab.VARIANTS.items():
+        for pattern, replacement, *where in patches:
+            path = _build._CSRC / (where[0] if where else "fused_topk.cu")
+            src = path.read_text()
+            text, hits = re.subn(pattern, replacement, src, count=1)
+            assert hits == 1 and text != src, name
+            if name == "noproducts":
+                issue = text[text.index("__device__ inline void wg_issue"):]
+                issue = issue[:issue.index("\n}\n")]
+                assert "wgmma_m64n64k16" not in issue
+                assert '"r"(x[3])' in issue
