@@ -32,8 +32,14 @@ Phases, each printing one line or a few:
    bf16x3 ring's mma.sync consumer against the per-tile staging it
    replaced (``scores_bf16x3``, kept as this reference), every score
    bit for bit on the canonical and 2M x 256 operands at query tiles 16,
-   32 and 64; the
-   on-card quantizers against the host NumPy ones, bit for bit; kernel B
+   32 and 64; non-finite data (``NONFINITE_MS`` x ``NONFINITE_KS``: corpus
+   rows and queries holding NaN and +-inf) through kernels A and B in every
+   core, dense and listed, with and without a mask, against their plain
+   versions (indices exact, integer data bit for bit), and the public
+   ``topk`` / ``Corpus.topk`` on the card against the CPU on the same bad
+   inputs; the
+   on-card quantizers against the host NumPy ones, bit for bit (rows with
+   NaN, +-inf and out-of-range entries included); kernel B
    bit for bit over a sweep of sorted lists (splits 1 to 1024, k 1 to
    1024, m 1 to 1000: tie data, padded and wholly -inf lists, -inf entries
    with real indices; one block a row and several); kernel A
@@ -350,22 +356,28 @@ def require(cond: bool, msg: str) -> None:
 
 def compare(v, i, v_ref, i_ref, rtol=RTOL, atol=ATOL, scale=0.0, what="",
             exact=False):
-    """Top-k results agree: the same -inf slots, finite scores within
-    tolerance, and indices equal except where the two scores tie within
-    it; with ``exact``, scores and indices are bit-identical.  Returns the
-    largest absolute score difference."""
+    """Top-k results agree: the same NaN slots with the same indices, the
+    same infinite slots, finite scores within tolerance, and indices equal
+    except where the two scores tie within it; with ``exact``, scores and
+    indices are bit-identical (NaN slots as NaN).  Returns the largest
+    absolute score difference."""
     import torch
 
     require(v.shape == v_ref.shape, f"{what}: shape {v.shape} != "
             f"{v_ref.shape}")
+    nan_a, nan_b = torch.isnan(v), torch.isnan(v_ref)
+    require(torch.equal(nan_a, nan_b)
+            and torch.equal(i[nan_a], i_ref[nan_b]),
+            f"{what}: NaN slots differ")
     if exact:
-        require(torch.equal(v, v_ref), f"{what}: scores differ")
+        require(torch.equal(v[~nan_a], v_ref[~nan_b]),
+                f"{what}: scores differ")
         require(torch.equal(i, i_ref), f"{what}: indices differ")
         return 0.0
     inf_a, inf_b = torch.isinf(v), torch.isinf(v_ref)
     require(torch.equal(inf_a, inf_b) and torch.equal(v[inf_a], v_ref[inf_b]),
             f"{what}: infinite slots differ")
-    fin = ~inf_a
+    fin = ~inf_a & ~nan_a
     diff = torch.where(fin, (v - v_ref).abs(), torch.zeros_like(v))
     tol = atol + rtol * torch.maximum(
         v_ref.abs(), torch.as_tensor(scale, device=v_ref.device))
@@ -868,6 +880,179 @@ def _selection_edges(F, torch, gen, err):
     return cases
 
 
+# Non-finite data through kernels A and B (phase 2): query rows (query
+# tiles 16, 32 and 64 at k <= 128; 16 at k=512) and k (inserting at 1 and
+# 10, appending at 100 and 512).
+NONFINITE_MS = (9, 20, 65)
+NONFINITE_KS = (1, 10, 100, 512)
+
+
+def _poison(torch, q, c):
+    """Bad corpus rows (a NaN, a +inf or a -inf entry; a row of each
+    whole) and bad queries (rows 1, 3, 5 of at most m: NaN, +inf, -inf),
+    written in place.  Returns the bad corpus rows."""
+    n, dim = c.shape
+    bad = list(range(3, n, 41))
+    for j, r in enumerate(bad):
+        c[r, (5 * r) % dim] = (np.nan, np.inf, -np.inf)[j % 3]
+    c[n // 2] = np.nan
+    c[n // 2 + 1] = np.inf
+    c[n // 2 + 2] = -np.inf
+    for j, r in enumerate(range(1, min(q.shape[0], 6), 2)):
+        q[r, (3 * r) % dim] = (np.nan, np.inf, -np.inf)[j]
+    return torch.tensor(bad + [n // 2, n // 2 + 1, n // 2 + 2],
+                        device=c.device)
+
+
+def _no_bad(torch, v, i, bad, what):
+    """No NaN selected and no bad row in a kernel's result; every -inf
+    slot the sentinel."""
+    require(not bool(torch.isnan(v).any()), f"{what}: a NaN was selected")
+    require(not bool(torch.isin(i, bad.to(i.dtype)).any()),
+            f"{what}: a bad row was selected")
+    require(torch.equal(v == float("-inf"), i == 2 ** 31 - 1),
+            f"{what}: -inf slots and sentinel indices differ")
+
+
+def _nonfinite_edges(F, torch, gen, err):
+    """Kernels A and B against their plain versions on bad rows and bad
+    queries: every core, NONFINITE_MS x NONFINITE_KS, every metric (dot
+    and euclidean on integer data, bit for bit; cosine on normal data,
+    whose scores lie within 1), with and without a mask that also drops
+    some bad rows, dense and walking a list of every other layout tile.
+    Returns the cases."""
+    n, dim, tn = 3000, 56, 128
+    layout = -(-n // tn)
+    tiles = torch.tensor([list(range(0, layout, 2))], dtype=torch.int32,
+                         device="cuda")
+    cases = 0
+    for m in NONFINITE_MS:
+        data = {}
+        for tie in (True, False):
+            q, c = (_tie_data(torch, gen, m, n, dim) if tie
+                    else _case_data(torch, gen, m, n, dim, False))
+            bad = _poison(torch, q, c)
+            data[tie] = (q, c, bad)
+        keep = torch.rand((n,), generator=gen, device="cuda") < 0.66
+        keep[data[True][2][::2]] = False
+        masks = (None, F.pad_mask_row(keep, n))
+        for metric in ("cosine", "dot", "euclidean"):
+            tie = metric != "cosine"
+            q, c, bad = data[tie]
+            for precision in F.CORES:
+                qp = F.prepare_queries(q, metric, precision)
+                cp, cbp = F.prepare_corpus(c, metric, precision=precision)
+                scale = 0.0 if tie else 1.0
+                for k in NONFINITE_KS:
+                    for mask in masks:
+                        what = (f"non-finite m={m} n={n} k={k} {metric} "
+                                f"{precision} mask={mask is not None}")
+                        _check_kernels(F, qp, cp, cbp, mask, k, precision,
+                                       err, what, scale=scale, exact=tie)
+                        sv, si = _check_listed(
+                            F, qp, cp, cbp, mask, k, precision, tiles, tn, m,
+                            err, "listed " + what, scale=scale, exact=tie)
+                        _no_bad(torch, sv, si, bad, "listed " + what)
+                        _no_bad(torch, *F.fused_select(
+                            qp, cp, cbp, mask, k, precision), bad, what)
+                        cases += 2
+                del qp, cp, cbp
+    torch.cuda.synchronize()
+    return cases
+
+
+def _kernel_launches(F):
+    """(kernel A, kernel B) launches so far."""
+    return np.array([F.launches["fused_topk_partial"]
+                     + F.launches["fused_topk_partial_tiles"],
+                     F.launches["topk_merge"]])
+
+
+def _plain_launches(F):
+    return sum(F.launches[key] for key in (
+        "fused_topk_plain", "fused_topk_partial_plain", "topk_merge_plain"))
+
+
+def _nonfinite_public(torch):
+    """The public paths on the card against the CPU on the same bad
+    inputs: ``topk`` (bf16x3 and highest) and ``Corpus.topk`` (bf16, int8,
+    int4), k=10 and 100, every metric; indices equal (cosine: up to
+    scores tied within tolerance), each bad query (NaN, INT32_MAX), no bad
+    row returned, and no plain version run on the card.  Then a
+    ``ClusteredCorpus`` (f32 and int8) on the card, exhaustive and probed:
+    the same rule, its bad rows in cluster 0.  Returns the requests held
+    to the CPU."""
+    import polars_matmul_tpu_torch as pmt
+    from polars_matmul_tpu_torch.kernels import fused_topk as F
+
+    rng = np.random.default_rng(SEED)
+    m, n, dim = 37, 5000, 56
+    q_int = rng.integers(-2, 3, (m, dim)).astype(np.float32)
+    c_int = rng.integers(-2, 3, (n, dim)).astype(np.float32)
+    q_real = rng.standard_normal((m, dim)).astype(np.float32)
+    c_real = rng.standard_normal((n, dim)).astype(np.float32)
+    bads = [_poison(torch, torch.from_numpy(qq), torch.from_numpy(cc))
+            .numpy() for qq, cc in ((q_int, c_int), (q_real, c_real))]
+    bad_q = [1, 3, 5]
+    requests = 0
+
+    def held(got, metric, bad, what, want=None):
+        gi, gv = got
+        require(not np.isin(gi, bad).any(), f"{what}: a bad row returned")
+        require((gi[bad_q] == 2 ** 31 - 1).all()
+                and np.isnan(gv[bad_q]).all(),
+                f"{what}: a bad query's slots are not (NaN, INT32_MAX)")
+        if want is None:
+            return
+        wi, wv = want
+        if metric == "cosine":
+            compare(torch.from_numpy(gv), torch.from_numpy(gi.astype(
+                np.int64)), torch.from_numpy(wv), torch.from_numpy(
+                wi.astype(np.int64)), scale=1.0, what=what)
+        else:
+            require(np.array_equal(gi, wi) and np.allclose(
+                gv, wv, rtol=1e-6, atol=1e-6, equal_nan=True),
+                f"{what}: the card's result differs from the CPU's")
+
+    for metric in ("cosine", "dot", "euclidean"):
+        q, c, bad = ((q_real, c_real, bads[1]) if metric == "cosine"
+                     else (q_int, c_int, bads[0]))
+        handles = {dev: {tier: pmt.Corpus(c, storage=tier, device=dev)
+                         for tier in ("bf16", "int8", "int4")}
+                   for dev in ("cuda", "cpu")}
+        for k in (10, 100):
+            for core in ("bf16x3", "highest"):
+                cfg = pmt.SearchConfig(precision=core)
+                plain = _plain_launches(F)
+                got = pmt.topk(q, c, k, metric, config=cfg, device="cuda")
+                require(_plain_launches(F) == plain,
+                        "a plain version ran on a card request")
+                held(got, metric, bad, f"topk {metric} {core} k={k}",
+                     pmt.topk(q, c, k, metric, config=cfg, device="cpu"))
+                requests += 1
+            for tier in ("bf16", "int8", "int4"):
+                plain = _plain_launches(F)
+                got = handles["cuda"][tier].topk(q, k, metric)
+                require(_plain_launches(F) == plain,
+                        "a plain version ran on a card request")
+                held(got, metric, bad, f"Corpus {tier} {metric} k={k}",
+                     handles["cpu"][tier].topk(q, k, metric))
+                requests += 1
+        del handles
+        for tier in ("f32", "int8"):
+            cc = pmt.ClusteredCorpus(c, clusters=8, storage=tier,
+                                     device="cuda")
+            tiles = cc.layout.row_pos[bad] // cc.layout.tn
+            require((cc.layout.tile_cluster[tiles] == 0).all()
+                    and bool(torch.isfinite(cc.centroids).all()),
+                    f"ClusteredCorpus {tier}: a bad row outside cluster 0")
+            for probe in (None, 0.25):
+                held(cc.topk(q, 100, metric, probe=probe), metric, bad,
+                     f"ClusteredCorpus {tier} {metric} probe={probe}")
+    torch.cuda.synchronize()
+    return requests
+
+
 def _tile_lists(torch, scores, k):
     """The best k of every 64-row tile's scores of each row as kernel A's
     carry holds them (value descending, lowest index first on ties, -inf
@@ -965,26 +1150,53 @@ def _per_tile_bits(F, torch):
     return cases
 
 
+def _bad_quantizer_rows(torch, c):
+    """Rows of ``c`` made bad in place, each beside out-of-range entries:
+    one NaN, one +inf, one -inf, a whole NaN row, a whole +inf row.
+    Returns their indices."""
+    n, dim = c.shape
+    rows = torch.arange(5, n, 89, device=c.device)
+    for j, r in enumerate(rows.tolist()):
+        c[r, (7 * r) % dim] = (np.nan, np.inf, -np.inf)[j % 3]
+        c[r, (7 * r + 1) % dim] = 300.0
+        c[r, (7 * r + 2) % dim] = -300.0
+    c[1] = np.nan
+    c[2] = np.inf
+    return torch.cat([rows, torch.tensor([1, 2], device=c.device)])
+
+
 def _check_quantizers(F, torch, gen):
     """The torch quantizers on the card against the host NumPy ones, bit
-    for bit, on one ingestion chunk (zero rows included)."""
+    for bit, on one ingestion chunk: zero rows, and rows holding NaN,
+    +-inf and entries far outside the codes' range (each of those codes 0
+    and scale NaN).  Returns the bad rows checked."""
     from polars_matmul_tpu_torch.kernels import storage as S
 
+    checked = 0
     for dim in (WIDE_DIM, 4200):
         c = torch.randn((4096, dim), generator=gen, device="cuda")
         c[::97] = 0.0
+        bad = _bad_quantizer_rows(torch, c).cpu().numpy()
         host = c.cpu().numpy()
         codes, scales = F.quantize_int8(c)
         hc, hs = S._quantize_rows_np(host)
         require(np.array_equal(codes.cpu().numpy(), hc)
-                and np.array_equal(scales.cpu().numpy(), hs),
+                and np.array_equal(scales.cpu().numpy().view(np.int32),
+                                   hs.view(np.int32)),
                 f"int8 quantizer on the card differs from the host at {dim}")
+        require((hc[bad] == 0).all() and np.isnan(hs[bad]).all(),
+                f"int8 quantizer: a bad row is not codes 0, scale NaN")
         ck, dpp, _ = F.feature_geometry(dim)
         packed, scales = F.quantize_int4(c, ck)
         hp, hs = S._quantize_rows_int4_np(host, ck, dpp)
         require(np.array_equal(packed.cpu().numpy(), hp)
-                and np.array_equal(scales.cpu().numpy(), hs),
+                and np.array_equal(scales.cpu().numpy().view(np.int32),
+                                   hs.view(np.int32)),
                 f"int4 quantizer on the card differs from the host at {dim}")
+        require((hp[bad] == 0).all() and np.isnan(hs[bad]).all(),
+                f"int4 quantizer: a bad row is not codes 0, scale NaN")
+        checked += 2 * bad.size
+    return checked
 
 
 def _random_lists(torch, gen, n_lists, n_layout, p):
@@ -1297,7 +1509,25 @@ def _compare_all(F, torch, ms, ns, dims, ks):
           f"splits of 1 and 2 tiles, zero query rows, masked rows and whole "
           f"splits, a tile list; the slack filled exactly and one past at "
           f"k=17/100/512); {time.perf_counter() - t0:.1f} s")
-    _check_quantizers(F, torch, gen)
+    t0 = time.perf_counter()
+    before = _kernel_launches(F)
+    nf_cases = _nonfinite_edges(F, torch, gen, err)
+    nf_requests = _nonfinite_public(torch)
+    launched = _kernel_launches(F) - before
+    print(f"phase 2: non-finite values: {nf_cases} cases of kernels A and B "
+          f"against their plain versions on corpus rows and queries holding "
+          f"NaN and +-inf (every core, m={NONFINITE_MS}: query tiles 16, "
+          f"32, 64; k={NONFINITE_KS}: inserting and appending; dense and "
+          f"listed, masked and not, the carry gate on and off; indices "
+          f"exact, integer data bit for bit, no bad row and no NaN "
+          f"selected), then {nf_requests} public requests (topk in "
+          f"bf16x3 and highest, Corpus at bf16 / int8 / int4, k=10 and 100, "
+          f"every metric) equal to the CPU's on the same bad inputs, and "
+          f"ClusteredCorpus requests holding the rule; {launched[0]} "
+          f"launches of kernel A (the gate's reruns included), "
+          f"{launched[1]} of kernel B, no plain version on a card request; "
+          f"{time.perf_counter() - t0:.1f} s")
+    bad_rows = _check_quantizers(F, torch, gen)
     t0 = time.perf_counter()
     merges, grouped, shared = _merge_sweep(F, torch, gen)
     print(f"phase 2: kernel B sweep: {merges} cases bit-identical to its "
@@ -1324,7 +1554,8 @@ def _compare_all(F, torch, ms, ns, dims, ks):
     print(f"phase 2: {cases} ragged cases match (atol {ATOL} + rtol {RTOL} "
           f"x max(|score|, row term scale); kernel B bit-identical), every "
           f"core; {ties} integer tie cases bit-identical; the on-card "
-          f"quantizers equal the host ones bit for bit")
+          f"quantizers equal the host ones bit for bit ({bad_rows} bad "
+          f"rows among them, each codes 0 and scale NaN)")
     listed, listed_ties, full, near = _compare_listed(F, torch, gen, err)
     print(f"phase 2: listed kernel A (tile lists): {listed} ragged cases "
           f"match their plain version, {listed_ties} integer tie cases "

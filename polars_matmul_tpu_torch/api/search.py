@@ -191,7 +191,9 @@ def topk(queries: ArrayLike, corpus: ArrayLike, k: int,
     Returns ``(indices (m, k') u32, scores (m, k') f64)`` with
     ``k' = min(k, n_corpus)``, rows best first, ties lowest index first.
     ``mask`` (n_corpus,) bool excludes rows; slots beyond the matching
-    rows carry sentinel scores (-inf similarity / +inf distance).
+    rows carry sentinel scores (-inf similarity / +inf distance).  A
+    corpus row holding NaN or +-inf is never returned, and a query row
+    holding one gets (index 2147483647, score NaN) in every slot.
     """
     metric = Metric.parse(metric)
     q = _as_input(queries)
@@ -278,6 +280,9 @@ class Corpus:
     row chunks of ``config.prep_chunk_bytes``.  A torch tensor already in
     the tier's form is held as it is, on its own device unless
     ``device=`` says otherwise.
+
+    Rows holding NaN or +-inf are held but never returned, whatever the
+    tier (``topk``); ``add`` and ``update`` keep that rule row by row.
 
     ``capacity`` reserves stored rows for ``add``: rows in [n, capacity)
     are zeros (scale 1) whose prepared bias is -inf, so the kernels walk

@@ -43,6 +43,15 @@ codes the scale row carries 1/|codes| instead), euclidean selects on
 2 q.c - |c|^2 and the finalize sqrt(max(|q|^2 - s, 0)) runs after the
 kernels, and dot is the plain product.
 
+Non-finite values (the rule of ``ops.reference``): a corpus row holding a
+NaN or +-inf (a "bad" row) gets a NaN bias in every prepared form (int8 /
+int4: zero codes, a NaN scale and a NaN scale | bias column), so each of
+its scores is NaN, and kernel A's strict ``s > k-th`` drops it as it
+drops every NaN: no CUDA source knows of the rule.  The plain versions
+take a NaN score as -inf, which is what the kernel's carry makes of it.
+A query row holding a NaN or +-inf gets (NaN, INT32_MAX) in every slot
+(``select_prepared``).
+
 Probed search (``tiles=``, the JAX kernel's ``PrefetchScalarGridSpec``
 call): kernel A walks, for each query block, only the layout tiles its
 list names (``tiles`` (n_query_blocks, P) int32, ascending, distinct,
@@ -382,37 +391,49 @@ def quantize_int8(c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization: codes * scale[:, None] ~= c.
 
     scale = max|row| / 127 (1.0 for a zero row, so it dequantizes to
-    exactly zero); codes round half to even.  Bit-identical to the JAX
-    package's ``quantize_int8`` and to the host ``_quantize_rows_np``.
+    exactly zero); codes round half to even.  A row holding NaN or +-inf
+    gets codes 0 and scale NaN.  Bit-identical to the host
+    ``_quantize_rows_np``, and on finite rows to the JAX package's
+    ``quantize_int8``.
     """
     c = c.to(torch.float32)
     scale = _row_scale(c, 127.0)
-    codes = torch.round(c / scale).to(torch.int8)
-    return codes, scale[:, 0].contiguous()
+    return _codes(torch.round(c / scale), scale), scale[:, 0].contiguous()
 
 
 def _row_scale(c: torch.Tensor, top: float) -> torch.Tensor:
-    """(n, 1) max|row| / top, 1.0 for a zero row.  The divisor is a tensor:
+    """(n, 1) max|row| / top, 1.0 for a zero row, NaN for a row holding
+    NaN or +-inf (its max is one of them).  The divisor is a tensor:
     PyTorch divides a CUDA tensor by a Python number as a product with
     its reciprocal, which can differ from the quotient in the last bit."""
     amax = torch.amax(torch.abs(c), dim=1, keepdim=True)
-    return torch.where(amax > 0, amax / torch.full_like(amax, top),
-                       torch.ones_like(amax))
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, top),
+                        torch.ones_like(amax))
+    return torch.where(torch.isfinite(amax), scale, float("nan"))
+
+
+def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Rounded codes ``x`` as int8, zero in every row of a NaN scale (no
+    float-to-int cast of NaN or of an out-of-range value, which the CPU
+    wraps and the card saturates)."""
+    return torch.where(torch.isnan(scale), 0.0, x).to(torch.int8)
 
 
 def quantize_int4(c: torch.Tensor, ck: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int4 quantization, nibble-packed per feature chunk.
 
-    Codes are in [-7, 7] with scale = max|row| / 7.  Features are padded
-    with zero codes to dpp (``feature_geometry``); in each ck-wide chunk,
-    byte j holds feature j in its low nibble and feature j + ck/2 in its
-    high nibble.  Returns (packed (n, dpp // 2) int8, scales (n,) f32),
-    bit-identical to the JAX package's ``quantize_int4``.
+    Codes are in [-7, 7] with scale = max|row| / 7 (a row holding NaN or
+    +-inf: codes 0, scale NaN).  Features are padded with zero codes to
+    dpp (``feature_geometry``); in each ck-wide chunk, byte j holds
+    feature j in its low nibble and feature j + ck/2 in its high nibble.
+    Returns (packed (n, dpp // 2) int8, scales (n,) f32), bit-identical to
+    the host ``_quantize_rows_int4_np``, and on finite rows to the JAX
+    package's ``quantize_int4``.
     """
     c = c.to(torch.float32)
     scale = _row_scale(c, 7.0)
-    codes = torch.clamp(torch.round(c / scale), -7, 7)
+    codes = _codes(torch.clamp(torch.round(c / scale), -7, 7), scale)
     return pack_int4(codes, ck), scale[:, 0].contiguous()
 
 
@@ -454,16 +475,20 @@ def _scale_bias(code_norm: torch.Tensor, scales: torch.Tensor, metric,
     """The (2, rows) scale | bias operand of int8c / int4c from each row's
     code norm: cosine scales by 1/|codes| (the dequant scale cancels),
     euclidean by the dequant scale with bias -(scale |codes|)^2, dot by
-    the dequant scale.  Rows >= n_valid get bias -inf; their scale stays
-    finite, so no 0 * -inf reaches the epilogue."""
+    the dequant scale.  Under every metric, a row whose dequant scale is
+    NaN or +-inf (a bad row: ``quantize_int8``) gets (NaN, NaN), so its
+    every score is NaN and no kernel selects it.  Rows >= n_valid get
+    bias -inf; their scale stays finite, so no 0 * -inf reaches the
+    epilogue."""
     metric = Metric.parse(metric)
     rows = code_norm.shape[0]
+    scales = scales.to(torch.float32)
     zeros = torch.zeros_like(code_norm)
     if metric is Metric.COSINE:
         cs = torch.where(code_norm > 0, 1.0 / code_norm, zeros)
         cb = zeros
     else:
-        cs = scales.to(torch.float32)
+        cs = scales
         if metric is Metric.EUCLIDEAN:
             t = cs * code_norm
             cb = -(t * t)
@@ -471,7 +496,8 @@ def _scale_bias(code_norm: torch.Tensor, scales: torch.Tensor, metric,
             cb = zeros
     live = torch.arange(rows, device=code_norm.device) < n_valid
     cb = torch.where(live, cb, torch.full_like(cb, _NEG_INF))
-    return torch.stack([cs, cb], dim=0)
+    out = torch.stack([cs, cb], dim=0)
+    return torch.where(torch.isfinite(scales), out, float("nan"))
 
 
 def prepare_int8_bias(codes: torch.Tensor, scales: torch.Tensor, metric,
@@ -510,7 +536,8 @@ def _scale_rows(x: torch.Tensor, metric: Metric) -> torch.Tensor:
 def prepare_queries(q: torch.Tensor, metric, precision: str) -> torch.Tensor:
     """Query prep: cosine normalises, euclidean doubles, then the hi | lo
     split for every core but "highest".  Plain torch, as the JAX package
-    does it in XLA."""
+    does it in XLA.  A query row holding NaN or +-inf is prepared as it
+    comes: ``select_prepared`` voids its slots."""
     metric = Metric.parse(metric)
     q = _scale_rows(q, metric)
     if metric is Metric.EUCLIDEAN:
@@ -527,10 +554,12 @@ def prepare_corpus(c: torch.Tensor, metric, *, precision: str,
     - "bf16x3": cp (n, 2*dim) bf16 [hi | lo]; "highest": (n, dim) f32;
       "bf16c": (n, dim) bf16, rounded after the metric scaling (for a
       bf16 corpus and a metric without scaling, cp is ``c`` itself).
-      cbp is the (n,) f32 bias, -|c|^2 for euclidean and 0 otherwise.
+      cbp is the (n,) f32 bias, -|c|^2 for euclidean and 0 otherwise,
+      NaN for a row holding NaN or +-inf (under every metric and core).
     - "int8c" / "int4c": ``c`` is f32 (quantized here) or the int8 codes
       (packed for int4) with their ``scales``; cp is the codes, the very
-      tensor given, and cbp the (2, n) scale | bias rows.
+      tensor given, and cbp the (2, n) scale | bias rows (NaN | NaN for a
+      row whose scale is not finite).
 
     Nothing is padded: the kernel bounds its own edges.
     """
@@ -553,12 +582,14 @@ def prepare_corpus(c: torch.Tensor, metric, *, precision: str,
     keep = (precision == "bf16c" and c.dtype == torch.bfloat16
             and metric is not Metric.COSINE)
     stored = c
+    bad = reference.bad_rows(c)
     # A bf16 corpus is upcast for the prep math, as in the JAX package.
     c = _scale_rows(c.to(torch.float32), metric)
     if metric is Metric.EUCLIDEAN:
         cb = -torch.sum(c * c, dim=1)
     else:
         cb = torch.zeros(n, dtype=torch.float32, device=c.device)
+    cb = torch.where(bad, float("nan"), cb)
     c = c.contiguous()
     if precision == "bf16x3":
         cp = split_hi_lo(c)
@@ -608,12 +639,14 @@ def _plain_scores(qp, cp, precision: str) -> torch.Tensor:
 
 def _masked_scores(qp, cp, cbp, mask, precision: str, r0: int, r1: int):
     """Epilogue scores for corpus rows [r0, r1): product, then + bias (or
-    * scale + bias for int8c / int4c), then the mask by select to -inf."""
+    * scale + bias for int8c / int4c), then NaN and the mask by select to
+    -inf (kernel A's carry takes neither)."""
     d = _plain_scores(qp, cp[r0:r1], precision)
     if precision in _QUANT:
         s = d * cbp[0, r0:r1] + cbp[1, r0:r1]
     else:
         s = d + cbp[r0:r1]
+    s = torch.where(torch.isnan(s), _NEG_INF, s)
     if mask is not None:
         s = torch.where(mask[r0:r1].to(torch.bool), s,
                         torch.full_like(s, _NEG_INF))
@@ -628,7 +661,8 @@ def _plain_rows(qp) -> int:
 
 def _finish(vals, idx, k: int):
     """Pad the last axis to k with -inf and give every -inf slot the index
-    INT32_MAX."""
+    INT32_MAX (the values reach it with no NaN: the selections take NaN as
+    -inf)."""
     if vals.shape[-1] < k:
         pad = k - vals.shape[-1]
         vals = torch.nn.functional.pad(vals, (0, pad), value=_NEG_INF)
@@ -758,16 +792,15 @@ def _partial_plain(qp, cp, cbp, mask, k: int, precision: str, splits: int,
 def topk_merge_plain(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
     """Plain version of kernel B: top-k of the union of the split lists,
     ordered by the keys kernel B compares, (value desc, index asc), with
-    INT32_MAX as the index of every -inf value.  The lists' indices need
-    not ascend from list to list (the ring merge of sharded search hands
-    it lists in visiting order).
+    INT32_MAX as the index of every -inf value.  A NaN value counts as
+    -inf (kernel A never writes one).  The lists' indices need not ascend
+    from list to list (the ring merge of sharded search hands it lists in
+    visiting order).
     """
     launches["topk_merge_plain"] += 1
     m = part_v.shape[0]
-    v = part_v.reshape(m, -1)
-    i = part_i.reshape(m, -1)
-    i = torch.where(v == _NEG_INF, torch.full_like(i, INT32_MAX), i)
-    return _finish(*reference.topk_two_key(v, i, k), k)
+    return _finish(*reference.topk_two_key(
+        part_v.reshape(m, -1), part_i.reshape(m, -1), k), k)
 
 
 # ---------------------------------------------------------------------------
@@ -1429,11 +1462,13 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
 
 def _finalize(q: torch.Tensor, vals: torch.Tensor, metric: Metric):
     """Euclidean: the kernels select on 2 q.c - |c|^2; recover the distance
-    (a -inf sentinel becomes +inf)."""
+    sqrt(max(|q|^2 - s, 0)).  A -inf sentinel becomes +inf whatever |q|^2
+    is, and a NaN value (a voided query's) stays NaN."""
     if metric is not Metric.EUCLIDEAN:
         return vals
     qsq = torch.sum(q * q, dim=1, keepdim=True)
-    return torch.sqrt(torch.clamp(qsq - vals, min=0.0))
+    dist = torch.sqrt(torch.clamp(qsq - vals, min=0.0))
+    return torch.where(vals == _NEG_INF, float("inf"), dist)
 
 
 def fused_topk_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
@@ -1479,7 +1514,8 @@ def select_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``fused_topk_prepared`` without the euclidean finalize: the
     kernels' own scores, higher is better (2 q.c - |c|^2 for euclidean),
-    best first, -inf where a slot is unfilled.  Lists of these merge
+    best first, -inf where a slot is unfilled, (NaN, INT32_MAX) in every
+    slot of a query row holding NaN or +-inf.  Lists of these merge
     exactly by (score desc, index asc) before one finalize, which is how
     sharded search merges its shards."""
     cfg = resolve(config)
@@ -1523,8 +1559,9 @@ def select_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
         torch.as_tensor(mask, device=q.device), cbp.shape[-1])
     prune = prune_gate(cfg.prune)
     with annotate(f"pmm.fused_topk.{metric.value}"):
-        return fused_select(qp, cp, cbp, mask_u8, k, precision, tiles, tn,
-                            block_rows, prune=prune)
+        vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision, tiles,
+                                 tn, block_rows, prune=prune)
+    return reference.void_bad_queries(q, vals, idx)
 
 
 def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
@@ -1537,8 +1574,10 @@ def fused_topk(q: torch.Tensor, c: torch.Tensor, k: int,
     else ``ops.reference`` (float64, k > ``max_fused_k``, very wide dims),
     the same split as the JAX package; a quantized precision quantizes
     ``c`` on the way in.  ``k`` must already be clamped to
-    ``c.shape[0]``.  ``mask`` (n,) bool excludes corpus rows; unfilled
-    slots carry (-inf similarity / +inf distance, INT32_MAX).
+    ``c.shape[0]``.  ``mask`` (n,) bool excludes corpus rows, and so does
+    a corpus row holding NaN or +-inf; unfilled slots carry (-inf
+    similarity / +inf distance, INT32_MAX), and every slot of a query row
+    holding NaN or +-inf (NaN, INT32_MAX).
 
     A config that leaves every tuning field at its default adopts the
     persisted ``autotune`` winner for this device kind and problem class
@@ -1611,6 +1650,14 @@ def prepared_from_jax(cp, cbp, n: int, dim: int, *, device="cpu"
     tile-padded rows and 128-padded feature columns (int4 keeps its packed
     width), and undoes the chunk-interleaved ``[hi_0 | lo_0 | hi_1 | lo_1
     ...]`` layout used above dim 4096.
+
+    A row whose carried values are not all finite (a float form holding
+    NaN or +-inf, or codes under a non-finite scale | bias column) is made
+    bad as ``prepare_corpus`` makes it: a NaN bias, and for codes zero
+    codes and a (NaN, NaN) column.  The JAX package's int8 / int4
+    quantizers cast a NaN row to finite codes under scale 1, and give a
+    +inf row zero codes whose cosine column is finite: those rows carry
+    nothing that marks them.
     """
     cp = np.asarray(cp)
     if str(cp.dtype) == "bfloat16":
@@ -1630,13 +1677,17 @@ def prepared_from_jax(cp, cbp, n: int, dim: int, *, device="cpu"
         cp_t = torch.from_numpy(np.array(cp[:n, :dim]))
     elif cp.dtype == np.int8 and cp.shape[1] in (dpp, dpp // 2):
         width = dim if cp.shape[1] == dpp else dpp // 2
-        cp_t = torch.from_numpy(np.array(cp[:n, :width]))
         if cbp.shape[0] != 2:
             raise ValueError("int8 / int4 codes need the (2, rows) cbp")
         cb = np.array(cbp[:, :n])   # a writable copy
-        return cp_t.to(device), torch.from_numpy(cb).to(device)
+        bad = ~np.isfinite(cb).all(axis=0)
+        codes = np.where(bad[:, None], np.int8(0), cp[:n, :width])
+        cb[:, bad] = np.nan
+        return (torch.from_numpy(codes).to(device),
+                torch.from_numpy(cb).to(device))
     else:
         raise ValueError(f"unsupported prepared corpus: {cp.dtype} of width "
                          f"{cp.shape[1]} for dim {dim} (padded {dpp})")
     cb = np.array(cbp.reshape(-1, cbp.shape[-1])[-1, :n])   # a writable copy
+    cb[reference.bad_rows(cp_t).numpy()] = np.nan
     return cp_t.to(device), torch.from_numpy(cb).to(device)

@@ -2,7 +2,8 @@
 ``api.clustered`` and ``parallel.sharded``): host and torch per-row int8 /
 int4 quantization of float rows into a tier's codes and scales, the host
 inverse of the int4 packing, and ``prepare_corpus`` of stored rows in row
-chunks."""
+chunks.  Every quantizer gives a row holding NaN or +-inf zero codes and
+a NaN scale, which the prep turns into a row no kernel selects."""
 
 from __future__ import annotations
 
@@ -17,6 +18,20 @@ from .fused_topk import (feature_geometry, prepare_corpus, quantize_int4,
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
+def _row_scales_np(blk: np.ndarray, top: float) -> np.ndarray:
+    """``fused_topk._row_scale`` on the host: max|row| / top, 1.0 for a
+    zero row, NaN for a row holding NaN or +-inf."""
+    amax = np.abs(blk).max(axis=1)
+    sc = np.where(amax > 0, amax / np.float32(top), np.float32(1.0))
+    return np.where(np.isfinite(amax), sc, np.nan).astype(np.float32)
+
+
+def _codes_np(x: np.ndarray, sc: np.ndarray) -> np.ndarray:
+    """``fused_topk._codes`` on the host: rounded codes as int8, zero in
+    every row of a NaN scale."""
+    return np.where(np.isnan(sc)[:, None], 0.0, x).astype(np.int8)
+
+
 def _quantize_rows_int4_np(c: np.ndarray, ck: int, dpp: int):
     """Host per-row symmetric int4 quantization, nibble-packed per feature
     chunk (the layout of ``kernels.fused_topk.quantize_int4``), in row
@@ -27,10 +42,9 @@ def _quantize_rows_int4_np(c: np.ndarray, ck: int, dpp: int):
     step = max(1, (64 << 20) // max(dpp * 4, 1))
     for r0 in range(0, n, step):
         blk = np.asarray(c[r0:r0 + step], dtype=np.float32)
-        amax = np.abs(blk).max(axis=1)
-        sc = np.where(amax > 0, amax / 7.0, 1.0).astype(np.float32)
-        codes = np.clip(np.rint(blk / sc[:, None]), -7, 7).astype(np.int32)
-        codes = np.pad(codes, ((0, 0), (0, dpp - dim)))
+        sc = _row_scales_np(blk, 7.0)
+        codes = _codes_np(np.clip(np.rint(blk / sc[:, None]), -7, 7), sc)
+        codes = np.pad(codes.astype(np.int32), ((0, 0), (0, dpp - dim)))
         ch = codes.reshape(codes.shape[0], dpp // ck, ck)
         packed[r0:r0 + step] = ((ch[:, :, : ck // 2] & 0xF)
                                 | ((ch[:, :, ck // 2:] & 0xF) << 4)
@@ -59,9 +73,8 @@ def _quantize_rows_np(c: np.ndarray):
     step = max(1, (64 << 20) // max(dim * 4, 1))
     for r0 in range(0, n, step):
         blk = np.asarray(c[r0:r0 + step], dtype=np.float32)
-        amax = np.abs(blk).max(axis=1)
-        s = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
-        codes[r0:r0 + step] = np.rint(blk / s[:, None]).astype(np.int8)
+        s = _row_scales_np(blk, 127.0)
+        codes[r0:r0 + step] = _codes_np(np.rint(blk / s[:, None]), s)
         scales[r0:r0 + step] = s
     return codes, scales
 
@@ -73,7 +86,8 @@ def quantize_stored(c: ArrayLike, storage: str, dim: int,
     by the host quantizers (codes stay NumPy, so that the caller uploads
     quantized bytes), a tensor by the torch ones on its own device, in
     row chunks, into tensors on ``device`` of ``rows`` rows (default n;
-    codes 0 and scale 1 past n)."""
+    codes 0 and scale 1 past n).  A row holding NaN or +-inf: codes 0,
+    scale NaN."""
     int4 = storage == "int4"
     ck, dpp, _ = feature_geometry(dim)
     if not isinstance(c, torch.Tensor):

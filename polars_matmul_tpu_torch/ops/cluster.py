@@ -14,6 +14,10 @@ are plain torch on the tensors' device, with every float32 product exact
 (TF32 off).  k-means draws from a ``torch.Generator`` seeded from
 ``seed``; its draws differ from ``jax.random``'s, so two packages give
 different centroids from one seed.
+
+A corpus row holding NaN or +-inf (a bad row, never returned by a search)
+takes no part in a k-means fit, and every assignment places it in
+cluster 0; a query row holding one ranks no tile for its block.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from .metrics import Metric
-from .reference import exact_matmul
+from .reference import bad_rows, exact_matmul
 
 # Rows each chunk of an assignment scores at once: the (chunk, clusters)
 # distance panel is the only temporary.
@@ -97,10 +101,16 @@ def kmeans(x, n_clusters: int, *, iters: int = 8, seed: int = 0
     geometry, the usual IVF coarse quantizer for every metric).
 
     Returns (centroids (C, dim) f32, assignments (n,) int32) with C =
-    min(n_clusters, n).  A cluster that empties keeps its centroid.
+    min(n_clusters, rows fitted).  A cluster that empties keeps its
+    centroid.  Rows holding NaN or +-inf are left out of the fit (with
+    none other, one zero centroid) and assigned to cluster 0.
     """
-    x = torch.as_tensor(x).to(torch.float32)
+    whole = torch.as_tensor(x).to(torch.float32)
+    x = whole[~bad_rows(whole)]
     n = x.shape[0]
+    if n == 0:
+        cent = whole.new_zeros((1, whole.shape[1]))
+        return cent, _assign_tensor(whole, cent)
     n_clusters = int(min(n_clusters, n))
     gen = torch.Generator(device=x.device)
     gen.manual_seed(int(seed))
@@ -114,7 +124,7 @@ def kmeans(x, n_clusters: int, *, iters: int = 8, seed: int = 0
         cnt = torch.bincount(a, minlength=n_clusters).to(torch.float32)
         cent = torch.where(cnt[:, None] > 0,
                            sums / torch.clamp(cnt, min=1.0)[:, None], cent)
-    return cent, _assign_tensor(x, cent)
+    return cent, _assign_tensor(whole, cent)
 
 
 def _assign_tensor(x: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
@@ -123,6 +133,14 @@ def _assign_tensor(x: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
     one = make_assigner(cent)
     return torch.cat([one(x[r0:r0 + CHUNK_ROWS])
                       for r0 in range(0, x.shape[0], CHUNK_ROWS)])
+
+
+def _nearest(x: torch.Tensor, cent: torch.Tensor,
+             csq: torch.Tensor) -> torch.Tensor:
+    """(rows,) int32 nearest centroid of each row of ``x``, cluster 0 for a
+    row holding NaN or +-inf (its distances are no order)."""
+    near = torch.argmin(_sq_dists(x, cent, csq), dim=1)
+    return torch.where(bad_rows(x), 0, near).to(torch.int32)
 
 
 def make_assigner(centroids):
@@ -134,7 +152,7 @@ def make_assigner(centroids):
     def one(chunk) -> torch.Tensor:
         x = torch.as_tensor(chunk).to(device=cent.device,
                                       dtype=torch.float32)
-        return torch.argmin(_sq_dists(x, cent, csq), dim=1).to(torch.int32)
+        return _nearest(x, cent, csq)
 
     return one
 
@@ -156,7 +174,7 @@ def make_assigner_native(centroids, storage: str, dim: int):
             x = dequant_int4(rows, scales, dim)
         else:
             x = rows.to(torch.float32) * scales[:, None]
-        return torch.argmin(_sq_dists(x, cent, csq), dim=1).to(torch.int32)
+        return _nearest(x, cent, csq)
 
     return one
 
@@ -262,11 +280,14 @@ def probe_tiles(q: torch.Tensor, centroids: torch.Tensor,
     score, so ties are the rule: a stable descending sort keeps lower tile
     ids first among equals, as ``jax.lax.top_k`` does, and the final
     ascending sort gives kernel A its ascending walk.  Dead tiles (cluster
-    -1) rank -inf and are listed only once live tiles run out.
+    -1) rank -inf and are listed only once live tiles run out.  A query
+    row holding NaN or +-inf scores -inf for every cluster, so it leaves
+    its block's ranking to the other rows.
     """
     m = q.shape[0]
     mp = -(-m // tm) * tm
     s = centroid_scores(q, centroids, metric_v)                 # (m, C)
+    s = torch.where(bad_rows(q)[:, None], float("-inf"), s)
     s = torch.nn.functional.pad(s, (0, 0, 0, mp - m),
                                 value=float("-inf"))            # inert rows
     sb = torch.amax(s.reshape(mp // tm, tm, -1), dim=1)         # (QB, C)

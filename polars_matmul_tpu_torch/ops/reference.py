@@ -13,6 +13,10 @@ problems ``supports()`` declines.
   ``torch.topk`` does not specify the order of equal values, so selection
   is a stable sort.
 
+Non-finite values follow the port's one rule: a corpus row holding NaN or
++-inf is never returned, a query row holding one gets (NaN, INT32_MAX) in
+every slot, and no selection ever takes a NaN score.
+
 Products run in full float32 (or float64): TF32 is switched off for the
 duration of each call on the card, because its 10-bit mantissa cannot
 hold float32 semantics.
@@ -81,13 +85,37 @@ def pairwise_scores(q: torch.Tensor, c: torch.Tensor,
     return torch.sqrt(torch.clamp(sq, min=0.0))
 
 
+def bad_rows(x: torch.Tensor) -> torch.Tensor:
+    """(rows,) bool: the rows of ``x`` that hold a NaN or +-inf."""
+    return ~torch.isfinite(x).all(dim=1)
+
+
+def _worst(higher_is_better: bool) -> float:
+    return float("-inf") if higher_is_better else float("inf")
+
+
+def void_bad_queries(q: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(NaN, INT32_MAX) in every slot of a query row of ``q`` that holds a
+    NaN or +-inf; the other rows as they are."""
+    bad = bad_rows(q)[:, None].to(vals.device)
+    return (torch.where(bad, torch.full_like(vals, float("nan")), vals),
+            torch.where(bad, torch.full_like(idx, INT32_MAX), idx))
+
+
 def topk_from_scores(scores: torch.Tensor, k: int,
                      higher_is_better: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k per row, best first, lowest index first among equal values."""
+    """Top-k per row, best first, lowest index first among equal values.
+    A NaN score counts as the worst value (-inf similarity, +inf
+    distance), and every slot holding the worst value gets the index
+    INT32_MAX."""
+    worst = _worst(higher_is_better)
+    scores = torch.where(torch.isnan(scores), worst, scores)
     vals, idx = torch.sort(scores, dim=1, descending=higher_is_better,
                            stable=True)
-    return vals[:, :k], idx[:, :k]
+    vals, idx = vals[:, :k], idx[:, :k]
+    return vals, torch.where(vals == worst, INT32_MAX, idx)
 
 
 def topk_two_key(vals: torch.Tensor, idx: torch.Tensor, k: int,
@@ -96,7 +124,11 @@ def topk_two_key(vals: torch.Tensor, idx: torch.Tensor, k: int,
     """Top-k per row of (vals, idx) pairs by explicit (score, index) keys:
     best score first, the lower index first among equal scores, whatever
     order the pairs come in.  A stable sort by index, then a stable sort
-    by score, orders every pair by its own key."""
+    by score, orders every pair by its own key.  A NaN score counts as
+    the worst value, which then carries the index INT32_MAX."""
+    worst = _worst(higher_is_better)
+    vals = torch.where(torch.isnan(vals), worst, vals)
+    idx = torch.where(vals == worst, INT32_MAX, idx)
     by_index = torch.sort(idx, dim=1, stable=True).indices
     vals = torch.gather(vals, 1, by_index)
     idx = torch.gather(idx, 1, by_index)
@@ -113,16 +145,17 @@ def topk_search(q: torch.Tensor, c: torch.Tensor, k: int,
     """Returns ((m, k) scores, (m, k) int32 indices).
 
     ``k`` must already be clamped to ``c.shape[0]``.  ``mask`` (n,) bool
-    excludes corpus rows; slots beyond the number of matching rows carry
-    the sentinels (-inf similarity / +inf distance, index int32-max).
+    excludes corpus rows, and so does a corpus row holding NaN or +-inf;
+    slots beyond the number of rows left carry the sentinels (-inf
+    similarity / +inf distance, index int32-max), and a query row holding
+    NaN or +-inf gets (NaN, int32-max) in every slot.
     """
     metric = Metric.parse(metric)
     scores = pairwise_scores(q, c, metric, precision=precision)
+    keep = ~bad_rows(c)
     if mask is not None:
-        worst = float("-inf") if metric.higher_is_better else float("inf")
-        scores = torch.where(mask[None, :].to(torch.bool), scores,
-                             torch.full_like(scores, worst))
+        keep = keep & mask.to(torch.bool)
+    scores = torch.where(keep[None, :], scores,
+                         _worst(metric.higher_is_better))
     vals, idx = topk_from_scores(scores, k, metric.higher_is_better)
-    if mask is not None:
-        idx = torch.where(vals == worst, torch.full_like(idx, INT32_MAX), idx)
-    return vals, idx.to(torch.int32)
+    return void_bad_queries(q, vals, idx.to(torch.int32))

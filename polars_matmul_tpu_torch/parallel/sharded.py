@@ -28,6 +28,11 @@ reserves) are dead in every prepared form (bias -inf), so they never enter
 a list and no shard widens its k as the JAX package's do.  The reference
 path (float64, k > max_fused_k, ``use_pallas=False``) masks them, and
 merges its finished scores by the same two keys in plain PyTorch.
+
+Non-finite values: a shard's bad rows (NaN or +-inf) are dead through
+their prepared bias as on one device; a query row holding NaN or +-inf
+reaches the merges as sentinels (``_offset``), so kernel B never sees a
+NaN, and gets (NaN, INT32_MAX) in every slot after them.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from ..kernels.matmul import pairwise_matmul
 from ..kernels.storage import prepare_stored, quantize_stored
 from ..ops.cluster import probe_tiles
 from ..ops.metrics import Metric
-from ..ops.reference import topk_two_key
+from ..ops.reference import topk_two_key, void_bad_queries
 from .mesh import Mesh
 
 # A shard's rows on one device: (shard index, device).
@@ -573,16 +578,18 @@ def distributed_topk(q, corpus: ShardedCorpus, k: int, metric, mesh: Mesh,
                              results[d][0].to(mesh.home))
                       for d in range(n_data)])
     idx = torch.cat([results[d][1].to(mesh.home) for d in range(n_data)])
-    return vals, idx
+    return void_bad_queries(q, vals, idx)
 
 
 def _offset(v: torch.Tensor, i: torch.Tensor, off: int, k: int,
             worst: float):
     """A shard's list in global indices, padded to k slots with (worst,
-    INT32_MAX).  Sentinel slots keep INT32_MAX: the offset would overflow
-    int32."""
+    INT32_MAX), a NaN value (a voided query's) made a sentinel too.
+    Sentinel slots keep INT32_MAX: the offset would overflow int32."""
     i = i.to(torch.int32)
-    i = torch.where(i == INT32_MAX, i, i + off)
+    nan = torch.isnan(v)
+    v = torch.where(nan, worst, v)
+    i = torch.where(nan | (i == INT32_MAX), INT32_MAX, i + off)
     if v.shape[1] < k:
         pad = k - v.shape[1]
         v = torch.nn.functional.pad(v, (0, pad), value=worst)
