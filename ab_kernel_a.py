@@ -21,14 +21,16 @@ Then:
    (this tree's), on the canonical operands at every query tile a k can
    take, in the bf16x3 and highest cores, and at each cell's own
    geometry; they must be equal (the variants' too, but "noselect",
-   "noproducts" and "nodecode", which change what is selected);
+   "noproducts", "nodecode" and "nosort", which change what is selected
+   or its order);
 3. times: kernel A alone (CUDA events, ``chip_smoke.cuda_ms``), each
    build at the geometry its own library's occupancy gives, parent,
    change, variants, then the reverse, beside the bound
    (``chip_smoke._bound``) and a library call, in groups of cells
-   (``GROUPS``): ``canonical`` (1000 x 10,000 x 256 f32 at k=10 / 100 /
-   512, bf16x3 and highest), ``big`` (2M x 256 f32 at batch 8 and 256,
-   k=10 and 100, bf16x3), ``stored`` (the attribution kit's 2M x 768 int8
+   (``GROUPS``): ``canonical`` (1000 x 10,000 x 256 f32 at k=10 / 64 / 80
+   / 100 / 128 / 129 / 256 / 512 / 1024, bf16x3 and highest: both sides
+   of the radix selection's crossover), ``big`` (2M x 256 f32 at batch 8 and
+   256, k=10 and 100, and batch 8 at k=512, bf16x3), ``stored`` (the attribution kit's 2M x 768 int8
    operand, ``tools/exp_int4.build``, at batch 256, k=100 and 512),
    ``wide`` (10M x 768 int8, phase 7's corpus, batch 8 at k=100 and 256
    at k=10 and 100), ``wide-int4`` and ``wide-bf16`` (the same corpus
@@ -84,13 +86,25 @@ VARIANTS = {
                   r"#pragma unroll\n      for (int i = 0; i < 4; ++i) "
                   r"a[j][s][i] = 0x3f803f80u;\n  return;", "ring_wgmma.cuh")],
     # The selection taken out (its share of kernel A): the score tiles are
-    # written and nothing selects on them.
+    # written and nothing selects on them (the radix selection's end then
+    # finds its buffers empty).
     "noselect": [(rf"(__device__ inline void {f}\([^{{]*\{{)",
-                  r"\1\n  return;") for f in ("select_tile", "append_tile")],
+                  r"\1\n  return;")
+                 for f in ("select_tile", "append_tile", "radix_tile")],
     # The appending selection at every k (the rule keeps k <= 16 on the
-    # insertion).
+    # insertion and k above kAppendMaxK on the radix selection).
     "append-all": [(r"constexpr int kInsertMaxK = \d+;",
-                    "constexpr int kInsertMaxK = 0;")],
+                    "constexpr int kInsertMaxK = 0;"),
+                   (r"constexpr int kAppendMaxK = \d+;",
+                    "constexpr int kAppendMaxK = 1024;")],
+    # The radix selection from k = 64 on, the least k it takes (the rule
+    # keeps k <= kAppendMaxK on the slack).
+    "radix-all": [(r"constexpr int kAppendMaxK = \d+;",
+                   "constexpr int kAppendMaxK = 63;")],
+    # The radix selection's final sort taken out (its share; the lists
+    # are then unsorted).
+    "nosort": [(r"(__device__ __noinline__ void sort_keys\([^{]*\{)",
+                r"\1\n  return;")],
     # A slack of at most 64 entries a row.
     "slack64": [(r"constexpr int kSlackMax = \d+;",
                  "constexpr int kSlackMax = 64;")],
@@ -124,6 +138,10 @@ def _plain(name: str) -> str:
     # translation unit>, which differs whenever the source does.
     name = re.sub(r"^(_ZN)\d+_\w*?_cu_[0-9a-f]{8}(?=\d)", r"\1", name)
     name = re.sub(r"(_kernelI\w*?EEE)v\w*$", r"\1", name)
+    # The f32 and ring kernels' selection came as a bool (APPEND) before
+    # the radix selection made it an int (SEL: 0 insert, 1 append, 2 radix).
+    name = re.sub(r"(fused_topk_(?:f32|stored)_kernelI(?:L[ib]\d+E)+?"
+                  r"Lb[01]E)Li([01])E(EE)$", r"\1Lb\2E\3", name)
     return re.sub(r"(fused_topk_(?:f32|stored|wgmma)_kernelI(?:L[ib]\d+E)+?"
                   r"Lb[01]E)Lb0E(EE)$", r"\1\2", name)
 
@@ -254,7 +272,8 @@ def _canonical(cs, F, dev):
         cp, cbp = F.prepare_corpus(c, "cosine", precision=core)
         qp = F.prepare_queries(q, "cosine", core)
         cells += [Cell(f"canonical {core} k={k}", core, qp, cp, cbp, k, qn,
-                       cn, dim=cs.DIM) for k in (10, 100, 512)]
+                       cn, dim=cs.DIM)
+                  for k in (10, 64, 80, 100, 128, 129, 256, 512, 1024)]
     return cells
 
 
@@ -270,7 +289,7 @@ def _big(cs, F, dev):
     return [Cell(f"2M x 256 f32 batch {b} k={k}", "bf16x3",
                  F.prepare_queries(qbig[b], "cosine", "bf16x3"), cp, cbp, k,
                  qbig[b] / qbig[b].norm(dim=1, keepdim=True), cn, dim=cs.DIM)
-            for b in (8, 256) for k in (10, 100)]
+            for b, k in ((8, 10), (8, 100), (8, 512), (256, 10), (256, 100))]
 
 
 def _dequantised(F, cp, cbp, chunk=1 << 20):
@@ -451,7 +470,7 @@ def main(argv=None) -> int:
     def bits(label, cell, geo):
         outs = {}
         for name in libs:
-            if name not in ("noselect", "noproducts", "nodecode"):
+            if name not in ("noselect", "noproducts", "nodecode", "nosort"):
                 use(name)
                 outs[name] = launch(cell, geo)
         torch.cuda.synchronize()

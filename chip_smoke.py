@@ -47,8 +47,13 @@ Phases, each printing one line or a few:
    and a list of every tile against the dense scan, bit for bit; and
    every launch of kernel A in this phase run again with its carry gate
    on (``prune``), the split lists equal to the gate off bit for bit
-   (dense, listed, ragged, every core, inserting and appending, both
-   consumers), the count of cases and of skipped tiles printed;
+   (dense, listed, ragged, every core, inserting, appending and radix,
+   both consumers), the count of cases and of skipped tiles printed;
+   kernel A's selections on integer tie data bit for bit (``SELECT_KS``:
+   the appending selection up to ``APPEND_MAX_K``, the radix selection
+   above it in every core at query tiles 16 and 32, dense and listed;
+   ``SLACK_EDGES``: the slack and the radix buffer filled exactly and one
+   entry past);
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100 and k=512, in the default precision and precision="highest",
@@ -57,10 +62,11 @@ Phases, each printing one line or a few:
    queries at k=10 and k=100, each held to a float64 oracle on the card;
 5. the launch counts of each main path (phases 3 and 4, each tier of
    phase 7, and the probed path of phase 8): its kernels and cores ran,
-   the plain versions did not;
+   the radix selection ran (canonical k=512), the plain versions did not;
 6. times from CUDA events: kernels against plain versions and library
-   calls, and requests with their bounds (the highest core at the
-   canonical k=10, 100 and 512, at 2M x 256 batch 8 and 256, and its
+   calls, and requests with their bounds (both cores at the canonical
+   k=10, 100 and 512, each launch's selection, blocks, slots and splits
+   printed; the highest core at 2M x 256 batch 8 and 256, and its
    canonical ``Corpus.topk`` request; the bf16x3 core likewise at 2M x
    256 batch 8 and 256, and on the 2M x 256 f32 clustered lists in phase
    8); kernel B at the seven list
@@ -280,6 +286,9 @@ HIGHEST_EDGES = ((9, 129, 1), (33, 700, 3), (20, 1100, 4), (65, 1300, 5),
 HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
                  (16, 10), (16, 100), (16, 512), (16, 1024))
 BF16X3_PLANS = HIGHEST_PLANS
+# Kernel A's selections by the source's Selection value (the warpgroup
+# consumer's bool: 0 insert, 1 append).
+SELECTIONS = ("insert", "append", "radix")
 # The one instantiation of kernel A known to spill (4 B stored, 4 B
 # loaded; ROADMAP.md): phase 1 fails on a spill in any other.  The carry
 # gate's vote moved it here from bf16c listed at query tile 16 (8 B / 32
@@ -479,14 +488,14 @@ def _ptxas_summary(log: str):
                       r"((?:fused_topk_partial|fused_topk_stored|"
                       r"fused_topk_wgmma|fused_topk_f32|topk_merge_tree|"
                       r"topk_merge_best)_kernel)"
-                      r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?(?:Lb(\d)E)?",
-                      line)
+                      r"(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?"
+                      r"(?:L[bi](\d)E)?", line)
         if m:
             args = ", ".join(a for a in m.groups()[1:3] if a is not None)
             if m.group(4) is not None:
                 args += ", listed" if m.group(4) == "1" else ", dense"
             if m.group(5) is not None:   # kernel A's selection
-                args += ", append" if m.group(5) == "1" else ", insert"
+                args += ", " + SELECTIONS[int(m.group(5))]
             name, spill = m.group(1) + (f"<{args}>" if args else ""), ""
             kc = False
             continue
@@ -612,6 +621,23 @@ def phase_build():
                   f"of shared memory; blocks an SM {blocks[0]} dense, "
                   f"{blocks[1]} listed")
     _tile64_report(F, log)
+    # Kernel A's selection by k: the source's rule is the host's mirror.
+    ks = range(1, F._MAX_FUSED_K + 1)
+    routes = [lib.pmm_fused_topk_route(k) for k in ks]
+    require(routes == [SELECTIONS.index(F.selection(k)) for k in ks],
+            "kernel A's selection by k: the source's rule differs from "
+            "fused_topk.selection")
+    radix = [line for line in _ptxas_summary(log)
+             if line.startswith(("fused_topk_stored_kernel<",
+                                 "fused_topk_f32_kernel<"))
+             and ", radix>" in line]
+    require(len(radix) > 0, "no radix instantiation of kernel A was built")
+    print(f"  selection: insert at k <= {F.INSERT_MAX_K}, append at k <= "
+          f"{F.APPEND_MAX_K}, radix above (a buffer of 2k, "
+          f"{F.RADIX_BITS}-bit digits; the tile-64 warpgroup consumer "
+          f"appends); the source's rule equals the host's at k=1..."
+          f"{F._MAX_FUSED_K}; {len(radix)} radix instantiations, "
+          f"{sum('spills' in line for line in radix)} spilling")
     # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
     core = F.CORES.index("bf16x3")
     for dim in (DIM, WIDE_DIM):
@@ -811,25 +837,34 @@ def _ring_edges(F, torch, gen, err):
     return cases
 
 
-# Kernel A's appending selection (k > 16): the k it is held at, and masks
-# of (valid rows a tile) over a split's first tiles that put exactly the
-# slack's entries, or one more, in it before the next tile (the empty
-# carry takes every valid score): k=100 (a slack of 100) and k=512 (192).
+# Kernel A's selections above k = 16: the k they are held at (the
+# appending selection up to APPEND_MAX_K, the radix selection above), and
+# masks of (valid rows a tile) over a split's first tiles that put exactly
+# a row's slack or radix buffer entries, or one more, in it before the next
+# tile (the empty carry and the -inf threshold take every valid score):
+# the slack at k=17 (17 entries) and 100 (64), the radix buffer (2k) at
+# k=129 and 512 (the 192-entry cases at k=512 were the slack's edges
+# while k=512 appended).
 SELECT_KS = (17, 32, 33, 100, 128, 129, 256, 512, 1024)
 SLACK_EDGES = ((100, (64, 36)), (100, (64, 37)), (512, (64, 64, 64)),
                (512, (64, 64, 63, 1)), (512, (64, 64, 63, 2)),
-               (17, (17, 1)), (17, (18,)))
+               (17, (17, 1)), (17, (18,)),
+               (129, (64, 64, 64, 64, 2)), (129, (64, 64, 64, 64, 3)),
+               (512, (64,) * 16), (512, (64,) * 15 + (63, 2)))
 
 
 def _selection_edges(F, torch, gen, err):
-    """Kernel A's appending selection against its plain version, bit for
-    bit on integer tie data: every k of SELECT_KS in the bf16x3, highest
-    and int8c cores (int8c at 65 queries: the warpgroup consumer's 4-tile
-    steps), at the main path's geometry, in splits of one and two tiles
-    (shorter than k), half the query rows zero, with a mask that drops a
-    third of the rows and every row of whole splits, and walking a list;
-    then the slack's edges (SLACK_EDGES), each split filling it exactly
-    and one entry past.  Returns the cases."""
+    """Kernel A's appending and radix selections against their plain
+    versions, bit for bit on integer tie data: every k of SELECT_KS in the
+    bf16x3, highest and int8c cores (int8c at 65 queries: the warpgroup
+    consumer's 4-tile steps), at the main path's geometry, in splits of one
+    and two tiles (shorter than k), half the query rows zero, with a mask
+    that drops a third of the rows and every row of whole splits, and
+    walking a list; then the edges of SLACK_EDGES, each split filling the
+    slack or the radix buffer exactly and one entry past; then the radix
+    selection (SELECT_KS above APPEND_MAX_K) in every core at query tiles
+    16 and 32 (32 up to k=256, its envelope), dense in splits of 3 and 17
+    tiles and listed, masked and not.  Returns the cases."""
     cases = 0
     m_of = {"bf16x3": 37, "highest": 37, "int8c": 65}
     n, dim = 3000, 56
@@ -876,15 +911,50 @@ def _selection_edges(F, torch, gen, err):
                 qp, cp, cbp, mask, k, precision, splits, tps), exact=True,
                 what=f"slack edge k={k} tiles {counts} {precision}")
             cases += 1
+    cases += _radix_tiles(F, torch, gen, n, dim, masks, tiles, tn)
     torch.cuda.synchronize()
     return cases
 
 
+def _radix_tiles(F, torch, gen, n, dim, masks, tiles, tn):
+    """The radix selection bit for bit on tie data (see
+    ``_selection_edges``), every core, query tiles 16 and 32."""
+    m, cases = 37, 0
+    q, c = _tie_data(torch, gen, m, n, dim)
+    q[::2] = 0.0
+    n_tiles = -(-n // F._TN)
+    for precision in F.CORES:
+        qp = F.prepare_queries(q, "dot", precision)
+        cp, cbp = F.prepare_corpus(c, "dot", precision=precision)
+        for k in SELECT_KS:
+            if F.selection(k) != "radix":
+                continue
+            for tm in (16, 32) if k <= 256 else (16,):
+                for mask in masks:
+                    what = (f"radix selection m={m} n={n} k={k} tm={tm} "
+                            f"{precision} mask={mask is not None}")
+                    for tps in (3, 17):
+                        splits = -(-n_tiles // tps)
+                        args = (qp, cp, cbp, mask, k, precision, splits, tps)
+                        compare(*F.fused_topk_partial(*args, tm),
+                                *F.fused_topk_partial_plain(*args),
+                                exact=True, what=f"splits of {tps} tiles, "
+                                + what)
+                    args = (qp, cp, cbp, mask, k, precision, 2, -(-(
+                        tiles.shape[1] * tn // F._TN) // 2))
+                    compare(*F.fused_topk_partial(*args, tm, tiles, tn, m),
+                            *F.fused_topk_partial_plain(*args, tiles, tn, m),
+                            exact=True, what="listed " + what)
+                    cases += 3
+        del qp, cp, cbp
+    return cases
+
+
 # Non-finite data through kernels A and B (phase 2): query rows (query
-# tiles 16, 32 and 64 at k <= 128; 16 at k=512) and k (inserting at 1 and
-# 10, appending at 100 and 512).
+# tiles 16, 32 and 64 at k <= 128; 16 and 32 at k=256; 16 at k=512) and k
+# (inserting at 1 and 10, appending at 100, radix at 256 and 512).
 NONFINITE_MS = (9, 20, 65)
-NONFINITE_KS = (1, 10, 100, 512)
+NONFINITE_KS = (1, 10, 100, 256, 512)
 
 
 def _poison(torch, q, c):
@@ -1458,15 +1528,15 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
     with GateCheck(F, torch) as gate_check:
         err = _compare_all(F, torch, ms, ns, dims, ks)
     require(gate_check.listed > 0 and gate_check.wgmma > 0
-            and gate_check.appending > 0,
-            "phase 2 ran no listed, warpgroup or appending launch")
+            and gate_check.appending > 0 and gate_check.radix > 0,
+            "phase 2 ran no listed, warpgroup, appending or radix launch")
     print(f"phase 2: kernel A's carry gate: {gate_check.cases} launches of "
           f"this phase ran again with prune on and gave the split lists "
           f"of prune off bit for bit ({gate_check.listed} listed, "
           f"{gate_check.wgmma} on the warpgroup consumer, "
-          f"{gate_check.appending} appending; every core, dense, ragged, "
-          f"tie data); the gate skipped {gate_check.skipped} of "
-          f"{gate_check.gated} tiles")
+          f"{gate_check.appending} appending, {gate_check.radix} radix; "
+          f"every core, dense, ragged, tie data); the gate skipped "
+          f"{gate_check.skipped} of {gate_check.gated} tiles")
     return err
 
 
@@ -1503,12 +1573,15 @@ def _compare_all(F, torch, ms, ns, dims, ks):
     edges = _ring_edges(F, torch, gen, err)
     t0 = time.perf_counter()
     selection = _selection_edges(F, torch, gen, err)
-    print(f"phase 2: kernel A's appending selection: {selection} cases "
-          f"bit-identical to its plain version (k={SELECT_KS}; bf16x3, "
-          f"highest, int8c at query tile 64 in 4-tile steps; main geometry, "
-          f"splits of 1 and 2 tiles, zero query rows, masked rows and whole "
-          f"splits, a tile list; the slack filled exactly and one past at "
-          f"k=17/100/512); {time.perf_counter() - t0:.1f} s")
+    print(f"phase 2: kernel A's appending and radix selections: "
+          f"{selection} cases bit-identical to their plain version "
+          f"(k={SELECT_KS}, radix above {F.APPEND_MAX_K}; bf16x3, highest, "
+          f"int8c at query tile 64 in 4-tile steps; main geometry, splits of "
+          f"1 and 2 tiles, zero query rows, masked rows and whole splits, a "
+          f"tile list; the slack filled exactly and one past at "
+          f"k=17/100/512, the radix buffer at k=129/512; the radix "
+          f"selection in every core at query tiles 16 and 32, dense and "
+          f"listed); {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     before = _kernel_launches(F)
     nf_cases = _nonfinite_edges(F, torch, gen, err)
@@ -1517,7 +1590,8 @@ def _compare_all(F, torch, ms, ns, dims, ks):
     print(f"phase 2: non-finite values: {nf_cases} cases of kernels A and B "
           f"against their plain versions on corpus rows and queries holding "
           f"NaN and +-inf (every core, m={NONFINITE_MS}: query tiles 16, "
-          f"32, 64; k={NONFINITE_KS}: inserting and appending; dense and "
+          f"32, 64; k={NONFINITE_KS}: inserting, appending and radix; "
+          f"dense and "
           f"listed, masked and not, the carry gate on and off; indices "
           f"exact, integer data bit for bit, no bad row and no NaN "
           f"selected), then {nf_requests} public requests (topk in "
@@ -1709,7 +1783,7 @@ class GateCheck:
     def __init__(self, F, torch):
         self.F, self.torch = F, torch
         self.cases = self.gated = self.skipped = 0
-        self.listed = self.wgmma = self.appending = 0
+        self.listed = self.wgmma = self.appending = self.radix = 0
 
     def __enter__(self):
         F, torch = self.F, self.torch
@@ -1735,7 +1809,10 @@ class GateCheck:
             self.listed += bool(rest and rest[0] is not None) or (
                 kw.get("tiles") is not None)
             self.wgmma += F.wgmma_core(tm, precision)
-            self.appending += k > F.INSERT_MAX_K
+            self.appending += F.selection(k) == "append" or (
+                k > F.INSERT_MAX_K and F.wgmma_core(tm, precision))
+            self.radix += F.selection(k) == "radix" and not F.wgmma_core(
+                tm, precision)
             return off
 
         F.fused_topk_partial = checked
@@ -1881,6 +1958,15 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                                                    precision))
         tm, splits, tps = F.kernel_geometry(N_QUERIES, N_CORPUS, k,
                                             precision, q.device, dim=DIM)
+        # The launch against the card's slots (blocks an SM x SMs).
+        per_sm = F._occupancy[(q.device.index, tm, k, precision, False,
+                               F._corpus_width(precision, DIM))]
+        grid = -(-N_QUERIES // tm) * splits
+        slots = per_sm * F.device_sms(q.device)
+        print(f"phase 6: [{card}] canonical k={k} {precision}: "
+              f"{F.selection(k)} selection, tm={tm}, {splits} splits of "
+              f"{tps} tiles, {grid} blocks on {slots} slots ({per_sm} an SM"
+              f"), {grid / slots:.2f} waves")
         a = cuda_ms(lambda: F.fused_topk_partial(qp, cp, cbp, None, k,
                                                  precision, splits, tps, tm))
         if precision == "bf16x3":
@@ -1894,20 +1980,20 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                                       splits, tps, tm)
         b = cuda_ms(lambda: F.topk_merge(pv, pi, k))
         b_plain = cuda_ms(lambda: F.topk_merge_plain(pv, pi, k))
-        if k == 10 or precision == "highest":
-            # The kernels line: each core at k=10, highest at k=100 and
-            # 512 too (the appending selection).
-            passes, peak = ((3, "bfloat16") if precision == "bf16x3"
-                            else (1, "float32_cuda_cores"))
-            a_bound = _bound(
-                qp.nbytes + cp.nbytes + cbp.nbytes + pv.nbytes + pi.nbytes,
-                passes * 2 * N_QUERIES * N_CORPUS * DIM, peak)
-            per_kernel[precision + ("" if k == 10 else f".k{k}")] = _entry(
-                a, a_plain, libs[k], "torch.addmm + torch.topk (f32)",
-                a_bound, f"{N_QUERIES}x{N_CORPUS}x{DIM} cosine k={k}")
-            print(f"phase 6: [{card}] canonical k={k} {precision}: kernel A "
-                  f"bound {a_bound[0]:.4f} ms ({a_bound[1]}); library "
-                  f"torch.addmm + torch.topk {libs[k]:.4f} ms")
+        # The kernels line: each core at k=10, 100 and 512 (the
+        # insertion, the appending and the radix selections).
+        passes, peak = ((3, "bfloat16") if precision == "bf16x3"
+                        else (1, "float32_cuda_cores"))
+        a_bound = _bound(
+            qp.nbytes + cp.nbytes + cbp.nbytes + pv.nbytes + pi.nbytes,
+            passes * 2 * N_QUERIES * N_CORPUS * DIM, peak)
+        per_kernel[precision + ("" if k == 10 else f".k{k}")] = dict(
+            _entry(a, a_plain, libs[k], "torch.addmm + torch.topk (f32)",
+                   a_bound, f"{N_QUERIES}x{N_CORPUS}x{DIM} cosine k={k}"),
+            selection=F.selection(k))
+        print(f"phase 6: [{card}] canonical k={k} {precision}: kernel A "
+              f"bound {a_bound[0]:.4f} ms ({a_bound[1]}); library "
+              f"torch.addmm + torch.topk {libs[k]:.4f} ms")
         if (k, precision) == CANON_TIERS[0]:
             # A call timed by events, as every entry is; kernel B finishes
             # well before a call's Python enqueue does, so its device time
@@ -4562,7 +4648,8 @@ def main() -> int:
     counts, cores = dict(F.launches), dict(F.core_launches)
     print(f"phase 5: launches on the f32 main path: {counts}, by core "
           f"{cores}")
-    for name in ("fused_topk_partial", "topk_merge"):
+    for name in ("fused_topk_partial", "fused_topk_partial_radix",
+                 "topk_merge"):
         require(counts[name] > 0, f"{name} never launched on the main path")
     for core in ("bf16x3", "highest"):
         require(cores[core] > 0, f"{core} never launched on the main path")
@@ -4587,12 +4674,15 @@ def main() -> int:
                      "launches": launches[core], "max_abs_err": err[core]},
                     **per_kernel[core])
                for core in F.CORES]
-    kernels += [dict({"name": f"fused_topk_partial.highest.k{k}",
+    # Each core of the f32 main path at k=100 and 512: the entry's
+    # "selection" names the route its launches took.
+    kernels += [dict({"name": f"fused_topk_partial.{core}.k{k}",
                       "route": "cuda", "source": KERNEL_SRC + "fused_topk.cu",
-                      "replaces": f"{TPU_KERNEL}:{CORE_LINE['highest']}",
-                      "launches": launches["highest"],
-                      "max_abs_err": err["highest"]},
-                     **per_kernel[f"highest.k{k}"]) for k in (100, 512)]
+                      "replaces": f"{TPU_KERNEL}:{CORE_LINE[core]}",
+                      "launches": launches[core],
+                      "max_abs_err": err[core]},
+                     **per_kernel[f"{core}.k{k}"])
+                for core in ("bf16x3", "highest") for k in (100, 512)]
     kernels += [dict({"name": f"fused_topk_partial.{core}.wgmma",
                       "route": "cuda", "source": KERNEL_SRC + "ring_wgmma.cuh",
                       "replaces": f"{TPU_KERNEL}:{CORE_LINE[core]}",

@@ -76,6 +76,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_fused_topk_blocks_per_sm.restype = i
     lib.pmm_fused_topk_ring.argtypes = [i, i, i, i, p]
     lib.pmm_fused_topk_ring.restype = i
+    lib.pmm_fused_topk_route.argtypes = [i]
+    lib.pmm_fused_topk_route.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
     lib.pmm_topk_merge_plan.argtypes = [p] * 5 + [i] * 5 + [p]

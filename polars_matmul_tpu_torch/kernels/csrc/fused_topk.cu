@@ -76,11 +76,13 @@
 // memory; now the ring keeps copies in flight across tiles and stages the
 // query once a block where it fits (PERF.md has the times; the fragments
 // are still re-read per warp).  The selection looks only at the tile
-// scores that beat the row's current k-th value (strict >, so a later
+// scores that beat the row's current threshold (strict >, so a later
 // index never displaces an equal earlier one).  Up to k = 16 they are
-// inserted into the sorted carry; above it they are appended to a slack
-// and compacted into the carry in batches (the selection's section below
-// says why).
+// inserted into the sorted carry; up to kAppendMaxK they are appended to a
+// slack and compacted into the carry in batches; above it they are
+// appended to an unsorted buffer of 2k entries whose threshold a radix
+// select raises, sorted once at the split's end (the selection's section
+// below says why).
 //
 // "highest" needs 5.1 G f32 FMA at the canonical shape, 0.076 ms at the
 // 67 TFLOP/s FMA peak.  The per-tile core it replaced staged each tile with
@@ -172,9 +174,26 @@ constexpr int kINT32_MAX = 0x7fffffff;
 // carry chunks in registers, which raises the threshold.  At the end of
 // the split the slack is compacted once more.  The order is decided on
 // exact 64-bit keys (sel_key), so the carry is the insertion's bit for
-// bit, and nothing needs re-running.  Each kernel is built twice, with
-// the insertion and with the appending selection (APPEND), so that
-// neither carries the other's code and registers.
+// bit, and nothing needs re-running.
+//
+// Above kAppendMaxK the sorted carry itself is the cost: each candidate
+// passed through a 128-key sort and merges over every chunk of the carry,
+// about 90 compare-exchanges of 64-bit keys at k = 512.  There the radix
+// selection (radix_tile) keeps no order during the walk.  A row's
+// candidates are appended, as sel_keys, to an unsorted buffer of 2k
+// entries, and the row's threshold is one word.  When the buffer cannot
+// take a tile's candidates, radix_select finds the k-th best buffered key
+// exactly (one histogram pass a kRadixBits-bit digit, from the top, until
+// the digit's bucket holds exactly the entries still wanted), keeps the k
+// entries at or above it and raises the threshold to its value; the
+// tile's scores are then filtered again.  Ties stay exact: buffered
+// indices are below the tile's, and the key carries the index.  At the
+// split's end one more select leaves k entries, and one bitonic sort
+// orders them (radix_finish).  Each candidate costs an append and a few
+// histogram reads, whatever k is.
+//
+// Each kernel is built once a selection it can take (SEL: kInsert,
+// kAppend, kRadix), so that none carries another's code and registers.
 //
 // The slack lives in the block's own output rows, part_v / part_i[row]
 // [split][0, slack_entries(k)) (k entries a row, unused until the carry
@@ -183,15 +202,36 @@ constexpr int kINT32_MAX = 0x7fffffff;
 // two blocks an SM (PERF.md).  Shared memory keeps the insertion's
 // layout: the score tile, the carry, then 2 kWarps kTN words for the
 // insertion's merge lists, of which the slack's counts take TM.
+//
+// The radix selection keeps the same bytes: after the score tile, each
+// row's threshold and buffer count (2 TM words), then the row's first k
+// buffer entries as 64-bit keys in the carry's 8 k bytes, then each
+// warp's digit counts (kRadixWords words) in the merge lists' place.  The
+// buffer's other k entries are the row's output slots, part_v / part_i
+// holding a key's high and low words, which the split's end overwrites
+// once every survivor is in shared memory.
 // ---------------------------------------------------------------------------
 
 // The largest k that inserts; larger k appends (chosen by measurement on
 // the H100, PERF.md).
 constexpr int kInsertMaxK = 16;
+// The largest k that appends to the slack; larger k takes the radix
+// selection (chosen by measurement on the H100, PERF.md).  A full buffer
+// holds at least k entries only from k = 64 on (2k - 64 >= k).
+constexpr int kAppendMaxK = 128;
+static_assert(kAppendMaxK >= 63, "the radix selection needs k >= 64");
 // Slack entries a row at most.
 constexpr int kSlackMax = 192;
+// The radix select's digit, and the words of a warp's counts: two 16-bit
+// counts a word (a row buffers at most 2048 entries).
+constexpr int kRadixBits = 7;
+constexpr int kRadixWords = (1 << kRadixBits) / 2;
 
-__host__ __device__ constexpr bool appends(int k) { return k > kInsertMaxK; }
+enum Selection { kInsert = 0, kAppend = 1, kRadix = 2 };
+
+__host__ __device__ constexpr int selection(int k) {
+  return k <= kInsertMaxK ? kInsert : k <= kAppendMaxK ? kAppend : kRadix;
+}
 
 // Slack entries of a row at this k: with a tile's 64 scores they fill two
 // batches of 128 keys (k >= kSlackMax) or one (k >= 64), else the row's
@@ -631,6 +671,447 @@ __device__ inline void flush_slack(float* Cv, int k, int rows_valid, int warp,
   __syncthreads();
 }
 
+// The radix selection's state (the section's head has the layout): Cv is
+// the word after the score tile.
+static_assert(kRadixWords == 64, "radix_select's scan reads 2 words a lane");
+template <int TM>
+__device__ inline int* radix_counts(float* Cv) {
+  return reinterpret_cast<int*>(Cv + TM);
+}
+template <int TM>
+__device__ inline uint64_t* radix_keys(float* Cv) {
+  return reinterpret_cast<uint64_t*>(Cv + 2 * TM);
+}
+template <int TM>
+__device__ inline unsigned* radix_hist(float* Cv, int k, int warp) {
+  return reinterpret_cast<unsigned*>(radix_keys<TM>(Cv) + (size_t)TM * k) +
+         warp * kRadixWords;
+}
+
+// Entry j of a row's buffer: its first k in shared memory (key), the rest
+// in the row's output slots (gv, gi: the key's high and low words).
+__device__ __forceinline__ uint64_t buffered(const uint64_t* key,
+                                             const unsigned* gv,
+                                             const int* gi, int k, int j) {
+  if (j < k) return key[j];
+  return ((uint64_t)gv[j - k] << 32) | (uint32_t)gi[j - k];
+}
+
+__device__ __forceinline__ void buffer(uint64_t* key, unsigned* gv, int* gi,
+                                       int k, int j, uint64_t x) {
+  if (j < k) {
+    key[j] = x;
+  } else {
+    gv[j - k] = (unsigned)(x >> 32);
+    gi[j - k] = (int)(uint32_t)x;
+  }
+}
+
+// Entries a lane reads at once in radix_select: loads in flight, since
+// the buffer's second half lives in L2.
+constexpr int kRadixBatch = 8;
+
+// Whether a walk's select takes its lean form (one loop over the buffer,
+// every pass on 64-bit keys): the int4 core's at query tile 32, where
+// ptxas found no registers for the two loops and the high-word passes
+// beside the walk's (it spilled).
+__host__ __device__ constexpr bool radix_lean(int tm, int core) {
+  return core == kInt4c && tm == 32;
+}
+
+// Calls f(x, j) on each entry j of [j0, j1) of a row's buffer (j0 = 0,
+// j1 <= k: shared memory; j0 = k: the output slots), B a lane loaded
+// before any is used.  Whole warp calls; f runs on every lane, with j >=
+// j1 for no entry.
+template <int B, typename F>
+__device__ __forceinline__ void each_buffered(const uint64_t* key,
+                                              const unsigned* gv,
+                                              const int* gi, int k, int j0,
+                                              int j1, int lane, F&& f) {
+  for (int jb = j0; jb < j1; jb += 32 * B) {
+    uint64_t x[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int j = jb + 32 * b + lane;
+      x[b] = j < j1 ? buffered(key, gv, gi, k, j) : 0ull;
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) f(x[b], jb + 32 * b + lane);
+  }
+}
+
+// The k-th best of a row's nb >= k buffered keys, exactly: digits of
+// kRadixBits bits from the top, one pass over the entries a digit, each
+// counting the digits of the entries that match the digits found so far
+// (two 16-bit counts a word of the warp's hist); the digit whose bucket
+// holds the k-th is kept, until that bucket holds exactly the entries
+// still wanted.  A pass whose digit lies in the high word reads and
+// shifts that word alone.  Then the k entries at or above those digits
+// move, in buffer order, to the row's first k places (shared memory), and
+// the least of them is returned.  Whole warp calls.  Inline: as a call,
+// ptxas kept the walk's registers across it, and spilled.  (Counts in
+// registers, 4-bit digits, took more passes and more integer work an
+// entry, and were slower on the H100.)  LEAN: radix_lean.
+template <bool LEAN>
+__device__ __forceinline__ uint64_t radix_select(uint64_t* key, unsigned* gv,
+                                                 int* gi, int k, int nb,
+                                                 unsigned* hist, int lane) {
+  uint64_t prefix = 0;   // the digits found, in place
+  int top = 64;          // the bits at and above top are found
+  int want = k;          // the rank of the k-th among the matching entries
+  const int ns = nb < k ? nb : k;   // the entries in shared memory
+  for (;;) {
+    const int width = top < kRadixBits ? top : kRadixBits;
+    const int shift = top - width;
+    const unsigned mask = (1u << width) - 1u;
+    hist[lane] = 0u;
+    hist[lane + 32] = 0u;
+    __syncwarp();
+    auto add = [&](unsigned d) {
+      atomicAdd(hist + (d >> 1), 1u << ((d & 1u) * 16));
+    };
+    if constexpr (LEAN) {
+      const uint64_t pre = top == 64 ? 0ull : prefix >> top;
+      each_buffered<kRadixBatch>(key, gv, gi, k, 0, nb, lane,
+                                 [&](uint64_t x, int j) {
+        if (j < nb && (top == 64 || (x >> top) == pre))
+          add((unsigned)(x >> shift) & mask);
+      });
+    } else if (shift >= 32) {   // the digit and the bits above: high word
+      const int s = shift - 32, t = top - 32;
+      const unsigned pre = t < 32 ? (unsigned)(prefix >> 32) >> t : 0u;
+      auto count = [&](uint64_t x, int j) {
+        const unsigned h = (unsigned)(x >> 32);
+        if (j < nb && (top == 64 || (t < 32 ? h >> t : 0u) == pre))
+          add((h >> s) & mask);
+      };
+      each_buffered<kRadixBatch>(key, gv, gi, k, 0, ns, lane, count);
+      each_buffered<kRadixBatch>(key, gv, gi, k, k, nb, lane, count);
+    } else {
+      const uint64_t pre = prefix >> top;
+      auto count = [&](uint64_t x, int j) {
+        if (j < nb && (x >> top) == pre) add((unsigned)(x >> shift) & mask);
+      };
+      each_buffered<kRadixBatch>(key, gv, gi, k, 0, ns, lane, count);
+      each_buffered<kRadixBatch>(key, gv, gi, k, k, nb, lane, count);
+    }
+    __syncwarp();
+    // Lane L holds digits 4L .. 4L + 3; from the top digit down, the
+    // bucket that holds the want-th entry.
+    const unsigned w0 = hist[2 * lane], w1 = hist[2 * lane + 1];
+    const int c0 = w0 & 0xffffu, c1 = w0 >> 16, c2 = w1 & 0xffffu,
+              c3 = w1 >> 16;
+    const int mine = c0 + c1 + c2 + c3;
+    int upto = mine;   // this lane's digits and every greater one
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_down_sync(0xffffffffu, upto, off);
+      if (lane + off < 32) upto += v;
+    }
+    int above = upto - mine, d = 0, cnt = 0;
+    const bool here = above < want && want <= upto;
+    if (here) {
+      if (above + c3 >= want) {
+        d = 3; cnt = c3;
+      } else if (above + c3 + c2 >= want) {
+        d = 2; cnt = c2; above += c3;
+      } else if (above + c3 + c2 + c1 >= want) {
+        d = 1; cnt = c1; above += c3 + c2;
+      } else {
+        d = 0; cnt = c0; above += c3 + c2 + c1;
+      }
+      d += 4 * lane;
+    }
+    const int src = __ffs(__ballot_sync(0xffffffffu, here)) - 1;
+    d = __shfl_sync(0xffffffffu, d, src);
+    cnt = __shfl_sync(0xffffffffu, cnt, src);
+    above = __shfl_sync(0xffffffffu, above, src);
+    __syncwarp();   // every count read before the next pass clears them
+    want -= above;
+    prefix |= (uint64_t)d << shift;
+    top = shift;
+    if (cnt == want) break;
+  }
+  // Exactly k entries have their bits from top up at or above the prefix.
+  // A batch's entries move, after all of them are read, to places below
+  // every entry a later batch reads.
+  const uint64_t floor_digits = prefix >> top;
+  uint64_t least = ~0ull;
+  int base = 0;
+  auto keep = [&](uint64_t x, int j) {
+    const bool in = j < nb && (x >> top) >= floor_digits;
+    const unsigned bal = __ballot_sync(0xffffffffu, in);
+    if (in) {
+      key[base + __popc(bal & ((1u << lane) - 1u))] = x;
+      least = x < least ? x : least;
+    }
+    base += __popc(bal);
+  };
+  for (int j0 = 0; j0 < nb; j0 += 32 * kRadixBatch) {
+    uint64_t x[kRadixBatch];
+#pragma unroll
+    for (int b = 0; b < kRadixBatch; ++b) {
+      const int j = j0 + 32 * b + lane;
+      x[b] = j < nb ? buffered(key, gv, gi, k, j) : 0ull;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int b = 0; b < kRadixBatch; ++b) keep(x[b], j0 + 32 * b + lane);
+  }
+  const unsigned hi = __reduce_min_sync(0xffffffffu, (unsigned)(least >> 32));
+  const unsigned lo = __reduce_min_sync(
+      0xffffffffu, (unsigned)(least >> 32) == hi ? (unsigned)least : ~0u);
+  __syncwarp();
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// Appends a row's candidates (c0, c1: the scores s0, s1 of corpus rows n0
+// + lane and n0 + 32 + lane) to its buffer of nb entries, by ballot and
+// prefix count, lanes in order.
+__device__ __forceinline__ void radix_append(uint64_t* key, unsigned* gv,
+                                             int* gi, int k, int nb,
+                                             float s0, float s1, bool c0,
+                                             bool c1, unsigned b0,
+                                             unsigned b1, int n0, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+  if (c0) buffer(key, gv, gi, k, nb + __popc(b0 & below),
+                 sel_key(s0, n0 + lane));
+  if (c1) buffer(key, gv, gi, k, nb + __popc(b0) + __popc(b1 & below),
+                 sel_key(s1, n0 + 32 + lane));
+}
+
+// radix_tile on a row whose buffer cannot take the tile's candidates: the
+// select, the threshold raised, the tile filtered again and appended.
+template <int TM, bool LEAN>
+__device__ __forceinline__ void radix_refill(const float* St, float* Cv, int k,
+                                          int r, int n0, int warp, int lane,
+                                          float* part_v, int* part_i) {
+  uint64_t* key = radix_keys<TM>(Cv) + (size_t)r * k;
+  unsigned* gv = reinterpret_cast<unsigned*>(part_v);
+  int* count = radix_counts<TM>(Cv) + r;
+  const float thr = key_value(radix_select<LEAN>(
+      key, gv, part_i, k, *count, radix_hist<TM>(Cv, k, warp), lane));
+  const float s0 = St[r * (kTN + 1) + lane];
+  const float s1 = St[r * (kTN + 1) + 32 + lane];
+  const bool c0 = s0 > thr, c1 = s1 > thr;
+  const unsigned b0 = __ballot_sync(0xffffffffu, c0);
+  const unsigned b1 = __ballot_sync(0xffffffffu, c1);
+  radix_append(key, gv, part_i, k, k, s0, s1, c0, c1, b0, b1, n0, lane);
+  if (lane == 0) {
+    Cv[r] = thr;
+    *count = k + __popc(b0) + __popc(b1);
+  }
+  __syncwarp();
+}
+
+// The radix selection of one TM x kTN score tile (k > kAppendMaxK): one
+// warp per query row.  The row's candidates (s > its threshold) go to the
+// end of its buffer by ballot and prefix count; when the buffer cannot take
+// them, radix_refill selects, raises the threshold and filters the tile
+// again (k >= 64: then it fits).  LEAN: radix_lean.
+template <int TM, bool LEAN>
+__device__ inline void radix_tile(const float* St, float* Cv, int k, int n0,
+                                  int rows_valid, int warp, int lane,
+                                  float* part_v, int* part_i, int row0,
+                                  int splits, int split) {
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const float s0 = St[r * (kTN + 1) + lane];
+    const float s1 = St[r * (kTN + 1) + 32 + lane];
+    const float thr = Cv[r];
+    const bool c0 = s0 > thr, c1 = s1 > thr;
+    const unsigned b0 = __ballot_sync(0xffffffffu, c0);
+    const unsigned b1 = __ballot_sync(0xffffffffu, c1);
+    if ((b0 | b1) == 0u) continue;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k;
+    int* count = radix_counts<TM>(Cv) + r;
+    const int nb = *count;
+    if (nb + __popc(b0) + __popc(b1) > 2 * k) {
+      radix_refill<TM, LEAN>(St, Cv, k, r, n0, warp, lane, part_v + o,
+                             part_i + o);
+      continue;
+    }
+    radix_append(radix_keys<TM>(Cv) + (size_t)r * k,
+                 reinterpret_cast<unsigned*>(part_v + o), part_i + o, k, nb,
+                 s0, s1, c0, c1, b0, b1, n0, lane);
+    if (lane == 0) *count = nb + __popc(b0) + __popc(b1);
+    __syncwarp();
+  }
+}
+
+// The top bit of m > 0.
+__host__ __device__ constexpr int top_bit(int m) {
+  return m >= 2 ? 2 * top_bit(m / 2) : 1;
+}
+
+// The final sort: the bitonic network in its flip form, every comparator
+// keeping the better key at the lower place.  Sizes 2, 4, ..., each a
+// stage of mask size - 1 (place x meets x ^ (size - 1)) then of masks
+// size / 4, ..., 1; places past the keys hold kEmptyKey, which no stage
+// moves below a real key.  A block of 32 E keys lives in registers, block
+// place lane * E + e in a[e], so that a stage of mask below E pairs two
+// registers of a lane and needs no shuffle.
+template <int E, int M>
+__device__ __forceinline__ void sort_stage(uint64_t (&a)[E], int lane) {
+  constexpr int HI = M / E, LO = M % E, HB = top_bit(M);
+  if constexpr (HI == 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if ((e & HB) == 0) {
+        const uint64_t x = a[e], y = a[e ^ LO];
+        a[e] = x > y ? x : y;
+        a[e ^ LO] = x > y ? y : x;
+      }
+  } else {
+    const bool lower = (lane & (HB / E)) == 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if constexpr (LO == 0) {
+        const uint64_t y = __shfl_xor_sync(0xffffffffu, a[e], HI);
+        a[e] = lower == (a[e] > y) ? a[e] : y;
+      } else if (e < (e ^ LO)) {
+        const uint64_t y0 = __shfl_xor_sync(0xffffffffu, a[e ^ LO], HI);
+        const uint64_t y1 = __shfl_xor_sync(0xffffffffu, a[e], HI);
+        a[e] = lower == (a[e] > y0) ? a[e] : y0;
+        a[e ^ LO] = lower == (a[e ^ LO] > y1) ? a[e ^ LO] : y1;
+      }
+    }
+  }
+}
+
+// Stages of masks S, S / 2, ..., 1.
+template <int E, int S>
+__device__ __forceinline__ void sort_halves(uint64_t (&a)[E], int lane) {
+  if constexpr (S > 0) {
+    sort_stage<E, S>(a, lane);
+    sort_halves<E, S / 2>(a, lane);
+  }
+}
+
+// Sort the block best first.
+template <int E, int SIZE = 2>
+__device__ __forceinline__ void sort_block(uint64_t (&a)[E], int lane) {
+  if constexpr (SIZE <= 32 * E) {
+    sort_stage<E, SIZE - 1>(a, lane);
+    sort_halves<E, SIZE / 4>(a, lane);
+    sort_block<E, SIZE * 2>(a, lane);
+  }
+}
+
+// A stage of the same network over key[0, n) in shared memory (places up
+// to pad, a power of two): each pair x < x ^ m with x ^ m < n.
+__device__ inline void sort_stage_shared(uint64_t* key, int n, int pad, int m,
+                                         int lane) {
+  const int hb = 1 << (31 - __clz(m));
+  for (int p = lane; p < pad / 2; p += 32) {
+    const int i = ((p & ~(hb - 1)) << 1) | (p & (hb - 1));
+    const int j = i ^ m;
+    if (j < n) {
+      const uint64_t x = key[i], y = key[j];
+      if (y > x) {
+        key[i] = y;
+        key[j] = x;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// sort_keys in blocks of 32 E keys: each block in registers (the first
+// load in any order: the keys are unordered), then, for n above a block,
+// the stages of wider sizes with masks of a block and up in shared
+// memory, each followed by the blocks' narrower stages in registers.
+template <int E>
+__device__ __forceinline__ void sort_blocks(uint64_t* key, int n, int lane) {
+  constexpr int P = 32 * E;
+  auto store = [&](int c0, const uint64_t (&a)[E]) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int x = c0 + lane * E + e;
+      if (x < n) key[x] = a[e];
+    }
+  };
+  for (int c0 = 0; c0 < n; c0 += P) {
+    uint64_t a[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int x = c0 + e * 32 + lane;
+      a[e] = x < n ? key[x] : kEmptyKey;
+    }
+    sort_block<E>(a, lane);
+    __syncwarp();   // every read of the block before its writes
+    store(c0, a);
+  }
+  int pad = P;
+  while (pad < n) pad <<= 1;
+  for (int size = 2 * P; size <= pad; size <<= 1) {
+    __syncwarp();
+    sort_stage_shared(key, n, pad, size - 1, lane);
+    for (int s = size / 4; s >= P; s >>= 1)
+      sort_stage_shared(key, n, pad, s, lane);
+    for (int c0 = 0; c0 < n; c0 += P) {
+      uint64_t a[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int x = c0 + lane * E + e;
+        a[e] = x < n ? key[x] : kEmptyKey;
+      }
+      sort_halves<E, P / 2>(a, lane);
+      store(c0, a);
+    }
+  }
+  __syncwarp();
+}
+
+// Sort key[0, n) best first, in blocks of the least of 128, 256 and 512
+// keys that holds them (512 above).  Whole warp calls; out of line, one
+// copy for every kernel.
+__device__ __noinline__ void sort_keys(uint64_t* key, int n, int lane) {
+  if (n <= 128)
+    sort_blocks<4>(key, n, lane);
+  else if (n <= 256)
+    sort_blocks<8>(key, n, lane);
+  else
+    sort_blocks<16>(key, n, lane);
+}
+
+// The radix selection's end of a split: each row's warp selects its
+// buffer down to k, sorts the survivors and writes them out, (-inf,
+// INT32_MAX) past them.  The warp that selected the row's tiles takes it,
+// so no block barrier is needed.
+template <int TM>
+__device__ inline void radix_finish(float* Cv, int k, int rows_valid,
+                                    int warp, int lane, float* part_v,
+                                    int* part_i, int row0, int splits,
+                                    int split) {
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    uint64_t* key = radix_keys<TM>(Cv) + (size_t)r * k;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k;
+    int nb = radix_counts<TM>(Cv)[r];
+    if (nb > k) {
+      radix_select<false>(key, reinterpret_cast<unsigned*>(part_v + o),
+                      part_i + o, k, nb, radix_hist<TM>(Cv, k, warp), lane);
+      nb = k;
+    }
+    sort_keys(key, nb, lane);
+    for (int j = lane; j < k; j += 32) {
+      const bool real = j < nb;
+      const uint64_t x = real ? key[j] : kEmptyKey;
+      part_v[o + j] = real ? key_value(x) : -INFINITY;
+      part_i[o + j] = real ? key_index(x) : kINT32_MAX;
+    }
+  }
+}
+
+// The radix selection's start: thresholds -inf (+inf past m, which the
+// gate then never counts), empty buffers.
+template <int TM>
+__device__ inline void init_radix(float* Cv, int rows_valid) {
+  for (int r = threadIdx.x; r < TM; r += kThreads) {
+    Cv[r] = r < rows_valid ? -INFINITY : INFINITY;
+    radix_counts<TM>(Cv)[r] = 0;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The carry gate: the TPU kernel's exact tile pruning (prune=, fused_topk.py
 // :1434-1478, prune_eff :1995), a runtime argument of every kernel here.
@@ -638,14 +1119,15 @@ __device__ inline void flush_slack(float* Cv, int k, int rows_valid, int warp,
 // On the TPU a tile's selection is k full-width extraction passes, and one
 // max pass decides whether any row's tile maximum beats that row's current
 // k-th value.  Here the selection already drops every score that does not
-// beat its row's k-th value (select_tile, append_tile: s > cv[k - 1]), so
+// beat its row's threshold (select_tile, append_tile: s > cv[k - 1];
+// radix_tile: s > the row's threshold word), so
 // what a skipped tile saves is the selection's read-and-compare pass over
 // the score tile, its ballots, and the calls themselves.  While the
 // epilogue writes a tile's scores, each thread compares its scores with
 // their rows' cv[k - 1] (the same strict >), and the barrier that already
 // precedes the selection carries the vote (__syncthreads_or), so the gate
 // adds no barrier.  A tile nobody votes for skips select_tile /
-// append_tile entirely.
+// append_tile / radix_tile entirely.
 //
 // Exact: the vote reads cv[k - 1] after the previous tile's selection has
 // ended (the walks' barriers order them) and before this tile's begins,
@@ -655,7 +1137,9 @@ __device__ inline void flush_slack(float* Cv, int k, int rows_valid, int warp,
 // bit for bit those with the gate off: in every core, in both consumers,
 // dense and listed, inserting and appending (the appending selection's
 // cv[k - 1] excludes the slack, so it is stale, but it is its filter's
-// threshold all the same; the slack changes only when a score passes it).
+// threshold all the same; the slack changes only when a score passes it)
+// and radix (the threshold word, raised only by a select the filter's own
+// candidates set off).
 // On ring_wgmma.cuh's consumer one vote decides a step's four tiles: their
 // selections run in walk order with no barrier between them, so a tile's
 // filter starts at or above the threshold the step's vote read; one
@@ -672,17 +1156,20 @@ __device__ inline void flush_slack(float* Cv, int k, int rows_valid, int warp,
 //
 // The gate holds only kernel arguments, and finds the carry at its fixed
 // offset CV from the score tiles the walk already holds: a pointer of its
-// own, live across the walk, cost the tile-16 bf16x3 ring a spill.
+// own, live across the walk, cost the tile-16 bf16x3 ring a spill.  With
+// WORD (the radix selection) it reads the row's threshold word at CV + r
+// in place of cv[k - 1]: the same filter's threshold, which only rises, so
+// the gate stays exact.
 // ---------------------------------------------------------------------------
 
-template <int CV>
+template <int CV, bool WORD = false>
 struct CarryGate {
   static constexpr bool kGated = true;
   int k;
   bool on;
   int* count;
   __device__ bool vote(const float* St, int r, float s) const {
-    return on && s > St[CV + r * k + k - 1];
+    return on && s > St[WORD ? CV + r : CV + r * k + k - 1];
   }
   __device__ bool fire(bool v, int tiles) const {
     if (!on) {
@@ -842,7 +1329,7 @@ __device__ inline void f32_products(const float* qr, int qs, const float* cr,
 // The highest core's walk: the ring, the register tiles, then the
 // selection of each of the step's tiles in walk order.  Two blocks an SM:
 // f32_plan keeps their shared memory, the bound their registers.
-template <int TM, bool LISTED, bool APPEND>
+template <int TM, bool LISTED, int SEL>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_topk_f32_kernel(const float* __restrict__ q,
                       const float* __restrict__ c,
@@ -898,9 +1385,12 @@ fused_topk_f32_kernel(const float* __restrict__ q,
     return t * kTN;
   };
 
-  init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1)> gate{k, prune, gate_count};
-  if constexpr (APPEND)   // the slack counts
+  if constexpr (SEL == kRadix)
+    init_radix<TM>(Cv, rows_valid);
+  else
+    init_carry(Cv, Ci, k, TM, rows_valid);
+  const CarryGate<TM * (kTN + 1), SEL == kRadix> gate{k, prune, gate_count};
+  if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
 
@@ -987,7 +1477,10 @@ fused_topk_f32_kernel(const float* __restrict__ q,
         }
       }
       if (!gate.fire(vote, 1)) continue;
-      if constexpr (APPEND)
+      if constexpr (SEL == kRadix)
+        radix_tile<TM, false>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
+                              part_i, row0, splits, split);
+      else if constexpr (SEL == kAppend)
         append_tile<TM, 4>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
                         part_i, row0, splits, split);
       else
@@ -997,7 +1490,12 @@ fused_topk_f32_kernel(const float* __restrict__ q,
   }
   cp_async_wait<0>();
   __syncthreads();
-  if constexpr (APPEND)
+  if constexpr (SEL == kRadix) {
+    radix_finish<TM>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
+                     splits, split);
+    return;
+  }
+  if constexpr (SEL == kAppend)
     flush_slack<TM, 4>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
                     splits, split);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
@@ -1014,7 +1512,7 @@ fused_topk_f32_kernel(const float* __restrict__ q,
 // their registers.  LISTED instantiates the probed walk apart from the
 // dense one: sharing one instantiation moved the dense cores' register
 // allocation and slowed some of them by up to 13 % on the H100 (PERF.md).
-template <int TM, int CORE, bool LISTED, bool APPEND>
+template <int TM, int CORE, bool LISTED, int SEL>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          const void* __restrict__ cp,
@@ -1052,16 +1550,23 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
 
-  init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1)> gate{k, prune, gate_count};
-  if constexpr (APPEND)   // the slack counts
+  if constexpr (SEL == kRadix)
+    init_radix<TM>(Cv, rows_valid);
+  else
+    init_carry(Cv, Ci, k, TM, rows_valid);
+  const CarryGate<TM * (kTN + 1), SEL == kRadix> gate{k, prune, gate_count};
+  if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
   ring_walk<TM, CORE, LISTED>(
       qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
       m, n, dim, c_ld, ck, t_begin, t_end, stages, q_resident, vec,
       [&](int, int n0) {
-        if constexpr (APPEND)
+        if constexpr (SEL == kRadix)
+          radix_tile<TM, radix_lean(TM, CORE)>(St, Cv, k, n0, rows_valid,
+                                               warp, lane, part_v, part_i,
+                                               row0, splits, split);
+        else if constexpr (SEL == kAppend)
           append_tile<TM, compact_lanes(TM, CORE)>(
               St, Cv, k, n0, rows_valid, warp, lane, part_v, part_i, row0,
               splits, split);
@@ -1070,7 +1575,12 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                           n0, rows_valid, warp, lane);
       },
       gate);
-  if constexpr (APPEND)
+  if constexpr (SEL == kRadix) {
+    radix_finish<TM>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
+                     splits, split);
+    return;
+  }
+  if constexpr (SEL == kAppend)
     flush_slack<TM, compact_lanes(TM, CORE)>(Cv, k, rows_valid, warp, lane,
                                              part_v, part_i, row0, splits,
                                              split);
@@ -1203,26 +1713,39 @@ RingPlan stored_plan(int k, int c_ld) {
   }
 }
 
-// Kernel<TM, CORE, LISTED, appends(k)>, its shared memory (0 where it
-// cannot fit) and its ring.
+// The kernel of selection sel: K<kInsert>, K<kAppend> or K<kRadix>.
+template <typename Pick>
+auto by_selection(int sel, Pick&& pick) {
+  return sel == kRadix    ? pick(std::integral_constant<int, kRadix>{})
+         : sel == kAppend ? pick(std::integral_constant<int, kAppend>{})
+                          : pick(std::integral_constant<int, kInsert>{});
+}
+
+// Kernel<TM, CORE, LISTED, selection(k)>, its shared memory (0 where it
+// cannot fit) and its ring.  The warpgroup consumer keeps the slack above
+// k = 16 (its query tile takes k <= 128).
 template <int TM, int CORE, bool LISTED>
 auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
   plan = stored_plan<TM, CORE>(k, c_ld);
   bytes = plan.bytes;
-  const bool app = appends(k);
+  const int sel = selection(k);
   if constexpr (wgmma_core<TM, CORE>()) {
-    return app ? fused_topk_wgmma_kernel<TM, CORE, LISTED, true>
-               : fused_topk_wgmma_kernel<TM, CORE, LISTED, false>;
+    return sel != kInsert ? fused_topk_wgmma_kernel<TM, CORE, LISTED, true>
+                          : fused_topk_wgmma_kernel<TM, CORE, LISTED, false>;
   } else if constexpr (CORE == kHighest) {
-    return app ? fused_topk_f32_kernel<TM, LISTED, true>
-               : fused_topk_f32_kernel<TM, LISTED, false>;
+    return by_selection(sel, [](auto s) {
+      return fused_topk_f32_kernel<TM, LISTED, decltype(s)::value>;
+    });
   } else {
     if constexpr (CORE == kBf16x3 && TM != 32)
       if (ring_core<TM, CORE>(k, c_ld) == kBf16x3W)
-        return app ? fused_topk_stored_kernel<TM, kBf16x3W, LISTED, true>
-                   : fused_topk_stored_kernel<TM, kBf16x3W, LISTED, false>;
-    return app ? fused_topk_stored_kernel<TM, CORE, LISTED, true>
-               : fused_topk_stored_kernel<TM, CORE, LISTED, false>;
+        return by_selection(sel, [](auto s) {
+          return fused_topk_stored_kernel<TM, kBf16x3W, LISTED,
+                                          decltype(s)::value>;
+        });
+    return by_selection(sel, [](auto s) {
+      return fused_topk_stored_kernel<TM, CORE, LISTED, decltype(s)::value>;
+    });
   }
 }
 
@@ -1386,6 +1909,12 @@ int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed,
     return occupancy<decltype(tmc)::value, decltype(cc)::value,
                      decltype(lc)::value>(k, c_ld);
   });
+}
+
+// Kernel A's selection at k: 0 inserts, 1 appends to the slack, 2 takes
+// the radix selection (the warpgroup consumer appends at 2); -1 for k <= 0.
+int pmm_fused_topk_route(int k) {
+  return k <= 0 ? -1 : selection(k);
 }
 
 // The staging of kernel A's core at query tile tm, k and corpus row

@@ -132,6 +132,9 @@ launches = {
     "fused_topk_partial_wgmma": 0,
     # Kernel A's launches with the carry gate on, dense or listed.
     "fused_topk_partial_gated": 0,
+    # Kernel A's launches of the radix selection (``selection``), dense or
+    # listed.
+    "fused_topk_partial_radix": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -964,11 +967,29 @@ def tail_bytes(tm: int, k: int) -> int:
 
 
 # Kernel A's selection (``csrc/fused_topk.cu``): k up to INSERT_MAX_K
-# inserts each candidate into the row's sorted carry; a larger k appends
-# the candidates to a slack of ``slack_entries(k)`` entries a row (kept in
-# the block's own k output slots) and compacts the slack into the carry
-# when a tile's candidates do not fit, and at the end of the split.
-INSERT_MAX_K, SLACK_MAX = 16, 192
+# inserts each candidate into the row's sorted carry; k up to APPEND_MAX_K
+# appends the candidates to a slack of ``slack_entries(k)`` entries a row
+# (kept in the block's own k output slots) and compacts the slack into the
+# carry when a tile's candidates do not fit, and at the end of the split;
+# a larger k appends them to an unsorted buffer of ``radix_buffer(k)``
+# entries (k in the carry's shared memory, k in the output slots) whose
+# threshold a radix select on RADIX_BITS-bit digits raises when a tile's
+# candidates do not fit, and sorts the k survivors at the split's end.
+# The warpgroup consumer (``wgmma_core``) keeps the slack above k = 16.
+INSERT_MAX_K, APPEND_MAX_K, SLACK_MAX, RADIX_BITS = 16, 128, 192, 7
+
+
+def selection(k: int) -> str:
+    """Kernel A's selection at k (``selection`` in the source; the
+    warpgroup consumer appends where this says "radix")."""
+    return ("insert" if k <= INSERT_MAX_K else
+            "append" if k <= APPEND_MAX_K else "radix")
+
+
+def radix_buffer(k: int) -> int:
+    """Entries a row of the radix selection buffers before a select: 2k,
+    the carry's k places in shared memory and the row's k output slots."""
+    return 2 * k
 
 
 def compact_lanes(tm: int, precision: str) -> int:
@@ -1330,6 +1351,8 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         launches["fused_topk_partial_gated"] += 1
     if wgmma_core(tm, precision):
         launches["fused_topk_partial_wgmma"] += 1
+    elif selection(k) == "radix":
+        launches["fused_topk_partial_radix"] += 1
     core_launches[precision] += 1
     return part_v, part_i
 
