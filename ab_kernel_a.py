@@ -4,7 +4,7 @@ by side and timed in turns.
     mkdir -p build/parent
     git archive <parent> polars_matmul_tpu_torch | tar -x -C build/parent
     python ab_kernel_a.py --parent build/parent [--bits-only]
-        [--groups canonical,big,...] [--variants noselect,...]
+        [--groups canonical,big,...] [--variants noselect,...] [--bucket]
 
 Run from the checkout's root, beside ``chip_smoke.py``, whose operands,
 timer and bounds it reuses, so its cells are that script's.  It builds
@@ -38,10 +38,23 @@ Then:
    ``clustered`` (phase 8's 10M x 768 int8 clustered corpus, probe 0.05,
    batch 256, k=100) and ``lists`` (phase 8's 2M x 256 f32 clustered
    lists, probe 0.05: 1000 queries at k=10 and 100, and 32 at k=10, the
-   listed inserting kernel at query tile 32).
+   listed inserting kernel at query tile 32), and ``bucket`` (the cells of
+   the bucket selection, k <= 16: the canonical operands in bf16x3 and
+   highest at k=1, 10 and 16, at the query tile the main path takes (64)
+   and at 32 and 16; 2M x 256 f32 batch 8 k=10; 10M x 768 int8 batch 8
+   k=10; the clustered int8 corpus at probe 0.05 batch 8 k=10 and the 2M x
+   256 f32 clustered lists at k=10, 1000 queries and 32; and those lists
+   at probe 0.005, fewer than 16 JAX tiles a list, where the JAX
+   package's "auto" picks its bucket selection, batch 8 at k=1 and 10).
 
-A parent older than the carry gate is called with the gate off
-(``_GateOff``); every time here is taken with the gate off.
+``--bucket`` adds this tree's build asked for the bucket selection (and
+each variant's) as builds of their own, "change+bucket": its lists must
+equal the parent's in every cell, and its times sit beside the insertion's
+in the same turns; the "bucket..." variants run only so.  ``--timed``
+names the groups that are timed (the others are held to the parent's
+bits only).  A parent older than the bucket selection or the carry
+gate is called without those arguments (``_Older``); every time here is
+taken with the gate off.
 
 Needs a CUDA card, nvcc and the parent checkout; prints one line a result.
 """
@@ -52,6 +65,7 @@ import argparse
 import ctypes
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -63,7 +77,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("polars_matmul_tpu_torch/kernels/csrc")
 GROUPS = ("canonical", "big", "stored", "wide", "wide-int4", "wide-bf16",
-          "clustered", "lists")
+          "clustered", "lists", "bucket")
 # Builds of this tree's fused_topk.cu with a line or two changed: (pattern,
 # replacement) pairs of re.subn, each of which must match once, in
 # fused_topk.cu or, given as a third item, another file of csrc/.
@@ -115,6 +129,17 @@ VARIANTS = {
     # A slack of k entries a row up to kSlackMax (the first rule measured).
     "slack-k": [(r"return k >= kSlackMax \? kSlackMax : k >= 64 \? 64 : k;",
                  "return k < kSlackMax ? k : kSlackMax;")],
+    # The bucket selection built at query tile 64 too, and the f32 walk's
+    # at 32 (the mma.sync ring and the f32 walk): its cells' registers
+    # beside those walks.
+    "bucket64": [(r"return tm <= \(core == kHighest \? 16 : 32\);",
+                  "return tm <= 64;")],
+    # The bucket selection with an overflow of at most 8 entries a row, or
+    # none (a window then ends at a cell's first push).
+    "bucket-o8": [(r"constexpr int kBucketOverflow = \d+;",
+                   "constexpr int kBucketOverflow = 8;")],
+    "bucket-o0": [(r"constexpr int kBucketOverflow = \d+;",
+                   "constexpr int kBucketOverflow = 0;")],
 }
 
 
@@ -211,40 +236,47 @@ def build(parent: Path, work: Path, variants):
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, d in srcs.items():
         lib = ctypes.CDLL(str(work / f"{name}.so"))
-        gated = _has_gate(d / "fused_topk.cu")
+        gated = _takes(d / "fused_topk.cu", "prune")
+        bucket = _takes(d / "fused_topk.cu", "bucket")
         lib.pmm_fused_topk_partial.argtypes = (
-            [p] * 8 + [i] * (15 if gated else 14) + ([p, p] if gated else [p]))
+            [p] * 8 + [i] * (15 if gated else 14) + ([p] if gated else [])
+            + ([i, p] if bucket else []) + [p])
         lib.pmm_fused_topk_partial.restype = i
         lib.pmm_fused_topk_blocks_per_sm.argtypes = [i] * 5
         lib.pmm_fused_topk_blocks_per_sm.restype = i
-        libs[name] = lib if gated else _GateOff(lib)
+        libs[name] = lib if gated and bucket else _Older(lib, gated, bucket)
     return libs, lines
 
 
-def _has_gate(src: Path) -> bool:
-    """Whether the source's ``pmm_fused_topk_partial`` takes the carry
-    gate's arguments (prune, gate_count)."""
-    return re.search(r"int pmm_fused_topk_partial\([^)]*\bprune\b",
+def _takes(src: Path, arg: str) -> bool:
+    """Whether the source's ``pmm_fused_topk_partial`` takes ``arg`` (the
+    carry gate's "prune", the bucket selection's "bucket")."""
+    return re.search(rf"int pmm_fused_topk_partial\([^)]*\b{arg}\b",
                      src.read_text()) is not None
 
 
-class _GateOff:
-    """A library built from a source older than the carry gate: this
-    tree's wrapper calls ``pmm_fused_topk_partial`` with the gate's two
-    arguments before the stream, which such a build does not take, so
-    the call goes on without them (the gate off, no counter)."""
+class _Older:
+    """A library built from a source older than the carry gate or the
+    bucket selection: this tree's wrapper calls ``pmm_fused_topk_partial``
+    with the gate's two arguments and the bucket's two before the stream,
+    and the call goes on without those such a build does not take (each
+    off, no counter)."""
 
-    def __init__(self, lib):
-        self._lib = lib
+    def __init__(self, lib, gated: bool, bucket: bool):
+        self._lib, self._gated, self._bucket = lib, gated, bucket
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
 
     def pmm_fused_topk_partial(self, *args):
-        *head, prune, gate_count, stream = args
-        if prune or gate_count.value is not None:
+        *head, prune, gate_count, bucket, bucket_count, stream = args
+        if not self._gated and (prune or gate_count.value is not None):
             raise RuntimeError("this build has no carry gate")
-        return self._lib.pmm_fused_topk_partial(*head, stream)
+        if not self._bucket and (bucket or bucket_count.value is not None):
+            raise RuntimeError("this build has no bucket selection")
+        return self._lib.pmm_fused_topk_partial(
+            *head, *((prune, gate_count) if self._gated else ()),
+            *((bucket, bucket_count) if self._bucket else ()), stream)
 
 
 class Cell:
@@ -253,10 +285,10 @@ class Cell:
     chip_smoke.py), and, listed, (tiles, tn, block_rows)."""
 
     def __init__(self, label, core, qp, cp, cbp, k, lib_q=None, lib_c=None,
-                 listed=None, dim=None):
+                 listed=None, dim=None, tm=None):
         self.label, self.core, self.k, self.listed = label, core, k, listed
         self.qp, self.cp, self.cbp = qp, cp, cbp
-        self.lib_q, self.lib_c, self.dim = lib_q, lib_c, dim
+        self.lib_q, self.lib_c, self.dim, self.tm = lib_q, lib_c, dim, tm
 
 
 def _canonical(cs, F, dev):
@@ -316,9 +348,10 @@ def _stored(cs, F, dev):
                  qn, rows, dim=exp_int4.DIM) for k in (100, 512)]
 
 
-def _wide_tier(cs, F, dev, tier, shapes):
+def _wide_tier(cs, F, dev, tier, shapes, library=True):
     """Cells of phase 7's 10M x 768 corpus stored as ``tier`` at (batch,
-    k) ``shapes``, with chip_smoke's bf16 library rows."""
+    k) ``shapes``, with chip_smoke's bf16 library rows (``library``; else
+    that call is timed in chip_smoke.py)."""
     import polars_matmul_tpu_torch as pmt
 
     c = cs._wide_f32(torch)
@@ -329,14 +362,14 @@ def _wide_tier(cs, F, dev, tier, shapes):
     gen.manual_seed(cs.SEED + 1)
     q = torch.randn((256, cs.WIDE_DIM), generator=gen, device=dev)
     cp, cbp = corpus._prepared_for(F.Metric.COSINE)
-    rows = cs._library_rows(F, torch, corpus)
+    rows = cs._library_rows(F, torch, corpus) if library else None
     core = cs.TIER_CORE[tier]
     cells = []
     for b, k in shapes:
         qn = (q[:b] / q[:b].norm(dim=1, keepdim=True)).to(torch.bfloat16)
         cells.append(Cell(f"10M x 768 {tier} batch {b} k={k}", core,
                           F.prepare_queries(q[:b], "cosine", core), cp, cbp,
-                          k, qn, rows, dim=cs.WIDE_DIM))
+                          k, qn if library else None, rows, dim=cs.WIDE_DIM))
     return cells
 
 
@@ -352,9 +385,9 @@ def _wide_bf16(cs, F, dev):
     return _wide_tier(cs, F, dev, "bf16", ((256, 10), (256, 100)))
 
 
-def _listed_cell(cs, F, label, cc, q, k):
-    qr, qp, cp, cbp, core, tiles, br = cs._listed_operands(F, cc, q, k,
-                                                           cs.PROBE)
+def _listed_cell(cs, F, label, cc, q, k, probe=None):
+    qr, qp, cp, cbp, core, tiles, br = cs._listed_operands(
+        F, cc, q, k, cs.PROBE if probe is None else probe)
     return Cell(label, core, qp, cp, cbp, k,
                 listed=(tiles, cc.layout.tn, br), dim=cc.dim)
 
@@ -390,9 +423,91 @@ def _lists(cs, F, dev):
                      "k=10", proxy, q[:32], 10)]
 
 
+# The bucket group's probed request of few tiles: a tile count (fewer than
+# the 16 JAX tiles a list under which its "auto" picks bucket at k <= 16).
+FEW_TILES = 12
+
+
+def _bucket(cs, F, dev):
+    """The bucket selection's cells (k <= 16; see the module's head)."""
+    import polars_matmul_tpu_torch as pmt
+
+    cells = []
+    rng = np.random.default_rng(cs.SEED)
+    q = torch.from_numpy(rng.standard_normal(
+        (cs.N_QUERIES, cs.DIM)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal(
+        (cs.N_CORPUS, cs.DIM)).astype(np.float32)).to(dev)
+    qn, cn = (x / x.norm(dim=1, keepdim=True) for x in (q, c))
+    for core in ("bf16x3", "highest"):
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=core)
+        qp = F.prepare_queries(q, "cosine", core)
+        cells += [Cell(f"canonical {core} k={k} tm {tm or 64}", core, qp, cp,
+                       cbp, k, qn, cn, dim=cs.DIM, tm=tm)
+                  for k in (1, 10, 16) for tm in (None, 32, 16)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    big = torch.randn((cs.BIG_ROWS, cs.DIM), generator=gen, device=dev)
+    q8 = torch.randn((8, cs.DIM), generator=gen, device=dev)
+    cp, cbp = F.prepare_corpus(big, "cosine", precision="bf16x3")
+    cn = big / big.norm(dim=1, keepdim=True)
+    cells.append(Cell("2M x 256 f32 batch 8 k=10", "bf16x3",
+                      F.prepare_queries(q8, "cosine", "bf16x3"), cp, cbp, 10,
+                      q8 / q8.norm(dim=1, keepdim=True), cn, dim=cs.DIM))
+    # The highest core at query tile 16, where "auto" takes the bucket.
+    cp, cbp = F.prepare_corpus(big, "cosine", precision="highest")
+    for b in (8, 16):
+        qb = torch.randn((b, cs.DIM), generator=gen, device=dev)
+        qp = F.prepare_queries(qb, "cosine", "highest")
+        cells += [Cell(f"2M x 256 f32 highest batch {b} k={k}", "highest",
+                       qp, cp, cbp, k, qb / qb.norm(dim=1, keepdim=True), cn,
+                       dim=cs.DIM) for k in (1, 10, 16)]
+    del big
+    # The clustered corpus first: its build holds the f32 source and a
+    # permuted copy beside what the cells keep.
+    gen.manual_seed(cs.SEED)
+    c, queries = cs._blobs(torch, gen, cs.WIDE_ROWS, cs.WIDE_DIM)
+    wide = pmt.ClusteredCorpus(c, storage="int8")
+    del c
+    torch.cuda.empty_cache()
+    cells.append(_listed_cell(cs, F, "10M x 768 int8 clustered probe 0.05 "
+                              "batch 8 k=10", wide, queries(8), 10))
+    del wide
+    torch.cuda.empty_cache()
+    cells += _wide_tier(cs, F, dev, "int8", ((8, 10),), library=False)
+    gen.manual_seed(cs.SEED + 2)
+    c, queries = cs._blobs(torch, gen, cs.BIG_ROWS, cs.DIM)
+    proxy = pmt.ClusteredCorpus(c)
+    del c
+    q = queries(cs.N_QUERIES)
+    cells += [_listed_cell(cs, F, f"2M x 256 f32 clustered probe 0.05 "
+                           f"{m} q k=10", proxy, q[:m], 10)
+              for m in (cs.N_QUERIES, 32)]
+    cells += [_listed_cell(cs, F, f"2M x 256 f32 clustered probe "
+                           f"{FEW_TILES} tiles batch 8 k={k}", proxy, q[:8],
+                           k, FEW_TILES) for k in (1, 10)]
+    return cells
+
+
 BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,
             "wide": _wide, "wide-int4": _wide_int4, "wide-bf16": _wide_bf16,
-            "clustered": _clustered, "lists": _lists}
+            "clustered": _clustered, "lists": _lists, "bucket": _bucket}
+
+
+def _verdict(card, label, name, times, lib):
+    """Route ``name`` (a build asked for the bucket selection) against the
+    insertion of build ``lib`` (this tree's for the "bucket..." variants,
+    whose insertion is its code): each one's median over its turns, the
+    spread
+    (the larger of the two routes' max - min), and whether the bucket is
+    faster beyond it."""
+    ins = [ms for ms, _ in times[lib]]
+    got = [ms for ms, _ in times[name]]
+    spread = max(max(ins) - min(ins), max(got) - min(got))
+    a, b = statistics.median(ins), statistics.median(got)
+    print(f"[{card}] {label}: {name} against {lib}: medians {b:.4f} / "
+          f"{a:.4f} ms ({(b - a) / a:+.1%}), spread {spread:.4f}; bucket "
+          f"{'faster' if a - b > spread else 'not faster'} beyond the spread")
 
 
 def main(argv=None) -> int:
@@ -406,11 +521,20 @@ def main(argv=None) -> int:
                     help=f"cells to run, of {', '.join(GROUPS)}")
     ap.add_argument("--variants", default="",
                     help=f"extra builds, of {', '.join(VARIANTS)}")
+    ap.add_argument("--bucket", action="store_true",
+                    help="also this tree (and each variant) asked for the "
+                         "bucket selection")
+    ap.add_argument("--timed", default=None,
+                    help="the groups to time (default: every group run)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of turns (each: every build, then in "
+                         "reverse)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernel_a: no CUDA device", file=sys.stderr)
         return 2
     groups = [g for g in args.groups.split(",") if g]
+    timed = groups if args.timed is None else args.timed.split(",")
     variants = [v for v in args.variants.split(",") if v]
     for name in groups + variants:
         if name not in GROUPS and name not in VARIANTS:
@@ -443,9 +567,19 @@ def main(argv=None) -> int:
         print(f"ptxas {name}: kernel A spills in {len(spills)} "
               f"instantiations: " + "; ".join(
                   f"{key}: {lines[name][key]}" for key in sorted(spills)))
+        for key in sorted(set(lines[name]) - set(lines["change"])):
+            print(f"ptxas {name} only: {key}: {lines[name][key]}")
+
+    # The builds timed: each library, and with --bucket this tree's and
+    # the variants' asked for the bucket selection ("<name>+bucket").
+    routes = {name: (name, False) for name in libs
+              if not name.startswith("bucket")}
+    if args.bucket:
+        routes.update({f"{name}+bucket": (name, True) for name in libs
+                       if name != "parent"})
 
     def use(name):
-        _build._lib = libs[name]
+        _build._lib = libs[routes[name][0]]
         F._occupancy.clear()
 
     dev = torch.device("cuda")
@@ -461,18 +595,20 @@ def main(argv=None) -> int:
         return F.kernel_geometry(m, tiles.shape[1] * tn, cell.k, cell.core,
                                  dev, tm, listed=True, dim=cell.dim)
 
-    def launch(cell, geo):
+    def launch(cell, geo, name="change"):
         tm, splits, tps = geo
         extra = () if cell.listed is None else cell.listed
         return F.fused_topk_partial(cell.qp, cell.cp, cell.cbp, None, cell.k,
-                                    cell.core, splits, tps, tm, *extra)
+                                    cell.core, splits, tps, tm, *extra,
+                                    bucket=routes[name][1])
 
     def bits(label, cell, geo):
         outs = {}
-        for name in libs:
-            if name not in ("noselect", "noproducts", "nodecode", "nosort"):
+        for name, (lib_name, _) in routes.items():
+            if lib_name not in ("noselect", "noproducts", "nodecode",
+                                "nosort"):
                 use(name)
-                outs[name] = launch(cell, geo)
+                outs[name] = launch(cell, geo, name)
         torch.cuda.synchronize()
         pv, pi = outs.pop("parent")
         for name, (v, i) in outs.items():
@@ -483,7 +619,7 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"{label}: {name}'s split lists differ "
                                    f"from the parent's")
 
-    order = list(libs) + list(reversed(list(libs)))
+    order = (list(routes) + list(reversed(list(routes)))) * args.rounds
     for group in groups:
         cells = BUILDERS[group](cs, F, dev)
         torch.cuda.synchronize()
@@ -498,15 +634,16 @@ def main(argv=None) -> int:
                                                cell.k, sms, 2, tm))
         use("change")
         for cell in cells:
-            bits(cell.label, cell, geometry(cell))
-        if args.bits_only:
+            bits(cell.label, cell, geometry(cell, cell.tm))
+        if args.bits_only or group not in timed:
             continue
         for cell in cells:
             times = {}
             for name in order:
                 use(name)
-                geo = geometry(cell)
-                ms = cs.cuda_ms(lambda: launch(cell, geo), reps=args.reps)
+                geo = geometry(cell, cell.tm)
+                ms = cs.cuda_ms(lambda: launch(cell, geo, name),
+                                reps=args.reps)
                 times.setdefault(name, []).append((ms, geo))
             use("change")
             m, k = cell.qp.shape[0], cell.k
@@ -543,6 +680,11 @@ def main(argv=None) -> int:
                 for name, ts in times.items())
                 + f" | bound {bound[0]:.4f} ms ({bound[1]}) | torch.addmm + "
                 f"torch.topk {lib}")
+            for name in routes:
+                if name.endswith("+bucket"):
+                    lib_name = routes[name][0]
+                    _verdict(card, cell.label, name, times,
+                             lib_name if lib_name in times else "change")
         del cells
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)

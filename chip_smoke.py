@@ -16,7 +16,10 @@ Phases, each printing one line or a few:
    and 128), the bf16x3 core's ring (``BF16X3_PLANS``, no spill allowed
    in any of its instantiations) and the highest core's f32 ring at dims
    256 and 768 (``HIGHEST_PLANS``), the source's plan held to the host's
-   mirror;
+   mirror; kernel A's bucket selection: the source's route
+   (``pmm_fused_topk_bucket``) held to ``fused_topk.bucket_built`` at
+   every query tile, core and k, and its instantiations' lines (no spill
+   allowed);
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
@@ -53,16 +56,25 @@ Phases, each printing one line or a few:
    the appending selection up to ``APPEND_MAX_K``, the radix selection
    above it in every core at query tiles 16 and 32, dense and listed;
    ``SLACK_EDGES``: the slack and the radix buffer filled exactly and one
-   entry past);
+   entry past); kernel A's bucket selection (``selection="bucket"``, k <=
+   16): every launch of this phase where it is built run again asking for
+   it, gate off and on, the split lists equal to the insertion's bit for
+   bit (``BucketCheck``), and its own edges against the plain version bit
+   for bit (``_bucket_edges``: every core, each query tile it is built
+   at, k=1/2/5/10/16, splits of 1, 2, 3 and 17 tiles and a list, masks,
+   zero query rows, class-heavy data that fills its overflow);
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100 and k=512, in the default precision and precision="highest",
    each held to a float64 NumPy oracle;
 4. a 2,000,000 x 256 resident corpus answering requests of 8 and 256
-   queries at k=10 and k=100, each held to a float64 oracle on the card;
+   queries at k=10 and k=100, and one of 8 at k=10 through a corpus whose
+   config asks for the bucket selection, each held to a float64 oracle on
+   the card;
 5. the launch counts of each main path (phases 3 and 4, each tier of
    phase 7, and the probed path of phase 8): its kernels and cores ran,
-   the radix selection ran (canonical k=512), the plain versions did not;
+   the radix selection ran (canonical k=512), the bucket selection ran
+   (phase 4's request), the plain versions did not;
 6. times from CUDA events: kernels against plain versions and library
    calls, and requests with their bounds (both cores at the canonical
    k=10, 100 and 512, each launch's selection, blocks, slots and splits
@@ -79,7 +91,13 @@ Phases, each printing one line or a few:
    2M x 256 batch 8 / 256 at k=10 / 100, and, in phases 7 and 8, 10M x
    768 int8 and the clustered int8 corpus at probe 0.05, batch 8 / 256 at
    k=10 / 100, then whether the gate was ever slower where the JAX
-   package's prune="auto" would turn it on;
+   package's prune="auto" would turn it on; kernel A with the insertion
+   and asked for the bucket selection in turns (``_time_bucket``: the
+   lists equal, the bucket's windows and overflow entries, each route's
+   times and their spread) at the canonical k=1 / 10 / 16 at query tiles
+   32 and 16, 2M x 256 batch 8 k=10, and in phases 7 and 8 10M x 768 int8
+   batch 8 k=10 and the probed cells at k <= 16, then where it was
+   faster;
 7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
    made on the card from seed 42, stored as int8 (requests of 8 and 256
    queries at k=10 and k=100), int4 and bf16 (8 and 256 queries at
@@ -288,7 +306,9 @@ HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
 BF16X3_PLANS = HIGHEST_PLANS
 # Kernel A's selections by the source's Selection value (the warpgroup
 # consumer's bool: 0 insert, 1 append).
-SELECTIONS = ("insert", "append", "radix")
+SELECTIONS = ("insert", "append", "radix", "bucket")
+# The TPU kernel's bucket selection, which kernel A's kBucket ports.
+BUCKET_SRC = TPU_KERNEL + ":1083"
 # The one instantiation of kernel A known to spill (4 B stored, 4 B
 # loaded; ROADMAP.md): phase 1 fails on a spill in any other.  The carry
 # gate's vote moved it here from bf16c listed at query tile 16 (8 B / 32
@@ -638,6 +658,31 @@ def phase_build():
           f"appends); the source's rule equals the host's at k=1..."
           f"{F._MAX_FUSED_K}; {len(radix)} radix instantiations, "
           f"{sum('spills' in line for line in radix)} spilling")
+    # The bucket selection: where a launch that asks for it takes it, the
+    # source's rule against the host's, and its instantiations (no spill:
+    # kernel A's check above).
+    built = [lib.pmm_fused_topk_bucket(tm, core, k)
+             for tm in (16, 32, 64) for core in range(len(F.CORES))
+             for k in ks]
+    require(built == [int(F.bucket_built(tm, core, k))
+                      for tm in (16, 32, 64) for core in F.CORES
+                      for k in ks],
+            "kernel A's bucket route: the source's rule differs from "
+            "fused_topk.bucket_built")
+    bucket = [line for line in _ptxas_summary(log)
+              if line.startswith(("fused_topk_stored_kernel<",
+                                  "fused_topk_f32_kernel<"))
+              and ", bucket>" in line]
+    require(len(bucket) > 0, "no bucket instantiation of kernel A was built")
+    for line in bucket:
+        print("  bucket: " + line)
+    print(f"  bucket: {len(bucket)} instantiations (k <= {F.INSERT_MAX_K}, "
+          f"the mma.sync ring at query tiles 16 and {F.BUCKET_MAX_TM}, the "
+          f"f32 walk at 16, dense and listed; overflow "
+          f"{F.bucket_overflow(16)} / {F.bucket_overflow(32)} entries a row "
+          f"at tm 16 / 32), {sum('spills' in line for line in bucket)} "
+          f"spilling; the source's route equals the host's at tm 16 / 32 / "
+          f"64, every core, k=1...{F._MAX_FUSED_K}")
     # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
     core = F.CORES.index("bf16x3")
     for dim in (DIM, WIDE_DIM):
@@ -1525,11 +1570,21 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
     absolute score difference of each core of kernel A and of kernel B."""
     import torch
 
-    with GateCheck(F, torch) as gate_check:
+    with GateCheck(F, torch) as gate_check, \
+            BucketCheck(F, torch) as bucket_check:
         err = _compare_all(F, torch, ms, ns, dims, ks)
     require(gate_check.listed > 0 and gate_check.wgmma > 0
             and gate_check.appending > 0 and gate_check.radix > 0,
             "phase 2 ran no listed, warpgroup, appending or radix launch")
+    require(bucket_check.cases > 0 and bucket_check.listed > 0,
+            "phase 2 checked no dense or no listed bucket launch")
+    print(f"phase 2: kernel A's bucket selection: {bucket_check.cases} "
+          f"launches of this phase at k <= {F.INSERT_MAX_K} where it is "
+          f"built ran again asking for it and gave the insertion's split "
+          f"lists bit for bit, the carry gate off and on "
+          f"({bucket_check.listed} listed; every core, ragged, tie and "
+          f"non-finite data); its counter: {bucket_check.windows} windows "
+          f"ended, {bucket_check.overflow} overflow entries")
     print(f"phase 2: kernel A's carry gate: {gate_check.cases} launches of "
           f"this phase ran again with prune on and gave the split lists "
           f"of prune off bit for bit ({gate_check.listed} listed, "
@@ -1582,6 +1637,17 @@ def _compare_all(F, torch, ms, ns, dims, ks):
           f"k=17/100/512, the radix buffer at k=129/512; the radix "
           f"selection in every core at query tiles 16 and 32, dense and "
           f"listed); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bucket, windows, overflow = _bucket_edges(F, torch, gen)
+    require(overflow > 0, "the bucket edges filled no overflow")
+    print(f"phase 2: kernel A's bucket selection: {bucket} cases "
+          f"bit-identical to its plain version (k={BUCKET_KS}, every core, "
+          f"query tiles 16 and 32 where built, dense splits of {BUCKET_TPS} "
+          f"tiles and a "
+          f"list, masked and not; tie data with zero query rows, and "
+          f"class-heavy data: {windows} windows ended, {overflow} overflow "
+          f"entries), each gated twin equal; "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     before = _kernel_launches(F)
     nf_cases = _nonfinite_edges(F, torch, gen, err)
@@ -1719,6 +1785,16 @@ def phase_big(pmt, torch):
                   f"passes the float64 oracle gate (first request "
                   f"{first:.1f} ms host, corpus prep included on the "
                   f"first)")
+    # The bucket selection on the main path: batch 8 (query tile 16) at
+    # k=10, asked for by the corpus's config.
+    q = requests[(8, 10)]
+    idx, scores = pmt.Corpus(c, config=pmt.SearchConfig(
+        selection="bucket")).topk(q, 10)
+    ref_idx, ref_scores = _oracle_on_card(torch, q, c, 10)
+    gate(idx, scores, ref_idx, ref_scores,
+         "2M corpus batch=8 k=10 selection='bucket'")
+    print(f"phase 4: {BIG_ROWS}x{DIM} corpus, batch 8, k=10, "
+          f"selection='bucket': passes the float64 oracle gate")
     return corpus, requests
 
 
@@ -1823,6 +1899,137 @@ class GateCheck:
         return False
 
 
+class BucketCheck:
+    """Phase 2's check of kernel A's bucket selection: while it is active,
+    every launch of kernel A on the card that does not ask for it, where
+    it is built (``bucket_built``: k <= 16 at query tiles 16 and 32, the
+    f32 walk at 16), runs
+    again asking for it, and the split lists must equal the first
+    launch's bit for bit.  Inside ``GateCheck`` that launch runs with the
+    carry gate off and on, equal too.  ``cases`` counts the launches
+    checked, ``listed`` the listed ones, ``windows`` / ``overflow`` what
+    the bucket's counter gathered over them (gate off and on)."""
+
+    def __init__(self, F, torch):
+        self.F, self.torch = F, torch
+        self.cases = self.listed = self.windows = self.overflow = 0
+
+    def __enter__(self):
+        F, torch = self.F, self.torch
+        self.launch = launch = F.fused_topk_partial
+
+        def checked(qp, cp, cbp, mask, k, precision, splits, tps, tm,
+                    *rest, bucket=False, bucket_count=None, **kw):
+            args = (qp, cp, cbp, mask, k, precision, splits, tps, tm) + rest
+            out = launch(*args, bucket=bucket, bucket_count=bucket_count,
+                         **kw)
+            if bucket or not qp.is_cuda or not F.bucket_built(tm, precision,
+                                                              k):
+                return out
+            count = torch.zeros(2, dtype=torch.int32, device=qp.device)
+            got = launch(*args, bucket=True, bucket_count=count, **kw)
+            listed = bool(rest and rest[0] is not None) or (
+                kw.get("tiles") is not None)
+            require(torch.equal(got[1], out[1]) and torch.equal(
+                got[0].view(torch.int32), out[0].view(torch.int32)),
+                f"kernel A's bucket selection differs from the insertion: "
+                f"m={qp.shape[0]} n={cp.shape[0]} k={k} {precision} tm={tm} "
+                f"splits={splits} listed={listed}")
+            windows, overflow = count.tolist()
+            self.cases += 1
+            self.listed += listed
+            self.windows += windows
+            self.overflow += overflow
+            return out
+
+        F.fused_topk_partial = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.F.fused_topk_partial = self.launch
+        return False
+
+
+# The bucket selection's own edges (phase 2): k (every k it takes is <=
+# 16), dense splits of 1, 2, 3 and 17 tiles (one-tile windows, windows
+# ending mid-split, a first tile alone), and its query tiles.
+BUCKET_KS = (1, 2, 5, 10, 16)
+BUCKET_TPS = (1, 2, 3, 17)
+
+
+def _class_heavy(torch, gen, m, n, dim):
+    """Integer tie data whose best scores crowd a few of the bucket's
+    classes: the queries are made non-negative and the corpus rows in the
+    tile columns of lanes 0 and 5 (columns 0, 5, 32 and 37 of every 64)
+    get +2 in every feature, so a row's top-k, and most scores that beat
+    its early thresholds, fall in a few cells (the overflow fills, windows
+    end early); then every row of the first half is twinned in the second
+    (whose heavy rows so sit in other columns), so ties abound."""
+    q, c = _tie_data(torch, gen, m, n, dim)
+    q = q.abs()
+    lane = torch.arange(n, device="cuda") % 64 % 32
+    heavy = (lane == 0) | (lane == 5)
+    c[heavy] += 2.0
+    c[n // 2:] = c[: n - n // 2].clone()
+    return q, c
+
+
+def _bucket_edges(F, torch, gen):
+    """Kernel A's bucket selection against its plain version, bit for bit
+    on integer data: tie data with half the query rows zero (all-tied
+    rows) and class-heavy data (``_class_heavy``), every core, each query
+    tile it is built at (16, and 32 but in highest), BUCKET_KS x
+    BUCKET_TPS dense splits, with and
+    without a mask that drops a third of the rows and every row of whole
+    splits, and walking a list; each launch's gated twin too (under
+    GateCheck).  Returns (cases, windows, overflow entries)."""
+    n, dim, tn = 3000, 56, 128
+    m = 37
+    layout = -(-n // tn)
+    tiles = torch.tensor([list(range(0, layout, 2))], dtype=torch.int32,
+                         device="cuda")
+    keep = torch.rand((n,), generator=gen, device="cuda") < 0.66
+    keep[n // 3: n // 3 + 640] = False
+    masks = (None, F.pad_mask_row(keep, n))
+    n_tiles = -(-n // F._TN)
+    cases = windows = overflow = 0
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for heavy in (False, True):
+        if heavy:
+            q, c = _class_heavy(torch, gen, m, n, dim)
+        else:
+            q, c = _tie_data(torch, gen, m, n, dim)
+            q[::2] = 0.0
+        for precision in F.CORES:
+            qp = F.prepare_queries(q, "dot", precision)
+            cp, cbp = F.prepare_corpus(c, "dot", precision=precision)
+            for k, mask in ((k, mask) for k in BUCKET_KS for mask in masks):
+                what = (f"bucket selection m={m} n={n} k={k} {precision} "
+                        f"mask={mask is not None} class-heavy={heavy}")
+                runs = [((qp, cp, cbp, mask, k, precision, -(-n_tiles // tps),
+                          tps), (), f"splits of {tps} tiles, ")
+                        for tps in BUCKET_TPS]
+                runs.append(((qp, cp, cbp, mask, k, precision, 2, -(-(
+                    tiles.shape[1] * tn // F._TN) // 2)), (tiles, tn, m),
+                    "listed "))
+                for args, listed, label in runs:
+                    want = F.fused_topk_partial_plain(*args, *listed)
+                    for tm in (16, 32):
+                        if not F.bucket_built(tm, precision, k):
+                            continue
+                        count.zero_()
+                        compare(*F.fused_topk_partial(
+                            *args, tm, *listed, bucket=True,
+                            bucket_count=count), *want, exact=True,
+                            what=f"{label}tm={tm}, {what}")
+                        w, o = count.tolist()
+                        windows, overflow = windows + w, overflow + o
+                        cases += 1
+            del qp, cp, cbp
+    torch.cuda.synchronize()
+    return cases, windows, overflow
+
+
 # Kernel A with the carry gate on and off at the cells of phase 6: each
 # cell's times, skip share and verdict, for the summary and PERF.md.
 GATE_CELLS = []
@@ -1876,6 +2083,63 @@ def _time_gate(F, torch, card, label, args, jax_rule, reps=10, **kw):
           f"on {'no worse than' if cell['no_worse'] else 'SLOWER than'} off "
           f"beyond the spread")
     return cell
+
+
+# Kernel A asked for the bucket selection against the insertion at the
+# cells of phase 6 (k <= 16, query tiles 16 and 32): each cell's times,
+# counter and verdict, for the summary and PERF.md.
+BUCKET_CELLS = []
+
+
+def _time_bucket(F, torch, card, label, args, reps=10, **kw):
+    """Kernel A (``fused_topk_partial(*args, **kw)``, args ending in the
+    query tile) with the insertion and asked for the bucket selection, in
+    turns (insert, bucket, bucket, insert, ...), CUDA events: the split
+    lists equal bit for bit, the bucket's windows and overflow entries
+    from its counter, each route's median and their spread.  Returns the
+    cell, or None where the bucket is not built."""
+    k, precision, tm = args[4], args[5], args[8]
+    if not F.bucket_built(tm, precision, k):
+        return None
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    ins = F.fused_topk_partial(*args, **kw)
+    got = F.fused_topk_partial(*args, bucket=True, bucket_count=count, **kw)
+    require(torch.equal(got[1], ins[1]) and torch.equal(
+        got[0].view(torch.int32), ins[0].view(torch.int32)),
+        f"{label}: the bucket selection differs from the insertion")
+    windows, overflow = count.tolist()
+    times = {"insert": [], "bucket": []}
+    for turn in range(GATE_TURNS):
+        for route in (("insert", "bucket") if turn % 2 == 0
+                      else ("bucket", "insert")):
+            times[route].append(cuda_ms(lambda: F.fused_topk_partial(
+                *args, bucket=route == "bucket", **kw), reps=reps,
+                warmup=2))
+    med = {key: statistics.median(v) for key, v in times.items()}
+    spread = max(max(v) - min(v) for v in times.values())
+    cell = {"label": label, "insert_ms": med["insert"],
+            "bucket_ms": med["bucket"], "spread_ms": spread,
+            "windows": windows, "overflow": overflow,
+            "faster": med["insert"] - med["bucket"] > spread}
+    BUCKET_CELLS.append(cell)
+    print(f"phase 6: [{card}] bucket selection, {label}: insert "
+          f"{' / '.join(f'{t:.4f}' for t in times['insert'])} ms, bucket "
+          f"{' / '.join(f'{t:.4f}' for t in times['bucket'])} ms (medians "
+          f"{med['insert']:.4f} / {med['bucket']:.4f}, spread {spread:.4f}); "
+          f"{windows} windows, {overflow} overflow entries; bucket "
+          f"{'faster than' if cell['faster'] else 'not faster than'} the "
+          f"insertion beyond the spread")
+    return cell
+
+
+def _bucket_summary(card):
+    """The bucket selection's cells: where it was faster than the
+    insertion beyond the spread ("auto" takes it where
+    ``fused_topk.bucket_route`` says)."""
+    faster = [c["label"] for c in BUCKET_CELLS if c["faster"]]
+    print(f"phase 6: [{card}] bucket selection: {len(BUCKET_CELLS)} cells "
+          f"timed, faster than the insertion beyond the spread at "
+          f"{len(faster)}: {faster}")
 
 
 def _gate_summary(card):
@@ -2021,6 +2285,27 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
               f"splits={splits}): A+B {ab:.4f} ms, plain {plain:.4f} ms | "
               f"A {a:.4f} ms, A plain {a_plain:.4f} ms | B {b:.4f} ms, "
               f"B plain {b_plain:.4f} ms")
+    # The bucket selection at the canonical shape: k=1, 10 and 16 in both
+    # cores, at query tiles 32 and 16 (the main path's 64 takes the
+    # insertion), beside the insertion at 64.
+    for precision in ("bf16x3", "highest"):
+        qp = F.prepare_queries(q, "cosine", precision)
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=precision)
+        for k in (1, 10, 16):
+            tm, splits, tps = F.kernel_geometry(N_QUERIES, N_CORPUS, k,
+                                                precision, q.device, dim=DIM)
+            a = cuda_ms(lambda: F.fused_topk_partial(
+                qp, cp, cbp, None, k, precision, splits, tps, tm))
+            print(f"phase 6: [{card}] canonical k={k} {precision}: kernel A "
+                  f"(insertion, tm={tm}, splits={splits}) {a:.4f} ms")
+            for tm in (32, 16):
+                geo = F.kernel_geometry(N_QUERIES, N_CORPUS, k, precision,
+                                        q.device, tm, dim=DIM)
+                _time_bucket(F, torch, card, f"canonical k={k} {precision} "
+                             f"(tm={tm}, splits={geo[1]})",
+                             (qp, cp, cbp, None, k, precision, geo[1],
+                              geo[2], tm))
+        del qp, cp, cbp
     _time_merge(F, torch, card)
     canon = pmt.Corpus(c_np)
     for k in (10, 100, 512):
@@ -2051,6 +2336,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
     del canon
     big = {core: _time_big(F, torch, corpus_big, requests, card, core)
            for core in ("bf16x3", "highest")}
+    per_kernel["bucket"] = big["bf16x3"].pop("bucket")
+    big["highest"].pop("bucket", None)
     per_kernel["gated"] = _time_big_gate(F, torch, corpus_big, requests,
                                          card, big["bf16x3"])
     for (batch, k), qb in requests.items():
@@ -2119,6 +2406,18 @@ def _time_big(F, torch, corpus_big, requests, card, core):
               f"ms ({bound[1]}); library torch.addmm + torch.topk (f32) "
               f"{lib:.4f} ms")
         measured[batch] = (plain, lib, bound)
+        bucket = _time_bucket(F, torch, card, f"{BIG_ROWS}x{DIM} batch "
+                              f"{batch} k={k} {core} (tm={tm}, "
+                              f"splits={splits})",
+                              (qp, cp, cbp, None, k, core, splits, tps, tm))
+        if bucket is not None:
+            measured["bucket"] = _entry(
+                bucket["bucket_ms"], plain, lib,
+                "torch.addmm + torch.topk (f32)", bound,
+                f"{BIG_ROWS}x{DIM} cosine batch {batch} k={k} {core}, "
+                f"selection='bucket' (insertion {bucket['insert_ms']:.4f} "
+                f"ms; {bucket['windows']} windows, {bucket['overflow']} "
+                f"overflow entries)")
     del cp, cbp, cn
     return measured
 
@@ -2368,6 +2667,10 @@ def phase_wide(pmt, F, torch, card, err):
                            f"(tm={tm}, splits={splits})",
                            (qp, cp, cbp, None, k, core, splits, tps, tm),
                            _jax_rule(F, corpus.n, corpus.dim, k), reps=5)
+                _time_bucket(F, torch, card, f"{label} batch {batch} k={k} "
+                             f"(tm={tm}, splits={splits})",
+                             (qp, cp, cbp, None, k, core, splits, tps, tm),
+                             reps=5)
             if k == 100:
                 tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
                                                     qp.device, dim=corpus.dim)
@@ -2559,6 +2862,9 @@ def _time_probed(F, torch, cc, q, k, card, label):
         _time_gate(F, torch, card, f"{label} probe {PROBE} batch {m} k={k} "
                    f"(tm={tm}, splits={splits}, {p} tiles a list)",
                    args + (tm, tiles, tn, br), p >= 16)
+    _time_bucket(F, torch, card, f"{label} probe {PROBE} batch {m} k={k} "
+                 f"(tm={tm}, splits={splits}, {p} tiles a list)",
+                 args + (tm, tiles, tn, br))
     a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
         *args, tiles, tn, br), reps=3, warmup=1)
     ab = cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, core, tiles,
@@ -4649,7 +4955,7 @@ def main() -> int:
     print(f"phase 5: launches on the f32 main path: {counts}, by core "
           f"{cores}")
     for name in ("fused_topk_partial", "fused_topk_partial_radix",
-                 "topk_merge"):
+                 "fused_topk_partial_bucket", "topk_merge"):
         require(counts[name] > 0, f"{name} never launched on the main path")
     for core in ("bf16x3", "highest"):
         require(cores[core] > 0, f"{core} never launched on the main path")
@@ -4666,6 +4972,7 @@ def main() -> int:
     per_kernel["tiles"], tiles_launches = phase_clustered(pmt, F, torch,
                                                           card, err)
     _gate_summary(card)
+    _bucket_summary(card)
     launches = dict(cores, **wide_counts)
     launches["topk_merge"] += counts["topk_merge"]
     kernels = [dict({"name": f"fused_topk_partial.{core}", "route": "cuda",
@@ -4712,6 +5019,18 @@ def main() -> int:
                          "launches": counts["fused_topk_partial_gated"],
                          "max_abs_err": err["bf16x3"]},
                         **per_kernel["gated"]))
+    # Kernel A asked for the bucket selection (the JAX kernel's
+    # _select_bucket): its launches on the f32 main path (phase 4's
+    # selection="bucket" request); its lists equal the insertion's bit for
+    # bit (phase 2), so its error against the plain version is the bf16x3
+    # core's.
+    kernels.append(dict({"name": "fused_topk_partial.bucket",
+                         "route": "cuda",
+                         "source": KERNEL_SRC + "fused_topk.cu",
+                         "replaces": BUCKET_SRC,
+                         "launches": counts["fused_topk_partial_bucket"],
+                         "max_abs_err": err["bf16x3"]},
+                        **per_kernel["bucket"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
     kernels += phase_floor(F, torch, card)
     torch.cuda.empty_cache()

@@ -30,10 +30,16 @@ On this port:
   batch 8 k=10: 0.397 against 0.391 ms), though it saved 5 % at 10M x
   768 int8 batch 256 k=10 (36.383 against 38.363 ms, 30.5 % of the
   tiles skipped).
-- ``selection``: every value runs the same exact CUDA selection (kernel A
-  carry + kernel B merge); a Hopper-specific strategy is left for later.
-  An explicit "gpop", "gstack", "bucket", "stack" or "insert" outside the
-  envelope the JAX package gives it raises the JAX package's ValueError
+- ``selection``: every value gives the same exact result (kernel A carry
+  + kernel B merge).  "bucket" runs kernel A's port of the JAX kernel's
+  bucket selection where it is built (``kernels.fused_topk.bucket_built``:
+  k <= 16 at query tiles 16 and 32, 16 only for "highest"; the same
+  lists, bit for bit); "auto" takes it where ``kernels.fused_topk.
+  bucket_route`` says (nowhere: it did not beat the insertion on the
+  card); every other value, and "bucket" elsewhere, runs kernel A's own
+  selection by k (``kernels.fused_topk.selection``).  An explicit "gpop",
+  "gstack", "bucket", "stack" or "insert" outside the envelope the JAX
+  package gives it raises the JAX package's ValueError
   (``kernels.fused_topk.check_selection``), dense and probed alike.
 - ``precision``: each value runs its own core of the fused kernel:
   ``"bf16x3"``, ``"highest"``, and the quantized-storage cores

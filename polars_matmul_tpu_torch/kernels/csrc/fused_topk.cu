@@ -78,7 +78,8 @@
 // are still re-read per warp).  The selection looks only at the tile
 // scores that beat the row's current threshold (strict >, so a later
 // index never displaces an equal earlier one).  Up to k = 16 they are
-// inserted into the sorted carry; up to kAppendMaxK they are appended to a
+// inserted into the sorted carry (or, asked for, kept in per-lane cells
+// of the bucket selection); up to kAppendMaxK they are appended to a
 // slack and compacted into the carry in batches; above it they are
 // appended to an unsorted buffer of 2k entries whose threshold a radix
 // select raises, sorted once at the split's end (the selection's section
@@ -192,8 +193,44 @@ constexpr int kINT32_MAX = 0x7fffffff;
 // orders them (radix_finish).  Each candidate costs an append and a few
 // histogram reads, whatever k is.
 //
+// The bucket selection (SEL kBucket, k up to kInsertMaxK, on request) is
+// the port of the TPU kernel's _select_bucket (fused_topk.py:1083, with
+// _bucket_top3 :995 and _merge_narrow :1024).  There one pass over a tile
+// keeps each lane class's best two, merges those into the carry, and a
+// class's third best, where it could belong in the top-k, sends the whole
+// tile through the exact extraction again.  On this card a tile's scores
+// are gone once the next tile is scored, so a re-run would mean scoring
+// it again; what bounds a selection here is the warp-wide work each
+// candidate costs (a count and a shift of the carry, a ballot a half
+// tile), not a pass over the tile.  So the bucket keeps its cells across
+// tiles, and nothing it pushes out is lost.  A cell is a (query row,
+// class) pair, the class being a lane (columns lane and 32 + lane of
+// every tile), and lives in that lane's registers: the best two (value,
+// index) of the row's scores in the class that beat the row's threshold,
+// the carry's k-th value when the window began.  Updating it takes no
+// shuffle and no barrier.  What a cell pushes out goes to the row's
+// overflow list, in the merge lists' place (kTN / rows-a-warp entries).
+// A window ends when the overflow cannot take a tile's pushes, or at the
+// split's end: the carry, the cells and the overflow merge as sel_keys by
+// k extraction steps of the warp's best key (bucket_merge, the port of
+// _merge_narrow), which raises the threshold.  Every score that
+// beats the window's threshold is in a cell or in the overflow when the
+// window ends, so the carry is the insertion's, bit for bit, without a
+// re-run; NaN never passes the strict >.  The first tile of a split fills
+// every cell (two scores a lane), so the second ends the first window.
+// The cells take 4 R registers a thread (R = TM / kWarps query rows a
+// warp): the bucket is built where they fit (bucket_tile).  What bounds
+// it here (PERF.md, H100): a window's threshold is stale, so more scores
+// pass than the insertion takes (at 2M x 256 batch 8 k=10, about 55
+// overflow entries and 3.6 windows a row and split), and the cells cost
+// the walks registers; what it saves is the insertion's ballots a row
+// and tile.  It came out level with the insertion or 1-9 % slower but in
+// a few cells of the highest core at query tile 16 (1-2 % faster), so
+// selection="auto" keeps the insertion.
+//
 // Each kernel is built once a selection it can take (SEL: kInsert,
-// kAppend, kRadix), so that none carries another's code and registers.
+// kAppend, kRadix, kBucket), so that none carries another's code and
+// registers.
 //
 // The slack lives in the block's own output rows, part_v / part_i[row]
 // [split][0, slack_entries(k)) (k entries a row, unused until the carry
@@ -227,10 +264,26 @@ constexpr int kSlackMax = 192;
 constexpr int kRadixBits = 7;
 constexpr int kRadixWords = (1 << kRadixBits) / 2;
 
-enum Selection { kInsert = 0, kAppend = 1, kRadix = 2 };
+enum Selection { kInsert = 0, kAppend = 1, kRadix = 2, kBucket = 3 };
 
 __host__ __device__ constexpr int selection(int k) {
   return k <= kInsertMaxK ? kInsert : k <= kAppendMaxK ? kAppend : kRadix;
+}
+
+// The query tiles a core's walk takes the bucket selection at: the cells
+// take 4 TM / kWarps registers a thread, which the mma.sync ring finds at
+// query tiles 16 and 32 and the f32 walk at 16; at 32 the f32 walk and at
+// 64 both walks spilled (PERF.md has ptxas's figures), and the warpgroup
+// consumer's accumulators take 128.
+__host__ __device__ constexpr bool bucket_tile(int tm, int core) {
+  return tm <= (core == kHighest ? 16 : 32);
+}
+
+// Whether a launch that asks for the bucket selection takes it: k up to
+// kInsertMaxK where bucket_tile; elsewhere it keeps selection(k).
+__host__ __device__ constexpr bool bucket_built(int tm, int core, int k) {
+  return k <= kInsertMaxK && bucket_tile(tm, core) &&
+         !(stored_core(core) && tm == kWgTM);
 }
 
 // Slack entries of a row at this k: with a tile's 64 scores they fill two
@@ -1112,6 +1165,211 @@ __device__ inline void init_radix(float* Cv, int rows_valid) {
   }
 }
 
+// The bucket selection's cells of one thread: for query row warp +
+// kWarps j of its block, the best two (value, index) of its lane's class
+// in the window, best first, (-inf, INT32_MAX) where empty.
+template <int R>
+struct BucketCells {
+  float v1[R], v2[R];
+  int i1[R], i2[R];
+  __device__ void clear(int j) {
+    v1[j] = v2[j] = -INFINITY;
+    i1[j] = i2[j] = kINT32_MAX;
+  }
+};
+
+// Overflow entries a row of the bucket selection: the warp's merge lists
+// (kTN entries) shared by its TM / kWarps rows, at most kBucketOverflow
+// (bucket_merge reads one a lane).
+constexpr int kBucketOverflow = 32;
+__host__ __device__ constexpr int bucket_overflow(int tm) {
+  return kTN / (tm / kWarps) < kBucketOverflow ? kTN / (tm / kWarps)
+                                               : kBucketOverflow;
+}
+
+// Puts (v, id) in a cell (v beats the window's threshold; strict >, so an
+// earlier index keeps a tie): returns in (pv, pi) the entry pushed out,
+// -inf where the cell had room.
+__device__ __forceinline__ void bucket_put(float& v1, int& i1, float& v2,
+                                           int& i2, float v, int id,
+                                           float& pv, int& pi) {
+  if (v > v1) {
+    pv = v2; pi = i2;
+    v2 = v1; i2 = i1;
+    v1 = v; i1 = id;
+  } else if (v > v2) {
+    pv = v2; pi = i2;
+    v2 = v; i2 = id;
+  } else {
+    pv = v; pi = id;
+  }
+}
+
+// The larger of two keys.
+__device__ __forceinline__ uint64_t key_max(uint64_t a, uint64_t b) {
+  return a > b ? a : b;
+}
+
+// A window's end for one row, the port of _merge_narrow (fused_topk.py
+// :1024): the carry's k entries (lane j holds slot j), the lane's two cell
+// entries (v1, i1, v2, i2) and its overflow entry (ov, oi: o <= 32 places,
+// -inf where empty, left empty), as sel_keys; k times the warp's best key
+// is taken out (a max over the high words, then over the low words of the
+// lanes that hold that high word: value desc, index asc) and lane t keeps
+// the t-th as carry slot t.  Whole warp calls; k <= 32.  Out of line, as
+// carry_merge: its registers stay out of the walk's budget.
+template <int COPY>
+__device__ __noinline__ void bucket_merge(float* cv, int* ci, int k, float v1,
+                                          int i1, float v2, int i2,
+                                          float* ov, int* oi, int o,
+                                          int lane) {
+  uint64_t x[4];
+  x[0] = lane < k && cv[lane] > -INFINITY ? sel_key(cv[lane], ci[lane])
+                                          : kEmptyKey;
+  x[1] = v1 > -INFINITY ? sel_key(v1, i1) : kEmptyKey;
+  x[2] = v2 > -INFINITY ? sel_key(v2, i2) : kEmptyKey;
+  x[3] = kEmptyKey;
+  if (lane < o) {
+    if (ov[lane] > -INFINITY) x[3] = sel_key(ov[lane], oi[lane]);
+    ov[lane] = -INFINITY;
+  }
+  uint64_t best = key_max(key_max(x[0], x[1]), key_max(x[2], x[3]));
+  uint64_t mine = kEmptyKey;
+  for (int t = 0; t < k; ++t) {
+    const unsigned hi =
+        __reduce_max_sync(0xffffffffu, (unsigned)(best >> 32));
+    const unsigned lo = __reduce_max_sync(
+        0xffffffffu, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+    const uint64_t win = ((uint64_t)hi << 32) | lo;
+    if (win == kEmptyKey) break;   // nothing real is left
+    if (lane == t) mine = win;
+    if (best == win) {   // real keys are distinct: one lane holds it
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (x[e] == win) x[e] = kEmptyKey;
+      best = key_max(key_max(x[0], x[1]), key_max(x[2], x[3]));
+    }
+  }
+  if (lane < k) {
+    const bool real = mine != kEmptyKey;
+    cv[lane] = real ? key_value(mine) : -INFINITY;
+    ci[lane] = real ? key_index(mine) : kINT32_MAX;
+  }
+  __syncwarp();
+}
+
+// The bucket selection of one TM x kTN score tile (k <= kInsertMaxK): each
+// warp takes its rows (warp + kWarps j).  A row whose scores all fail its
+// threshold costs one vote.  Otherwise, when the overflow (lv, li: the
+// warp's merge lists, bucket_overflow(TM) entries a row) cannot take what
+// the cells would push out, the window ends first (bucket_merge) and the
+// tile is filtered again against the raised threshold, into empty cells;
+// then each lane puts its passing scores in its cell and the pushed-out
+// entries are appended to the overflow by ballot and prefix count.
+// count, when not null, gains {windows ended, overflow entries}.
+template <int TM, int COPY = 0>
+__device__ __forceinline__ void bucket_tile(const float* St, float* Cv,
+                                            int* Ci, float* lv, int* li,
+                                            BucketCells<TM / kWarps>& cells,
+                                            int k, int n0, int rows_valid,
+                                            int warp, int lane, int* count) {
+  constexpr int R = TM / kWarps, O = bucket_overflow(TM);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int r = warp + kWarps * j;
+    if (r >= rows_valid) break;
+    float* cv = Cv + (size_t)r * k;
+    const float s0 = St[r * (kTN + 1) + lane];
+    const float s1 = St[r * (kTN + 1) + 32 + lane];
+    float thr = cv[k - 1];
+    bool c0 = s0 > thr, c1 = s1 > thr;
+    if (!__any_sync(0xffffffffu, c0 || c1)) continue;
+    float* ov = lv + O * j;
+    int* oi = li + O * j;
+    // A cell pushes out one entry for each passing score past its room.
+    const int held = (cells.v1[j] > -INFINITY) + (cells.v2[j] > -INFINITY);
+    const int push = held + c0 + c1 - 2;
+    const unsigned p1 = __ballot_sync(0xffffffffu, push > 0);
+    int base = 0;   // the overflow's entries
+    if (p1 != 0u) {
+      const unsigned p2 = __ballot_sync(0xffffffffu, push > 1);
+      base = __popc(__ballot_sync(0xffffffffu,
+                                  lane < O && ov[lane] > -INFINITY));
+      if (base + __popc(p1) + __popc(p2) > O) {
+        bucket_merge<COPY>(cv, Ci + (size_t)r * k, k, cells.v1[j],
+                           cells.i1[j], cells.v2[j], cells.i2[j], ov, oi, O,
+                           lane);
+        cells.clear(j);
+        if (count != nullptr && lane == 0) atomicAdd(count, 1);
+        thr = cv[k - 1];
+        c0 = s0 > thr;
+        c1 = s1 > thr;
+        base = 0;
+      }
+    }
+    float pv0 = -INFINITY, pv1 = -INFINITY;
+    int pi0 = kINT32_MAX, pi1 = kINT32_MAX;
+    if (c0)
+      bucket_put(cells.v1[j], cells.i1[j], cells.v2[j], cells.i2[j], s0,
+                 n0 + lane, pv0, pi0);
+    if (c1)
+      bucket_put(cells.v1[j], cells.i1[j], cells.v2[j], cells.i2[j], s1,
+                 n0 + 32 + lane, pv1, pi1);
+    const unsigned b0 = __ballot_sync(0xffffffffu, pv0 > -INFINITY);
+    const unsigned b1 = __ballot_sync(0xffffffffu, pv1 > -INFINITY);
+    if ((b0 | b1) == 0u) continue;
+    const unsigned below = (1u << lane) - 1u;
+    if (pv0 > -INFINITY) {
+      const int e = base + __popc(b0 & below);
+      ov[e] = pv0;
+      oi[e] = pi0;
+    }
+    if (pv1 > -INFINITY) {
+      const int e = base + __popc(b0) + __popc(b1 & below);
+      ov[e] = pv1;
+      oi[e] = pi1;
+    }
+    if (count != nullptr && lane == 0)
+      atomicAdd(count + 1, __popc(b0) + __popc(b1));
+    __syncwarp();
+  }
+}
+
+// The bucket selection's end of a split, after the walk's last barrier:
+// each warp ends its rows' last windows, then a barrier before the carries
+// are written out.
+template <int TM, int COPY = 0>
+__device__ inline void bucket_flush(float* Cv, int* Ci, float* lv, int* li,
+                                    BucketCells<TM / kWarps>& cells, int k,
+                                    int rows_valid, int warp, int lane,
+                                    int* count) {
+  constexpr int R = TM / kWarps, O = bucket_overflow(TM);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int r = warp + kWarps * j;
+    if (r >= rows_valid) break;
+    float* ov = lv + O * j;
+    const bool held = cells.v1[j] > -INFINITY ||
+                      (lane < O && ov[lane] > -INFINITY);
+    if (!__any_sync(0xffffffffu, held)) continue;
+    bucket_merge<COPY>(Cv + (size_t)r * k, Ci + (size_t)r * k, k,
+                       cells.v1[j], cells.i1[j], cells.v2[j], cells.i2[j],
+                       ov, li + O * j, O, lane);
+    if (count != nullptr && lane == 0) atomicAdd(count, 1);
+  }
+  __syncthreads();
+}
+
+// The bucket selection's start: empty cells and overflow lists (the merge
+// lists, kWarps kTN values).
+template <int R>
+__device__ inline void init_bucket(BucketCells<R>& cells, float* lv) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) cells.clear(j);
+  for (int e = threadIdx.x; e < kWarps * kTN; e += kThreads)
+    lv[e] = -INFINITY;
+}
+
 // ---------------------------------------------------------------------------
 // The carry gate: the TPU kernel's exact tile pruning (prune=, fused_topk.py
 // :1434-1478, prune_eff :1995), a runtime argument of every kernel here.
@@ -1341,7 +1599,8 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                       int tiles_per_split, int p, int tn_tiles,
                       int block_rows, bool vec, int stages,
                       bool q_resident, bool prune,
-                      int* __restrict__ gate_count) {
+                      int* __restrict__ gate_count,
+                      int* __restrict__ bucket_count) {
   constexpr int S = f32_step_tiles(TM), R = f32_step_rows(TM);
   constexpr int RB = ring_row_bytes(TM, kHighest);
   constexpr int BK = ring_cols(TM, kHighest);
@@ -1393,6 +1652,8 @@ fused_topk_f32_kernel(const float* __restrict__ q,
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
+  [[maybe_unused]] BucketCells<TM / kWarps> cells;
+  if constexpr (SEL == kBucket) init_bucket(cells, Lv);
 
   // The producer: the next position (its step's first tile, its chunk)
   // into stage `to`; one commit group a position, empty or not.  The first
@@ -1480,6 +1741,9 @@ fused_topk_f32_kernel(const float* __restrict__ q,
       if constexpr (SEL == kRadix)
         radix_tile<TM, false>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
                               part_i, row0, splits, split);
+      else if constexpr (SEL == kBucket)
+        bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells,
+                        k, n0, rows_valid, warp, lane, bucket_count);
       else if constexpr (SEL == kAppend)
         append_tile<TM, 4>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
                         part_i, row0, splits, split);
@@ -1498,6 +1762,9 @@ fused_topk_f32_kernel(const float* __restrict__ q,
   if constexpr (SEL == kAppend)
     flush_slack<TM, 4>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
                     splits, split);
+  if constexpr (SEL == kBucket)
+    bucket_flush<TM>(Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells, k,
+                     rows_valid, warp, lane, bucket_count);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -1526,7 +1793,8 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          int splits, int tiles_per_split, int p,
                          int tn_tiles, int block_rows, bool vec,
                          int stages, bool q_resident, bool prune,
-                         int* __restrict__ gate_count) {
+                         int* __restrict__ gate_count,
+                         int* __restrict__ bucket_count) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int chunks = ring_chunks(TM, CORE, c_ld * ring_elem_bytes(CORE));
   float* St = reinterpret_cast<float*>(
@@ -1558,6 +1826,8 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
+  [[maybe_unused]] BucketCells<TM / kWarps> cells;
+  if constexpr (SEL == kBucket) init_bucket(cells, Lv);
   ring_walk<TM, CORE, LISTED>(
       qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
       m, n, dim, c_ld, ck, t_begin, t_end, stages, q_resident, vec,
@@ -1566,6 +1836,10 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
           radix_tile<TM, radix_lean(TM, CORE)>(St, Cv, k, n0, rows_valid,
                                                warp, lane, part_v, part_i,
                                                row0, splits, split);
+        else if constexpr (SEL == kBucket)
+          bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN,
+                          cells, k, n0, rows_valid, warp, lane,
+                          bucket_count);
         else if constexpr (SEL == kAppend)
           append_tile<TM, compact_lanes(TM, CORE)>(
               St, Cv, k, n0, rows_valid, warp, lane, part_v, part_i, row0,
@@ -1584,6 +1858,9 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
     flush_slack<TM, compact_lanes(TM, CORE)>(Cv, k, rows_valid, warp, lane,
                                              part_v, part_i, row0, splits,
                                              split);
+  if constexpr (SEL == kBucket)
+    bucket_flush<TM>(Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells, k,
+                     rows_valid, warp, lane, bucket_count);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -1713,37 +1990,42 @@ RingPlan stored_plan(int k, int c_ld) {
   }
 }
 
-// The kernel of selection sel: K<kInsert>, K<kAppend> or K<kRadix>.
-template <typename Pick>
+// The kernel of selection sel: K<kInsert>, K<kAppend>, K<kRadix>, or, where
+// BUCKET, K<kBucket>.
+template <bool BUCKET, typename Pick>
 auto by_selection(int sel, Pick&& pick) {
+  if constexpr (BUCKET)
+    if (sel == kBucket) return pick(std::integral_constant<int, kBucket>{});
   return sel == kRadix    ? pick(std::integral_constant<int, kRadix>{})
          : sel == kAppend ? pick(std::integral_constant<int, kAppend>{})
                           : pick(std::integral_constant<int, kInsert>{});
 }
 
-// Kernel<TM, CORE, LISTED, selection(k)>, its shared memory (0 where it
-// cannot fit) and its ring.  The warpgroup consumer keeps the slack above
-// k = 16 (its query tile takes k <= 128).
+// Kernel<TM, CORE, LISTED, selection(k)>, or <..., kBucket> where bucket
+// asks for it and bucket_built, its shared memory (0 where it cannot fit)
+// and its ring.  The warpgroup consumer keeps the slack above k = 16 (its
+// query tile takes k <= 128) and takes no bucket.
 template <int TM, int CORE, bool LISTED>
-auto kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
+auto kernel_of(int k, int c_ld, bool bucket, size_t& bytes, RingPlan& plan) {
   plan = stored_plan<TM, CORE>(k, c_ld);
   bytes = plan.bytes;
-  const int sel = selection(k);
+  const int sel = bucket && bucket_built(TM, CORE, k) ? kBucket
+                                                      : selection(k);
   if constexpr (wgmma_core<TM, CORE>()) {
     return sel != kInsert ? fused_topk_wgmma_kernel<TM, CORE, LISTED, true>
                           : fused_topk_wgmma_kernel<TM, CORE, LISTED, false>;
   } else if constexpr (CORE == kHighest) {
-    return by_selection(sel, [](auto s) {
+    return by_selection<bucket_tile(TM, kHighest)>(sel, [](auto s) {
       return fused_topk_f32_kernel<TM, LISTED, decltype(s)::value>;
     });
   } else {
     if constexpr (CORE == kBf16x3 && TM != 32)
       if (ring_core<TM, CORE>(k, c_ld) == kBf16x3W)
-        return by_selection(sel, [](auto s) {
+        return by_selection<bucket_tile(TM, kBf16x3W)>(sel, [](auto s) {
           return fused_topk_stored_kernel<TM, kBf16x3W, LISTED,
                                           decltype(s)::value>;
         });
-    return by_selection(sel, [](auto s) {
+    return by_selection<bucket_tile(TM, CORE)>(sel, [](auto s) {
       return fused_topk_stored_kernel<TM, CORE, LISTED, decltype(s)::value>;
     });
   }
@@ -1755,10 +2037,10 @@ int launch(const void* qp, const void* cp, const float* scale,
            float* part_v, int* part_i, int m, int n, int dim, int c_ld,
            int ck, int k, int splits, int tiles_per_split, int p,
            int tn_tiles, int block_rows, bool prune, int* gate_count,
-           cudaStream_t stream) {
+           bool bucket, int* bucket_count, cudaStream_t stream) {
   size_t bytes;
   RingPlan plan{};
-  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bytes, plan);
+  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bucket, bytes, plan);
   if (bytes == 0 || bytes > kMaxSmem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1771,7 +2053,7 @@ int launch(const void* qp, const void* cp, const float* scale,
         mask, tiles, part_v, part_i, m, n, dim, k, splits, tiles_per_split,
         p, tn_tiles, block_rows,
         dim % 4 == 0 && aligned(qp, 16) && aligned(cp, 16), plan.stages,
-        plan.q_resident, prune, gate_count);
+        plan.q_resident, prune, gate_count, bucket_count);
   } else {
     const size_t row_bytes = (size_t)c_ld * ring_elem_bytes(CORE);
     const bool vec = ring_aligned(qp, cp, dim, row_bytes);
@@ -1790,18 +2072,20 @@ int launch(const void* qp, const void* cp, const float* scale,
           static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
           part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
           tn_tiles, block_rows, vec, plan.stages, plan.q_resident, prune,
-          gate_count);
+          gate_count, bucket_count);
   }
   return (int)cudaGetLastError();
 }
 
 // Blocks of kernel<TM, CORE, LISTED> one SM holds at this k and corpus row
-// stride (its registers and shared memory), or a negative cudaError_t.
+// stride (its registers and shared memory), or a negative cudaError_t.  The
+// bucket instantiations have the insertion's shared memory and the same
+// launch bounds, so they hold as many.
 template <int TM, int CORE, bool LISTED>
 int occupancy(int k, int c_ld) {
   size_t bytes;
   RingPlan plan{};
-  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bytes, plan);
+  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, false, bytes, plan);
   if (bytes == 0 || bytes > kMaxSmem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1864,13 +2148,19 @@ extern "C" {
 // prune != 0 turns the carry gate on (exact: the lists are those with it
 // off); gate_count, if not null, is two int32 counters the kernel adds
 // {tiles gated, tiles skipped} to.
+//
+// bucket != 0 asks for the bucket selection, which the launch takes where
+// pmm_fused_topk_bucket says so (the lists are the same, bit for bit);
+// bucket_count, if not null, is two int32 counters such a launch adds
+// {windows ended, overflow entries} to.
 int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                            const float* cb, const uint8_t* mask,
                            const int* tiles, float* part_v, int* part_i,
                            int m, int n, int dim, int c_ld, int ck, int k,
                            int splits, int tiles_per_split, int tm, int core,
                            int n_lists, int p, int tn, int block_rows,
-                           int prune, int* gate_count, void* stream) {
+                           int prune, int* gate_count, int bucket,
+                           int* bucket_count, void* stream) {
   if (m <= 0 || n <= 0 || dim <= 0 || k <= 0 || splits <= 0 ||
       tiles_per_split <= 0)
     return -1;
@@ -1895,7 +2185,7 @@ int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                   decltype(lc)::value>(
         qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
         k, splits, tiles_per_split, p, tiles != nullptr ? tn / kTN : 0,
-        block_rows, prune != 0, gate_count, s);
+        block_rows, prune != 0, gate_count, bucket != 0, bucket_count, s);
   });
 }
 
@@ -1915,6 +2205,13 @@ int pmm_fused_topk_blocks_per_sm(int tm, int k, int core, int listed,
 // the radix selection (the warpgroup consumer appends at 2); -1 for k <= 0.
 int pmm_fused_topk_route(int k) {
   return k <= 0 ? -1 : selection(k);
+}
+
+// Whether a launch of kernel A at query tile tm, core and k that asks for
+// the bucket selection takes it: 1 or 0; -1 for k <= 0.
+int pmm_fused_topk_bucket(int tm, int core, int k) {
+  if (k <= 0) return -1;
+  return bucket_built(tm, core, k) ? 1 : 0;
 }
 
 // The staging of kernel A's core at query tile tm, k and corpus row

@@ -34,8 +34,13 @@ ring into register tiles of f32 FMA (``f32_plan``).
 
 Queries are always split hi | lo except for "highest".  Both kernels are
 exact, with lowest-index-wins ties, so every ``selection`` value of
-``SearchConfig`` runs them.  The (m, n) score matrix never reaches device
-memory: kernel A writes m * splits * k candidates.
+``SearchConfig`` runs them.  Kernel A's selection is its own (``selection``
+by k), but for ``selection="bucket"``, which takes the port of the JAX
+kernel's bucket selection where it is built (``bucket_built``: k <= 16 at
+query tiles 16 and 32, 16 for "highest"; ``bucket_route`` says when
+"auto" takes it too): the same lists, bit for bit.  The (m, n) score
+matrix never reaches device memory: kernel A writes m * splits * k
+candidates.
 
 Metric handling is the JAX package's: cosine pre-scales queries and
 corpus by their inverse norms (zero-norm rows scale by 0; for int8/int4
@@ -135,6 +140,9 @@ launches = {
     # Kernel A's launches of the radix selection (``selection``), dense or
     # listed.
     "fused_topk_partial_radix": 0,
+    # Kernel A's launches of the bucket selection (``bucket_built``), dense
+    # or listed.
+    "fused_topk_partial_bucket": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -986,6 +994,47 @@ def selection(k: int) -> str:
             "append" if k <= APPEND_MAX_K else "radix")
 
 
+# Kernel A's bucket selection (the JAX kernel's ``_select_bucket``): per
+# (query row, lane class) cells of the best two in registers, an overflow
+# of ``bucket_overflow(tm)`` entries a row in the merge lists' place,
+# windows that end when the overflow cannot take a tile's pushes, merged
+# by k extraction steps (the JAX kernel's ``_merge_narrow``).  Built at
+# k <= INSERT_MAX_K on the mma.sync ring at query tiles up to
+# BUCKET_MAX_TM and on the f32 walk ("highest") at 16 (the cells take
+# 4 tm / 8 registers a thread; ptxas spilled beyond).
+BUCKET_MAX_TM, BUCKET_OVERFLOW = 32, 32
+
+
+def bucket_built(tm: int, precision: str, k: int) -> bool:
+    """Whether a launch of kernel A that asks for the bucket selection
+    takes it (``pmm_fused_topk_bucket`` in the source); elsewhere it keeps
+    ``selection(k)``."""
+    top = 16 if precision == "highest" else BUCKET_MAX_TM
+    return (k <= INSERT_MAX_K and tm <= top
+            and not wgmma_core(tm, precision))
+
+
+def bucket_overflow(tm: int) -> int:
+    """Overflow entries a row of the bucket selection: the warp's 64 merge
+    list entries shared by its tm / 8 rows, at most BUCKET_OVERFLOW (the
+    merge reads one a lane)."""
+    return min(_TN // (tm // 8), BUCKET_OVERFLOW)
+
+
+def bucket_route(selection_cfg: str, k: int, tm: int, listed: bool,
+                 precision: str) -> bool:
+    """Whether kernel A is asked for the bucket selection, by (k, query
+    tile, listed, core): always under ``selection="bucket"``; under "auto"
+    nowhere, since on an NVIDIA H100 80GB HBM3 at 700 W no such class of
+    cells showed it faster than the insertion beyond the spread
+    (``ab_kernel_a.py --bucket --rounds 3``: 1 of 31 cells in each of two
+    runs, a different one each time; 5-8 % slower in the bf16x3 core at
+    query tile 16 on the canonical shape: PERF.md §6); every other value
+    keeps ``selection(k)``.  The launch takes it where ``bucket_built``."""
+    del k, tm, listed, precision   # "auto" takes it in no class measured
+    return selection_cfg == "bucket"
+
+
 def radix_buffer(k: int) -> int:
     """Entries a row of the radix selection buffers before a select: 2k,
     the carry's k places in shared memory and the row's k output slots."""
@@ -1291,7 +1340,9 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
                        splits: int, tiles_per_split: int, tm: int,
                        tiles: Optional[torch.Tensor] = None, tn: int = 0,
                        block_rows: int = 0, prune: bool = False,
-                       gate_count: Optional[torch.Tensor] = None):
+                       gate_count: Optional[torch.Tensor] = None,
+                       bucket: bool = False,
+                       bucket_count: Optional[torch.Tensor] = None):
     """Kernel A: (m, splits, k) f32 values and int32 indices.
 
     With ``tiles`` (n_lists, P), query rows [b * block_rows, (b + 1) *
@@ -1302,15 +1353,19 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
 
     ``prune`` runs the kernel with the carry gate on (the same lists, bit
     for bit).  ``gate_count``, a (2,) int32 tensor on the card, gains
-    {tiles gated, tiles skipped} of a gated launch.  On the CPU both
-    change nothing."""
+    {tiles gated, tiles skipped} of a gated launch.  ``bucket`` asks for
+    the bucket selection, which the launch takes where ``bucket_built``
+    (the same lists, bit for bit); ``bucket_count``, a (2,) int32 tensor
+    on the card, gains {windows ended, overflow entries} of such a launch.
+    On the CPU all four change nothing."""
     _check_operands(qp, cp, cbp, mask, k, precision)
-    if gate_count is not None and (
-            gate_count.dtype != torch.int32 or gate_count.numel() != 2
-            or gate_count.device != qp.device
-            or not gate_count.is_contiguous()):
-        raise ValueError("gate_count must be a contiguous (2,) int32 tensor "
-                         "on the queries' device")
+    for name, count in (("gate_count", gate_count),
+                        ("bucket_count", bucket_count)):
+        if count is not None and (
+                count.dtype != torch.int32 or count.numel() != 2
+                or count.device != qp.device or not count.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (2,) int32 "
+                             "tensor on the queries' device")
     listed = tiles is not None
     if listed:
         _check_tiles(qp, tiles, tn, block_rows, tm)
@@ -1342,7 +1397,7 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
             _ptr(tiles), _ptr(part_v), _ptr(part_i), m, n, dim, cp.shape[1],
             ck, k, splits, tiles_per_split, tm, CORES.index(precision),
             n_lists, p, tn, block_rows, int(prune), _ptr(gate_count),
-            ctypes.c_void_p(stream))
+            int(bucket), _ptr(bucket_count), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
     launches["fused_topk_partial_tiles" if listed
@@ -1353,6 +1408,8 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         launches["fused_topk_partial_wgmma"] += 1
     elif selection(k) == "radix":
         launches["fused_topk_partial_radix"] += 1
+    elif bucket and bucket_built(tm, precision, k):
+        launches["fused_topk_partial_bucket"] += 1
     core_launches[precision] += 1
     return part_v, part_i
 
@@ -1432,11 +1489,14 @@ def topk_merge(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
 
 def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                  tiles: Optional[torch.Tensor] = None, tn: int = 0,
-                 block_rows: int = 0, prune: bool = False):
+                 block_rows: int = 0, prune: bool = False,
+                 selection: str = "auto"):
     """Top-k on prepared operands: kernels A + B for CUDA tensors, the
     plain version for CPU tensors, and an error for any other device.
     ``tiles`` / ``tn`` / ``block_rows``: the tile lists of probed search
-    (see ``fused_topk_partial``); ``prune``: kernel A's carry gate."""
+    (see ``fused_topk_partial``); ``prune``: kernel A's carry gate;
+    ``selection``: the config's, which ``bucket_route`` turns into kernel
+    A's route at the launch's query tile."""
     _check_operands(qp, cp, cbp, mask, k, precision)
     m = qp.shape[0]
     if m == 0:
@@ -1453,8 +1513,9 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
         tm, splits, tps = kernel_geometry(m, cp.shape[0], k, precision,
                                           qp.device, dim=_query_dim(
                                               qp, precision))
-        part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
-                                            splits, tps, tm, prune=prune)
+        part_v, part_i = fused_topk_partial(
+            qp, cp, cbp, mask, k, precision, splits, tps, tm, prune=prune,
+            bucket=bucket_route(selection, k, tm, False, precision))
         return topk_merge(part_v, part_i, k)
     tm = listed_tile_rows(m, k, block_rows)
     rows = None
@@ -1471,9 +1532,10 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
     tm, splits, tps = kernel_geometry(qp.shape[0], tiles.shape[1] * tn, k,
                                       precision, qp.device, tm, listed=True,
                                       dim=_query_dim(qp, precision))
-    part_v, part_i = fused_topk_partial(qp, cp, cbp, mask, k, precision,
-                                        splits, tps, tm, tiles, tn,
-                                        block_rows, prune=prune)
+    part_v, part_i = fused_topk_partial(
+        qp, cp, cbp, mask, k, precision, splits, tps, tm, tiles, tn,
+        block_rows, prune=prune,
+        bucket=bucket_route(selection, k, tm, True, precision))
     vals, idx = topk_merge(part_v, part_i, k)
     return (vals, idx) if rows is None else (vals[rows], idx[rows])
 
@@ -1583,7 +1645,8 @@ def select_prepared(q: torch.Tensor, cp: torch.Tensor, cbp: torch.Tensor,
     prune = prune_gate(cfg.prune)
     with annotate(f"pmm.fused_topk.{metric.value}"):
         vals, idx = fused_select(qp, cp, cbp, mask_u8, k, precision, tiles,
-                                 tn, block_rows, prune=prune)
+                                 tn, block_rows, prune=prune,
+                                 selection=cfg.selection)
     return reference.void_bad_queries(q, vals, idx)
 
 

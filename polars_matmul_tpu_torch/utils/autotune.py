@@ -215,14 +215,22 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     """What a dense ``fused_topk`` launches under ``cfg``: the reference
     path, or kernels A + B in one core (their geometry follows from the
     shapes and the core alone), with kernel A's carry gate on or off
-    (``prune_gate``); the core comes last."""
-    from ..kernels.fused_topk import kernel_precision, prune_gate, supports
+    (``prune_gate``) and its bucket selection or not (``bucket_route`` at
+    the launch's query tile, where ``bucket_built``); the core comes
+    last."""
+    from ..kernels.fused_topk import (bucket_built, bucket_route,
+                                      kernel_precision, prune_gate,
+                                      query_tile_rows, supports)
 
     if not cfg.use_pallas or not supports(q.shape, c.shape, q.dtype, k,
                                           cfg):
         return ("reference",)
+    core = kernel_precision(cfg.precision)
+    tm = query_tile_rows(q.shape[0], k)
     gate = ("gated",) if prune_gate(cfg.prune) else ()
-    return ("fused",) + gate + (kernel_precision(cfg.precision),)
+    bucket = (("bucket",) if bucket_route(cfg.selection, k, tm, False, core)
+              and bucket_built(tm, core, k) else ())
+    return ("fused",) + gate + bucket + (core,)
 
 
 def _sweep(candidates, cfg0: SearchConfig, q: torch.Tensor,
@@ -302,10 +310,13 @@ def autotune(
     ``set_default=True`` installs the winner as the process default.
 
     On this port several candidates launch the same kernels: ``precision``
-    picks another core of kernel A and ``prune`` turns its carry gate on
-    or off (``kernels.fused_topk.prune_gate``), while ``block_q``,
-    ``block_n`` and ``selection`` leave a dense launch as it is.  Each
-    distinct launch is measured once and its time given to every
+    picks another core of kernel A, ``prune`` turns its carry gate on or
+    off (``kernels.fused_topk.prune_gate``) and ``selection="bucket"``
+    takes its bucket selection where that is built (``kernels.fused_topk.
+    bucket_built``: k <= 16 at query tiles 16 and 32, 16 for "highest"),
+    while ``block_q``, ``block_n`` and the other ``selection`` values leave
+    a dense launch as it is.  Each distinct launch is measured once and
+    its time given to every
     candidate that shares it; on a tie the first candidate in grid order
     wins, so noise never picks the persisted winner.
 

@@ -255,15 +255,17 @@ def _sweep(monkeypatch, seconds, k=5, candidates=None):
 
 
 def test_sweep_measures_each_distinct_launch_once(monkeypatch):
+    """At 8 queries and k=5 the grid's selection="bucket" candidate takes
+    kernel A's bucket selection: a launch of its own, timed once."""
     best, timed = _sweep(monkeypatch, {"bf16x3": 2.0, "highest": 1.0})
-    assert sorted(timed) == ["bf16x3", "highest"]
+    assert sorted(timed) == ["bf16x3", "bf16x3", "highest"]
     assert best == pt.SearchConfig(block_q=256, block_n=2048,
                                    precision="highest", auto_tile=False)
 
 
 def test_sweep_ties_keep_the_first_candidate(monkeypatch):
     best, timed = _sweep(monkeypatch, {"bf16x3": 1.0, "highest": 1.0})
-    assert len(timed) == 2
+    assert len(timed) == 3   # bf16x3, its bucket selection, highest
     assert best == pt.SearchConfig(block_q=128, block_n=1024,
                                    auto_tile=False)
 
@@ -295,6 +297,28 @@ def test_launch_key():
                          5) == ("reference",)
     assert A._launch_key(pt.SearchConfig(), q.double(), c.double(),
                          5) == ("reference",)
+
+
+@pytest.mark.parametrize("m, k, precision, prune, want", [
+    (8, 5, "bf16x3", "auto", ("fused", "bucket", "bf16x3")),
+    (8, 16, "highest", "on", ("fused", "gated", "bucket", "highest")),
+    (32, 1, "int8c", "off", ("fused", "bucket", "int8c")),
+    (8, 17, "bf16x3", "auto", ("fused", "bf16x3")),      # k > 16: appends
+    (100, 5, "bf16x3", "auto", ("fused", "bf16x3")),     # query tile 64
+    (100, 5, "int8c", "auto", ("fused", "int8c")),       # warpgroup
+])
+def test_launch_key_bucket(m, k, precision, prune, want):
+    """selection="bucket" is a launch of its own where kernel A builds the
+    bucket selection (k <= 16 at query tiles 16 and 32), the insertion's
+    launch elsewhere; "insert" and "auto" keep the insertion's."""
+    q, c = _data(m, 300, 32)
+    cfg = pt.SearchConfig(selection="bucket", precision=precision,
+                          prune=prune)
+    assert A._launch_key(cfg, q, c, k) == want
+    plain = tuple(x for x in want if x != "bucket")
+    for sel in ("insert", "auto", "extract"):
+        assert A._launch_key(cfg.with_updates(selection=sel), q, c,
+                             k) == plain
 
 
 def test_autotune_is_exported():
