@@ -5,10 +5,12 @@ by side and timed in turns.
     git archive <parent> polars_matmul_tpu_torch | tar -x -C build/parent
     python ab_kernel_a.py --parent build/parent [--bits-only]
         [--groups canonical,big,...] [--variants noselect,...] [--bucket]
+        [--gstack]
 
 Run from the checkout's root, beside ``chip_smoke.py``, whose operands,
 timer and bounds it reuses, so its cells are that script's.  It builds
-``csrc/fused_topk.cu`` alone with nvcc, each build into its own library in
+kernel A's units (``csrc/fused_topk.cu``, and ``csrc/fused_topk_gstack.cu``
+where the tree has it) alone with nvcc, each build into its own library in
 a temporary directory under ``build/``: the parent's, this tree's, and
 each variant's (this tree's source with a line or two patched, ``VARIANTS``).
 Then:
@@ -45,16 +47,26 @@ Then:
    k=10; the clustered int8 corpus at probe 0.05 batch 8 k=10 and the 2M x
    256 f32 clustered lists at k=10, 1000 queries and 32; and those lists
    at probe 0.005, fewer than 16 JAX tiles a list, where the JAX
-   package's "auto" picks its bucket selection, batch 8 at k=1 and 10).
+   package's "auto" picks its bucket selection, batch 8 at k=1 and 10),
+   and ``gstack`` (the cells of the gstack selection, k <= 128 where it is
+   built: the canonical operands in bf16x3 and highest at k=10 at query
+   tiles 64, 32 and 16 and at k=100 at 32 and 16; 2M x 256 f32 batch 8 at
+   k=10 and 100 and batch 256 at k=10; 10M x 768 int8 batch 8 k=10; the 2M
+   x 256 f32 clustered lists at probe 0.05, k=10, 1000 queries and 32).
 
 ``--bucket`` adds this tree's build asked for the bucket selection (and
 each variant's) as builds of their own, "change+bucket": its lists must
 equal the parent's in every cell, and its times sit beside the insertion's
-in the same turns; the "bucket..." variants run only so.  ``--timed``
-names the groups that are timed (the others are held to the parent's
-bits only).  A parent older than the bucket selection or the carry
-gate is called without those arguments (``_Older``); every time here is
-taken with the gate off.
+in the same turns; the "bucket..." variants run only so.  ``--gstack``
+adds this tree's build asked for the gstack selection, "change+gstack",
+the same way: its lists (its exact re-walk's where its detector fired)
+must equal the parent's in every cell, and its times sit beside the
+insertion's or the slack's in the same turns; it is skipped in a cell
+where the gstack is not built.  ``--timed`` names the groups that are
+timed (the others are held to the parent's bits only).  A parent older
+than the gstack selection, the bucket selection or the carry gate is
+called without those arguments (``_Older``); every time here is taken
+with the gate off.
 
 Needs a CUDA card, nvcc and the parent checkout; prints one line a result.
 """
@@ -77,7 +89,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("polars_matmul_tpu_torch/kernels/csrc")
 GROUPS = ("canonical", "big", "stored", "wide", "wide-int4", "wide-bf16",
-          "clustered", "lists", "bucket")
+          "clustered", "lists", "bucket", "gstack")
 # Builds of this tree's fused_topk.cu with a line or two changed: (pattern,
 # replacement) pairs of re.subn, each of which must match once, in
 # fused_topk.cu or, given as a third item, another file of csrc/.
@@ -215,52 +227,76 @@ def build(parent: Path, work: Path, variants):
             path.write_text(text)
         srcs[name] = d
     procs = {}
-    for name, d in srcs.items():
-        procs[("lib", name)] = _nvcc(["-shared"], d / "fused_topk.cu",
-                                     work / f"{name}.so")
+    for name, d in srcs.items():   # kernel A's units, each on its own
+        for cu in _units(d):
+            procs[("lib", name, cu.name)] = _nvcc(
+                ["-c"], cu, work / f"{name}.{cu.stem}.o")
     for tree, d in trees.items():
         for cu in sorted(d.glob("*.cu")):
-            if cu.name != "fused_topk.cu":
-                procs[(tree, cu.name)] = _nvcc(
+            if cu not in _units(d):
+                procs[(tree, cu.name, "")] = _nvcc(
                     ["-c"], cu, work / f"{tree}.{cu.stem}.o")
     lines = {name: {} for name in srcs}
-    for (kind, name), proc in procs.items():
+    for (kind, name, unit), proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {kind} {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {kind} {name} {unit}:\n"
+                               f"{log}")
         if kind == "lib":
             _ptxas(log, "fused_topk.cu", lines[name])
         else:
             _ptxas(log, name, lines[kind])
+    from polars_matmul_tpu_torch.kernels import _build
+
+    for name, d in srcs.items():
+        r = subprocess.run(
+            [_build.find_nvcc(), *_build._ARCH, "-shared", "-o",
+             str(work / f"{name}.so")]
+            + [str(work / f"{name}.{cu.stem}.o") for cu in _units(d)],
+            capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking {name}:\n{r.stdout}"
+                               f"{r.stderr}")
     libs = {}
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, d in srcs.items():
         lib = ctypes.CDLL(str(work / f"{name}.so"))
         gated = _takes(d / "fused_topk.cu", "prune")
-        bucket = _takes(d / "fused_topk.cu", "bucket")
+        gstack = _takes(d / "fused_topk.cu", "flags")
+        bucket = gstack or _takes(d / "fused_topk.cu", "bucket")
         lib.pmm_fused_topk_partial.argtypes = (
             [p] * 8 + [i] * (15 if gated else 14) + ([p] if gated else [])
-            + ([i, p] if bucket else []) + [p])
+            + ([i, p] if bucket else []) + ([p] if gstack else []) + [p])
         lib.pmm_fused_topk_partial.restype = i
         lib.pmm_fused_topk_blocks_per_sm.argtypes = [i] * 5
         lib.pmm_fused_topk_blocks_per_sm.restype = i
-        libs[name] = lib if gated and bucket else _Older(lib, gated, bucket)
+        libs[name] = (lib if gated and gstack
+                      else _Older(lib, gated, bucket))
     return libs, lines
+
+
+def _units(d: Path):
+    """Kernel A's translation units in source directory ``d``:
+    fused_topk.cu, and its gstack unit where the tree has one."""
+    return [d / "fused_topk.cu"] + sorted(d.glob("fused_topk_gstack.cu"))
 
 
 def _takes(src: Path, arg: str) -> bool:
     """Whether the source's ``pmm_fused_topk_partial`` takes ``arg`` (the
-    carry gate's "prune", the bucket selection's "bucket")."""
+    carry gate's "prune", the bucket selection's "bucket", the gstack
+    selection's block "flags")."""
     return re.search(rf"int pmm_fused_topk_partial\([^)]*\b{arg}\b",
                      src.read_text()) is not None
 
 
 class _Older:
-    """A library built from a source older than the carry gate or the
-    bucket selection: this tree's wrapper calls ``pmm_fused_topk_partial``
-    with the gate's two arguments and the bucket's two before the stream,
-    and the call goes on without those such a build does not take (each
-    off, no counter)."""
+    """A library built from a source older than the gstack selection, the
+    carry gate or the bucket selection: this tree's wrapper calls
+    ``pmm_fused_topk_partial`` with the gate's two arguments, the other
+    selection's two (alt: 3 the bucket, 4 the gstack) and the gstack's
+    block flags before the stream, and the call goes on without those
+    such a build does not take (each off, no counter; the bucket asked
+    for as a flag)."""
 
     def __init__(self, lib, gated: bool, bucket: bool):
         self._lib, self._gated, self._bucket = lib, gated, bucket
@@ -269,14 +305,16 @@ class _Older:
         return getattr(self._lib, name)
 
     def pmm_fused_topk_partial(self, *args):
-        *head, prune, gate_count, bucket, bucket_count, stream = args
+        *head, prune, gate_count, alt, alt_count, flags, stream = args
         if not self._gated and (prune or gate_count.value is not None):
             raise RuntimeError("this build has no carry gate")
-        if not self._bucket and (bucket or bucket_count.value is not None):
+        if alt == 4 or flags.value is not None:
+            raise RuntimeError("this build has no gstack selection")
+        if not self._bucket and (alt or alt_count.value is not None):
             raise RuntimeError("this build has no bucket selection")
         return self._lib.pmm_fused_topk_partial(
             *head, *((prune, gate_count) if self._gated else ()),
-            *((bucket, bucket_count) if self._bucket else ()), stream)
+            *((int(alt == 3), alt_count) if self._bucket else ()), stream)
 
 
 class Cell:
@@ -489,24 +527,69 @@ def _bucket(cs, F, dev):
     return cells
 
 
+def _gstack(cs, F, dev):
+    """The gstack selection's cells (k <= 128; see the module's head)."""
+    import polars_matmul_tpu_torch as pmt
+
+    cells = []
+    rng = np.random.default_rng(cs.SEED)
+    q = torch.from_numpy(rng.standard_normal(
+        (cs.N_QUERIES, cs.DIM)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal(
+        (cs.N_CORPUS, cs.DIM)).astype(np.float32)).to(dev)
+    qn, cn = (x / x.norm(dim=1, keepdim=True) for x in (q, c))
+    for core in ("bf16x3", "highest"):
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=core)
+        qp = F.prepare_queries(q, "cosine", core)
+        cells += [Cell(f"canonical {core} k={k} tm {tm or 64}", core, qp, cp,
+                       cbp, k, qn, cn, dim=cs.DIM, tm=tm)
+                  for k, tms in ((10, (None, 32, 16)), (100, (32, 16)))
+                  for tm in tms]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    big = torch.randn((cs.BIG_ROWS, cs.DIM), generator=gen, device=dev)
+    cp, cbp = F.prepare_corpus(big, "cosine", precision="bf16x3")
+    cn = big / big.norm(dim=1, keepdim=True)
+    for b, k in ((8, 10), (8, 100), (256, 10)):
+        qb = torch.randn((b, cs.DIM), generator=gen, device=dev)
+        cells.append(Cell(f"2M x 256 f32 batch {b} k={k}", "bf16x3",
+                          F.prepare_queries(qb, "cosine", "bf16x3"), cp, cbp,
+                          k, qb / qb.norm(dim=1, keepdim=True), cn,
+                          dim=cs.DIM))
+    del big
+    torch.cuda.empty_cache()
+    cells += _wide_tier(cs, F, dev, "int8", ((8, 10),), library=False)
+    gen.manual_seed(cs.SEED + 2)
+    c, queries = cs._blobs(torch, gen, cs.BIG_ROWS, cs.DIM)
+    proxy = pmt.ClusteredCorpus(c)
+    del c
+    q = queries(cs.N_QUERIES)
+    cells += [_listed_cell(cs, F, f"2M x 256 f32 clustered probe 0.05 "
+                           f"{m} q k=10", proxy, q[:m], 10)
+              for m in (cs.N_QUERIES, 32)]
+    return cells
+
+
 BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,
             "wide": _wide, "wide-int4": _wide_int4, "wide-bf16": _wide_bf16,
-            "clustered": _clustered, "lists": _lists, "bucket": _bucket}
+            "clustered": _clustered, "lists": _lists, "bucket": _bucket,
+            "gstack": _gstack}
 
 
 def _verdict(card, label, name, times, lib):
-    """Route ``name`` (a build asked for the bucket selection) against the
-    insertion of build ``lib`` (this tree's for the "bucket..." variants,
-    whose insertion is its code): each one's median over its turns, the
-    spread
-    (the larger of the two routes' max - min), and whether the bucket is
-    faster beyond it."""
+    """Route ``name`` (a build asked for the bucket or the gstack
+    selection) against the insertion or slack of build ``lib`` (this
+    tree's for the "bucket..." variants, whose insertion is its code):
+    each one's median over its turns, the spread (the larger of the two
+    routes' max - min), and whether the asked-for selection is faster
+    beyond it."""
     ins = [ms for ms, _ in times[lib]]
     got = [ms for ms, _ in times[name]]
     spread = max(max(ins) - min(ins), max(got) - min(got))
     a, b = statistics.median(ins), statistics.median(got)
     print(f"[{card}] {label}: {name} against {lib}: medians {b:.4f} / "
-          f"{a:.4f} ms ({(b - a) / a:+.1%}), spread {spread:.4f}; bucket "
+          f"{a:.4f} ms ({(b - a) / a:+.1%}), spread {spread:.4f}; "
+          f"{name.split('+')[-1]} "
           f"{'faster' if a - b > spread else 'not faster'} beyond the spread")
 
 
@@ -524,6 +607,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bucket", action="store_true",
                     help="also this tree (and each variant) asked for the "
                          "bucket selection")
+    ap.add_argument("--gstack", action="store_true",
+                    help="also this tree asked for the gstack selection")
     ap.add_argument("--timed", default=None,
                     help="the groups to time (default: every group run)")
     ap.add_argument("--rounds", type=int, default=1,
@@ -571,12 +656,16 @@ def main(argv=None) -> int:
             print(f"ptxas {name} only: {key}: {lines[name][key]}")
 
     # The builds timed: each library, and with --bucket this tree's and
-    # the variants' asked for the bucket selection ("<name>+bucket").
-    routes = {name: (name, False) for name in libs
+    # the variants' asked for the bucket selection ("<name>+bucket"), with
+    # --gstack this tree's asked for the gstack selection
+    # ("change+gstack").
+    routes = {name: (name, None) for name in libs
               if not name.startswith("bucket")}
     if args.bucket:
-        routes.update({f"{name}+bucket": (name, True) for name in libs
+        routes.update({f"{name}+bucket": (name, "bucket") for name in libs
                        if name != "parent"})
+    if args.gstack:
+        routes["change+gstack"] = ("change", "gstack")
 
     def use(name):
         _build._lib = libs[routes[name][0]]
@@ -600,13 +689,20 @@ def main(argv=None) -> int:
         extra = () if cell.listed is None else cell.listed
         return F.fused_topk_partial(cell.qp, cell.cp, cell.cbp, None, cell.k,
                                     cell.core, splits, tps, tm, *extra,
-                                    bucket=routes[name][1])
+                                    bucket=routes[name][1] == "bucket",
+                                    gstack=routes[name][1] == "gstack")
+
+    def built(cell, geo, name):
+        """Whether ``name`` runs its own route at this cell: a build asked
+        for the gstack selection only where it is built."""
+        return routes[name][1] != "gstack" or F.gstack_built(
+            geo[0], cell.core, cell.k)
 
     def bits(label, cell, geo):
         outs = {}
         for name, (lib_name, _) in routes.items():
             if lib_name not in ("noselect", "noproducts", "nodecode",
-                                "nosort"):
+                                "nosort") and built(cell, geo, name):
                 use(name)
                 outs[name] = launch(cell, geo, name)
         torch.cuda.synchronize()
@@ -642,6 +738,8 @@ def main(argv=None) -> int:
             for name in order:
                 use(name)
                 geo = geometry(cell, cell.tm)
+                if not built(cell, geo, name):
+                    continue
                 ms = cs.cuda_ms(lambda: launch(cell, geo, name),
                                 reps=args.reps)
                 times.setdefault(name, []).append((ms, geo))
@@ -681,7 +779,7 @@ def main(argv=None) -> int:
                 + f" | bound {bound[0]:.4f} ms ({bound[1]}) | torch.addmm + "
                 f"torch.topk {lib}")
             for name in routes:
-                if name.endswith("+bucket"):
+                if name.endswith(("+bucket", "+gstack")) and name in times:
                     lib_name = routes[name][0]
                     _verdict(card, cell.label, name, times,
                              lib_name if lib_name in times else "change")

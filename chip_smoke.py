@@ -19,7 +19,10 @@ Phases, each printing one line or a few:
    mirror; kernel A's bucket selection: the source's route
    (``pmm_fused_topk_bucket``) held to ``fused_topk.bucket_built`` at
    every query tile, core and k, and its instantiations' lines (no spill
-   allowed);
+   allowed); kernel A's gstack selection likewise (``pmm_fused_topk_gstack``
+   against ``fused_topk.gstack_built``, ``pmm_fused_topk_levels`` against
+   ``gstack_levels``, its instantiations' lines, no spill allowed, and its
+   depth and ring beside its stacks at a few query tiles and k);
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
@@ -62,19 +65,28 @@ Phases, each printing one line or a few:
    bit (``BucketCheck``), and its own edges against the plain version bit
    for bit (``_bucket_edges``: every core, each query tile it is built
    at, k=1/2/5/10/16, splits of 1, 2, 3 and 17 tiles and a list, masks,
-   zero query rows, class-heavy data that fills its overflow);
+   zero query rows, class-heavy data that fills its overflow); kernel A's
+   gstack selection (``selection="gstack"`` / ``"gpop"``, k <= 128): every
+   launch of this phase where it is built run again asking for it, gate
+   off and on, the split lists equal to the insertion's or the slack's
+   bit for bit (``GstackCheck``), and its own edges against the plain
+   version bit for bit with its fire counter equal to the plain version
+   of its walk's (``_gstack_edges``: every core, each query tile it is
+   built at, k=1/10/16/100/128, splits of 1, 3 and 17 tiles and a list,
+   masks, zero query rows, planted collisions that must fire);
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100 and k=512, in the default precision and precision="highest",
    each held to a float64 NumPy oracle;
 4. a 2,000,000 x 256 resident corpus answering requests of 8 and 256
    queries at k=10 and k=100, and one of 8 at k=10 through a corpus whose
-   config asks for the bucket selection, each held to a float64 oracle on
-   the card;
+   config asks for the bucket selection, and two through corpora asking
+   for "gstack" (the 2M rows) and "gpop" (their first 10,000: gpop's
+   envelope), each held to a float64 oracle on the card;
 5. the launch counts of each main path (phases 3 and 4, each tier of
    phase 7, and the probed path of phase 8): its kernels and cores ran,
-   the radix selection ran (canonical k=512), the bucket selection ran
-   (phase 4's request), the plain versions did not;
+   the radix selection ran (canonical k=512), the bucket and the gstack
+   selections ran (phase 4's requests), the plain versions did not;
 6. times from CUDA events: kernels against plain versions and library
    calls, and requests with their bounds (both cores at the canonical
    k=10, 100 and 512, each launch's selection, blocks, slots and splits
@@ -97,7 +109,13 @@ Phases, each printing one line or a few:
    times and their spread) at the canonical k=1 / 10 / 16 at query tiles
    32 and 16, 2M x 256 batch 8 k=10, and in phases 7 and 8 10M x 768 int8
    batch 8 k=10 and the probed cells at k <= 16, then where it was
-   faster;
+   faster; kernel A with its own selection and asked for the gstack
+   selection in turns (``_time_gstack``: the lists equal, the fire counter
+   equal to the plain version of the walk, each route's times and their
+   spread) at the canonical k=10 and 100 at query tiles 64, 32 and 16,
+   2M x 256 batch 8 at k=10 and 100 and batch 256 at k=10, and in phases
+   7 and 8 10M x 768 int8 batch 8 k=10 and the probed cells, then where
+   it was faster;
 7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
    made on the card from seed 42, stored as int8 (requests of 8 and 256
    queries at k=10 and k=100), int4 and bf16 (8 and 256 queries at
@@ -306,9 +324,12 @@ HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
 BF16X3_PLANS = HIGHEST_PLANS
 # Kernel A's selections by the source's Selection value (the warpgroup
 # consumer's bool: 0 insert, 1 append).
-SELECTIONS = ("insert", "append", "radix", "bucket")
+SELECTIONS = ("insert", "append", "radix", "bucket", "gstack")
 # The TPU kernel's bucket selection, which kernel A's kBucket ports.
 BUCKET_SRC = TPU_KERNEL + ":1083"
+# The TPU kernel's gstack build (_gstack_update), which kernel A's kGstack
+# ports with the detector of _gstack_decode (:752) and _gpop_finish (:922).
+GSTACK_SRC = TPU_KERNEL + ":608"
 # The one instantiation of kernel A known to spill (4 B stored, 4 B
 # loaded; ROADMAP.md): phase 1 fails on a spill in any other.  The carry
 # gate's vote moved it here from bf16c listed at query tile 16 (8 B / 32
@@ -683,6 +704,53 @@ def phase_build():
           f"at tm 16 / 32), {sum('spills' in line for line in bucket)} "
           f"spilling; the source's route equals the host's at tm 16 / 32 / "
           f"64, every core, k=1...{F._MAX_FUSED_K}")
+    # The gstack selection: where a launch that asks for it takes it and
+    # its depth, the source's rules against the host's, and its
+    # instantiations (no spill: kernel A's check above).
+    ks128 = range(1, F.APPEND_MAX_K + 2)
+    built = [lib.pmm_fused_topk_gstack(tm, core, k)
+             for tm in (16, 32, 64) for core in range(len(F.CORES))
+             for k in ks128]
+    require(built == [int(F.gstack_built(tm, core, k))
+                      for tm in (16, 32, 64) for core in F.CORES
+                      for k in ks128],
+            "kernel A's gstack route: the source's rule differs from "
+            "fused_topk.gstack_built")
+    levels = [lib.pmm_fused_topk_levels(k, tm) for tm in (16, 32, 64)
+              for k in ks128]
+    require(levels == [F.gstack_levels(k, tm) for tm in (16, 32, 64)
+                       for k in ks128],
+            "kernel A's gstack depth: the source's rule differs from "
+            "fused_topk.gstack_levels")
+    gstack = [line for line in _ptxas_summary(log)
+              if line.startswith(("fused_topk_stored_kernel<",
+                                  "fused_topk_f32_kernel<"))
+              and ", gstack>" in line]
+    require(len(gstack) > 0, "no gstack instantiation of kernel A was built")
+    for line in gstack:
+        print("  gstack: " + line)
+    for tm, k in ((16, 10), (32, 10), (64, 10), (16, 16), (64, 16),
+                  (16, 100), (32, 100)):
+        plans = []
+        for core in F.CORES:
+            if not F.gstack_built(tm, core, k):
+                plans.append(f"{core} not built")
+                continue
+            st, stage, res, nbytes = F.gstack_plan(
+                tm, core, F._corpus_width(core, WIDE_DIM), k)
+            plans.append(f"{core} {st} stages of {stage} B, {nbytes} B "
+                         f"({F._SMEM_PER_SM // (nbytes + F._SMEM_PER_BLOCK)}"
+                         f" blocks an SM by shared memory)")
+        print(f"  gstack: tm={tm} k={k}: {F.gstack_levels(k, tm)} levels "
+              f"(fire bound {F.gstack_fire_bound(k, tm, F.gstack_levels(k, tm)):.4f}"
+              f" a block), stacks {F.gstack_tail_bytes(tm, F.gstack_levels(k, tm))}"
+              f" B; at dim {WIDE_DIM}: " + "; ".join(plans))
+    print(f"  gstack: {len(gstack)} instantiations (k <= {F.APPEND_MAX_K}, "
+          f"the mma.sync ring at query tiles 16 / 32 / 64 (bf16x3), the f32 "
+          f"walk, dense and listed; {F.GSTACK_CELLS} cells a row, stacks in "
+          f"shared memory), {sum('spills' in line for line in gstack)} "
+          f"spilling; the source's route and depth equal the host's at tm "
+          f"16 / 32 / 64, every core, k=1...{F.APPEND_MAX_K + 1}")
     # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
     core = F.CORES.index("bf16x3")
     for dim in (DIM, WIDE_DIM):
@@ -1571,13 +1639,23 @@ def phase_compare(F, ms=(1, 37, 300), ns=(1, 129, 5000),
     import torch
 
     with GateCheck(F, torch) as gate_check, \
-            BucketCheck(F, torch) as bucket_check:
+            BucketCheck(F, torch) as bucket_check, \
+            GstackCheck(F, torch) as gstack_check:
         err = _compare_all(F, torch, ms, ns, dims, ks)
     require(gate_check.listed > 0 and gate_check.wgmma > 0
             and gate_check.appending > 0 and gate_check.radix > 0,
             "phase 2 ran no listed, warpgroup, appending or radix launch")
     require(bucket_check.cases > 0 and bucket_check.listed > 0,
             "phase 2 checked no dense or no listed bucket launch")
+    require(gstack_check.cases > 0 and gstack_check.listed > 0,
+            "phase 2 checked no dense or no listed gstack launch")
+    print(f"phase 2: kernel A's gstack selection: {gstack_check.cases} "
+          f"launches of this phase at k <= {F.APPEND_MAX_K} where it is "
+          f"built ran again asking for it and gave the insertion's or the "
+          f"slack's split lists bit for bit, the carry gate off and on "
+          f"({gstack_check.listed} listed; every core, ragged, tie and "
+          f"non-finite data); its counter: {gstack_check.rows} rows and "
+          f"{gstack_check.blocks} blocks fired (each walked again)")
     print(f"phase 2: kernel A's bucket selection: {bucket_check.cases} "
           f"launches of this phase at k <= {F.INSERT_MAX_K} where it is "
           f"built ran again asking for it and gave the insertion's split "
@@ -1637,6 +1715,16 @@ def _compare_all(F, torch, ms, ns, dims, ks):
           f"k=17/100/512, the radix buffer at k=129/512; the radix "
           f"selection in every core at query tiles 16 and 32, dense and "
           f"listed); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gstack, rows, blocks, planted = _gstack_edges(F, torch, gen)
+    print(f"phase 2: kernel A's gstack selection: {gstack} cases "
+          f"bit-identical to its plain version (k={GSTACK_KS}, every core, "
+          f"each query tile where built, dense splits of {GSTACK_TPS} tiles "
+          f"and a list, masked and not; tie data with zero query rows, and "
+          f"planted collisions), each gated twin equal; the counter equal "
+          f"to the plain version of the walk's fires in every case: {rows} "
+          f"rows ({planted} of them planted) and {blocks} blocks fired, "
+          f"each block walked again; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     bucket, windows, overflow = _bucket_edges(F, torch, gen)
     require(overflow > 0, "the bucket edges filled no overflow")
@@ -1795,6 +1883,18 @@ def phase_big(pmt, torch):
          "2M corpus batch=8 k=10 selection='bucket'")
     print(f"phase 4: {BIG_ROWS}x{DIM} corpus, batch 8, k=10, "
           f"selection='bucket': passes the float64 oracle gate")
+    # The gstack selection on the main path: the same request asked for
+    # "gstack", and for "gpop" on the corpus's first 10,000 rows (gpop
+    # takes at most 128 groups of 128 rows, as in the JAX package); both
+    # take kernel A's gstack selection.
+    for sel, rows in (("gstack", BIG_ROWS), ("gpop", N_CORPUS)):
+        idx, scores = pmt.Corpus(c[:rows], config=pmt.SearchConfig(
+            selection=sel)).topk(q, 10)
+        ref_idx, ref_scores = _oracle_on_card(torch, q, c[:rows], 10)
+        gate(idx, scores, ref_idx, ref_scores,
+             f"{rows}x{DIM} corpus batch=8 k=10 selection={sel!r}")
+        print(f"phase 4: {rows}x{DIM} corpus, batch 8, k=10, "
+              f"selection={sel!r}: passes the float64 oracle gate")
     return corpus, requests
 
 
@@ -1923,8 +2023,8 @@ class BucketCheck:
             args = (qp, cp, cbp, mask, k, precision, splits, tps, tm) + rest
             out = launch(*args, bucket=bucket, bucket_count=bucket_count,
                          **kw)
-            if bucket or not qp.is_cuda or not F.bucket_built(tm, precision,
-                                                              k):
+            if (bucket or kw.get("gstack") or not qp.is_cuda
+                    or not F.bucket_built(tm, precision, k)):
                 return out
             count = torch.zeros(2, dtype=torch.int32, device=qp.device)
             got = launch(*args, bucket=True, bucket_count=count, **kw)
@@ -1948,6 +2048,145 @@ class BucketCheck:
     def __exit__(self, *exc):
         self.F.fused_topk_partial = self.launch
         return False
+
+
+class GstackCheck:
+    """Phase 2's check of kernel A's gstack selection: while it is active,
+    every launch of kernel A on the card that asks for no other selection,
+    where the gstack is built (``gstack_built``: k <= 128 on the mma.sync
+    ring and the f32 walk where its stacks fit), runs again asking for it,
+    and the split lists (its re-walk's where its detector fired) must
+    equal the first launch's bit for bit.  Inside ``GateCheck`` that
+    launch runs with the carry gate off and on, equal too.  ``cases``
+    counts the launches checked, ``listed`` the listed ones, ``rows`` /
+    ``blocks`` what the gstack's counter gathered over them (gate off and
+    on)."""
+
+    def __init__(self, F, torch):
+        self.F, self.torch = F, torch
+        self.cases = self.listed = self.rows = self.blocks = 0
+
+    def __enter__(self):
+        F, torch = self.F, self.torch
+        self.launch = launch = F.fused_topk_partial
+
+        def checked(qp, cp, cbp, mask, k, precision, splits, tps, tm,
+                    *rest, gstack=False, gstack_count=None, **kw):
+            args = (qp, cp, cbp, mask, k, precision, splits, tps, tm) + rest
+            out = launch(*args, gstack=gstack, gstack_count=gstack_count,
+                         **kw)
+            if (gstack or kw.get("bucket") or not qp.is_cuda
+                    or not F.gstack_built(tm, precision, k)):
+                return out
+            count = torch.zeros(2, dtype=torch.int32, device=qp.device)
+            got = launch(*args, gstack=True, gstack_count=count, **kw)
+            listed = bool(rest and rest[0] is not None) or (
+                kw.get("tiles") is not None)
+            require(torch.equal(got[1], out[1]) and torch.equal(
+                got[0].view(torch.int32), out[0].view(torch.int32)),
+                f"kernel A's gstack selection differs from {F.selection(k)}: "
+                f"m={qp.shape[0]} n={cp.shape[0]} k={k} {precision} tm={tm} "
+                f"splits={splits} listed={listed}")
+            rows, blocks = count.tolist()
+            self.cases += 1
+            self.listed += listed
+            self.rows += rows
+            self.blocks += blocks
+            return out
+
+        F.fused_topk_partial = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.F.fused_topk_partial = self.launch
+        return False
+
+
+# The gstack selection's own edges (phase 2): k from one level below the
+# bound's to 128, dense splits of 1, 3 and 17 tiles, and its query tiles.
+GSTACK_KS = (1, 10, 16, 100, 128)
+GSTACK_TPS = (1, 3, 17)
+
+
+def _planted_heavy(torch, gen, m, n, dim):
+    """Integer data whose every row's top-k crowd one column of the tile:
+    the queries non-negative, the corpus rows in column 5 of every tile
+    (rows 5 + 64 j) +3 in every feature, so that column's cell takes more
+    of a row's top-k than it holds and the detector fires on every row
+    (the counterpart of the JAX package's planted collision); then every
+    row of the first half twinned in the second."""
+    q, c = _tie_data(torch, gen, m, n, dim)
+    q = q.abs()
+    c[5::64] += 3.0
+    c[n // 2:] = c[: n - n // 2].clone()
+    return q, c
+
+
+def _gstack_edges(F, torch, gen):
+    """Kernel A's gstack selection against its plain version, bit for bit
+    on integer data, and its fire counter against the plain version of its
+    walk (``fused_topk.gstack_partial_plain``): tie data with half the
+    query rows zero, and planted collisions (``_planted_heavy``: every row
+    fires), every core, each query tile it is built at, GSTACK_KS x
+    GSTACK_TPS dense splits, with and without a mask that drops a third of
+    the rows and every row of whole splits, and walking a list; each
+    launch's gated twin too (under GateCheck, whose second launch the
+    counter then also counts).  Returns (cases, rows fired, blocks fired,
+    planted rows fired)."""
+    n, dim, tn = 3000, 56, 128
+    m = 37
+    layout = -(-n // tn)
+    tiles = torch.tensor([list(range(0, layout, 2))], dtype=torch.int32,
+                         device="cuda")
+    keep = torch.rand((n,), generator=gen, device="cuda") < 0.66
+    keep[n // 3: n // 3 + 640] = False
+    masks = (None, F.pad_mask_row(keep, n))
+    n_tiles = -(-n // F._TN)
+    cases = rows = blocks = planted_rows = 0
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for planted in (False, True):
+        if planted:
+            q, c = _planted_heavy(torch, gen, m, n, dim)
+        else:
+            q, c = _tie_data(torch, gen, m, n, dim)
+            q[::2] = 0.0
+        for precision in F.CORES:
+            qp = F.prepare_queries(q, "dot", precision)
+            cp, cbp = F.prepare_corpus(c, "dot", precision=precision)
+            for k, mask in ((k, mask) for k in GSTACK_KS for mask in masks):
+                what = (f"gstack selection m={m} n={n} k={k} {precision} "
+                        f"mask={mask is not None} planted={planted}")
+                runs = [((qp, cp, cbp, mask, k, precision, -(-n_tiles // tps),
+                          tps), (), f"splits of {tps} tiles, ")
+                        for tps in GSTACK_TPS]
+                runs.append(((qp, cp, cbp, mask, k, precision, 2, -(-(
+                    tiles.shape[1] * tn // F._TN) // 2)), (tiles, tn, m),
+                    "listed "))
+                for args, listed, label in runs:
+                    want = F.fused_topk_partial_plain(*args, *listed)
+                    for tm in (16, 32, 64):
+                        if not F.gstack_built(tm, precision, k):
+                            continue
+                        count.zero_()
+                        compare(*F.fused_topk_partial(
+                            *args, tm, *listed, gstack=True,
+                            gstack_count=count), *want, exact=True,
+                            what=f"{label}tm={tm}, {what}")
+                        fired = F.gstack_partial_plain(*args, tm, *listed)[2]
+                        want_rows, want_blocks = F.gstack_fires(fired, tm)
+                        got = count.tolist()
+                        # GateCheck's gated twin adds its own fires.
+                        require(got == [2 * want_rows, 2 * want_blocks],
+                                f"{label}tm={tm}, {what}: the gstack counter "
+                                f"{got} differs from twice the model's "
+                                f"{[want_rows, want_blocks]}")
+                        rows, blocks = rows + want_rows, blocks + want_blocks
+                        planted_rows += planted * want_rows
+                        cases += 1
+            del qp, cp, cbp
+    torch.cuda.synchronize()
+    require(planted_rows > 0, "no planted collision fired")
+    return cases, rows, blocks, planted_rows
 
 
 # The bucket selection's own edges (phase 2): k (every k it takes is <=
@@ -2132,6 +2371,79 @@ def _time_bucket(F, torch, card, label, args, reps=10, **kw):
     return cell
 
 
+# Kernel A asked for the gstack selection against its own selection (the
+# insertion or the slack) at the cells of phase 6 (k <= 128 where it is
+# built): each cell's times, fires and verdict, for the summary and
+# PERF.md.
+GSTACK_CELLS = []
+
+
+def _time_gstack(F, torch, card, label, args, reps=10, **kw):
+    """Kernel A (``fused_topk_partial(*args, **kw)``, args ending in the
+    query tile, then a listed launch's tiles, tn and block rows) with its
+    own selection and asked for the gstack selection, in turns (own,
+    gstack, gstack, own, ...), CUDA events: the split lists equal bit for
+    bit, the gstack's counter equal to the plain version of its walk on
+    the same operands (``fused_topk.gstack_partial_plain``), each route's
+    median and their spread.  Returns the cell, or None where the gstack
+    is not built."""
+    k, precision, tm = args[4], args[5], args[8]
+    if not F.gstack_built(tm, precision, k):
+        print(f"phase 6: [{card}] gstack selection, {label}: not built "
+              f"({F.gstack_levels(k, tm)} levels, stacks "
+              f"{F.gstack_tail_bytes(tm, F.gstack_levels(k, tm))} B)")
+        return None
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    own = F.fused_topk_partial(*args, **kw)
+    got = F.fused_topk_partial(*args, gstack=True, gstack_count=count, **kw)
+    require(torch.equal(got[1], own[1]) and torch.equal(
+        got[0].view(torch.int32), own[0].view(torch.int32)),
+        f"{label}: the gstack selection differs from {F.selection(k)}")
+    fired = F.gstack_partial_plain(*args[:8], tm, *args[9:])[2]
+    model = F.gstack_fires(fired, tm)
+    rows, blocks = count.tolist()
+    require((rows, blocks) == model,
+            f"{label}: the gstack counter ({rows}, {blocks}) differs from "
+            f"the plain version of its walk {model}")
+    times = {"own": [], "gstack": []}
+    for turn in range(GATE_TURNS):
+        for route in (("own", "gstack") if turn % 2 == 0
+                      else ("gstack", "own")):
+            times[route].append(cuda_ms(lambda: F.fused_topk_partial(
+                *args, gstack=route == "gstack", **kw), reps=reps,
+                warmup=2))
+    med = {key: statistics.median(v) for key, v in times.items()}
+    spread = max(max(v) - min(v) for v in times.values())
+    m, splits = args[0].shape[0], args[6]
+    cell = {"label": label, "own_ms": med["own"],
+            "gstack_ms": med["gstack"], "spread_ms": spread,
+            "rows": rows, "blocks": blocks, "row_splits": m * splits,
+            "block_count": -(-m // tm) * splits,
+            "levels": F.gstack_levels(k, tm),
+            "faster": med["own"] - med["gstack"] > spread}
+    GSTACK_CELLS.append(cell)
+    print(f"phase 6: [{card}] gstack selection, {label}: "
+          f"{F.selection(k)} {' / '.join(f'{t:.4f}' for t in times['own'])}"
+          f" ms, gstack {' / '.join(f'{t:.4f}' for t in times['gstack'])} "
+          f"ms (medians {med['own']:.4f} / {med['gstack']:.4f}, spread "
+          f"{spread:.4f}); {cell['levels']} levels; fired {rows} of "
+          f"{m * splits} rows, {blocks} of {cell['block_count']} blocks "
+          f"walked again (the plain version of the walk: the same); gstack "
+          f"{'faster than' if cell['faster'] else 'not faster than'} "
+          f"{F.selection(k)} beyond the spread")
+    return cell
+
+
+def _gstack_summary(card):
+    """The gstack selection's cells: where it was faster than kernel A's
+    own selection beyond the spread ("auto" takes it where
+    ``fused_topk.gstack_route`` says)."""
+    faster = [c["label"] for c in GSTACK_CELLS if c["faster"]]
+    print(f"phase 6: [{card}] gstack selection: {len(GSTACK_CELLS)} cells "
+          f"timed, faster than the insertion or slack beyond the spread at "
+          f"{len(faster)}: {faster}")
+
+
 def _bucket_summary(card):
     """The bucket selection's cells: where it was faster than the
     insertion beyond the spread ("auto" takes it where
@@ -2306,6 +2618,21 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                              (qp, cp, cbp, None, k, precision, geo[1],
                               geo[2], tm))
         del qp, cp, cbp
+    # The gstack selection at the canonical shape: k=10 at the main path's
+    # query tile 64 and at 32 and 16, k=100 at 32 and 16 (64 not built),
+    # both cores.
+    for precision in ("bf16x3", "highest"):
+        qp = F.prepare_queries(q, "cosine", precision)
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=precision)
+        for k, tms in ((10, (64, 32, 16)), (100, (64, 32, 16))):
+            for tm in tms:
+                geo = F.kernel_geometry(N_QUERIES, N_CORPUS, k, precision,
+                                        q.device, tm, dim=DIM)
+                _time_gstack(F, torch, card, f"canonical k={k} {precision} "
+                             f"(tm={tm}, splits={geo[1]})",
+                             (qp, cp, cbp, None, k, precision, geo[1],
+                              geo[2], tm))
+        del qp, cp, cbp
     _time_merge(F, torch, card)
     canon = pmt.Corpus(c_np)
     for k in (10, 100, 512):
@@ -2338,6 +2665,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
            for core in ("bf16x3", "highest")}
     per_kernel["bucket"] = big["bf16x3"].pop("bucket")
     big["highest"].pop("bucket", None)
+    per_kernel["gstack"] = big["bf16x3"].pop("gstack")
+    big["highest"].pop("gstack", None)
     per_kernel["gated"] = _time_big_gate(F, torch, corpus_big, requests,
                                          card, big["bf16x3"])
     for (batch, k), qb in requests.items():
@@ -2418,6 +2747,26 @@ def _time_big(F, torch, corpus_big, requests, card, core):
                 f"selection='bucket' (insertion {bucket['insert_ms']:.4f} "
                 f"ms; {bucket['windows']} windows, {bucket['overflow']} "
                 f"overflow entries)")
+        gstack = _time_gstack(F, torch, card, f"{BIG_ROWS}x{DIM} batch "
+                              f"{batch} k={k} {core} (tm={tm}, "
+                              f"splits={splits})",
+                              (qp, cp, cbp, None, k, core, splits, tps, tm))
+        if gstack is not None and batch == 8:
+            measured["gstack"] = _entry(
+                gstack["gstack_ms"], plain, lib,
+                "torch.addmm + torch.topk (f32)", bound,
+                f"{BIG_ROWS}x{DIM} cosine batch {batch} k={k} {core}, "
+                f"selection='gstack' (insertion {gstack['own_ms']:.4f} ms; "
+                f"{gstack['levels']} levels, {gstack['rows']} of "
+                f"{gstack['row_splits']} rows fired)")
+    # The gstack at batch 8, k=100 (the slack's; tile 16, 10 levels).
+    qb = requests[(8, 100)]
+    qp = F.prepare_queries(qb, "cosine", core)
+    tm, splits, tps = F.kernel_geometry(8, BIG_ROWS, 100, core, qp.device,
+                                        dim=DIM)
+    _time_gstack(F, torch, card, f"{BIG_ROWS}x{DIM} batch 8 k=100 {core} "
+                 f"(tm={tm}, splits={splits})",
+                 (qp, cp, cbp, None, 100, core, splits, tps, tm))
     del cp, cbp, cn
     return measured
 
@@ -2671,6 +3020,11 @@ def phase_wide(pmt, F, torch, card, err):
                              f"(tm={tm}, splits={splits})",
                              (qp, cp, cbp, None, k, core, splits, tps, tm),
                              reps=5)
+                if batch == 8:   # tile 64 is the warpgroup consumer's
+                    _time_gstack(F, torch, card, f"{label} batch {batch} "
+                                 f"k={k} (tm={tm}, splits={splits})",
+                                 (qp, cp, cbp, None, k, core, splits, tps,
+                                  tm), reps=5)
             if k == 100:
                 tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
                                                     qp.device, dim=corpus.dim)
@@ -2863,6 +3217,9 @@ def _time_probed(F, torch, cc, q, k, card, label):
                    f"(tm={tm}, splits={splits}, {p} tiles a list)",
                    args + (tm, tiles, tn, br), p >= 16)
     _time_bucket(F, torch, card, f"{label} probe {PROBE} batch {m} k={k} "
+                 f"(tm={tm}, splits={splits}, {p} tiles a list)",
+                 args + (tm, tiles, tn, br))
+    _time_gstack(F, torch, card, f"{label} probe {PROBE} batch {m} k={k} "
                  f"(tm={tm}, splits={splits}, {p} tiles a list)",
                  args + (tm, tiles, tn, br))
     a_plain = cuda_ms(lambda: F.fused_topk_partial_plain(
@@ -4955,7 +5312,8 @@ def main() -> int:
     print(f"phase 5: launches on the f32 main path: {counts}, by core "
           f"{cores}")
     for name in ("fused_topk_partial", "fused_topk_partial_radix",
-                 "fused_topk_partial_bucket", "topk_merge"):
+                 "fused_topk_partial_bucket", "fused_topk_partial_gstack",
+                 "topk_merge"):
         require(counts[name] > 0, f"{name} never launched on the main path")
     for core in ("bf16x3", "highest"):
         require(cores[core] > 0, f"{core} never launched on the main path")
@@ -4973,6 +5331,7 @@ def main() -> int:
                                                           card, err)
     _gate_summary(card)
     _bucket_summary(card)
+    _gstack_summary(card)
     launches = dict(cores, **wide_counts)
     launches["topk_merge"] += counts["topk_merge"]
     kernels = [dict({"name": f"fused_topk_partial.{core}", "route": "cuda",
@@ -5031,6 +5390,18 @@ def main() -> int:
                          "launches": counts["fused_topk_partial_bucket"],
                          "max_abs_err": err["bf16x3"]},
                         **per_kernel["bucket"]))
+    # Kernel A asked for the gstack selection (the JAX kernel's gstack
+    # build, its detector and gpop's finish), with its exact re-walk: its
+    # launches on the f32 main path (phase 4's selection="gstack" and
+    # "gpop" requests); its lists equal the insertion's bit for bit (phase
+    # 2), so its error against the plain version is the bf16x3 core's.
+    kernels.append(dict({"name": "fused_topk_partial.gstack",
+                         "route": "cuda",
+                         "source": KERNEL_SRC + "fused_topk.cu",
+                         "replaces": GSTACK_SRC,
+                         "launches": counts["fused_topk_partial_gstack"],
+                         "max_abs_err": err["bf16x3"]},
+                        **per_kernel["gstack"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
     kernels += phase_floor(F, torch, card)
     torch.cuda.empty_cache()

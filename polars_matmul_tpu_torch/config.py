@@ -36,8 +36,19 @@ On this port:
   k <= 16 at query tiles 16 and 32, 16 only for "highest"; the same
   lists, bit for bit); "auto" takes it where ``kernels.fused_topk.
   bucket_route`` says (nowhere: it did not beat the insertion on the
-  card); every other value, and "bucket" elsewhere, runs kernel A's own
-  selection by k (``kernels.fused_topk.selection``).  An explicit "gpop",
+  card).  "gstack" and "gpop" run kernel A's port of the JAX kernel's
+  gstack build, its detector and its pop finish where it is built
+  (``kernels.fused_topk.gstack_built``: k <= 128 on the mma.sync ring and
+  the f32 walk where its stacks fit in shared memory, never on the
+  stored cores' tile-64 warpgroup consumer), a second launch walking
+  again, exactly, every split its detector flags (the same lists, bit for
+  bit); "auto" takes it where ``kernels.fused_topk.gstack_route`` says
+  (nowhere: it was slower than the insertion or the slack in every cell
+  measured on the card).
+  Every other value, and these three where their selection is not built,
+  runs kernel A's own selection by k (``kernels.fused_topk.selection``:
+  the insertion at k <= 16, the slack at k <= 128, the radix selection
+  above).  An explicit "gpop",
   "gstack", "bucket", "stack" or "insert" outside the envelope the JAX
   package gives it raises the JAX package's ValueError
   (``kernels.fused_topk.check_selection``), dense and probed alike.

@@ -71,7 +71,7 @@ def _source_hash() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pmm_fused_topk_partial.argtypes = ([p] * 8 + [i] * 15
-                                           + [p, i, p, p])
+                                           + [p, i, p, p, p])
     lib.pmm_fused_topk_partial.restype = i
     lib.pmm_fused_topk_blocks_per_sm.argtypes = [i, i, i, i, i]
     lib.pmm_fused_topk_blocks_per_sm.restype = i
@@ -81,6 +81,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_fused_topk_route.restype = i
     lib.pmm_fused_topk_bucket.argtypes = [i, i, i]
     lib.pmm_fused_topk_bucket.restype = i
+    lib.pmm_fused_topk_gstack.argtypes = [i, i, i]
+    lib.pmm_fused_topk_gstack.restype = i
+    lib.pmm_fused_topk_levels.argtypes = [i, i]
+    lib.pmm_fused_topk_levels.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
     lib.pmm_topk_merge_plan.argtypes = [p] * 5 + [i] * 5 + [p]

@@ -149,6 +149,19 @@
 
 #include <type_traits>
 
+// This file is compiled twice: as itself, and as the body of
+// fused_topk_gstack.cu (PMM_GSTACK_UNIT), which instantiates the gstack
+// selection's kernels, and nothing else, in a compiler process of their
+// own (the build runs one a source, all at once).  There they launch
+// through pmm_fused_topk_gstack_launch (arguments as launch_kernel's,
+// with tm, core and listed, on the instantiation gstack_kernel_of picks).
+extern "C" int pmm_fused_topk_gstack_launch(
+    const void* qp, const void* cp, const float* scale, const float* cb,
+    const uint8_t* mask, const int* tiles, float* part_v, int* part_i, int m,
+    int n, int dim, int c_ld, int ck, int k, int splits, int tiles_per_split,
+    int p, int tn_tiles, int block_rows, int tm, int core, int listed,
+    int prune, int* gate_count, int* sel_count, int* flags, void* stream);
+
 namespace {
 
 constexpr int kINT32_MAX = 0x7fffffff;
@@ -228,9 +241,29 @@ constexpr int kINT32_MAX = 0x7fffffff;
 // a few cells of the highest core at query tile 16 (1-2 % faster), so
 // selection="auto" keeps the insertion.
 //
+// The gstack selection (SEL kGstack, k up to kAppendMaxK, on request) is
+// the port of the TPU kernel's gstack build and its pop finish
+// (_gstack_update fused_topk.py:608, _gstack_fast_levels :726, the
+// detector of _gstack_decode :752, _gpop_finish :922).  There each (row,
+// lane class) cell keeps its best L entries across the corpus, one pop
+// finish takes the top k, and a cell whose deepest entry is among them
+// may have dropped a winner, so the whole corpus is extracted again.
+// Here a block walks one split, so the split is the segment: each (row,
+// column of the 64-column tile) cell keeps its best `levels` sel_keys
+// across the split, sorted, in shared memory (gstack_tile; a score enters
+// only if it beats the row's bound and then its cell's deepest entry, one
+// compare each, with no ballot, append or barrier); at the split's end
+// k pops of the warp's best cell head write the split's list
+// (gstack_finish), and a row fires when a pop takes some cell's deepest
+// entry.  A block with a fired row sets its flag, and the launch that
+// follows (the exact selection's kernel on the same grid, every block
+// with a clear flag returning at once) walks that split again exactly, so
+// the lists are the insertion's or the slack's bit for bit on every
+// input.  gstack_levels sets the depth from the cost of a re-walk.
+//
 // Each kernel is built once a selection it can take (SEL: kInsert,
-// kAppend, kRadix, kBucket), so that none carries another's code and
-// registers.
+// kAppend, kRadix, kBucket, kGstack), so that none carries another's code
+// and registers.
 //
 // The slack lives in the block's own output rows, part_v / part_i[row]
 // [split][0, slack_entries(k)) (k entries a row, unused until the carry
@@ -264,7 +297,8 @@ constexpr int kSlackMax = 192;
 constexpr int kRadixBits = 7;
 constexpr int kRadixWords = (1 << kRadixBits) / 2;
 
-enum Selection { kInsert = 0, kAppend = 1, kRadix = 2, kBucket = 3 };
+enum Selection { kInsert = 0, kAppend = 1, kRadix = 2, kBucket = 3,
+                 kGstack = 4 };
 
 __host__ __device__ constexpr int selection(int k) {
   return k <= kInsertMaxK ? kInsert : k <= kAppendMaxK ? kAppend : kRadix;
@@ -1370,6 +1404,246 @@ __device__ inline void init_bucket(BucketCells<R>& cells, float* lv) {
     lv[e] = -INFINITY;
 }
 
+// The gstack selection's cells: a row's classes are the columns of the
+// 64-column tile (lane owns columns lane and 32 + lane of its warp's
+// rows, so a cell is one lane's and needs no shuffle to update).
+constexpr int kGstackCells = kTN;
+// The deepest stacks gstack_levels gives, the union bound on a launch's
+// fire probability it keeps them under, and the blocks of a launch it
+// counts: kernel_geometry sizes a launch to the blocks the card holds at
+// once, two an SM on the H100's 132 SMs.
+constexpr int kGstackMaxLevels = 16;
+constexpr double kGstackFire = 0.05;
+constexpr int kGstackBlocks = 264;
+
+// blocks tm C(k, levels) / cells^(levels - 1): the union bound, over a
+// launch's blocks, a block's tm rows and a row's cells, on some cell
+// holding `levels` of a row's top-k (uniformly spread winners), which a
+// fire needs.
+__host__ __device__ constexpr double gstack_fire_bound(int k, int tm,
+                                                       int levels) {
+  double b = (double)kGstackBlocks * tm;
+  for (int i = 0; i < levels; ++i) {
+    b = b * (k - i) / (i + 1);
+    if (i > 0) b /= kGstackCells;
+    if (b <= 0.0) return 0.0;
+  }
+  return b;
+}
+
+// The stack depth at k and query tile tm: a launch's expected cost is its
+// build, about a level's work each level, plus the chance that any of its
+// blocks fires times one exact walk of a split.  The launch's blocks run
+// in one wave, so the re-walk of even one block adds a whole split's walk
+// to the launch (on the H100, 2M x 256 batch 8 k=10 with two of 263
+// blocks fired took 1.41 against 0.82 ms, PERF.md).  One more level saves
+// less than it costs once the fire bound is below a level's share of the
+// walk; taking that share as kGstackFire (kernel D's levels: +0.01 to
+// +0.24 ms over its product, PERF.md), the depth is the least that holds
+// the bound to kGstackFire, from one level below the bound's (gstack_tile)
+// up.  fused_topk.gstack_levels is the host's mirror.
+__host__ __device__ constexpr int gstack_levels(int k, int tm) {
+  int levels = (k - 1) / kGstackCells + 2;
+  while (levels < kGstackMaxLevels &&
+         gstack_fire_bound(k, tm, levels) > kGstackFire)
+    ++levels;
+  return levels;
+}
+
+// Shared memory after the staging: the score tile, each row's bound, each
+// row's kGstackCells x levels keys (level-major: key l * 64 + cell).
+__host__ __device__ inline size_t gstack_tail_bytes(int tm, int levels) {
+  return (size_t)tm * (kTN + 1) * sizeof(float) + (size_t)tm * sizeof(float)
+       + (size_t)tm * kGstackCells * levels * sizeof(uint64_t);
+}
+
+// The gstack selection's state: Cv is the word after the score tile,
+// holding each row's bound, then the rows' stacks.
+template <int TM>
+__device__ __forceinline__ uint64_t* gstack_keys(float* Cv) {
+  return reinterpret_cast<uint64_t*>(Cv + TM);
+}
+
+// Bounds -inf (+inf past m, which the gate then never counts) and empty
+// stacks.
+template <int TM>
+__device__ inline void init_gstack(float* Cv, int levels, int rows_valid) {
+  for (int r = threadIdx.x; r < TM; r += kThreads)
+    Cv[r] = r < rows_valid ? -INFINITY : INFINITY;
+  uint64_t* key = gstack_keys<TM>(Cv);
+  for (int e = threadIdx.x; e < TM * kGstackCells * levels; e += kThreads)
+    key[e] = kEmptyKey;
+}
+
+// Puts x in its cell (cell[l * kGstackCells], l < levels, best first) if
+// it beats the deepest entry (keys are distinct: every entry there has a
+// lower index); returns whether it did.
+__device__ __forceinline__ bool gstack_put(uint64_t* cell, int levels,
+                                           uint64_t x) {
+  int p = levels - 1;
+  if (x < cell[p * kGstackCells]) return false;
+  for (; p > 0; --p) {
+    const uint64_t y = cell[(p - 1) * kGstackCells];
+    if (y > x) break;
+    cell[p * kGstackCells] = y;
+  }
+  cell[p * kGstackCells] = x;
+  return true;
+}
+
+// The k-th best of the first 32 E keys of a row's stacks (levels 0 .. E /
+// 2 - 1, E 2 or 4), sorted in registers (key_sort).  Whole warp calls.
+template <int E>
+__device__ __forceinline__ uint64_t gstack_kth(const uint64_t* key, int k,
+                                               int lane) {
+  uint64_t a[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) a[e] = key[e * 32 + lane];
+  key_sort<E>(a, lane);
+  uint64_t x = a[0];
+#pragma unroll
+  for (int e = 1; e < E; ++e)
+    if ((k - 1) / 32 == e) x = a[e];
+  return __shfl_sync(0xffffffffu, x, (k - 1) % 32);
+}
+
+// The same k-th best in a walk's lean form (radix_lean: the int4 core at
+// query tile 32, which spilled with gstack_kth's registers beside its
+// walk's): k times the warp's best cell head of levels 0 .. lvl taken out,
+// as gstack_finish pops.  kEmptyKey where fewer than k are real.
+__device__ __forceinline__ uint64_t gstack_kth_lean(const uint64_t* key,
+                                                    int k, int lvl,
+                                                    int lane) {
+  int p0 = 0, p1 = 0;
+  uint64_t h0 = key[lane], h1 = key[32 + lane], win = kEmptyKey;
+  for (int t = 0; t < k; ++t) {
+    const uint64_t best = key_max(h0, h1);
+    const unsigned hi =
+        __reduce_max_sync(0xffffffffu, (unsigned)(best >> 32));
+    const unsigned lo = __reduce_max_sync(
+        0xffffffffu, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+    win = ((uint64_t)hi << 32) | lo;
+    if (win == kEmptyKey) break;
+    if (best == win) {
+      if (h0 == win)
+        h0 = ++p0 <= lvl ? key[p0 * kGstackCells + lane] : kEmptyKey;
+      else
+        h1 = ++p1 <= lvl ? key[p1 * kGstackCells + 32 + lane] : kEmptyKey;
+    }
+  }
+  return win;
+}
+
+// The gstack selection of one TM x kTN score tile (k <= kAppendMaxK): one
+// warp per query row.  A score is a candidate if it beats the row's bound
+// (strict >); each lane puts its candidates in its two cells.  The bound
+// is the k-th best entry of levels 0 .. (k - 1) / kGstackCells of the
+// row's cells: a later score at or below it has k entries better than it
+// or tied with a lower index, so it is in no top-k.  It is at least the
+// JAX kernel's gstack tile gate's bound (fused_topk.py:1337-1369), the
+// least entry of the deepest of those levels, and close to the row's k-th
+// best, so few scores reach a cell.  Stacks only improve, so a bound read
+// before a tile's puts holds for the whole tile; it is raised after a
+// tile in which the row put any.  The carry gate reads the same word.
+// LEAN: radix_lean (gstack_kth_lean).
+template <int TM, bool LEAN>
+__device__ inline void gstack_tile(const float* St, float* Cv, int k,
+                                   int levels, int n0, int rows_valid,
+                                   int warp, int lane) {
+  const int lvl = (k - 1) / kGstackCells;
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const float s0 = St[r * (kTN + 1) + lane];
+    const float s1 = St[r * (kTN + 1) + 32 + lane];
+    const float bound = Cv[r];
+    const bool c0 = s0 > bound, c1 = s1 > bound;
+    if (!__any_sync(0xffffffffu, c0 || c1)) continue;
+    uint64_t* key = gstack_keys<TM>(Cv) + (size_t)r * kGstackCells * levels;
+    bool put = false;
+    if (c0) put = gstack_put(key + lane, levels, sel_key(s0, n0 + lane));
+    if (c1)
+      put |= gstack_put(key + 32 + lane, levels,
+                        sel_key(s1, n0 + 32 + lane));
+    if (!__any_sync(0xffffffffu, put)) continue;
+    uint64_t kth;
+    if constexpr (LEAN)
+      kth = gstack_kth_lean(key, k, lvl, lane);
+    else
+      kth = lvl == 0 ? gstack_kth<2>(key, k, lane)
+                     : gstack_kth<4>(key, k, lane);
+    if (lane == 0) Cv[r] = key_value(kth);
+    __syncwarp();
+  }
+}
+
+// The gstack selection's end of a split, after the walk's last barrier
+// (the port of _gpop_finish and of _gstack_decode's detector): each row's
+// warp pops its top k, k times the best of the lanes' two cell heads (a
+// max over the high words, then over the low words of the lanes that hold
+// that high word), written to the row's output slots by the lane that
+// holds it, (-inf, INT32_MAX) past the last real entry.  The row fires
+// when a pop takes a cell's deepest entry: only such a cell can have
+// dropped or refused a score of the top k.  count, when not null, gains
+// {rows fired, blocks fired}; flags[block] is set to whether any of the
+// block's rows fired, for the exact re-walk.  Every thread calls.
+template <int TM>
+__device__ inline void gstack_finish(float* Cv, int k, int levels,
+                                     int rows_valid, int warp, int lane,
+                                     float* part_v, int* part_i, int row0,
+                                     int splits, int split, int* count,
+                                     int* flags) {
+  bool fired = false;
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const uint64_t* key =
+        gstack_keys<TM>(Cv) + (size_t)r * kGstackCells * levels;
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k;
+    int p0 = 0, p1 = 0;
+    uint64_t h0 = key[lane], h1 = key[32 + lane];
+    bool deep = false;
+    int t = 0;
+    for (; t < k; ++t) {
+      const uint64_t best = key_max(h0, h1);
+      const unsigned hi =
+          __reduce_max_sync(0xffffffffu, (unsigned)(best >> 32));
+      const unsigned lo = __reduce_max_sync(
+          0xffffffffu, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+      const uint64_t win = ((uint64_t)hi << 32) | lo;
+      if (win == kEmptyKey) break;   // nothing real is left
+      if (best == win) {   // real keys are distinct: one lane holds it
+        part_v[o + t] = key_value(win);
+        part_i[o + t] = key_index(win);
+        if (h0 == win) {
+          deep |= p0 == levels - 1;
+          ++p0;
+          h0 = p0 < levels ? key[p0 * kGstackCells + lane] : kEmptyKey;
+        } else {
+          deep |= p1 == levels - 1;
+          ++p1;
+          h1 = p1 < levels ? key[p1 * kGstackCells + 32 + lane] : kEmptyKey;
+        }
+      }
+    }
+    for (int j = t + lane; j < k; j += 32) {
+      part_v[o + j] = -INFINITY;
+      part_i[o + j] = kINT32_MAX;
+    }
+    const bool row = __any_sync(0xffffffffu, deep);
+    if (row && lane == 0 && count != nullptr) atomicAdd(count, 1);
+    fired |= row;
+  }
+  const bool any = __syncthreads_or(fired) != 0;
+  if (threadIdx.x == 0) {
+    flags[blockIdx.x * gridDim.y + blockIdx.y] = any ? 1 : 0;
+    if (any && count != nullptr) atomicAdd(count + 1, 1);
+  }
+}
+
+// Whether the block returns at once: a launch of an exact selection that
+// re-walks the fired splits of a gstack launch (flags not null) skips
+// every block whose flag is clear.
+__device__ __forceinline__ bool rewalk_skips(const int* flags) {
+  return flags != nullptr && flags[blockIdx.x * gridDim.y + blockIdx.y] == 0;
+}
+
 // ---------------------------------------------------------------------------
 // The carry gate: the TPU kernel's exact tile pruning (prune=, fused_topk.py
 // :1434-1478, prune_eff :1995), a runtime argument of every kernel here.
@@ -1415,9 +1689,9 @@ __device__ inline void init_bucket(BucketCells<R>& cells, float* lv) {
 // The gate holds only kernel arguments, and finds the carry at its fixed
 // offset CV from the score tiles the walk already holds: a pointer of its
 // own, live across the walk, cost the tile-16 bf16x3 ring a spill.  With
-// WORD (the radix selection) it reads the row's threshold word at CV + r
-// in place of cv[k - 1]: the same filter's threshold, which only rises, so
-// the gate stays exact.
+// WORD (the radix selection, the gstack selection) it reads the row's
+// threshold word (the gstack's bound) at CV + r in place of cv[k - 1]: the
+// same filter's threshold, which only rises, so the gate stays exact.
 // ---------------------------------------------------------------------------
 
 template <int CV, bool WORD = false>
@@ -1510,15 +1784,15 @@ __host__ __device__ inline size_t f32_staging_bytes(int tm, int dim,
          (q_resident ? (size_t)tm * f32_query_stride(tm, dim) : 0);
 }
 
-// The f32 ring: the most blocks an SM (two at most), then the query tile
-// resident wherever that keeps them, then the most stages.
-inline RingPlan f32_plan(int tm, int dim, int k) {
+// The f32 ring beside `rest` bytes of the selection's shared memory: the
+// most blocks an SM (two at most), then the query tile resident wherever
+// that keeps them, then the most stages.
+inline RingPlan f32_plan(int tm, int dim, size_t rest) {
   RingPlan best{0, false, 0};
   int best_key = -1;
   for (int res = 1; res >= 0; --res)
     for (int s = kF32Stages; s >= 2; --s) {
-      const size_t b =
-          f32_staging_bytes(tm, dim, res != 0, s) + tail_bytes(tm, k);
+      const size_t b = f32_staging_bytes(tm, dim, res != 0, s) + rest;
       if (b > kMaxSmem) continue;
       const int blocks = smem_blocks(b) < 2 ? smem_blocks(b) : 2;
       const int key = 100 * blocks + 10 * res + s;
@@ -1600,7 +1874,10 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                       int block_rows, bool vec, int stages,
                       bool q_resident, bool prune,
                       int* __restrict__ gate_count,
-                      int* __restrict__ bucket_count) {
+                      int* __restrict__ sel_count, int levels,
+                      int* __restrict__ flags) {
+  if constexpr (SEL != kGstack)
+    if (rewalk_skips(flags)) return;
   constexpr int S = f32_step_tiles(TM), R = f32_step_rows(TM);
   constexpr int RB = ring_row_bytes(TM, kHighest);
   constexpr int BK = ring_cols(TM, kHighest);
@@ -1646,9 +1923,12 @@ fused_topk_f32_kernel(const float* __restrict__ q,
 
   if constexpr (SEL == kRadix)
     init_radix<TM>(Cv, rows_valid);
+  else if constexpr (SEL == kGstack)
+    init_gstack<TM>(Cv, levels, rows_valid);
   else
     init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1), SEL == kRadix> gate{k, prune, gate_count};
+  const CarryGate<TM * (kTN + 1), SEL == kRadix || SEL == kGstack> gate{
+      k, prune, gate_count};
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
@@ -1741,9 +2021,12 @@ fused_topk_f32_kernel(const float* __restrict__ q,
       if constexpr (SEL == kRadix)
         radix_tile<TM, false>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
                               part_i, row0, splits, split);
+      else if constexpr (SEL == kGstack)
+        gstack_tile<TM, false>(St, Cv, k, levels, n0, rows_valid, warp,
+                               lane);
       else if constexpr (SEL == kBucket)
         bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells,
-                        k, n0, rows_valid, warp, lane, bucket_count);
+                        k, n0, rows_valid, warp, lane, sel_count);
       else if constexpr (SEL == kAppend)
         append_tile<TM, 4>(St, Cv, k, n0, rows_valid, warp, lane, part_v,
                         part_i, row0, splits, split);
@@ -1759,12 +2042,17 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                      splits, split);
     return;
   }
+  if constexpr (SEL == kGstack) {
+    gstack_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v, part_i,
+                      row0, splits, split, sel_count, flags);
+    return;
+  }
   if constexpr (SEL == kAppend)
     flush_slack<TM, 4>(Cv, k, rows_valid, warp, lane, part_v, part_i, row0,
                     splits, split);
   if constexpr (SEL == kBucket)
     bucket_flush<TM>(Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells, k,
-                     rows_valid, warp, lane, bucket_count);
+                     rows_valid, warp, lane, sel_count);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -1794,7 +2082,10 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          int tn_tiles, int block_rows, bool vec,
                          int stages, bool q_resident, bool prune,
                          int* __restrict__ gate_count,
-                         int* __restrict__ bucket_count) {
+                         int* __restrict__ sel_count, int levels,
+                         int* __restrict__ flags) {
+  if constexpr (SEL != kGstack)
+    if (rewalk_skips(flags)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   const int chunks = ring_chunks(TM, CORE, c_ld * ring_elem_bytes(CORE));
   float* St = reinterpret_cast<float*>(
@@ -1820,9 +2111,12 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
 
   if constexpr (SEL == kRadix)
     init_radix<TM>(Cv, rows_valid);
+  else if constexpr (SEL == kGstack)
+    init_gstack<TM>(Cv, levels, rows_valid);
   else
     init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1), SEL == kRadix> gate{k, prune, gate_count};
+  const CarryGate<TM * (kTN + 1), SEL == kRadix || SEL == kGstack> gate{
+      k, prune, gate_count};
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
@@ -1836,10 +2130,12 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
           radix_tile<TM, radix_lean(TM, CORE)>(St, Cv, k, n0, rows_valid,
                                                warp, lane, part_v, part_i,
                                                row0, splits, split);
+        else if constexpr (SEL == kGstack)
+          gstack_tile<TM, radix_lean(TM, CORE)>(St, Cv, k, levels, n0,
+                                                rows_valid, warp, lane);
         else if constexpr (SEL == kBucket)
           bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN,
-                          cells, k, n0, rows_valid, warp, lane,
-                          bucket_count);
+                          cells, k, n0, rows_valid, warp, lane, sel_count);
         else if constexpr (SEL == kAppend)
           append_tile<TM, compact_lanes(TM, CORE)>(
               St, Cv, k, n0, rows_valid, warp, lane, part_v, part_i, row0,
@@ -1854,13 +2150,18 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                      splits, split);
     return;
   }
+  if constexpr (SEL == kGstack) {
+    gstack_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v, part_i,
+                      row0, splits, split, sel_count, flags);
+    return;
+  }
   if constexpr (SEL == kAppend)
     flush_slack<TM, compact_lanes(TM, CORE)>(Cv, k, rows_valid, warp, lane,
                                              part_v, part_i, row0, splits,
                                              split);
   if constexpr (SEL == kBucket)
     bucket_flush<TM>(Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells, k,
-                     rows_valid, warp, lane, bucket_count);
+                     rows_valid, warp, lane, sel_count);
   for (int e = tid; e < rows_valid * k; e += kThreads) {
     const int r = e / k, j = e % k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + j;
@@ -1964,14 +2265,19 @@ constexpr bool wgmma_core() {
 // (PERF.md): wider positions cost fewer barriers a byte, two blocks an SM
 // outweigh them, and at query tile 32 the wide listed walk spilled.
 template <int TM, int CORE>
-int ring_core(int k, int c_ld) {
+int ring_core_beside(int c_ld, size_t tail) {
   if constexpr (CORE == kBf16x3 && TM != 32) {
     const RingPlan wide =
-        ring_plan(TM, kBf16x3W, ring_chunks(TM, kBf16x3W, 2 * c_ld),
-                  tail_bytes(TM, k));
+        ring_plan(TM, kBf16x3W, ring_chunks(TM, kBf16x3W, 2 * c_ld), tail);
     if (wide.stages > 0 && smem_blocks(wide.bytes) >= 2) return kBf16x3W;
   }
   return CORE;
+}
+
+// The ring core beside the carry's selections' tail at k.
+template <int TM, int CORE>
+int ring_core(int k, int c_ld) {
+  return ring_core_beside<TM, CORE>(c_ld, tail_bytes(TM, k));
 }
 
 // The ring of a core at this k and corpus row stride c_ld (the f32 core's:
@@ -1981,7 +2287,7 @@ RingPlan stored_plan(int k, int c_ld) {
   if constexpr (wgmma_core<TM, CORE>()) {
     return wg_plan(CORE, k);
   } else if constexpr (CORE == kHighest) {
-    return f32_plan(TM, c_ld, k);
+    return f32_plan(TM, c_ld, tail_bytes(TM, k));
   } else {
     const int core = ring_core<TM, CORE>(k, c_ld);
     return ring_plan(TM, core,
@@ -1990,8 +2296,46 @@ RingPlan stored_plan(int k, int c_ld) {
   }
 }
 
-// The kernel of selection sel: K<kInsert>, K<kAppend>, K<kRadix>, or, where
-// BUCKET, K<kBucket>.
+// Whether a launch of kernel A at query tile tm, core and k that asks for
+// the gstack selection takes it: k up to kAppendMaxK on the mma.sync ring
+// and the f32 walk, where the stacks fit beside the ring's least plan (two
+// stages, the query tile riding them; bf16x3's 32-feature ring).
+// The warpgroup consumer is not built: its threads hold 254-255 registers,
+// and its four score tiles (66.6 KB) beside stacks of three levels for 64
+// rows (96 KB) leave too little for its ring's stages.
+inline bool gstack_built(int tm, int core, int k) {
+  if (k < 1 || k > kAppendMaxK || (stored_core(core) && tm == kWgTM))
+    return false;
+  const size_t ring = 2 * (core == kHighest ? f32_stage_bytes(tm, false)
+                                            : ring_stage_bytes(tm, core,
+                                                               false));
+  return ring + gstack_tail_bytes(tm, gstack_levels(k, tm)) <= kMaxSmem;
+}
+
+// The ring core of the gstack instantiation beside its stacks (bf16x3's
+// 64-feature ring wherever that keeps two blocks an SM, as ring_core).
+template <int TM, int CORE>
+int gstack_core(int k, int c_ld) {
+  return ring_core_beside<TM, CORE>(
+      c_ld, gstack_tail_bytes(TM, gstack_levels(k, TM)));
+}
+
+// The ring of the gstack instantiation beside its stacks.
+template <int TM, int CORE>
+RingPlan gstack_plan(int k, int c_ld) {
+  const size_t tail = gstack_tail_bytes(TM, gstack_levels(k, TM));
+  if constexpr (CORE == kHighest) {
+    return f32_plan(TM, c_ld, tail);
+  } else {
+    const int core = gstack_core<TM, CORE>(k, c_ld);
+    return ring_plan(TM, core,
+                     ring_chunks(TM, core, c_ld * ring_elem_bytes(core)),
+                     tail);
+  }
+}
+
+// The kernel of selection sel: K<kInsert>, K<kAppend>, K<kRadix>, or,
+// where BUCKET, K<kBucket>.
 template <bool BUCKET, typename Pick>
 auto by_selection(int sel, Pick&& pick) {
   if constexpr (BUCKET)
@@ -2004,7 +2348,8 @@ auto by_selection(int sel, Pick&& pick) {
 // Kernel<TM, CORE, LISTED, selection(k)>, or <..., kBucket> where bucket
 // asks for it and bucket_built, its shared memory (0 where it cannot fit)
 // and its ring.  The warpgroup consumer keeps the slack above k = 16 (its
-// query tile takes k <= 128) and takes no bucket.
+// query tile takes k <= 128) and takes no bucket.  (The gstack
+// instantiations are gstack_kernel_of's, in the gstack unit.)
 template <int TM, int CORE, bool LISTED>
 auto kernel_of(int k, int c_ld, bool bucket, size_t& bytes, RingPlan& plan) {
   plan = stored_plan<TM, CORE>(k, c_ld);
@@ -2031,16 +2376,36 @@ auto kernel_of(int k, int c_ld, bool bucket, size_t& bytes, RingPlan& plan) {
   }
 }
 
+// The gstack instantiation of kernel<TM, CORE, LISTED> (bf16x3 on the
+// ring gstack_core picks), its shared memory and its ring: the mma.sync
+// ring's and the f32 walk's, where gstack_built.
 template <int TM, int CORE, bool LISTED>
-int launch(const void* qp, const void* cp, const float* scale,
-           const float* cb, const uint8_t* mask, const int* tiles,
-           float* part_v, int* part_i, int m, int n, int dim, int c_ld,
-           int ck, int k, int splits, int tiles_per_split, int p,
-           int tn_tiles, int block_rows, bool prune, int* gate_count,
-           bool bucket, int* bucket_count, cudaStream_t stream) {
-  size_t bytes;
-  RingPlan plan{};
-  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, bucket, bytes, plan);
+auto gstack_kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
+  plan = gstack_plan<TM, CORE>(k, c_ld);
+  bytes = plan.bytes;
+  if constexpr (CORE == kHighest) {
+    return fused_topk_f32_kernel<TM, LISTED, kGstack>;
+  } else {
+    if constexpr (CORE == kBf16x3 && TM != 32)
+      if (gstack_core<TM, CORE>(k, c_ld) == kBf16x3W)
+        return fused_topk_stored_kernel<TM, kBf16x3W, LISTED, kGstack>;
+    return fused_topk_stored_kernel<TM, CORE, LISTED, kGstack>;
+  }
+}
+
+// One launch of `kern`, a kernel<TM, CORE, LISTED> of `bytes` shared
+// memory on `plan`: sel_count the selection's counters, levels and flags
+// the gstack's (its depth; its block flags, written by a gstack launch,
+// read by the re-walk of an exact one).
+template <int TM, int CORE, bool LISTED, typename Kern>
+int launch_kernel(Kern kern, size_t bytes, const RingPlan& plan,
+                  const void* qp, const void* cp, const float* scale,
+                  const float* cb, const uint8_t* mask, const int* tiles,
+                  float* part_v, int* part_i, int m, int n, int dim,
+                  int c_ld, int ck, int k, int splits, int tiles_per_split,
+                  int p, int tn_tiles, int block_rows, bool prune,
+                  int* gate_count, int* sel_count, int levels, int* flags,
+                  cudaStream_t stream) {
   if (bytes == 0 || bytes > kMaxSmem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -2053,7 +2418,7 @@ int launch(const void* qp, const void* cp, const float* scale,
         mask, tiles, part_v, part_i, m, n, dim, k, splits, tiles_per_split,
         p, tn_tiles, block_rows,
         dim % 4 == 0 && aligned(qp, 16) && aligned(cp, 16), plan.stages,
-        plan.q_resident, prune, gate_count, bucket_count);
+        plan.q_resident, prune, gate_count, sel_count, levels, flags);
   } else {
     const size_t row_bytes = (size_t)c_ld * ring_elem_bytes(CORE);
     const bool vec = ring_aligned(qp, cp, dim, row_bytes);
@@ -2072,15 +2437,50 @@ int launch(const void* qp, const void* cp, const float* scale,
           static_cast<const uint16_t*>(qp), cp, scale, cb, mask, tiles,
           part_v, part_i, m, n, dim, c_ld, ck, k, splits, tiles_per_split, p,
           tn_tiles, block_rows, vec, plan.stages, plan.q_resident, prune,
-          gate_count, bucket_count);
+          gate_count, sel_count, levels, flags);
   }
   return (int)cudaGetLastError();
+}
+
+#ifndef PMM_GSTACK_UNIT
+// Kernel A as alt asks (0: its selection by k, kBucket, kGstack).  A
+// gstack launch (the gstack unit's pmm_fused_topk_gstack_launch) is
+// followed by the exact selection's launch on the same grid, which walks
+// again, exactly, the splits of the blocks the gstack's detector flagged
+// and returns at once in every other block: no host synchronisation, and
+// the lists are the exact selection's bit for bit.
+template <int TM, int CORE, bool LISTED>
+int launch(const void* qp, const void* cp, const float* scale,
+           const float* cb, const uint8_t* mask, const int* tiles,
+           float* part_v, int* part_i, int m, int n, int dim, int c_ld,
+           int ck, int k, int splits, int tiles_per_split, int p,
+           int tn_tiles, int block_rows, bool prune, int* gate_count,
+           int alt, int* sel_count, int* flags, cudaStream_t stream) {
+  const bool gstack = alt == kGstack && gstack_built(TM, CORE, k);
+  if (gstack) {
+    if (flags == nullptr) return -1;
+    const int rc = pmm_fused_topk_gstack_launch(
+        qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
+        k, splits, tiles_per_split, p, tn_tiles, block_rows, TM, CORE,
+        LISTED, prune, gate_count, sel_count, flags, stream);
+    if (rc != 0) return rc;
+  }
+  size_t bytes;
+  RingPlan plan{};
+  auto kern = kernel_of<TM, CORE, LISTED>(k, c_ld, alt == kBucket, bytes,
+                                          plan);
+  return launch_kernel<TM, CORE, LISTED>(
+      kern, bytes, plan, qp, cp, scale, cb, mask, tiles, part_v, part_i, m,
+      n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles, block_rows,
+      prune, gate_count, gstack ? nullptr : sel_count, 0,
+      gstack ? flags : nullptr, stream);
 }
 
 // Blocks of kernel<TM, CORE, LISTED> one SM holds at this k and corpus row
 // stride (its registers and shared memory), or a negative cudaError_t.  The
 // bucket instantiations have the insertion's shared memory and the same
-// launch bounds, so they hold as many.
+// launch bounds, so they hold as many; a gstack launch takes the
+// insertion's or slack's geometry too (its re-walk runs on the same grid).
 template <int TM, int CORE, bool LISTED>
 int occupancy(int k, int c_ld) {
   size_t bytes;
@@ -2095,6 +2495,8 @@ int occupancy(int k, int c_ld) {
                                                       kThreads, bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }
+
+#endif  // PMM_GSTACK_UNIT
 
 // Calls f(TM, CORE, LISTED) with all three as integral constants, or
 // returns -1.
@@ -2126,6 +2528,32 @@ int dispatch(int tm, int core, bool listed, F&& f) {
 
 }  // namespace
 
+#ifdef PMM_GSTACK_UNIT
+int pmm_fused_topk_gstack_launch(
+    const void* qp, const void* cp, const float* scale, const float* cb,
+    const uint8_t* mask, const int* tiles, float* part_v, int* part_i, int m,
+    int n, int dim, int c_ld, int ck, int k, int splits, int tiles_per_split,
+    int p, int tn_tiles, int block_rows, int tm, int core, int listed,
+    int prune, int* gate_count, int* sel_count, int* flags, void* stream) {
+  if (!gstack_built(tm, core, k)) return -1;
+  return dispatch(tm, core, listed != 0, [&](auto tmc, auto cc, auto lc) {
+    constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
+    constexpr bool LISTED = decltype(lc)::value;
+    if constexpr (wgmma_core<TM, CORE>()) {
+      return -1;
+    } else {
+      size_t bytes;
+      RingPlan plan{};
+      auto kern = gstack_kernel_of<TM, CORE, LISTED>(k, c_ld, bytes, plan);
+      return launch_kernel<TM, CORE, LISTED>(
+          kern, bytes, plan, qp, cp, scale, cb, mask, tiles, part_v, part_i,
+          m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
+          block_rows, prune != 0, gate_count, sel_count,
+          gstack_levels(k, TM), flags, static_cast<cudaStream_t>(stream));
+    }
+  });
+}
+#else
 extern "C" {
 
 // Returns 0 on success, a cudaError_t after a refused launch, the
@@ -2149,20 +2577,25 @@ extern "C" {
 // off); gate_count, if not null, is two int32 counters the kernel adds
 // {tiles gated, tiles skipped} to.
 //
-// bucket != 0 asks for the bucket selection, which the launch takes where
-// pmm_fused_topk_bucket says so (the lists are the same, bit for bit);
-// bucket_count, if not null, is two int32 counters such a launch adds
-// {windows ended, overflow entries} to.
+// alt asks for another selection: 3 the bucket selection, which the
+// launch takes where pmm_fused_topk_bucket says so; 4 the gstack
+// selection, where pmm_fused_topk_gstack says so; 0 none (the lists are
+// the same, bit for bit, whatever alt is).  alt_count, if not null, is two
+// int32 counters such a launch adds to: the bucket's {windows ended,
+// overflow entries}, the gstack's {rows fired, blocks fired} (a row is a
+// query row's split).  flags, for a gstack launch, is one int32 a block
+// of the (ceil(m / tm), splits) grid, which it writes and its re-walk
+// reads.
 int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                            const float* cb, const uint8_t* mask,
                            const int* tiles, float* part_v, int* part_i,
                            int m, int n, int dim, int c_ld, int ck, int k,
                            int splits, int tiles_per_split, int tm, int core,
                            int n_lists, int p, int tn, int block_rows,
-                           int prune, int* gate_count, int bucket,
-                           int* bucket_count, void* stream) {
+                           int prune, int* gate_count, int alt,
+                           int* alt_count, int* flags, void* stream) {
   if (m <= 0 || n <= 0 || dim <= 0 || k <= 0 || splits <= 0 ||
-      tiles_per_split <= 0)
+      tiles_per_split <= 0 || (alt != 0 && alt != kBucket && alt != kGstack))
     return -1;
   long long rows = n;
   if (tiles != nullptr) {
@@ -2185,7 +2618,7 @@ int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                   decltype(lc)::value>(
         qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld, ck,
         k, splits, tiles_per_split, p, tiles != nullptr ? tn / kTN : 0,
-        block_rows, prune != 0, gate_count, bucket != 0, bucket_count, s);
+        block_rows, prune != 0, gate_count, alt, alt_count, flags, s);
   });
 }
 
@@ -2214,6 +2647,19 @@ int pmm_fused_topk_bucket(int tm, int core, int k) {
   return bucket_built(tm, core, k) ? 1 : 0;
 }
 
+// Whether a launch of kernel A at query tile tm, core and k that asks for
+// the gstack selection takes it: 1 or 0; -1 for k <= 0.
+int pmm_fused_topk_gstack(int tm, int core, int k) {
+  if (k <= 0) return -1;
+  return gstack_built(tm, core, k) ? 1 : 0;
+}
+
+// The gstack selection's stack depth at k and query tile tm (gstack_levels);
+// -1 for k <= 0.
+int pmm_fused_topk_levels(int k, int tm) {
+  return k <= 0 ? -1 : gstack_levels(k, tm);
+}
+
 // The staging of kernel A's core at query tile tm, k and corpus row
 // stride c_ld (pmm_fused_topk_partial's c_ld): out = {stages, bytes a
 // stage, query resident (0 / 1), the kernel's shared memory}.  Returns 0,
@@ -2237,3 +2683,4 @@ int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
 }
 
 }  // extern "C"
+#endif  // PMM_GSTACK_UNIT

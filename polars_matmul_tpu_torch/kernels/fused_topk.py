@@ -38,9 +38,13 @@ exact, with lowest-index-wins ties, so every ``selection`` value of
 by k), but for ``selection="bucket"``, which takes the port of the JAX
 kernel's bucket selection where it is built (``bucket_built``: k <= 16 at
 query tiles 16 and 32, 16 for "highest"; ``bucket_route`` says when
-"auto" takes it too): the same lists, bit for bit.  The (m, n) score
-matrix never reaches device memory: kernel A writes m * splits * k
-candidates.
+"auto" takes it too), and for ``selection="gstack"`` and ``"gpop"``, which
+take the port of the JAX kernel's gstack build, its detector and its pop
+finish where it is built (``gstack_built``: k <= 128 on the mma.sync ring
+and the f32 walk where the stacks fit; ``gstack_route``), followed by an
+exact re-walk of each split its detector flags: the same lists, bit for
+bit.  The (m, n) score matrix never reaches device memory: kernel A
+writes m * splits * k candidates.
 
 Metric handling is the JAX package's: cosine pre-scales queries and
 corpus by their inverse norms (zero-norm rows scale by 0; for int8/int4
@@ -143,6 +147,9 @@ launches = {
     # Kernel A's launches of the bucket selection (``bucket_built``), dense
     # or listed.
     "fused_topk_partial_bucket": 0,
+    # Kernel A's launches of the gstack selection (``gstack_built``), dense
+    # or listed, each with its re-walk launch.
+    "fused_topk_partial_gstack": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -1035,6 +1042,215 @@ def bucket_route(selection_cfg: str, k: int, tm: int, listed: bool,
     return selection_cfg == "bucket"
 
 
+# Kernel A's gstack selection (the JAX kernel's gstack build with its
+# detector and pop finish, ``_gstack_update`` / ``_gstack_decode`` /
+# ``_gpop_finish``): each (query row, column of the 64-column tile) cell
+# keeps its best ``gstack_levels`` keys across the block's split, sorted,
+# in shared memory; a score enters if it beats the row's bound (the k-th
+# best entry of levels 0 .. (k - 1) // 64 of the row's cells) and then its
+# cell's deepest entry; at the split's end k pops of the best cell head
+# write the
+# list, and a row fires when a pop takes a cell's deepest entry.  A block
+# with a fired row is walked again by the exact selection's launch that
+# follows on the same grid.  The depth keeps the union bound on a launch's
+# fire probability (GSTACK_BLOCKS blocks: two an SM of an H100, the
+# launches ``kernel_geometry`` makes) at most GSTACK_FIRE, up to
+# GSTACK_MAX_LEVELS.
+GSTACK_CELLS, GSTACK_MAX_LEVELS, GSTACK_FIRE = _TN, 16, 0.05
+GSTACK_BLOCKS = 264
+
+
+def gstack_fire_bound(k: int, tm: int, levels: int) -> float:
+    """GSTACK_BLOCKS tm C(k, levels) / 64^(levels - 1): the union bound,
+    over a launch's blocks, a block's tm rows and a row's 64 cells, on
+    some cell holding ``levels`` of a row's top-k (uniformly spread
+    winners), which a fire needs (``gstack_fire_bound`` in the source, the
+    same arithmetic)."""
+    b = float(GSTACK_BLOCKS) * tm
+    for i in range(levels):
+        b = b * (k - i) / (i + 1)
+        if i > 0:
+            b /= GSTACK_CELLS
+        if b <= 0.0:
+            return 0.0
+    return b
+
+
+def gstack_levels(k: int, tm: int) -> int:
+    """The gstack selection's stack depth at k and query tile tm
+    (``gstack_levels`` in the source).  A launch's expected cost is its
+    build, about one level's work a level, plus the chance that any of
+    its blocks fires times one exact walk of a split (the re-walk: the
+    blocks run in one wave, so re-walking even one adds a whole split's
+    walk; on an NVIDIA H100 80GB HBM3 at 700 W, 2M x 256 batch 8 k=10
+    with two of 263 blocks fired took 1.41 against the insertion's
+    0.82 ms, PERF.md §6); a further level saves less than it costs once
+    the fire bound is under a level's share of the walk, taken as
+    GSTACK_FIRE (kernel D's levels cost +0.01 to +0.24 ms over its
+    product, PERF.md).  So: the least depth, from one below the bound's
+    level up, whose ``gstack_fire_bound`` is at most GSTACK_FIRE, i.e. at
+    most 5 % of the launches re-walk on uniformly spread data (k=10: 6
+    levels at query tiles 16 to 64, bounds 0.08 / 0.17 / 0.33 %; k=16: 6;
+    k=100: 13 at tile 16)."""
+    levels = (k - 1) // GSTACK_CELLS + 2
+    while (levels < GSTACK_MAX_LEVELS
+           and gstack_fire_bound(k, tm, levels) > GSTACK_FIRE):
+        levels += 1
+    return levels
+
+
+def gstack_tail_bytes(tm: int, levels: int) -> int:
+    """The gstack instantiation's shared memory after its staging: the
+    score tile, each row's bound, each row's 64 x levels 8-byte keys."""
+    return tm * (_TN + 1) * 4 + tm * 4 + tm * GSTACK_CELLS * levels * 8
+
+
+def gstack_built(tm: int, precision: str, k: int) -> bool:
+    """Whether a launch of kernel A that asks for the gstack selection
+    takes it (``pmm_fused_topk_gstack`` in the source): k <= APPEND_MAX_K
+    on the mma.sync ring (bf16x3 on its 32-feature ring) and the f32 walk,
+    where the stacks fit beside the ring's least plan (two stages, the
+    query tile riding them); never on the warpgroup consumer (its 254-255
+    registers; its four score tiles and three levels for 64 rows leave too
+    little for its ring).  Elsewhere the launch keeps ``selection(k)``."""
+    if not 1 <= k <= APPEND_MAX_K or wgmma_core(tm, precision):
+        return False
+    ring = 2 * (f32_stage_bytes(tm, False) if precision == "highest"
+                else ring_staging(tm, precision, 1, False, 2)[0])
+    return ring + gstack_tail_bytes(tm, gstack_levels(k, tm)) <= MAX_SMEM
+
+
+def gstack_plan(tm: int, precision: str, c_ld: int, k: int):
+    """(stages, bytes a stage, query resident, shared memory) of the
+    gstack instantiation's ring beside its stacks (``gstack_plan`` in the
+    source; bf16x3's 64-feature ring wherever that keeps two blocks an
+    SM)."""
+    rest = gstack_tail_bytes(tm, gstack_levels(k, tm))
+    if precision == "highest":
+        return f32_plan(tm, c_ld, k, rest=rest)
+    return ring_plan(tm, ring_core(tm, precision, c_ld, k, rest), c_ld, rest)
+
+
+def gstack_route(selection_cfg: str, k: int, tm: int, listed: bool,
+                 precision: str) -> bool:
+    """Whether kernel A is asked for the gstack selection, by (k, query
+    tile, listed, core): always under ``selection="gstack"`` and
+    ``"gpop"`` (the JAX package's gpop is its gstack build with an
+    in-kernel pop finish, which this one always has); every other value
+    keeps ``selection(k)``.  The launch takes it where ``gstack_built``.
+
+    "auto" takes it nowhere: on an NVIDIA H100 80GB HBM3 at 700 W it was
+    slower than the insertion or the slack beyond the spread in every
+    cell where it is built (``ab_kernel_a.py --gstack --groups gstack
+    --rounds 2``, medians of four turns, PERF.md §6): canonical bf16x3
+    k=10 at query tiles 32 / 16 +70.7 / +38.2 %, k=100 at 16 +110 %;
+    highest k=10 at 32 / 16 +45.2 / +12.3 %, k=100 at 16 +74.7 %; 2M x
+    256 batch 8 k=10 / 100 +17.7 / +140 % (0.9203 against 0.7817 ms);
+    10M x 768 int8 batch 8 k=10 +43.7 %; 2M x 256 clustered lists of 32
+    queries k=10 +60.6 %.  Its stacks take the shared memory the ring's
+    stages or a second block an SM would have, and more scores reach a
+    cell than beat the insertion's k-th value."""
+    del k, tm, listed, precision
+    return selection_cfg in ("gstack", "gpop")
+
+
+def _gstack_walk(s: torch.Tensor, k: int, tps: int, levels: int):
+    """The gstack walk of S splits of epilogue scores ``s`` (m, S, tps *
+    64), NaN as -inf, columns in walk order: (values, indices within the
+    split, fired) with fired (m, S) bool."""
+    m, S, _ = s.shape
+    dev = s.device
+    lvl = (k - 1) // GSTACK_CELLS
+    stacks = torch.full((m, S, levels, _TN), EMPTY_KEY, dtype=torch.int64,
+                        device=dev)
+    bound = torch.full((m, S), _NEG_INF, dtype=torch.float32, device=dev)
+    col = torch.arange(_TN, dtype=torch.int32, device=dev)
+    for t in range(tps):
+        x = s[:, :, t * _TN:(t + 1) * _TN]
+        keys = select_keys(x, (t * _TN + col).expand(m, S, _TN))
+        put = (x > bound[..., None]) & (keys > stacks[:, :, -1])
+        if not bool(put.any()):
+            continue
+        both = torch.cat([stacks, torch.where(put, keys, EMPTY_KEY)[:, :, None]],
+                         dim=2)
+        stacks = torch.sort(both, dim=2, descending=True).values[:, :, :levels]
+        kth = torch.sort(stacks[:, :, :lvl + 1].reshape(m, S, -1), dim=2,
+                         descending=True).values[..., k - 1]
+        bound = torch.where(put.any(-1), key_values(kth), bound)
+    top = torch.sort(stacks.reshape(m, S, levels * _TN), dim=2,
+                     descending=True).values[..., :k]
+    deep = stacks[:, :, -1].amax(-1)
+    fired = (deep != EMPTY_KEY) & (deep >= top[..., -1])
+    return key_values(top), key_indices(top), fired
+
+
+def _gstack_dense(qp, cp, cbp, mask, k: int, precision: str, splits: int,
+                  tiles_per_split: int, levels: int):
+    """``_gstack_walk`` over the splits of a dense scan, about
+    _PLAIN_CHUNK scores of them at once (each split's tiles walked
+    together), scored in ``_plain_rows`` chunks."""
+    m, n = qp.shape[0], cp.shape[0]
+    rows = tiles_per_split * _TN
+    per = max(1, _PLAIN_CHUNK // max(1, m * rows))
+    step = _plain_rows(qp)
+    vals, idx, fired = [], [], []
+    for s0 in range(0, splits, per):
+        s1 = min(splits, s0 + per)
+        r1 = min(n, s1 * rows)
+        r0 = min(s0 * rows, r1)
+        s = torch.cat([_masked_scores(qp, cp, cbp, mask, precision, a,
+                                      min(r1, a + step))
+                       for a in range(r0, r1, step)] or [
+            torch.empty((m, 0), device=qp.device)], dim=1)
+        s = torch.nn.functional.pad(s, (0, (s1 - s0) * rows - (r1 - r0)),
+                                    value=_NEG_INF)
+        v, i, f = _gstack_walk(s.reshape(m, s1 - s0, rows), k,
+                               tiles_per_split, levels)
+        base = torch.arange(s0, s1, device=qp.device)[None, :, None] * rows
+        vals.append(v)
+        idx.append(torch.where(i == INT32_MAX, i, i + base.to(torch.int32)))
+        fired.append(f)
+    return torch.cat(vals, 1), torch.cat(idx, 1), torch.cat(fired, 1)
+
+
+def gstack_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
+                         splits: int, tiles_per_split: int, tm: int,
+                         tiles: Optional[torch.Tensor] = None, tn: int = 0,
+                         block_rows: int = 0):
+    """Plain version of kernel A's gstack walk before its re-walk:
+    (part_v, part_i, fired), the split lists its pop finish writes and the
+    (m, splits) rows its detector fires on.  Wherever a row does not
+    fire, its list is ``fused_topk_partial_plain``'s; the re-walk rewrites
+    the splits of every block (tm query rows) with a fired row.  Walks
+    whole splits, a few at a time; with ``tiles``, each list's rows, as
+    ``fused_topk_partial_plain`` reads them."""
+    levels = gstack_levels(k, tm)
+    if tiles is None:
+        return _gstack_dense(qp, cp, cbp, mask, k, precision, splits,
+                             tiles_per_split, levels)
+    vals, idx, fired = [], [], []
+    for b in range(tiles.shape[0]):
+        r0, r1 = b * block_rows, min(qp.shape[0], (b + 1) * block_rows)
+        gid, cp_b, cb_b, mk_b = _listed(cp, cbp, mask, tiles[b], tn,
+                                        precision)
+        v, i, f = _gstack_dense(qp[r0:r1], cp_b, cb_b, mk_b, k, precision,
+                                splits, tiles_per_split, levels)
+        g = gid[torch.clamp(i.long(), max=gid.shape[0] - 1)]
+        vals.append(v)
+        idx.append(torch.where(i == INT32_MAX, i, g.to(torch.int32)))
+        fired.append(f)
+    return torch.cat(vals), torch.cat(idx), torch.cat(fired)
+
+
+def gstack_fires(fired: torch.Tensor, tm: int) -> Tuple[int, int]:
+    """The gstack counter's {rows fired, blocks fired} of ``fired`` (m,
+    splits): a block is a split of tm query rows."""
+    m, splits = fired.shape
+    pad = torch.nn.functional.pad(fired, (0, 0, 0, -m % tm))
+    blocks = pad.reshape(-1, tm, splits).any(1)
+    return int(fired.sum()), int(blocks.sum())
+
+
 def radix_buffer(k: int) -> int:
     """Entries a row of the radix selection buffers before a select: 2k,
     the carry's k places in shared memory and the row's k output slots."""
@@ -1210,16 +1426,18 @@ def f32_query_stride(tm: int, dim: int) -> int:
     return _odd_units(4 * cols * -(-dim // cols), 16)
 
 
-def f32_plan(tm: int, dim: int, k: int):
+def f32_plan(tm: int, dim: int, k: int, rest: Optional[int] = None):
     """(stages, bytes a stage, query resident, shared memory) of the f32
-    ring (``f32_plan`` in the source): the most blocks an SM (two at
-    most), then the query tile resident wherever that keeps them, then
-    the most stages; stages 0 where no plan fits."""
+    ring (``f32_plan`` in the source) beside ``rest`` bytes of the
+    selection's (``tail_bytes`` at k by default): the most blocks an SM
+    (two at most), then the query tile resident wherever that keeps them,
+    then the most stages; stages 0 where no plan fits."""
+    rest = tail_bytes(tm, k) if rest is None else rest
     best, best_key = (0, 0, False, 0), -1
     for resident in (True, False):
         for stages in range(F32_STAGES, 1, -1):
             stage = f32_stage_bytes(tm, resident)
-            nbytes = (stages * stage + tail_bytes(tm, k)
+            nbytes = (stages * stage + rest
                       + (tm * f32_query_stride(tm, dim) if resident else 0))
             if nbytes > MAX_SMEM:
                 continue
@@ -1230,13 +1448,16 @@ def f32_plan(tm: int, dim: int, k: int):
     return best
 
 
-def ring_core(tm: int, precision: str, c_ld: int, k: int) -> str:
-    """The ring a launch streams (``ring_core`` in the source): bf16x3
-    takes 64 features a position ("bf16x3w") at query tiles 16 and 64
-    wherever that ring keeps two blocks an SM, else 32; the other cores
+def ring_core(tm: int, precision: str, c_ld: int, k: int,
+              rest: Optional[int] = None) -> str:
+    """The ring a launch streams beside ``rest`` bytes of its selection's
+    (``tail_bytes`` at k by default; ``ring_core_beside`` in the source):
+    bf16x3 takes 64 features a position ("bf16x3w") at query tiles 16 and
+    64 wherever that ring keeps two blocks an SM, else 32; the other cores
     their own."""
     if precision == "bf16x3" and tm != 32:
-        wide = ring_plan(tm, "bf16x3w", c_ld, tail_bytes(tm, k))
+        wide = ring_plan(tm, "bf16x3w", c_ld,
+                         tail_bytes(tm, k) if rest is None else rest)
         if wide[0] and _SMEM_PER_SM // (wide[3] + _SMEM_PER_BLOCK) >= 2:
             return "bf16x3w"
     return precision
@@ -1342,7 +1563,9 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
                        block_rows: int = 0, prune: bool = False,
                        gate_count: Optional[torch.Tensor] = None,
                        bucket: bool = False,
-                       bucket_count: Optional[torch.Tensor] = None):
+                       bucket_count: Optional[torch.Tensor] = None,
+                       gstack: bool = False,
+                       gstack_count: Optional[torch.Tensor] = None):
     """Kernel A: (m, splits, k) f32 values and int32 indices.
 
     With ``tiles`` (n_lists, P), query rows [b * block_rows, (b + 1) *
@@ -1357,10 +1580,20 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     the bucket selection, which the launch takes where ``bucket_built``
     (the same lists, bit for bit); ``bucket_count``, a (2,) int32 tensor
     on the card, gains {windows ended, overflow entries} of such a launch.
-    On the CPU all four change nothing."""
+    ``gstack`` asks for the gstack selection, which the launch takes where
+    ``gstack_built`` (then a second launch walks again, exactly, the
+    splits its detector flagged: the same lists, bit for bit);
+    ``gstack_count``, a (2,) int32 tensor on the card, gains {rows fired,
+    blocks fired} of such a launch (a row: a query row's split; a block:
+    a split of a query tile, which the second launch walks again).  On
+    the CPU all six change nothing."""
     _check_operands(qp, cp, cbp, mask, k, precision)
+    if bucket and gstack:
+        raise ValueError("ask for the bucket or the gstack selection, not "
+                         "both")
     for name, count in (("gate_count", gate_count),
-                        ("bucket_count", bucket_count)):
+                        ("bucket_count", bucket_count),
+                        ("gstack_count", gstack_count)):
         if count is not None and (
                 count.dtype != torch.int32 or count.numel() != 2
                 or count.device != qp.device or not count.is_contiguous()):
@@ -1390,6 +1623,13 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     part_v = torch.empty((m, splits, k), dtype=torch.float32,
                          device=qp.device)
     part_i = torch.empty((m, splits, k), dtype=torch.int32, device=qp.device)
+    gstack = gstack and gstack_built(tm, precision, k)
+    # The gstack's block flags, one a (query tile, split), written by its
+    # launch and read by the re-walk.
+    flags = (torch.empty((-(-m // tm) * splits,), dtype=torch.int32,
+                         device=qp.device) if gstack else None)
+    alt, count = ((_ALT_GSTACK, gstack_count) if gstack
+                  else (_ALT_BUCKET, bucket_count) if bucket else (0, None))
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pmm_fused_topk_partial(
@@ -1397,7 +1637,7 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
             _ptr(tiles), _ptr(part_v), _ptr(part_i), m, n, dim, cp.shape[1],
             ck, k, splits, tiles_per_split, tm, CORES.index(precision),
             n_lists, p, tn, block_rows, int(prune), _ptr(gate_count),
-            int(bucket), _ptr(bucket_count), ctypes.c_void_p(stream))
+            alt, _ptr(count), _ptr(flags), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_topk_partial launch failed: error {rc}")
     launches["fused_topk_partial_tiles" if listed
@@ -1410,8 +1650,15 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         launches["fused_topk_partial_radix"] += 1
     elif bucket and bucket_built(tm, precision, k):
         launches["fused_topk_partial_bucket"] += 1
+    elif gstack:
+        launches["fused_topk_partial_gstack"] += 1
     core_launches[precision] += 1
     return part_v, part_i
+
+
+# ``pmm_fused_topk_partial``'s alt: the source's Selection values of the
+# bucket and the gstack selections.
+_ALT_BUCKET, _ALT_GSTACK = 3, 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -1495,8 +1742,9 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
     plain version for CPU tensors, and an error for any other device.
     ``tiles`` / ``tn`` / ``block_rows``: the tile lists of probed search
     (see ``fused_topk_partial``); ``prune``: kernel A's carry gate;
-    ``selection``: the config's, which ``bucket_route`` turns into kernel
-    A's route at the launch's query tile."""
+    ``selection``: the config's, which ``bucket_route`` and
+    ``gstack_route`` turn into kernel A's route at the launch's query
+    tile."""
     _check_operands(qp, cp, cbp, mask, k, precision)
     m = qp.shape[0]
     if m == 0:
@@ -1515,7 +1763,8 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                                               qp, precision))
         part_v, part_i = fused_topk_partial(
             qp, cp, cbp, mask, k, precision, splits, tps, tm, prune=prune,
-            bucket=bucket_route(selection, k, tm, False, precision))
+            bucket=bucket_route(selection, k, tm, False, precision),
+            gstack=gstack_route(selection, k, tm, False, precision))
         return topk_merge(part_v, part_i, k)
     tm = listed_tile_rows(m, k, block_rows)
     rows = None
@@ -1535,7 +1784,8 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
     part_v, part_i = fused_topk_partial(
         qp, cp, cbp, mask, k, precision, splits, tps, tm, tiles, tn,
         block_rows, prune=prune,
-        bucket=bucket_route(selection, k, tm, True, precision))
+        bucket=bucket_route(selection, k, tm, True, precision),
+        gstack=gstack_route(selection, k, tm, True, precision))
     vals, idx = topk_merge(part_v, part_i, k)
     return (vals, idx) if rows is None else (vals[rows], idx[rows])
 

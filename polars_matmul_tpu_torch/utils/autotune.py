@@ -215,10 +215,12 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     """What a dense ``fused_topk`` launches under ``cfg``: the reference
     path, or kernels A + B in one core (their geometry follows from the
     shapes and the core alone), with kernel A's carry gate on or off
-    (``prune_gate``) and its bucket selection or not (``bucket_route`` at
-    the launch's query tile, where ``bucket_built``); the core comes
-    last."""
+    (``prune_gate``), its bucket selection or not (``bucket_route`` at
+    the launch's query tile, where ``bucket_built``) and its gstack
+    selection or not (``gstack_route``, where ``gstack_built``); the core
+    comes last."""
     from ..kernels.fused_topk import (bucket_built, bucket_route,
+                                      gstack_built, gstack_route,
                                       kernel_precision, prune_gate,
                                       query_tile_rows, supports)
 
@@ -230,7 +232,9 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     gate = ("gated",) if prune_gate(cfg.prune) else ()
     bucket = (("bucket",) if bucket_route(cfg.selection, k, tm, False, core)
               and bucket_built(tm, core, k) else ())
-    return ("fused",) + gate + bucket + (core,)
+    gstack = (("gstack",) if gstack_route(cfg.selection, k, tm, False, core)
+              and gstack_built(tm, core, k) else ())
+    return ("fused",) + gate + bucket + gstack + (core,)
 
 
 def _sweep(candidates, cfg0: SearchConfig, q: torch.Tensor,
@@ -311,14 +315,18 @@ def autotune(
 
     On this port several candidates launch the same kernels: ``precision``
     picks another core of kernel A, ``prune`` turns its carry gate on or
-    off (``kernels.fused_topk.prune_gate``) and ``selection="bucket"``
+    off (``kernels.fused_topk.prune_gate``), ``selection="bucket"``
     takes its bucket selection where that is built (``kernels.fused_topk.
-    bucket_built``: k <= 16 at query tiles 16 and 32, 16 for "highest"),
-    while ``block_q``, ``block_n`` and the other ``selection`` values leave
-    a dense launch as it is.  Each distinct launch is measured once and
-    its time given to every
-    candidate that shares it; on a tie the first candidate in grid order
-    wins, so noise never picks the persisted winner.
+    bucket_built``: k <= 16 at query tiles 16 and 32, 16 for "highest")
+    and ``selection="gstack"`` / ``"gpop"`` its gstack selection where
+    that is built (``kernels.fused_topk.gstack_built``: k <= 128 on the
+    mma.sync ring and the f32 walk where its stacks fit), while
+    ``block_q``, ``block_n`` and the other ``selection`` values leave a
+    dense launch as it is.  Each distinct launch is measured once and its
+    time given to every candidate that shares it; on a tie the first
+    candidate in grid order wins, so noise never picks the persisted
+    winner.  A winning "gstack" or "gpop" is persisted as "auto", the JAX
+    package's rule (``_finalize_winner``).
 
     ``device``: the card to tune (default "cuda", which raises without
     one).  On "cpu" the kernels' plain versions would be timed, so the

@@ -256,16 +256,18 @@ def _sweep(monkeypatch, seconds, k=5, candidates=None):
 
 def test_sweep_measures_each_distinct_launch_once(monkeypatch):
     """At 8 queries and k=5 the grid's selection="bucket" candidate takes
-    kernel A's bucket selection: a launch of its own, timed once."""
+    kernel A's bucket selection and its "gstack" and "gpop" candidates its
+    gstack selection: two launches of their own, each timed once."""
     best, timed = _sweep(monkeypatch, {"bf16x3": 2.0, "highest": 1.0})
-    assert sorted(timed) == ["bf16x3", "bf16x3", "highest"]
+    assert sorted(timed) == ["bf16x3", "bf16x3", "bf16x3", "highest"]
     assert best == pt.SearchConfig(block_q=256, block_n=2048,
                                    precision="highest", auto_tile=False)
 
 
 def test_sweep_ties_keep_the_first_candidate(monkeypatch):
     best, timed = _sweep(monkeypatch, {"bf16x3": 1.0, "highest": 1.0})
-    assert len(timed) == 3   # bf16x3, its bucket selection, highest
+    # bf16x3, its bucket and its gstack selections, highest
+    assert len(timed) == 4
     assert best == pt.SearchConfig(block_q=128, block_n=1024,
                                    auto_tile=False)
 
@@ -289,7 +291,7 @@ def test_sweep_returns_the_base_when_nothing_runs(monkeypatch):
 
 def test_launch_key():
     q, c = _data(8, 300, 32)
-    assert A._launch_key(pt.SearchConfig(selection="gstack", block_q=8),
+    assert A._launch_key(pt.SearchConfig(selection="extract", block_q=8),
                          q, c, 5) == ("fused", "bf16x3")
     assert A._launch_key(pt.SearchConfig(precision="high"), q, c,
                          5) == ("fused", "highest")
@@ -319,6 +321,33 @@ def test_launch_key_bucket(m, k, precision, prune, want):
     for sel in ("insert", "auto", "extract"):
         assert A._launch_key(cfg.with_updates(selection=sel), q, c,
                              k) == plain
+
+
+@pytest.mark.parametrize("m, k, precision, prune, want", [
+    (8, 5, "bf16x3", "auto", ("fused", "gstack", "bf16x3")),
+    (8, 100, "highest", "on", ("fused", "gated", "gstack", "highest")),
+    (100, 5, "bf16x3", "off", ("fused", "gstack", "bf16x3")),    # tile 64
+    (100, 10, "bf16x3", "auto", ("fused", "bf16x3")),    # tile 64: no room
+    (100, 10, "int8c", "auto", ("fused", "int8c")),       # warpgroup
+    (8, 200, "bf16x3", "auto", ("fused", "bf16x3")),      # k > 128
+])
+def test_launch_key_gstack(m, k, precision, prune, want):
+    """selection="gstack" and "gpop" are one launch of their own where
+    kernel A builds the gstack selection (k <= 128 on the mma.sync ring
+    and the f32 walk where its stacks fit), the own selection's launch
+    elsewhere; "auto" and the others keep the own selection's; a winning
+    "gstack" or "gpop" is persisted as "auto"."""
+    q, c = _data(m, 300, 32)
+    cfg = pt.SearchConfig(selection="gstack", precision=precision,
+                          prune=prune)
+    assert A._launch_key(cfg, q, c, k) == want
+    assert A._launch_key(cfg.with_updates(selection="gpop"), q, c,
+                         k) == want
+    plain = tuple(x for x in want if x != "gstack")
+    for sel in ("insert", "auto", "extract"):
+        assert A._launch_key(cfg.with_updates(selection=sel), q, c,
+                             k) == plain
+    assert A._finalize_winner(cfg).selection == "auto"
 
 
 def test_autotune_is_exported():
