@@ -52,7 +52,11 @@ Then:
    built: the canonical operands in bf16x3 and highest at k=10 at query
    tiles 64, 32 and 16 and at k=100 at 32 and 16; 2M x 256 f32 batch 8 at
    k=10 and 100 and batch 256 at k=10; 10M x 768 int8 batch 8 k=10; the 2M
-   x 256 f32 clustered lists at probe 0.05, k=10, 1000 queries and 32).
+   x 256 f32 clustered lists at probe 0.05, k=10, 1000 queries and 32),
+   and ``gstack-big`` (the gstack selection above k = 128: the canonical
+   operands in bf16x3 and highest at k=129, 256, 512 and 1024; 2M x 256
+   f32 batch 8 at k=256 and 512, its lossy plans; the 2M x 256 f32
+   clustered lists at probe 0.05, 32 queries, k=256).
 
 ``--bucket`` adds this tree's build asked for the bucket selection (and
 each variant's) as builds of their own, "change+bucket": its lists must
@@ -62,8 +66,19 @@ adds this tree's build asked for the gstack selection, "change+gstack",
 the same way: its lists (its exact re-walk's where its detector fired)
 must equal the parent's in every cell, and its times sit beside the
 insertion's or the slack's in the same turns; it is skipped in a cell
-where the gstack is not built.  ``--timed`` names the groups that are
-timed (the others are held to the parent's bits only).  A parent older
+where the gstack is not built.  With a parent that has the gstack
+selection (k <= 128), "parent+gstack" runs beside it, and each variant's
+build asked for it as "<variant>+gstack".  Above k = 128 the gstack runs
+at its own geometry (``fused_topk.gstack_geometry``): its split lists are
+held to the parent's radix selection on the same splits, its merged
+result to the parent's at the parent's geometry, and kernel A is timed
+alone and with kernel B (A + B, this tree's kernel B in a library of its
+own), since the splits differ; a cell where it is not built says so.
+``--gstack-cap N`` adds this tree's build, and each "gstack..." variant's,
+asked for the gstack above k = 128 on splits of at most N tiles
+("<build>+gstack@N").  ``--timed``
+names the groups that are timed (the others are held to the parent's bits
+only).  A parent older
 than the gstack selection, the bucket selection or the carry gate is
 called without those arguments (``_Older``); every time here is taken
 with the gate off.
@@ -89,7 +104,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("polars_matmul_tpu_torch/kernels/csrc")
 GROUPS = ("canonical", "big", "stored", "wide", "wide-int4", "wide-bf16",
-          "clustered", "lists", "bucket", "gstack")
+          "clustered", "lists", "bucket", "gstack", "gstack-big")
 # Builds of this tree's fused_topk.cu with a line or two changed: (pattern,
 # replacement) pairs of re.subn, each of which must match once, in
 # fused_topk.cu or, given as a third item, another file of csrc/.
@@ -152,6 +167,27 @@ VARIANTS = {
                    "constexpr int kBucketOverflow = 8;")],
     "bucket-o0": [(r"constexpr int kBucketOverflow = \d+;",
                    "constexpr int kBucketOverflow = 0;")],
+    # The JAX kernel's posu (fused_topk.py:291-311) in the gstack selection
+    # up to k = 128: its keys' high word the raw bits of the score biased by
+    # +1.0 (monotone for the cosine tiers' scores, >= -1), in place of
+    # sel_key's orderable transform, taken back by subtracting 1.0 (the
+    # bound and the finish).  Not exact ((s + 1) - 1 is not s), so its
+    # bits are not checked: timed on the int8c / int4c cosine cells only.
+    "posu": [(r"(constexpr uint64_t kEmptyKey = 0x007fffff00000001ull;)",
+              r"\1\n__device__ inline uint64_t posu_key(float v, int i) {\n"
+              r"  return ((uint64_t)__float_as_uint(v + 1.0f) << 32) |\n"
+              r"         (uint32_t)~(2u * (uint32_t)i);\n}\n"
+              r"__device__ inline float posu_value(uint64_t key) {\n"
+              r"  return __uint_as_float((uint32_t)(key >> 32)) - 1.0f;\n}"),
+             (r"put = gstack_put\(key \+ lane, levels, sel_key\(s0",
+              "put = gstack_put(key + lane, levels, posu_key(s0"),
+             (r"put \|= gstack_put\(key \+ 32 \+ lane, levels,\n(\s*)"
+              r"sel_key\(s1", r"put |= gstack_put(key + 32 + lane, levels,"
+              r"\n\1posu_key(s1"),
+             (r"Cv\[r\] = key_value\(kth\);",
+              "Cv[r] = posu_value(kth);"),
+             (r"part_v\[o \+ t\] = key_value\(win\);(\n\s*part_i\[o \+ t\]"
+              r" = key_index\(win\);)", r"part_v[o + t] = posu_value(win);\1")],
 }
 
 
@@ -248,11 +284,13 @@ def build(parent: Path, work: Path, variants):
             _ptxas(log, name, lines[kind])
     from polars_matmul_tpu_torch.kernels import _build
 
-    for name, d in srcs.items():
+    links = {name: [work / f"{name}.{cu.stem}.o" for cu in _units(d)]
+             for name, d in srcs.items()}
+    links["merge"] = [work / "change.topk_merge.o"]   # this tree's kernel B
+    for name, objs in links.items():
         r = subprocess.run(
             [_build.find_nvcc(), *_build._ARCH, "-shared", "-o",
-             str(work / f"{name}.so")]
-            + [str(work / f"{name}.{cu.stem}.o") for cu in _units(d)],
+             str(work / f"{name}.so")] + [str(o) for o in objs],
             capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed linking {name}:\n{r.stdout}"
@@ -272,13 +310,18 @@ def build(parent: Path, work: Path, variants):
         lib.pmm_fused_topk_blocks_per_sm.restype = i
         libs[name] = (lib if gated and gstack
                       else _Older(lib, gated, bucket))
-    return libs, lines
+    merge = ctypes.CDLL(str(work / "merge.so"))
+    merge.pmm_topk_merge.argtypes = [p] * 4 + [i] * 3 + [p]
+    merge.pmm_topk_merge.restype = i
+    merge.pmm_topk_merge_plan.argtypes = [p] * 5 + [i] * 5 + [p]
+    merge.pmm_topk_merge_plan.restype = i
+    return libs, lines, merge
 
 
 def _units(d: Path):
     """Kernel A's translation units in source directory ``d``:
-    fused_topk.cu, and its gstack unit where the tree has one."""
-    return [d / "fused_topk.cu"] + sorted(d.glob("fused_topk_gstack.cu"))
+    fused_topk.cu, and its gstack units where the tree has them."""
+    return [d / "fused_topk.cu"] + sorted(d.glob("fused_topk_gstack*.cu"))
 
 
 def _takes(src: Path, arg: str) -> bool:
@@ -570,10 +613,49 @@ def _gstack(cs, F, dev):
     return cells
 
 
+def _gstack_big(cs, F, dev):
+    """The gstack selection's cells above k = 128 (see the module's
+    head)."""
+    import polars_matmul_tpu_torch as pmt
+
+    cells = []
+    rng = np.random.default_rng(cs.SEED)
+    q = torch.from_numpy(rng.standard_normal(
+        (cs.N_QUERIES, cs.DIM)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal(
+        (cs.N_CORPUS, cs.DIM)).astype(np.float32)).to(dev)
+    qn, cn = (x / x.norm(dim=1, keepdim=True) for x in (q, c))
+    for core in ("bf16x3", "highest"):
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=core)
+        qp = F.prepare_queries(q, "cosine", core)
+        cells += [Cell(f"canonical {core} k={k}", core, qp, cp, cbp, k, qn,
+                       cn, dim=cs.DIM) for k in (129, 256, 512, 1024)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    big = torch.randn((cs.BIG_ROWS, cs.DIM), generator=gen, device=dev)
+    cp, cbp = F.prepare_corpus(big, "cosine", precision="bf16x3")
+    cn = big / big.norm(dim=1, keepdim=True)
+    qb = torch.randn((8, cs.DIM), generator=gen, device=dev)
+    cells += [Cell(f"2M x 256 f32 batch 8 k={k}", "bf16x3",
+                   F.prepare_queries(qb, "cosine", "bf16x3"), cp, cbp, k,
+                   qb / qb.norm(dim=1, keepdim=True), cn, dim=cs.DIM)
+              for k in (256, 512)]
+    del big
+    torch.cuda.empty_cache()
+    gen.manual_seed(cs.SEED + 2)
+    c, queries = cs._blobs(torch, gen, cs.BIG_ROWS, cs.DIM)
+    proxy = pmt.ClusteredCorpus(c)
+    del c
+    q = queries(cs.N_QUERIES)
+    cells.append(_listed_cell(cs, F, "2M x 256 f32 clustered probe 0.05 32 "
+                              "q k=256", proxy, q[:32], 256))
+    return cells
+
+
 BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,
             "wide": _wide, "wide-int4": _wide_int4, "wide-bf16": _wide_bf16,
             "clustered": _clustered, "lists": _lists, "bucket": _bucket,
-            "gstack": _gstack}
+            "gstack": _gstack, "gstack-big": _gstack_big}
 
 
 def _verdict(card, label, name, times, lib):
@@ -609,6 +691,10 @@ def main(argv=None) -> int:
                          "bucket selection")
     ap.add_argument("--gstack", action="store_true",
                     help="also this tree asked for the gstack selection")
+    ap.add_argument("--gstack-cap", default="",
+                    help="with --gstack, also each build asked for it above "
+                         "k = 128 on splits no longer than N tiles "
+                         "(\"<build>+gstack@N\")")
     ap.add_argument("--timed", default=None,
                     help="the groups to time (default: every group run)")
     ap.add_argument("--rounds", type=int, default=1,
@@ -631,7 +717,7 @@ def main(argv=None) -> int:
 
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="ab-", dir=ROOT / "build"))
-    libs, lines = build(args.parent.resolve(), work, variants)
+    libs, lines, merge_lib = build(args.parent.resolve(), work, variants)
     card = cs.phase_card()
     same = [k for k in lines["parent"] if lines["change"].get(k)
             == lines["parent"][k]]
@@ -666,6 +752,14 @@ def main(argv=None) -> int:
                        if name != "parent"})
     if args.gstack:
         routes["change+gstack"] = ("change", "gstack")
+        if _takes(args.parent.resolve() / CSRC / "fused_topk.cu", "flags"):
+            routes["parent+gstack"] = ("parent", "gstack")
+        routes.update({f"{name}+gstack": (name, "gstack")
+                       for name in variants})
+        if args.gstack_cap:
+            routes.update({f"{name}+gstack@{args.gstack_cap}":
+                           (name, "gstack") for name in ["change"] + [
+                               v for v in variants if v.startswith("gstack")]})
 
     def use(name):
         _build._lib = libs[routes[name][0]]
@@ -684,6 +778,34 @@ def main(argv=None) -> int:
         return F.kernel_geometry(m, tiles.shape[1] * tn, cell.k, cell.core,
                                  dev, tm, listed=True, dim=cell.dim)
 
+    def route_geometry(cell, name):
+        """The geometry of route ``name``: the gstack's own above k = 128
+        (this tree's ``gstack_geometry``; None where it is not built), else
+        ``geometry``."""
+        if routes[name][1] != "gstack" or cell.k <= F.APPEND_MAX_K:
+            return geometry(cell, cell.tm)
+        m, rows = cell.qp.shape[0], cell.cp.shape[0]
+        if cell.listed is not None:
+            rows = cell.listed[0].shape[1] * cell.listed[1]
+        if "@" not in name:
+            return F.gstack_geometry(m, rows, cell.k, cell.core, sms)
+        # Splits of at most the cap's tiles (the lossless depth capped).
+        deepest, cap = F.gstack_deepest, int(name.split("@")[1])
+        F.gstack_deepest = lambda core, k: min(deepest(core, k), cap)
+        try:
+            return F.gstack_geometry(m, rows, cell.k, cell.core, sms)
+        finally:
+            F.gstack_deepest = deepest
+
+    def merge(lists, k):
+        """Kernel B (this tree's, from its own library) on a route's
+        lists."""
+        lib, _build._lib = _build._lib, merge_lib
+        try:
+            return F.topk_merge(*lists, k)
+        finally:
+            _build._lib = lib
+
     def launch(cell, geo, name="change"):
         tm, splits, tps = geo
         extra = () if cell.listed is None else cell.listed
@@ -695,14 +817,17 @@ def main(argv=None) -> int:
     def built(cell, geo, name):
         """Whether ``name`` runs its own route at this cell: a build asked
         for the gstack selection only where it is built."""
-        return routes[name][1] != "gstack" or F.gstack_built(
-            geo[0], cell.core, cell.k)
+        if routes[name][1] != "gstack":
+            return True
+        if cell.k > F.APPEND_MAX_K and routes[name][0] == "parent":
+            return False   # the parent's gstack stops at k = 128
+        return F.gstack_built(geo[0], cell.core, cell.k, geo[2])
 
     def bits(label, cell, geo):
         outs = {}
         for name, (lib_name, _) in routes.items():
             if lib_name not in ("noselect", "noproducts", "nodecode",
-                                "nosort") and built(cell, geo, name):
+                                "nosort", "posu") and built(cell, geo, name):
                 use(name)
                 outs[name] = launch(cell, geo, name)
         torch.cuda.synchronize()
@@ -731,18 +856,45 @@ def main(argv=None) -> int:
         use("change")
         for cell in cells:
             bits(cell.label, cell, geometry(cell, cell.tm))
+            if args.gstack and cell.k > F.APPEND_MAX_K:
+                # The gstack's own splits: its lists against the radix
+                # selection's on them, and its merged result against the
+                # parent's at the parent's own geometry.
+                geo = route_geometry(cell, "change+gstack")
+                if geo is None:
+                    print(f"bits: {cell.label}: the gstack is not built "
+                          f"(selection='gstack' runs the radix)")
+                    continue
+                bits(f"{cell.label} at the gstack's geometry", cell, geo)
+                use("parent")
+                want = merge(launch(cell, geometry(cell, cell.tm), "parent"),
+                             cell.k)
+                use("change+gstack")
+                got = merge(launch(cell, geo, "change+gstack"), cell.k)
+                equal = torch.equal(got[0], want[0]) and torch.equal(
+                    got[1], want[1])
+                print(f"bits: {cell.label}: change+gstack merged (tm="
+                      f"{geo[0]}, splits={geo[1]}) against the parent's at "
+                      f"its own geometry: equal {equal}")
+                if not equal:
+                    raise RuntimeError(f"{cell.label}: the gstack's merged "
+                                       f"result differs from the parent's")
         if args.bits_only or group not in timed:
             continue
         for cell in cells:
-            times = {}
+            times, merged = {}, {}
             for name in order:
                 use(name)
-                geo = geometry(cell, cell.tm)
-                if not built(cell, geo, name):
+                geo = route_geometry(cell, name)
+                if geo is None or not built(cell, geo, name):
                     continue
                 ms = cs.cuda_ms(lambda: launch(cell, geo, name),
                                 reps=args.reps)
                 times.setdefault(name, []).append((ms, geo))
+                if cell.k > F.APPEND_MAX_K:   # A + B: the splits differ
+                    ms = cs.cuda_ms(lambda: merge(launch(cell, geo, name),
+                                                  cell.k), reps=args.reps)
+                    merged.setdefault(name, []).append((ms, geo))
             use("change")
             m, k = cell.qp.shape[0], cell.k
             if cell.listed is None:
@@ -778,11 +930,23 @@ def main(argv=None) -> int:
                 for name, ts in times.items())
                 + f" | bound {bound[0]:.4f} ms ({bound[1]}) | torch.addmm + "
                 f"torch.topk {lib}")
+            if merged:
+                print(f"[{card}] {cell.label}: A + B: " + "; ".join(
+                    f"{name} {' / '.join(f'{ms:.4f}' for ms, _ in ts)} ms "
+                    f"(tm {ts[0][1][0]}, splits {ts[0][1][1]})"
+                    for name, ts in merged.items()))
             for name in routes:
-                if name.endswith(("+bucket", "+gstack")) and name in times:
+                if ("+bucket" in name or "+gstack" in name) and name in times:
                     lib_name = routes[name][0]
                     _verdict(card, cell.label, name, times,
                              lib_name if lib_name in times else "change")
+                    if name in merged:
+                        _verdict(card, cell.label + " (A + B)", name, merged,
+                                 lib_name if lib_name in merged
+                                 else "change")
+            if "parent+gstack" in times and "change+gstack" in times:
+                _verdict(card, cell.label, "change+gstack", times,
+                         "parent+gstack")
         del cells
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)

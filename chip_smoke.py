@@ -324,12 +324,16 @@ HIGHEST_PLANS = ((64, 10), (64, 100), (64, 128), (32, 10), (32, 256),
 BF16X3_PLANS = HIGHEST_PLANS
 # Kernel A's selections by the source's Selection value (the warpgroup
 # consumer's bool: 0 insert, 1 append).
-SELECTIONS = ("insert", "append", "radix", "bucket", "gstack")
+SELECTIONS = ("insert", "append", "radix", "bucket", "gstack",
+              "gstack-big")
 # The TPU kernel's bucket selection, which kernel A's kBucket ports.
 BUCKET_SRC = TPU_KERNEL + ":1083"
 # The TPU kernel's gstack build (_gstack_update), which kernel A's kGstack
 # ports with the detector of _gstack_decode (:752) and _gpop_finish (:922).
 GSTACK_SRC = TPU_KERNEL + ":608"
+# The TPU kernel's big-k gstack depth (_bigk_depth), which kernel A's
+# kGstackBig ports with the same build and finish.
+GSTACK_BIG_SRC = TPU_KERNEL + ":539"
 # The one instantiation of kernel A known to spill (4 B stored, 4 B
 # loaded; ROADMAP.md): phase 1 fails on a spill in any other.  The carry
 # gate's vote moved it here from bf16c listed at query tile 16 (8 B / 32
@@ -496,6 +500,84 @@ def phase_card():
           f"{torch.cuda.device_count()} device(s), "
           f"{torch.cuda.get_device_name(0)}")
     return card
+
+
+# The gstack selection above k = 128 in phase 1: the source's plan
+# (pmm_fused_topk_gstack_big) against the host's at these query tiles, k
+# and split lengths, and the plans of the cells phase 6 and ab_kernel_a.py
+# time (canonical at the gstack's own geometry; 2M x 256 batch 8, lossy).
+GSTACK_BIG_PLAN_KS = (129, 130, 192, 200, 256, 300, 512, 640, 1000, 1024)
+GSTACK_BIG_PLAN_TPS = (1, 3, 8, 20, 24, 25, 27, 28, 32, 33, 47, 79, 237,
+                       1184, 32768, 32769)
+
+
+def _gstack_big_plans(F, lib, log):
+    """Phase 1's lines of the gstack selection above k = 128: the rule's
+    agreement, the new instantiations' ptxas lines (no spill: kernel A's
+    check), and its plans and not-built cases with their bytes."""
+    import ctypes
+
+    import torch
+
+    out = (ctypes.c_int * 2)()
+    got, want = [], []
+    for tm in (16, 32):
+        for core, name in enumerate(F.CORES):
+            for k in GSTACK_BIG_PLAN_KS:
+                for tps in GSTACK_BIG_PLAN_TPS:
+                    built = lib.pmm_fused_topk_gstack_big(tm, core, k, tps,
+                                                          out)
+                    got.append((built, *out))
+                    levels, ok = F.gstack_big_plan(tm, name, k, tps)
+                    want.append((int(ok), levels,
+                                 F.gstack_big_bytes(tm, name, levels)))
+    bad = [(g, w) for g, w in zip(got, want) if g != w]
+    require(not bad, f"the gstack plan above k = {F.APPEND_MAX_K}: the "
+            f"source's rule differs from fused_topk.gstack_big_plan, e.g. "
+            f"{bad[:3]}")
+    lines = [line for line in _ptxas_summary(log)
+             if line.startswith(("fused_topk_stored_kernel<",
+                                 "fused_topk_f32_kernel<"))
+             and ", gstack-big>" in line]
+    require(len(lines) > 0, "no gstack instantiation above k = 128 was "
+            "built")
+    for line in lines:
+        print("  gstack above 128: " + line)
+    sms = F.device_sms(torch.device("cuda"))
+    for label, m, n in (("canonical", N_QUERIES, N_CORPUS),
+                        (f"{BIG_ROWS}x{DIM} batch 8", 8, BIG_ROWS)):
+        for k in (129, 256, 512, 1024):
+            plans = []
+            for core in F.CORES:
+                geo = F.gstack_geometry(m, n, k, core, sms)
+                if geo is None:
+                    _, splits, tps = F.launch_geometry(
+                        m, n, k, sms, 1, F.GSTACK_BIG_TM)
+                    levels = F.gstack_big_plan(F.GSTACK_BIG_TM, core, k,
+                                               tps)[0]
+                    plans.append(
+                        f"{core} not built ({levels} levels wanted at {tps} "
+                        f"tiles a split: "
+                        f"{F.gstack_big_bytes(F.GSTACK_BIG_TM, core, levels)}"
+                        f" B beside the ring's least plan; the radix)")
+                    continue
+                tm, splits, tps = geo
+                levels = F.gstack_big_plan(tm, core, k, tps)[0]
+                st, stage, res, total = F.gstack_big_ring(
+                    tm, core, F._corpus_width(core, DIM), k, tps)
+                blocks = min(2, F._SMEM_PER_SM // (total
+                                                   + F._SMEM_PER_BLOCK))
+                plans.append(
+                    f"{core} {splits} splits of {tps} tiles, {levels} levels "
+                    f"({'lossless' if levels >= tps else 'lossy'}), "
+                    f"{st} stages of {stage} B, {total} B ({blocks} "
+                    f"block{'s' if blocks > 1 else ''} an SM)")
+            print(f"  gstack above 128: {label} k={k}: " + "; ".join(plans))
+    print(f"  gstack above 128: {len(lines)} instantiations (query tile "
+          f"{F.GSTACK_BIG_TM}, every core, dense and listed), "
+          f"{sum('spills' in line for line in lines)} spilling; the "
+          f"source's plan equals the host's at tm 16 / 32, every core, "
+          f"k={GSTACK_BIG_PLAN_KS}, tiles a split {GSTACK_BIG_PLAN_TPS}")
 
 
 def _ptxas_summary(log: str):
@@ -707,7 +789,7 @@ def phase_build():
     # The gstack selection: where a launch that asks for it takes it and
     # its depth, the source's rules against the host's, and its
     # instantiations (no spill: kernel A's check above).
-    ks128 = range(1, F.APPEND_MAX_K + 2)
+    ks128 = range(1, F.APPEND_MAX_K + 1)
     built = [lib.pmm_fused_topk_gstack(tm, core, k)
              for tm in (16, 32, 64) for core in range(len(F.CORES))
              for k in ks128]
@@ -750,7 +832,8 @@ def phase_build():
           f"walk, dense and listed; {F.GSTACK_CELLS} cells a row, stacks in "
           f"shared memory), {sum('spills' in line for line in gstack)} "
           f"spilling; the source's route and depth equal the host's at tm "
-          f"16 / 32 / 64, every core, k=1...{F.APPEND_MAX_K + 1}")
+          f"16 / 32 / 64, every core, k=1...{F.APPEND_MAX_K}")
+    _gstack_big_plans(F, lib, log)
     # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
     core = F.CORES.index("bf16x3")
     for dim in (DIM, WIDE_DIM):
@@ -1726,6 +1809,20 @@ def _compare_all(F, torch, ms, ns, dims, ks):
           f"rows ({planted} of them planted) and {blocks} blocks fired, "
           f"each block walked again; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    cases, lossless, lossy, rows, planted, skipped = _gstack_bigk_edges(
+        F, torch, gen)
+    print(f"phase 2: kernel A's gstack selection above k = "
+          f"{F.APPEND_MAX_K}: {cases} cases ({lossless} lossless, {lossy} "
+          f"lossy) bit-identical to its plain version and to the radix "
+          f"selection's lists on the same splits (k={GSTACK_BIG_KS}, every "
+          f"core, query tile {F.GSTACK_BIG_TM}, dense splits of "
+          f"{GSTACK_BIG_TPS} tiles and two lists, masked and not; tie, "
+          f"non-finite and planted data), each gated twin equal; the counter "
+          f"equal to the plain version of the walk's fires in every case: "
+          f"{rows} rows ({planted} of them planted), none lossless; not "
+          f"built (core, k, tiles a split): {skipped}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     bucket, windows, overflow = _bucket_edges(F, torch, gen)
     require(overflow > 0, "the bucket edges filled no overflow")
     print(f"phase 2: kernel A's bucket selection: {bucket} cases "
@@ -1854,6 +1951,8 @@ def _oracle_on_card(torch, q, c, k, chunk=250_000):
 
 
 def phase_big(pmt, torch):
+    from polars_matmul_tpu_torch.kernels import fused_topk as F
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     c = torch.randn((BIG_ROWS, DIM), generator=gen, device="cuda")
@@ -1895,6 +1994,27 @@ def phase_big(pmt, torch):
              f"{rows}x{DIM} corpus batch=8 k=10 selection={sel!r}")
         print(f"phase 4: {rows}x{DIM} corpus, batch 8, k=10, "
               f"selection={sel!r}: passes the float64 oracle gate")
+    # The gstack selection above k = 128 on the main path, asked for by the
+    # corpus's config: batch 8 over the 2M rows at k=256 (132 splits of 237
+    # tiles: lossy) and k=512 (not built: the radix at its own geometry),
+    # and 1000 queries over the first 10,000 at k=512 (the canonical shape:
+    # lossless).
+    q_canon = torch.randn((N_QUERIES, DIM), generator=gen, device="cuda")
+    for rows, qs, k in ((BIG_ROWS, q, 256), (BIG_ROWS, q, 512),
+                        (N_CORPUS, q_canon, 512)):
+        idx, scores = pmt.Corpus(c[:rows], config=pmt.SearchConfig(
+            selection="gstack")).topk(qs, k)
+        ref_idx, ref_scores = _oracle_on_card(torch, qs, c[:rows], k)
+        gate(idx, scores, ref_idx, ref_scores,
+             f"{rows}x{DIM} corpus batch={qs.shape[0]} k={k} "
+             f"selection='gstack'")
+        geo = F.gstack_geometry(qs.shape[0], rows, k, "bf16x3",
+                                F.device_sms(qs.device))
+        print(f"phase 4: {rows}x{DIM} corpus, batch {qs.shape[0]}, k={k}, "
+              f"selection='gstack' ("
+              + (f"{geo[1]} splits of {geo[2]} tiles" if geo else
+                 "not built: the radix selection")
+              + "): passes the float64 oracle gate")
     return corpus, requests
 
 
@@ -2060,11 +2180,13 @@ class GstackCheck:
     launch runs with the carry gate off and on, equal too.  ``cases``
     counts the launches checked, ``listed`` the listed ones, ``rows`` /
     ``blocks`` what the gstack's counter gathered over them (gate off and
-    on)."""
+    on), ``big`` the launches above k = 128 (query tile 16, where
+    ``gstack_big_plan`` builds it on the launch's splits: the radix
+    selection's lists on the same splits)."""
 
     def __init__(self, F, torch):
         self.F, self.torch = F, torch
-        self.cases = self.listed = self.rows = self.blocks = 0
+        self.cases = self.listed = self.rows = self.blocks = self.big = 0
 
     def __enter__(self):
         F, torch = self.F, self.torch
@@ -2076,7 +2198,7 @@ class GstackCheck:
             out = launch(*args, gstack=gstack, gstack_count=gstack_count,
                          **kw)
             if (gstack or kw.get("bucket") or not qp.is_cuda
-                    or not F.gstack_built(tm, precision, k)):
+                    or not F.gstack_built(tm, precision, k, tps)):
                 return out
             count = torch.zeros(2, dtype=torch.int32, device=qp.device)
             got = launch(*args, gstack=True, gstack_count=count, **kw)
@@ -2090,6 +2212,7 @@ class GstackCheck:
             rows, blocks = count.tolist()
             self.cases += 1
             self.listed += listed
+            self.big += k > F.APPEND_MAX_K
             self.rows += rows
             self.blocks += blocks
             return out
@@ -2165,7 +2288,7 @@ def _gstack_edges(F, torch, gen):
                 for args, listed, label in runs:
                     want = F.fused_topk_partial_plain(*args, *listed)
                     for tm in (16, 32, 64):
-                        if not F.gstack_built(tm, precision, k):
+                        if not F.gstack_built(tm, precision, k, args[7]):
                             continue
                         count.zero_()
                         compare(*F.fused_topk_partial(
@@ -2187,6 +2310,100 @@ def _gstack_edges(F, torch, gen):
     torch.cuda.synchronize()
     require(planted_rows > 0, "no planted collision fired")
     return cases, rows, blocks, planted_rows
+
+
+# The gstack selection above k = 128 (phase 2): its k, dense splits of 3
+# and 17 tiles (lossless) and of one split of all 47 (lossy), the listed
+# walk in 2 splits of 12 positions (lossless) and 1 of 48 (lossy).
+GSTACK_BIG_KS = (129, 200, 256, 512, 1024)
+GSTACK_BIG_TPS = (3, 17, 47)
+
+
+def _gstack_bigk_edges(F, torch, gen):
+    """Kernel A's gstack selection above k = 128 (query tile 16) against
+    its plain version and against the radix selection's lists on the same
+    splits, bit for bit on integer data (and so on each other), and its
+    fire counter against the plain version of its walk
+    (``fused_topk.gstack_partial_plain``): tie data with every other query
+    row zero, non-finite rows and queries (``_poison``), and planted
+    collisions (``_planted_heavy``), every core, GSTACK_BIG_KS, lossless
+    and lossy dense splits and two lists, with and without a mask; each
+    launch's gated twin too (under GateCheck, whose second launch the
+    counter then also counts).  A lossless launch must not fire.  Returns
+    (cases, lossless, lossy, rows fired, planted rows fired, not built)."""
+    n, dim, tn, m, tm = 3000, 56, 128, 37, F.GSTACK_BIG_TM
+    layout = -(-n // tn)
+    lists = {2: torch.tensor([list(range(0, layout, 2))], dtype=torch.int32,
+                             device="cuda"),
+             1: torch.tensor([list(range(layout))], dtype=torch.int32,
+                             device="cuda")}
+    keep = torch.rand((n,), generator=gen, device="cuda") < 0.66
+    keep[n // 3: n // 3 + 640] = False
+    masks = (None, F.pad_mask_row(keep, n))
+    n_tiles = -(-n // F._TN)
+    cases = lossless = lossy = rows = planted_rows = 0
+    skipped = set()
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for kind in ("tie", "nonfinite", "planted"):
+        if kind == "planted":
+            q, c = _planted_heavy(torch, gen, m, n, dim)
+        else:
+            q, c = _tie_data(torch, gen, m, n, dim)
+            q[::2] = 0.0
+            if kind == "nonfinite":
+                _poison(torch, q, c)
+        for precision in F.CORES:
+            qp = F.prepare_queries(q, "dot", precision)
+            cp, cbp = F.prepare_corpus(c, "dot", precision=precision)
+            for k, mask in ((k, mask) for k in GSTACK_BIG_KS
+                            for mask in masks):
+                what = (f"gstack above 128 m={m} n={n} k={k} {precision} "
+                        f"mask={mask is not None} {kind}")
+                runs = [((qp, cp, cbp, mask, k, precision,
+                          -(-n_tiles // tps), tps), (),
+                         f"splits of {tps} tiles, ")
+                        for tps in GSTACK_BIG_TPS]
+                for splits, tiles in lists.items():
+                    tps = -(-(tiles.shape[1] * tn // F._TN) // splits)
+                    runs.append(((qp, cp, cbp, mask, k, precision, splits,
+                                  tps), (tiles, tn, m),
+                                 f"listed, {splits} splits, "))
+                for args, listed, label in runs:
+                    if not F.gstack_built(tm, precision, k, args[7]):
+                        skipped.add((precision, k, args[7]))
+                        continue
+                    want = F.fused_topk_partial_plain(*args, *listed)
+                    radix = F.fused_topk_partial(*args, tm, *listed)
+                    count.zero_()
+                    got = F.fused_topk_partial(*args, tm, *listed,
+                                               gstack=True,
+                                               gstack_count=count)
+                    compare(*got, *want, exact=True,
+                            what=f"{label}{what}: against the plain version")
+                    compare(*got, *radix, exact=True,
+                            what=f"{label}{what}: against the radix lists")
+                    fired = F.gstack_partial_plain(*args, tm, *listed)[2]
+                    want_rows, want_blocks = F.gstack_fires(fired, tm)
+                    levels = F.gstack_big_plan(tm, precision, k, args[7])[0]
+                    # GateCheck's gated twin adds its own fires.
+                    require(count.tolist() == [2 * want_rows,
+                                               2 * want_blocks],
+                            f"{label}{what}: the gstack counter "
+                            f"{count.tolist()} differs from twice the "
+                            f"model's {[want_rows, want_blocks]}")
+                    require(levels < args[7] or want_rows == 0,
+                            f"{label}{what}: a lossless launch fired")
+                    lossless += levels >= args[7]
+                    lossy += levels < args[7]
+                    rows += want_rows
+                    planted_rows += (kind == "planted") * want_rows
+                    cases += 1
+            del qp, cp, cbp
+    torch.cuda.synchronize()
+    require(lossless > 0 and lossy > 0, "the gstack edges above k = 128 ran "
+            "no lossless or no lossy launch")
+    require(planted_rows > 0, "no planted collision fired above k = 128")
+    return cases, lossless, lossy, rows, planted_rows, sorted(skipped)
 
 
 # The bucket selection's own edges (phase 2): k (every k it takes is <=
@@ -2388,7 +2605,7 @@ def _time_gstack(F, torch, card, label, args, reps=10, **kw):
     median and their spread.  Returns the cell, or None where the gstack
     is not built."""
     k, precision, tm = args[4], args[5], args[8]
-    if not F.gstack_built(tm, precision, k):
+    if not F.gstack_built(tm, precision, k, args[7]):
         print(f"phase 6: [{card}] gstack selection, {label}: not built "
               f"({F.gstack_levels(k, tm)} levels, stacks "
               f"{F.gstack_tail_bytes(tm, F.gstack_levels(k, tm))} B)")
@@ -2432,6 +2649,88 @@ def _time_gstack(F, torch, card, label, args, reps=10, **kw):
           f"{'faster than' if cell['faster'] else 'not faster than'} "
           f"{F.selection(k)} beyond the spread")
     return cell
+
+
+# The canonical k that phase 6 times the gstack selection above k = 128 at
+# (k=1024 is not built there: it prints so).
+GSTACK_BIG_TIMED = (129, 256, 512, 1024)
+
+
+def _time_gstack_bigk(F, torch, card, label, qp, cp, cbp, k, core, library,
+                      m, n, dim):
+    """Kernel A's radix selection at its geometry against the gstack
+    selection above k = 128 at its own (``gstack_geometry``), kernel A
+    alone and A + B, in turns (CUDA events, GATE_TURNS turns): the gstack's
+    lists equal the radix's on its splits and the merged results equal,
+    its counter equal to the plain version of its walk; beside the plain
+    version's time, the library call (``library``) and the bound of the
+    function (the operands, the lists of the radix's geometry, the
+    products).  Returns the kernels line's entry (the gstack's kernel A
+    time), or None where the gstack is not built."""
+    dev = qp.device
+    own = F.kernel_geometry(m, n, k, core, dev, dim=dim)
+    geo = F.gstack_geometry(m, n, k, core, F.device_sms(dev))
+    if geo is None:
+        print(f"phase 6: [{card}] gstack above 128, {label}: not built "
+              f"(selection='gstack' runs the radix at tm={own[0]}, "
+              f"splits={own[1]})")
+        return None
+    tm, splits, tps = geo
+    levels = F.gstack_big_plan(tm, core, k, tps)[0]
+    args = (qp, cp, cbp, None, k, core, splits, tps, tm)
+    count = torch.zeros(2, dtype=torch.int32, device="cuda")
+    got = F.fused_topk_partial(*args, gstack=True, gstack_count=count)
+    compare(*got, *F.fused_topk_partial(*args), exact=True,
+            what=f"{label}: the gstack against the radix on its splits")
+    compare(*F.topk_merge(*got, k), *F.topk_merge(*F.fused_topk_partial(
+        qp, cp, cbp, None, k, core, own[1], own[2], own[0]), k), exact=True,
+            what=f"{label}: the gstack's merged result against the radix's")
+    model = F.gstack_fires(F.gstack_partial_plain(*args)[2], tm)
+    require(tuple(count.tolist()) == model,
+            f"{label}: the gstack counter {count.tolist()} differs from the "
+            f"plain version of its walk {model}")
+    routes = {
+        "radix": lambda: F.fused_topk_partial(qp, cp, cbp, None, k, core,
+                                              own[1], own[2], own[0]),
+        "gstack": lambda: F.fused_topk_partial(*args, gstack=True)}
+    routes["radix A+B"] = lambda: F.topk_merge(*routes["radix"](), k)
+    routes["gstack A+B"] = lambda: F.topk_merge(*routes["gstack"](), k)
+    times = {name: [] for name in routes}
+    for turn in range(GATE_TURNS):
+        for name in (list(routes) if turn % 2 == 0 else
+                     list(reversed(list(routes)))):
+            times[name].append(cuda_ms(routes[name], reps=10, warmup=2))
+    med = {name: statistics.median(v) for name, v in times.items()}
+    spread = {a: max(max(times[a]) - min(times[a]),
+                     max(times[b]) - min(times[b]))
+              for a, b in (("gstack", "radix"), ("gstack A+B", "radix A+B"))}
+    plain = cuda_ms(lambda: F.gstack_partial_plain(*args), reps=3, warmup=1)
+    lib = cuda_ms(library, reps=10)
+    passes, peak = ((1, "float32_cuda_cores") if core == "highest"
+                    else (3, "bfloat16"))
+    bound = _bound(qp.nbytes + cp.nbytes + cbp.nbytes + m * own[1] * k * 8,
+                   passes * 2 * m * n * dim, peak)
+    faster = {a: med[b] - med[a] > spread[a]
+              for a, b in (("gstack", "radix"), ("gstack A+B", "radix A+B"))}
+    print(f"phase 6: [{card}] gstack above 128, {label}: radix (tm="
+          f"{own[0]}, splits={own[1]}) A {' / '.join(f'{t:.4f}' for t in times['radix'])}"
+          f" ms, A+B {' / '.join(f'{t:.4f}' for t in times['radix A+B'])}"
+          f" ms; gstack (tm={tm}, {splits} splits of {tps} tiles, {levels} "
+          f"levels, {'lossless' if levels >= tps else 'lossy'}) A "
+          f"{' / '.join(f'{t:.4f}' for t in times['gstack'])} ms, A+B "
+          f"{' / '.join(f'{t:.4f}' for t in times['gstack A+B'])} ms "
+          f"(medians A {med['radix']:.4f} / {med['gstack']:.4f}, A+B "
+          f"{med['radix A+B']:.4f} / {med['gstack A+B']:.4f}; faster beyond "
+          f"the spread: A {faster['gstack']}, A+B {faster['gstack A+B']}); "
+          f"fired {model[0]} rows; plain walk {plain:.3f} ms; library "
+          f"torch.addmm + torch.topk (f32) {lib:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return _entry(med["gstack"], plain, lib, "torch.addmm + torch.topk (f32)",
+                  bound, f"{label}: {m} x {n} x {dim} cosine, "
+                  f"selection='gstack' ({splits} splits of {tps} tiles, "
+                  f"{levels} levels; radix "
+                  f"{med['radix']:.4f} ms; A+B {med['gstack A+B']:.4f} "
+                  f"against {med['radix A+B']:.4f} ms)")
 
 
 def _gstack_summary(card):
@@ -2632,6 +2931,20 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
                              f"(tm={tm}, splits={geo[1]})",
                              (qp, cp, cbp, None, k, precision, geo[1],
                               geo[2], tm))
+        del qp, cp, cbp
+    # The gstack selection above k = 128 at the canonical shape, both
+    # cores: the radix at its geometry against the gstack at its own, A
+    # and A + B.
+    for precision in ("bf16x3", "highest"):
+        qp = F.prepare_queries(q, "cosine", precision)
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=precision)
+        for k in GSTACK_BIG_TIMED:
+            cell = _time_gstack_bigk(F, torch, card, f"canonical k={k} "
+                                     f"{precision}", qp, cp, cbp, k,
+                                     precision, lambda: library(k),
+                                     N_QUERIES, N_CORPUS, DIM)
+            if (k, precision) == (512, "bf16x3"):
+                per_kernel["gstack_bigk"] = cell
         del qp, cp, cbp
     _time_merge(F, torch, card)
     canon = pmt.Corpus(c_np)
@@ -5313,7 +5626,7 @@ def main() -> int:
           f"{cores}")
     for name in ("fused_topk_partial", "fused_topk_partial_radix",
                  "fused_topk_partial_bucket", "fused_topk_partial_gstack",
-                 "topk_merge"):
+                 "fused_topk_partial_gstack_bigk", "topk_merge"):
         require(counts[name] > 0, f"{name} never launched on the main path")
     for core in ("bf16x3", "highest"):
         require(cores[core] > 0, f"{core} never launched on the main path")
@@ -5402,6 +5715,18 @@ def main() -> int:
                          "launches": counts["fused_topk_partial_gstack"],
                          "max_abs_err": err["bf16x3"]},
                         **per_kernel["gstack"]))
+    # The gstack selection above k = 128 (the JAX kernel's big-k gstack):
+    # its launches on the f32 main path (phase 4's selection="gstack"
+    # requests where it is built); its lists equal the radix selection's
+    # on the same splits bit for bit (phase 2), so its error against the
+    # plain version is the bf16x3 core's.
+    kernels.append(dict({"name": "fused_topk_partial.gstack_bigk",
+                         "route": "cuda",
+                         "source": KERNEL_SRC + "fused_topk_gstack_big.cu",
+                         "replaces": GSTACK_BIG_SRC,
+                         "launches": counts["fused_topk_partial_gstack_bigk"],
+                         "max_abs_err": err["bf16x3"]},
+                        **per_kernel["gstack_bigk"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
     kernels += phase_floor(F, torch, card)
     torch.cuda.empty_cache()

@@ -42,9 +42,15 @@ On this port:
   the f32 walk where its stacks fit in shared memory, never on the
   stored cores' tile-64 warpgroup consumer), a second launch walking
   again, exactly, every split its detector flags (the same lists, bit for
-  bit); "auto" takes it where ``kernels.fused_topk.gstack_route`` says
-  (nowhere: it was slower than the insertion or the slack in every cell
-  measured on the card).
+  bit); above k = 128 "gstack" takes it at query tile 16 on its own
+  splits (``kernels.fused_topk.gstack_geometry``): stacks as deep as a
+  split is long where they fit (lossless: nothing fires, no re-walk),
+  else lossy stacks with the re-walk (``gstack_big_plan``), else the
+  radix selection at its own geometry.  There it was slower than the
+  radix selection in every cell measured on the card (canonical bf16x3
+  k=512 1.3369 against 0.7134 ms), so an explicit "gstack" above k = 128
+  is slower than the radix it ran before; "auto" takes it where
+  ``kernels.fused_topk.gstack_route`` says (nowhere).
   Every other value, and these three where their selection is not built,
   runs kernel A's own selection by k (``kernels.fused_topk.selection``:
   the insertion at k <= 16, the slack at k <= 128, the radix selection

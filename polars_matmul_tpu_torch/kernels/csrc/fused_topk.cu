@@ -161,6 +161,15 @@ extern "C" int pmm_fused_topk_gstack_launch(
     int n, int dim, int c_ld, int ck, int k, int splits, int tiles_per_split,
     int p, int tn_tiles, int block_rows, int tm, int core, int listed,
     int prune, int* gate_count, int* sel_count, int* flags, void* stream);
+// The same for the gstack selection above kAppendMaxK, instantiated in
+// fused_topk_gstack_big.cu (PMM_GSTACK_BIG_UNIT) on gstack_big_plan's
+// depth.
+extern "C" int pmm_fused_topk_gstack_big_launch(
+    const void* qp, const void* cp, const float* scale, const float* cb,
+    const uint8_t* mask, const int* tiles, float* part_v, int* part_i, int m,
+    int n, int dim, int c_ld, int ck, int k, int splits, int tiles_per_split,
+    int p, int tn_tiles, int block_rows, int tm, int core, int listed,
+    int prune, int* gate_count, int* sel_count, int* flags, void* stream);
 
 namespace {
 
@@ -261,6 +270,14 @@ constexpr int kINT32_MAX = 0x7fffffff;
 // the lists are the insertion's or the slack's bit for bit on every
 // input.  gstack_levels sets the depth from the cost of a re-walk.
 //
+// Above kAppendMaxK (SEL kGstackBig, the port of the JAX kernel's big-k
+// gstack: _bigk_depth :539 and the same build, detector and finish, with
+// _chunked_top_k :643) a cell sees one score a tile, so stacks as deep as
+// the split is long never drop one: gstack_big_plan takes that depth
+// wherever it fits (the host's gstack_geometry cuts the splits to it), and
+// then nothing can fire and no re-walk is launched.  The row bound is one
+// warp min-reduction (gstack_big_tile says why it is exact).
+//
 // Each kernel is built once a selection it can take (SEL: kInsert,
 // kAppend, kRadix, kBucket, kGstack), so that none carries another's code
 // and registers.
@@ -297,8 +314,15 @@ constexpr int kSlackMax = 192;
 constexpr int kRadixBits = 7;
 constexpr int kRadixWords = (1 << kRadixBits) / 2;
 
+// kGstackBig is the gstack selection above kAppendMaxK: the launch's alt
+// asks for it as kGstack.
 enum Selection { kInsert = 0, kAppend = 1, kRadix = 2, kBucket = 3,
-                 kGstack = 4 };
+                 kGstack = 4, kGstackBig = 5 };
+
+// Whether SEL is either gstack selection.
+__host__ __device__ constexpr bool gstack_sel(int sel) {
+  return sel == kGstack || sel == kGstackBig;
+}
 
 __host__ __device__ constexpr int selection(int k) {
   return k <= kInsertMaxK ? kInsert : k <= kAppendMaxK ? kAppend : kRadix;
@@ -1644,6 +1668,187 @@ __device__ __forceinline__ bool rewalk_skips(const int* flags) {
   return flags != nullptr && flags[blockIdx.x * gridDim.y + blockIdx.y] == 0;
 }
 
+// The gstack selection above kAppendMaxK.  Its query tile, and the
+// deepest stacks it takes (the JAX kernel's cap, _BIGK_MAX_LEVELS).
+constexpr int kGstackBigTM = 16;
+constexpr int kGstackBigMaxK = 1024;
+constexpr int kGstackBigMaxLevels = 32;
+
+// Shared memory after the staging: the score tile, each row's bound, each
+// row's kGstackCells x levels sel_keys (level-major: place l * 64 + cell),
+// then each row's 64 cell states (a byte: the entries, and kGstackLost).
+__host__ __device__ inline size_t gstack_big_tail_bytes(int tm, int levels) {
+  return (size_t)tm * (kTN + 1) * sizeof(float) + (size_t)tm * sizeof(float)
+       + (size_t)tm * kGstackCells * levels * sizeof(uint64_t)
+       + (size_t)tm * kGstackCells;
+}
+
+// The stacks of a TM-row block above kAppendMaxK (Cv is the word after the
+// score tile, each row's bound; the keys follow).
+template <int TM>
+struct BigStacks {
+  unsigned char* base;
+  int levels;
+  __device__ BigStacks(float* Cv, int levels)
+      : base(reinterpret_cast<unsigned char*>(Cv + TM)), levels(levels) {}
+  __device__ int per_row() const { return kGstackCells * levels; }
+  __device__ uint64_t* keys(int r) const {
+    return reinterpret_cast<uint64_t*>(base) + (size_t)r * per_row();
+  }
+  __device__ uint8_t* state(int r) const {
+    return base + (size_t)TM * per_row() * sizeof(uint64_t)
+           + (size_t)r * kGstackCells;
+  }
+  // The high word (the value's orderable bits) of place x of row r.
+  __device__ uint32_t hi(int r, int x) const {
+    return (uint32_t)(keys(r)[x] >> 32);
+  }
+};
+
+// Empty stacks and cells, bounds -inf (+inf past m, which the gate then
+// never counts).
+template <int TM>
+__device__ inline void init_gstack_big(float* Cv, int levels,
+                                       int rows_valid) {
+  for (int r = threadIdx.x; r < TM; r += kThreads)
+    Cv[r] = r < rows_valid ? -INFINITY : INFINITY;
+  const BigStacks<TM> S(Cv, levels);
+  for (int e = threadIdx.x; e < TM * S.per_row(); e += kThreads)
+    S.keys(0)[e] = kEmptyKey;
+  for (int e = threadIdx.x; e < TM * kGstackCells; e += kThreads)
+    S.state(0)[e] = 0;
+}
+
+// A cell's state byte: its entries, and this bit once it lost one.
+constexpr uint8_t kGstackLost = 0x80;
+
+// Puts key x in column `cell` of row r if it beats the cell's deepest
+// entry; returns whether it did.  A score that beat the row's bound and
+// meets the cell full (it shifts an entry out, or is refused) marks the
+// cell lost.  The shift starts below the cell's last entry.  Every entry of
+// the cell came from an earlier tile, so its index is lower: x goes after
+// the entries of its value, and high words alone decide.
+template <int TM>
+__device__ __forceinline__ bool gstack_big_put(const BigStacks<TM>& S, int r,
+                                               int cell, uint64_t x) {
+  const uint32_t xh = (uint32_t)(x >> 32);
+  uint8_t& state = S.state(r)[cell];
+  const int used = state & ~kGstackLost;
+  int p;
+  if (used == S.levels) {
+    state = kGstackLost | used;
+    p = (S.levels - 1) * kGstackCells + cell;
+    if (xh <= S.hi(r, p)) return false;
+  } else {
+    state = used + 1;
+    p = used * kGstackCells + cell;
+  }
+  uint64_t* key = S.keys(r);
+  for (; p >= kGstackCells; p -= kGstackCells) {
+    const uint64_t y = key[p - kGstackCells];
+    if ((uint32_t)(y >> 32) >= xh) break;
+    key[p] = y;
+  }
+  key[p] = x;
+  return true;
+}
+
+// The gstack selection of one TM x kTN score tile above kAppendMaxK: one
+// warp per query row, a score a candidate if it beats the row's bound
+// (strict >), each lane putting its candidates in its two cells.  The
+// bound is the weakest entry of level (k - 1) / 64 over the row's 64
+// cells, one min-reduction after a tile in which the row put any (the form
+// of the JAX kernel's gstack tile gate, fused_topk.py:1337-1369): each
+// cell holds that many and one entries at or above it, 64 ((k - 1) / 64 +
+// 1) >= k in all, so a later score at or below it (its index is higher) is
+// in no top-k.  It stays -inf until every cell has them.  The carry gate
+// reads the same word.
+template <int TM>
+__device__ inline void gstack_big_tile(const float* St, float* Cv, int k,
+                                       int levels, int n0, int rows_valid,
+                                       int warp, int lane) {
+  const BigStacks<TM> S(Cv, levels);
+  const int lvl = (k - 1) / kGstackCells * kGstackCells;
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const float s0 = St[r * (kTN + 1) + lane];
+    const float s1 = St[r * (kTN + 1) + 32 + lane];
+    const float bound = Cv[r];
+    const bool c0 = s0 > bound, c1 = s1 > bound;
+    if (!__any_sync(0xffffffffu, c0 || c1)) continue;
+    bool put = false;
+    if (c0) put = gstack_big_put(S, r, lane, sel_key(s0, n0 + lane));
+    if (c1)
+      put |= gstack_big_put(S, r, 32 + lane, sel_key(s1, n0 + 32 + lane));
+    if (!__any_sync(0xffffffffu, put)) continue;
+    const uint32_t w =
+        min(S.hi(r, lvl + lane), S.hi(r, lvl + 32 + lane));
+    const uint32_t least = __reduce_min_sync(0xffffffffu, w);
+    if (lane == 0) Cv[r] = key_value(((uint64_t)least << 32) | 1u);
+    __syncwarp();
+  }
+}
+
+// The split's end above kAppendMaxK, gstack_finish's k pops: each row's
+// warp takes k times the best of its lanes' two cell heads and writes it
+// to the row's output slots, (-inf, INT32_MAX) past the last real entry.
+// The row fires when a pop takes the deepest entry of a lost cell: only
+// such a cell can have dropped or refused a score of the top k (a score
+// the bound refused is in none).  count and flags as gstack_finish's.
+template <int TM>
+__device__ inline void gstack_big_finish(float* Cv, int k, int levels,
+                                         int rows_valid, int warp, int lane,
+                                         float* part_v, int* part_i,
+                                         int row0, int splits, int split,
+                                         int* count, int* flags) {
+  const BigStacks<TM> S(Cv, levels);
+  const int places = levels * kGstackCells;
+  const int deepest = places - kGstackCells;
+  bool fired = false;
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const uint8_t* state = S.state(r);
+    const uint64_t* key = S.keys(r);
+    const size_t o = ((size_t)(row0 + r) * splits + split) * k;
+    int p0 = lane, p1 = 32 + lane;
+    uint64_t h0 = key[p0], h1 = key[p1];
+    bool deep = false;
+    int t = 0;
+    for (; t < k; ++t) {
+      const uint64_t best = key_max(h0, h1);
+      const unsigned hi =
+          __reduce_max_sync(0xffffffffu, (unsigned)(best >> 32));
+      const unsigned lo = __reduce_max_sync(
+          0xffffffffu, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+      const uint64_t win = ((uint64_t)hi << 32) | lo;
+      if (win == kEmptyKey) break;   // nothing real is left
+      if (best == win) {   // real keys are distinct: one lane holds it
+        part_v[o + t] = key_value(win);
+        part_i[o + t] = key_index(win);
+        if (h0 == win) {
+          deep |= p0 >= deepest && (state[lane] & kGstackLost);
+          p0 += kGstackCells;
+          h0 = p0 < places ? key[p0] : kEmptyKey;
+        } else {
+          deep |= p1 >= deepest && (state[32 + lane] & kGstackLost);
+          p1 += kGstackCells;
+          h1 = p1 < places ? key[p1] : kEmptyKey;
+        }
+      }
+    }
+    for (int j = t + lane; j < k; j += 32) {
+      part_v[o + j] = -INFINITY;
+      part_i[o + j] = kINT32_MAX;
+    }
+    const bool row = __any_sync(0xffffffffu, deep);
+    if (row && lane == 0 && count != nullptr) atomicAdd(count, 1);
+    fired |= row;
+  }
+  const bool any = __syncthreads_or(fired) != 0;
+  if (threadIdx.x == 0) {
+    flags[blockIdx.x * gridDim.y + blockIdx.y] = any ? 1 : 0;
+    if (any && count != nullptr) atomicAdd(count + 1, 1);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The carry gate: the TPU kernel's exact tile pruning (prune=, fused_topk.py
 // :1434-1478, prune_eff :1995), a runtime argument of every kernel here.
@@ -1876,7 +2081,7 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                       int* __restrict__ gate_count,
                       int* __restrict__ sel_count, int levels,
                       int* __restrict__ flags) {
-  if constexpr (SEL != kGstack)
+  if constexpr (!gstack_sel(SEL))
     if (rewalk_skips(flags)) return;
   constexpr int S = f32_step_tiles(TM), R = f32_step_rows(TM);
   constexpr int RB = ring_row_bytes(TM, kHighest);
@@ -1925,9 +2130,11 @@ fused_topk_f32_kernel(const float* __restrict__ q,
     init_radix<TM>(Cv, rows_valid);
   else if constexpr (SEL == kGstack)
     init_gstack<TM>(Cv, levels, rows_valid);
+  else if constexpr (SEL == kGstackBig)
+    init_gstack_big<TM>(Cv, levels, rows_valid);
   else
     init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1), SEL == kRadix || SEL == kGstack> gate{
+  const CarryGate<TM * (kTN + 1), SEL == kRadix || gstack_sel(SEL)> gate{
       k, prune, gate_count};
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
@@ -2024,6 +2231,8 @@ fused_topk_f32_kernel(const float* __restrict__ q,
       else if constexpr (SEL == kGstack)
         gstack_tile<TM, false>(St, Cv, k, levels, n0, rows_valid, warp,
                                lane);
+      else if constexpr (SEL == kGstackBig)
+        gstack_big_tile<TM>(St, Cv, k, levels, n0, rows_valid, warp, lane);
       else if constexpr (SEL == kBucket)
         bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells,
                         k, n0, rows_valid, warp, lane, sel_count);
@@ -2045,6 +2254,11 @@ fused_topk_f32_kernel(const float* __restrict__ q,
   if constexpr (SEL == kGstack) {
     gstack_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v, part_i,
                       row0, splits, split, sel_count, flags);
+    return;
+  }
+  if constexpr (SEL == kGstackBig) {
+    gstack_big_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v,
+                          part_i, row0, splits, split, sel_count, flags);
     return;
   }
   if constexpr (SEL == kAppend)
@@ -2084,7 +2298,7 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                          int* __restrict__ gate_count,
                          int* __restrict__ sel_count, int levels,
                          int* __restrict__ flags) {
-  if constexpr (SEL != kGstack)
+  if constexpr (!gstack_sel(SEL))
     if (rewalk_skips(flags)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   const int chunks = ring_chunks(TM, CORE, c_ld * ring_elem_bytes(CORE));
@@ -2113,9 +2327,11 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
     init_radix<TM>(Cv, rows_valid);
   else if constexpr (SEL == kGstack)
     init_gstack<TM>(Cv, levels, rows_valid);
+  else if constexpr (SEL == kGstackBig)
+    init_gstack_big<TM>(Cv, levels, rows_valid);
   else
     init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1), SEL == kRadix || SEL == kGstack> gate{
+  const CarryGate<TM * (kTN + 1), SEL == kRadix || gstack_sel(SEL)> gate{
       k, prune, gate_count};
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
@@ -2133,6 +2349,8 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
         else if constexpr (SEL == kGstack)
           gstack_tile<TM, radix_lean(TM, CORE)>(St, Cv, k, levels, n0,
                                                 rows_valid, warp, lane);
+        else if constexpr (SEL == kGstackBig)
+          gstack_big_tile<TM>(St, Cv, k, levels, n0, rows_valid, warp, lane);
         else if constexpr (SEL == kBucket)
           bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN,
                           cells, k, n0, rows_valid, warp, lane, sel_count);
@@ -2153,6 +2371,11 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   if constexpr (SEL == kGstack) {
     gstack_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v, part_i,
                       row0, splits, split, sel_count, flags);
+    return;
+  }
+  if constexpr (SEL == kGstackBig) {
+    gstack_big_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v,
+                          part_i, row0, splits, split, sel_count, flags);
     return;
   }
   if constexpr (SEL == kAppend)
@@ -2334,6 +2557,58 @@ RingPlan gstack_plan(int k, int c_ld) {
   }
 }
 
+// The gstack selection's plan above kAppendMaxK at query tile tm, core, k
+// and tiles_per_split tps: its depth, and whether it is built.  Lossless
+// first: a cell sees one score a tile, so levels >= tps never drop one (at
+// least (k - 1) / 64 + 1, the bound's).  Elsewhere the least depth from
+// the bound's whose gstack_fire_bound is at most kGstackFire (the union
+// bound on a launch's fire, as gstack_levels), up to kGstackBigMaxLevels.
+// Either is built at the query tile kGstackBigTM where its stacks fit
+// beside the ring's least plan (two stages, the query tile riding them;
+// bf16x3's 32-feature ring).  Not built, levels is the depth it wanted
+// (searched up to 2 kGstackBigMaxLevels).  fused_topk.gstack_big_plan is
+// the host's mirror.
+struct GstackBig {
+  int levels;
+  bool built;
+};
+
+inline size_t gstack_least_ring(int tm, int core) {
+  return 2 * (core == kHighest ? f32_stage_bytes(tm, false)
+                               : ring_stage_bytes(tm, core, false));
+}
+
+inline GstackBig gstack_big_plan(int tm, int core, int k, int tps) {
+  const int least = (k - 1) / kGstackCells + 1;
+  int levels = tps > least ? tps : least;
+  if (levels > kGstackBigMaxLevels) {
+    levels = least;
+    while (levels < 2 * kGstackBigMaxLevels &&
+           gstack_fire_bound(k, tm, levels) > kGstackFire)
+      ++levels;
+  }
+  const size_t ring = gstack_least_ring(tm, core);
+  const bool ok = k > kAppendMaxK && k <= kGstackBigMaxK &&
+                  tm == kGstackBigTM && !(stored_core(core) && tm == kWgTM) &&
+                  levels <= kGstackBigMaxLevels;
+  return {levels,
+          ok && ring + gstack_big_tail_bytes(tm, levels) <= kMaxSmem};
+}
+
+// The ring beside the stacks of a plan above kAppendMaxK (bf16x3's
+// 64-feature ring wherever that keeps two blocks an SM, as ring_core).
+template <int TM, int CORE>
+RingPlan gstack_big_ring(int c_ld, size_t tail) {
+  if constexpr (CORE == kHighest) {
+    return f32_plan(TM, c_ld, tail);
+  } else {
+    const int core = ring_core_beside<TM, CORE>(c_ld, tail);
+    return ring_plan(TM, core,
+                     ring_chunks(TM, core, c_ld * ring_elem_bytes(core)),
+                     tail);
+  }
+}
+
 // The kernel of selection sel: K<kInsert>, K<kAppend>, K<kRadix>, or,
 // where BUCKET, K<kBucket>.
 template <bool BUCKET, typename Pick>
@@ -2393,6 +2668,24 @@ auto gstack_kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
   }
 }
 
+// The instantiation of kernel<TM, CORE, LISTED> above kAppendMaxK
+// (bf16x3 on the ring gstack_big_ring picks), its shared memory and its
+// ring.
+template <int TM, int CORE, bool LISTED>
+auto gstack_big_kernel(int c_ld, size_t tail, size_t& bytes,
+                       RingPlan& plan) {
+  plan = gstack_big_ring<TM, CORE>(c_ld, tail);
+  bytes = plan.bytes;
+  if constexpr (CORE == kHighest) {
+    return fused_topk_f32_kernel<TM, LISTED, kGstackBig>;
+  } else {
+    if constexpr (CORE == kBf16x3 && TM != 32)
+      if (ring_core_beside<TM, CORE>(c_ld, tail) == kBf16x3W)
+        return fused_topk_stored_kernel<TM, kBf16x3W, LISTED, kGstackBig>;
+    return fused_topk_stored_kernel<TM, CORE, LISTED, kGstackBig>;
+  }
+}
+
 // One launch of `kern`, a kernel<TM, CORE, LISTED> of `bytes` shared
 // memory on `plan`: sel_count the selection's counters, levels and flags
 // the gstack's (its depth; its block flags, written by a gstack launch,
@@ -2442,13 +2735,15 @@ int launch_kernel(Kern kern, size_t bytes, const RingPlan& plan,
   return (int)cudaGetLastError();
 }
 
-#ifndef PMM_GSTACK_UNIT
+#if !defined(PMM_GSTACK_UNIT) && !defined(PMM_GSTACK_BIG_UNIT)
 // Kernel A as alt asks (0: its selection by k, kBucket, kGstack).  A
-// gstack launch (the gstack unit's pmm_fused_topk_gstack_launch) is
-// followed by the exact selection's launch on the same grid, which walks
-// again, exactly, the splits of the blocks the gstack's detector flagged
-// and returns at once in every other block: no host synchronisation, and
-// the lists are the exact selection's bit for bit.
+// gstack launch (the gstack units' pmm_fused_topk_gstack_launch and
+// pmm_fused_topk_gstack_big_launch) is followed by the exact selection's
+// launch on the same grid, which walks again, exactly, the splits of the
+// blocks the gstack's detector flagged and returns at once in every other
+// block: no host synchronisation, and the lists are the exact selection's
+// bit for bit.  A lossless plan above kAppendMaxK (levels >= the split's
+// tiles) cannot fire and launches no re-walk.
 template <int TM, int CORE, bool LISTED>
 int launch(const void* qp, const void* cp, const float* scale,
            const float* cb, const uint8_t* mask, const int* tiles,
@@ -2456,7 +2751,7 @@ int launch(const void* qp, const void* cp, const float* scale,
            int ck, int k, int splits, int tiles_per_split, int p,
            int tn_tiles, int block_rows, bool prune, int* gate_count,
            int alt, int* sel_count, int* flags, cudaStream_t stream) {
-  const bool gstack = alt == kGstack && gstack_built(TM, CORE, k);
+  bool gstack = alt == kGstack && gstack_built(TM, CORE, k);
   if (gstack) {
     if (flags == nullptr) return -1;
     const int rc = pmm_fused_topk_gstack_launch(
@@ -2464,6 +2759,17 @@ int launch(const void* qp, const void* cp, const float* scale,
         k, splits, tiles_per_split, p, tn_tiles, block_rows, TM, CORE,
         LISTED, prune, gate_count, sel_count, flags, stream);
     if (rc != 0) return rc;
+  } else if (alt == kGstack && k > kAppendMaxK) {
+    const GstackBig big = gstack_big_plan(TM, CORE, k, tiles_per_split);
+    if (big.built) {
+      if (flags == nullptr) return -1;
+      const int rc = pmm_fused_topk_gstack_big_launch(
+          qp, cp, scale, cb, mask, tiles, part_v, part_i, m, n, dim, c_ld,
+          ck, k, splits, tiles_per_split, p, tn_tiles, block_rows, TM, CORE,
+          LISTED, prune, gate_count, sel_count, flags, stream);
+      if (rc != 0 || big.levels >= tiles_per_split) return rc;
+      gstack = true;
+    }
   }
   size_t bytes;
   RingPlan plan{};
@@ -2496,7 +2802,7 @@ int occupancy(int k, int c_ld) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-#endif  // PMM_GSTACK_UNIT
+#endif  // !PMM_GSTACK_UNIT && !PMM_GSTACK_BIG_UNIT
 
 // Calls f(TM, CORE, LISTED) with all three as integral constants, or
 // returns -1.
@@ -2550,6 +2856,33 @@ int pmm_fused_topk_gstack_launch(
           m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
           block_rows, prune != 0, gate_count, sel_count,
           gstack_levels(k, TM), flags, static_cast<cudaStream_t>(stream));
+    }
+  });
+}
+#elif defined(PMM_GSTACK_BIG_UNIT)
+int pmm_fused_topk_gstack_big_launch(
+    const void* qp, const void* cp, const float* scale, const float* cb,
+    const uint8_t* mask, const int* tiles, float* part_v, int* part_i, int m,
+    int n, int dim, int c_ld, int ck, int k, int splits, int tiles_per_split,
+    int p, int tn_tiles, int block_rows, int tm, int core, int listed,
+    int prune, int* gate_count, int* sel_count, int* flags, void* stream) {
+  const GstackBig big = gstack_big_plan(tm, core, k, tiles_per_split);
+  if (!big.built) return -1;
+  return dispatch(tm, core, listed != 0, [&](auto tmc, auto cc, auto lc) {
+    constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
+    constexpr bool LISTED = decltype(lc)::value;
+    if constexpr (TM != kGstackBigTM || wgmma_core<TM, CORE>()) {
+      return -1;
+    } else {
+      size_t bytes;
+      RingPlan plan{};
+      auto kern = gstack_big_kernel<TM, CORE, LISTED>(
+          c_ld, gstack_big_tail_bytes(TM, big.levels), bytes, plan);
+      return launch_kernel<TM, CORE, LISTED>(
+          kern, bytes, plan, qp, cp, scale, cb, mask, tiles, part_v, part_i,
+          m, n, dim, c_ld, ck, k, splits, tiles_per_split, p, tn_tiles,
+          block_rows, prune != 0, gate_count, sel_count, big.levels, flags,
+          static_cast<cudaStream_t>(stream));
     }
   });
 }
@@ -2654,6 +2987,20 @@ int pmm_fused_topk_gstack(int tm, int core, int k) {
   return gstack_built(tm, core, k) ? 1 : 0;
 }
 
+// The gstack selection's plan above kAppendMaxK (gstack_big_plan) at query
+// tile tm, core, k and tiles_per_split tps: out = {levels, the stacks'
+// tail plus the ring's least plan in bytes}; returns 1 where built, 0
+// where not (out then the plan it wanted), -1 for k <= kAppendMaxK or tps
+// <= 0.
+int pmm_fused_topk_gstack_big(int tm, int core, int k, int tps, int* out) {
+  if (k <= kAppendMaxK || tps <= 0 || core < 0 || core > kInt4c) return -1;
+  const GstackBig big = gstack_big_plan(tm, core, k, tps);
+  out[0] = big.levels;
+  out[1] = (int)(gstack_least_ring(tm, core) +
+                 gstack_big_tail_bytes(tm, big.levels));
+  return big.built ? 1 : 0;
+}
+
 // The gstack selection's stack depth at k and query tile tm (gstack_levels);
 // -1 for k <= 0.
 int pmm_fused_topk_levels(int k, int tm) {
@@ -2683,4 +3030,4 @@ int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
 }
 
 }  // extern "C"
-#endif  // PMM_GSTACK_UNIT
+#endif  // PMM_GSTACK_UNIT / PMM_GSTACK_BIG_UNIT

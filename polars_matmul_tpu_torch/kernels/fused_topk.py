@@ -43,8 +43,14 @@ take the port of the JAX kernel's gstack build, its detector and its pop
 finish where it is built (``gstack_built``: k <= 128 on the mma.sync ring
 and the f32 walk where the stacks fit; ``gstack_route``), followed by an
 exact re-walk of each split its detector flags: the same lists, bit for
-bit.  The (m, n) score matrix never reaches device memory: kernel A
-writes m * splits * k candidates.
+bit.  Above k = 128 ``selection="gstack"`` takes it at query tile 16 on
+its own geometry (``gstack_geometry``, ``gstack_big_plan``): splits no
+longer than its stacks are deep where that fits, so nothing is dropped,
+nothing fires and no re-walk runs; elsewhere lossy stacks with the
+detector and the re-walk; elsewhere still the radix selection at its own
+geometry.  It was slower than the radix selection in every cell measured
+on the card (``gstack_route``).  The (m, n) score matrix never reaches
+device memory: kernel A writes m * splits * k candidates.
 
 Metric handling is the JAX package's: cosine pre-scales queries and
 corpus by their inverse norms (zero-norm rows scale by 0; for int8/int4
@@ -150,6 +156,10 @@ launches = {
     # Kernel A's launches of the gstack selection (``gstack_built``), dense
     # or listed, each with its re-walk launch.
     "fused_topk_partial_gstack": 0,
+    # Kernel A's launches of the gstack selection above APPEND_MAX_K
+    # (``gstack_big_plan``), dense or listed, each with its re-walk launch
+    # where the plan is lossy.
+    "fused_topk_partial_gstack_bigk": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -1105,19 +1115,31 @@ def gstack_tail_bytes(tm: int, levels: int) -> int:
     return tm * (_TN + 1) * 4 + tm * 4 + tm * GSTACK_CELLS * levels * 8
 
 
-def gstack_built(tm: int, precision: str, k: int) -> bool:
+def gstack_built(tm: int, precision: str, k: int,
+                 tps: Optional[int] = None) -> bool:
     """Whether a launch of kernel A that asks for the gstack selection
-    takes it (``pmm_fused_topk_gstack`` in the source): k <= APPEND_MAX_K
+    takes it: k <= APPEND_MAX_K (``pmm_fused_topk_gstack`` in the source)
     on the mma.sync ring (bf16x3 on its 32-feature ring) and the f32 walk,
     where the stacks fit beside the ring's least plan (two stages, the
     query tile riding them); never on the warpgroup consumer (its 254-255
     registers; its four score tiles and three levels for 64 rows leave too
-    little for its ring).  Elsewhere the launch keeps ``selection(k)``."""
-    if not 1 <= k <= APPEND_MAX_K or wgmma_core(tm, precision):
+    little for its ring).  Above APPEND_MAX_K the split's ``tps`` tiles
+    decide (``gstack_big_plan``; without them, False: the form of k <=
+    APPEND_MAX_K is not built there).  Elsewhere the launch keeps
+    ``selection(k)``."""
+    if k > APPEND_MAX_K:
+        return tps is not None and gstack_big_plan(tm, precision, k, tps)[1]
+    if k < 1 or wgmma_core(tm, precision):
         return False
-    ring = 2 * (f32_stage_bytes(tm, False) if precision == "highest"
+    return (_least_ring(tm, precision)
+            + gstack_tail_bytes(tm, gstack_levels(k, tm)) <= MAX_SMEM)
+
+
+def _least_ring(tm: int, precision: str) -> int:
+    """The ring's least plan: two stages, the query tile riding them
+    (bf16x3's 32-feature ring)."""
+    return 2 * (f32_stage_bytes(tm, False) if precision == "highest"
                 else ring_staging(tm, precision, 1, False, 2)[0])
-    return ring + gstack_tail_bytes(tm, gstack_levels(k, tm)) <= MAX_SMEM
 
 
 def gstack_plan(tm: int, precision: str, c_ld: int, k: int):
@@ -1149,7 +1171,19 @@ def gstack_route(selection_cfg: str, k: int, tm: int, listed: bool,
     10M x 768 int8 batch 8 k=10 +43.7 %; 2M x 256 clustered lists of 32
     queries k=10 +60.6 %.  Its stacks take the shared memory the ring's
     stages or a second block an SM would have, and more scores reach a
-    cell than beat the insertion's k-th value."""
+    cell than beat the insertion's k-th value.
+
+    Above k = 128 "auto" takes it nowhere either: against the radix
+    selection at its own geometry, kernel A alone and with kernel B
+    (``ab_kernel_a.py --gstack --groups gstack-big --rounds 2``, medians of
+    four turns, PERF.md §6), its lossless plans on two blocks an SM
+    (``gstack_geometry``) were +8.5 % (canonical bf16x3 k=129) to +87 %
+    (k=512: 1.3369 against 0.7134 ms), its lossy plan at 2M x 256 batch 8
+    k=256 1.85 x, and the 2M x 256 clustered lists of 32 queries at k=256
+    2.05 x.  So ``selection="gstack"`` asked for explicitly above k = 128
+    is slower than the radix selection the parent ran for it.  The radix
+    selection appends a candidate where the gstack shifts it into a sorted
+    cell, and the gstack's finish pops k keys a row and split."""
     del k, tm, listed, precision
     return selection_cfg in ("gstack", "gpop")
 
@@ -1157,30 +1191,42 @@ def gstack_route(selection_cfg: str, k: int, tm: int, listed: bool,
 def _gstack_walk(s: torch.Tensor, k: int, tps: int, levels: int):
     """The gstack walk of S splits of epilogue scores ``s`` (m, S, tps *
     64), NaN as -inf, columns in walk order: (values, indices within the
-    split, fired) with fired (m, S) bool."""
+    split, fired) with fired (m, S) bool.  Above APPEND_MAX_K the form of
+    ``gstack_big_tile`` / ``gstack_big_finish``: the bound is the weakest
+    entry of level (k - 1) // 64 over the row's cells, and a row fires only
+    where a pop takes the deepest entry of a lost cell (one that met a
+    score beating the bound while full)."""
     m, S, _ = s.shape
     dev = s.device
+    big = k > APPEND_MAX_K
     lvl = (k - 1) // GSTACK_CELLS
     stacks = torch.full((m, S, levels, _TN), EMPTY_KEY, dtype=torch.int64,
                         device=dev)
+    lost = torch.zeros((m, S, _TN), dtype=torch.bool, device=dev)
     bound = torch.full((m, S), _NEG_INF, dtype=torch.float32, device=dev)
     col = torch.arange(_TN, dtype=torch.int32, device=dev)
     for t in range(tps):
         x = s[:, :, t * _TN:(t + 1) * _TN]
         keys = select_keys(x, (t * _TN + col).expand(m, S, _TN))
-        put = (x > bound[..., None]) & (keys > stacks[:, :, -1])
+        beats = x > bound[..., None]
+        lost |= beats & (stacks[:, :, -1] != EMPTY_KEY)
+        put = beats & (keys > stacks[:, :, -1])
         if not bool(put.any()):
             continue
         both = torch.cat([stacks, torch.where(put, keys, EMPTY_KEY)[:, :, None]],
                          dim=2)
         stacks = torch.sort(both, dim=2, descending=True).values[:, :, :levels]
-        kth = torch.sort(stacks[:, :, :lvl + 1].reshape(m, S, -1), dim=2,
-                         descending=True).values[..., k - 1]
+        if big:
+            kth = stacks[:, :, lvl].amin(-1)
+        else:
+            kth = torch.sort(stacks[:, :, :lvl + 1].reshape(m, S, -1), dim=2,
+                             descending=True).values[..., k - 1]
         bound = torch.where(put.any(-1), key_values(kth), bound)
     top = torch.sort(stacks.reshape(m, S, levels * _TN), dim=2,
                      descending=True).values[..., :k]
-    deep = stacks[:, :, -1].amax(-1)
-    fired = (deep != EMPTY_KEY) & (deep >= top[..., -1])
+    deep = stacks[:, :, -1]
+    popped = (deep != EMPTY_KEY) & (deep >= top[..., -1:])
+    fired = (popped & lost if big else popped).any(-1)
     return key_values(top), key_indices(top), fired
 
 
@@ -1223,8 +1269,10 @@ def gstack_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
     fire, its list is ``fused_topk_partial_plain``'s; the re-walk rewrites
     the splits of every block (tm query rows) with a fired row.  Walks
     whole splits, a few at a time; with ``tiles``, each list's rows, as
-    ``fused_topk_partial_plain`` reads them."""
-    levels = gstack_levels(k, tm)
+    ``fused_topk_partial_plain`` reads them.  Above APPEND_MAX_K the depth
+    is ``gstack_big_plan``'s at ``tiles_per_split``."""
+    levels = (gstack_big_plan(tm, precision, k, tiles_per_split)[0]
+              if k > APPEND_MAX_K else gstack_levels(k, tm))
     if tiles is None:
         return _gstack_dense(qp, cp, cbp, mask, k, precision, splits,
                              tiles_per_split, levels)
@@ -1249,6 +1297,119 @@ def gstack_fires(fired: torch.Tensor, tm: int) -> Tuple[int, int]:
     pad = torch.nn.functional.pad(fired, (0, 0, 0, -m % tm))
     blocks = pad.reshape(-1, tm, splits).any(1)
     return int(fired.sum()), int(blocks.sum())
+
+
+# Kernel A's gstack selection above APPEND_MAX_K (the JAX kernel's big-k
+# gstack, ``_bigk_depth`` / ``_gstack_update`` / ``_gstack_decode`` /
+# ``_chunked_top_k``), at query tile GSTACK_BIG_TM: a cell (a row's column
+# of the 64-column tile) sees one score a tile, so stacks at least as deep
+# as the split is long never drop one.  ``gstack_geometry`` cuts the splits
+# to that depth where the raised grid stays within GSTACK_WAVES waves of
+# two blocks an SM; ``gstack_big_plan`` then takes it (lossless: nothing
+# fires and no re-walk is launched), or else the least depth whose
+# ``gstack_fire_bound`` is at most GSTACK_FIRE (lossy, with the detector
+# and the re-walk), up to GSTACK_BIG_MAX_LEVELS (the JAX kernel's cap),
+# where its 8-byte keys fit beside the ring's least plan.  The row's bound
+# is the weakest entry of level (k - 1) // 64 over its cells; a row fires
+# only where a pop takes the deepest entry of a cell that met a score
+# beating the bound while full.
+GSTACK_BIG_TM, GSTACK_BIG_MAX_LEVELS = 16, 32
+GSTACK_WAVES = 4
+
+
+def gstack_big_tail_bytes(tm: int, levels: int) -> int:
+    """The shared memory after the staging above APPEND_MAX_K: the score
+    tile, each row's bound, its 64 x ``levels`` 8-byte keys, its 64 cell
+    states (``gstack_big_tail_bytes`` in the source)."""
+    return (tm * (_TN + 1) * 4 + tm * 4 + tm * GSTACK_CELLS * levels * 8
+            + tm * GSTACK_CELLS)
+
+
+def gstack_big_plan(tm: int, precision: str, k: int, tps: int
+                    ) -> Tuple[int, bool]:
+    """(levels, built) of the gstack selection above APPEND_MAX_K at query
+    tile ``tm`` and splits of ``tps`` tiles (``gstack_big_plan`` in the
+    source): levels = max(tps, (k - 1) // 64 + 1), lossless, where that is
+    at most GSTACK_BIG_MAX_LEVELS; else the least depth from (k - 1) // 64
+    + 1 whose fire bound is at most GSTACK_FIRE (searched up to twice the
+    cap).  Built at GSTACK_BIG_TM, k <= _MAX_FUSED_K, within the cap, where
+    the stacks fit beside the ring's least plan.  Not built: the depth it
+    wanted."""
+    least = (k - 1) // GSTACK_CELLS + 1
+    levels = max(tps, least)
+    if levels > GSTACK_BIG_MAX_LEVELS:
+        levels = least
+        while (levels < 2 * GSTACK_BIG_MAX_LEVELS
+               and gstack_fire_bound(k, tm, levels) > GSTACK_FIRE):
+            levels += 1
+    ok = (APPEND_MAX_K < k <= _MAX_FUSED_K and tm == GSTACK_BIG_TM
+          and not wgmma_core(tm, precision)
+          and levels <= GSTACK_BIG_MAX_LEVELS)
+    return levels, ok and gstack_big_bytes(tm, precision, levels) <= MAX_SMEM
+
+
+def gstack_big_bytes(tm: int, precision: str, levels: int) -> int:
+    """The stacks' tail of ``levels`` beside the ring's least plan, in
+    bytes (what the source's ``pmm_fused_topk_gstack_big`` reports of a
+    plan, built or not)."""
+    return _least_ring(tm, precision) + gstack_big_tail_bytes(tm, levels)
+
+
+def gstack_big_ring(tm: int, precision: str, c_ld: int, k: int, tps: int):
+    """(stages, bytes a stage, query resident, shared memory) of the ring
+    beside the stacks of ``gstack_big_plan`` (``gstack_big_ring`` in the
+    source)."""
+    rest = gstack_big_tail_bytes(tm, gstack_big_plan(tm, precision, k,
+                                                     tps)[0])
+    if precision == "highest":
+        return f32_plan(tm, c_ld, k, rest=rest)
+    return ring_plan(tm, ring_core(tm, precision, c_ld, k, rest), c_ld, rest)
+
+
+def gstack_deepest(precision: str, k: int) -> int:
+    """The deepest lossless stacks at GSTACK_BIG_TM, up to
+    GSTACK_BIG_MAX_LEVELS, whose keys beside the ring's least plan leave
+    two blocks an SM (kernel A's bound); 0 where not even (k - 1) // 64 + 1
+    levels do."""
+    for levels in range(GSTACK_BIG_MAX_LEVELS, (k - 1) // GSTACK_CELLS, -1):
+        nbytes = gstack_big_bytes(GSTACK_BIG_TM, precision, levels)
+        if _SMEM_PER_SM // (nbytes + _SMEM_PER_BLOCK) >= 2:
+            return levels
+    return 0
+
+
+def gstack_geometry(m: int, n: int, k: int, precision: str, sm_count: int
+                    ) -> Optional[Tuple[int, int, int]]:
+    """(tm, splits, tiles_per_split) of kernel A asked for the gstack
+    selection above APPEND_MAX_K over ``n`` rows (a tile list's when it
+    walks one), or None where it is not built there: query tile
+    GSTACK_BIG_TM; ``launch_geometry``'s splits at two blocks an SM raised
+    to splits no longer than ``gstack_deepest`` (lossless) where the grid
+    then runs in at most GSTACK_WAVES waves, and then to fill its last wave
+    (shorter splits for the same waves): on an NVIDIA H100 80GB HBM3 at
+    700 W these shallow stacks (10 levels in bf16x3 and highest) beat
+    deeper ones at one block an SM at canonical k = 129 to 512 (0.6331
+    against 0.8721 ms at k=129 bf16x3, PERF.md §6).  The finish pops k keys
+    a row and split, so more waves of short splits pay it more often; past
+    that ``launch_geometry``'s splits at one block an SM, whose stacks are
+    lossy, where ``gstack_big_plan`` builds them."""
+    tm = GSTACK_BIG_TM
+    grid_m, n_tiles = -(-m // tm), -(-n // _TN)
+    top = min(n_tiles, _MAX_SPLITS)
+    deepest = gstack_deepest(precision, k)
+    if deepest:
+        _, splits, _ = launch_geometry(m, n, k, sm_count, 2, tm)
+        slots = 2 * sm_count
+        lossless = min(top, max(splits, -(-n_tiles // deepest)))
+        if (-(-n_tiles // lossless) <= deepest
+                and grid_m * lossless <= GSTACK_WAVES * slots):
+            waves = -(-grid_m * lossless // slots)
+            splits = max(lossless, min(top, waves * slots // grid_m))
+            tps = -(-n_tiles // splits)
+            return tm, -(-n_tiles // tps), tps
+    _, splits, tps = launch_geometry(m, n, k, sm_count, 1, tm)
+    return ((tm, splits, tps) if gstack_big_plan(tm, precision, k, tps)[1]
+            else None)
 
 
 def radix_buffer(k: int) -> int:
@@ -1582,7 +1743,8 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     on the card, gains {windows ended, overflow entries} of such a launch.
     ``gstack`` asks for the gstack selection, which the launch takes where
     ``gstack_built`` (then a second launch walks again, exactly, the
-    splits its detector flagged: the same lists, bit for bit);
+    splits its detector flagged: the same lists, bit for bit; none after
+    a lossless plan above APPEND_MAX_K, which cannot fire);
     ``gstack_count``, a (2,) int32 tensor on the card, gains {rows fired,
     blocks fired} of such a launch (a row: a query row's split; a block:
     a split of a query tile, which the second launch walks again).  On
@@ -1623,7 +1785,7 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     part_v = torch.empty((m, splits, k), dtype=torch.float32,
                          device=qp.device)
     part_i = torch.empty((m, splits, k), dtype=torch.int32, device=qp.device)
-    gstack = gstack and gstack_built(tm, precision, k)
+    gstack = gstack and gstack_built(tm, precision, k, tiles_per_split)
     # The gstack's block flags, one a (query tile, split), written by its
     # launch and read by the re-walk.
     flags = (torch.empty((-(-m // tm) * splits,), dtype=torch.int32,
@@ -1646,6 +1808,8 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         launches["fused_topk_partial_gated"] += 1
     if wgmma_core(tm, precision):
         launches["fused_topk_partial_wgmma"] += 1
+    elif gstack and k > APPEND_MAX_K:
+        launches["fused_topk_partial_gstack_bigk"] += 1
     elif selection(k) == "radix":
         launches["fused_topk_partial_radix"] += 1
     elif bucket and bucket_built(tm, precision, k):
@@ -1734,6 +1898,14 @@ def topk_merge(part_v: torch.Tensor, part_i: torch.Tensor, k: int):
     return vals, idx
 
 
+def _padded_rows(m: int, lists: int, block_rows: int, tm: int) -> int:
+    """The query rows ``fused_select`` walks ``lists`` tile lists of
+    ``block_rows`` rows each with at query tile ``tm``: each list's rows
+    padded to a whole tile where there are several lists."""
+    return (lists * _round_up(block_rows, tm) if lists > 1 and block_rows % tm
+            else m)
+
+
 def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                  tiles: Optional[torch.Tensor] = None, tn: int = 0,
                  block_rows: int = 0, prune: bool = False,
@@ -1757,16 +1929,27 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
                                 block_rows)
     if qp.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {qp.device}")
+    # Above APPEND_MAX_K the gstack runs at its own geometry where it is
+    # built there; elsewhere the launch is the radix selection's at its own.
+    big = k > APPEND_MAX_K and gstack_route(
+        selection, k, GSTACK_BIG_TM, tiles is not None, precision)
     if tiles is None:
-        tm, splits, tps = kernel_geometry(m, cp.shape[0], k, precision,
-                                          qp.device, dim=_query_dim(
-                                              qp, precision))
+        geo = (gstack_geometry(m, cp.shape[0], k, precision,
+                               device_sms(qp.device)) if big else None)
+        tm, splits, tps = geo or kernel_geometry(
+            m, cp.shape[0], k, precision, qp.device,
+            dim=_query_dim(qp, precision))
         part_v, part_i = fused_topk_partial(
             qp, cp, cbp, mask, k, precision, splits, tps, tm, prune=prune,
             bucket=bucket_route(selection, k, tm, False, precision),
-            gstack=gstack_route(selection, k, tm, False, precision))
+            gstack=gstack_route(selection, k, tm, False, precision)
+            and (k <= APPEND_MAX_K or geo is not None))
         return topk_merge(part_v, part_i, k)
-    tm = listed_tile_rows(m, k, block_rows)
+    n_rows = tiles.shape[1] * tn
+    geo = (gstack_geometry(_padded_rows(m, tiles.shape[0], block_rows,
+                                        GSTACK_BIG_TM), n_rows, k,
+                           precision, device_sms(qp.device)) if big else None)
+    tm = GSTACK_BIG_TM if geo else listed_tile_rows(m, k, block_rows)
     rows = None
     if tiles.shape[0] > 1 and block_rows % tm:
         # Lists of fewer rows than a query tile (a small block_q): give each
@@ -1778,14 +1961,15 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
         padded = qp.new_zeros((tiles.shape[0] * br, qp.shape[1]))
         padded[rows] = qp
         qp, block_rows = padded, br
-    tm, splits, tps = kernel_geometry(qp.shape[0], tiles.shape[1] * tn, k,
-                                      precision, qp.device, tm, listed=True,
-                                      dim=_query_dim(qp, precision))
+    tm, splits, tps = geo or kernel_geometry(
+        qp.shape[0], n_rows, k, precision, qp.device, tm, listed=True,
+        dim=_query_dim(qp, precision))
     part_v, part_i = fused_topk_partial(
         qp, cp, cbp, mask, k, precision, splits, tps, tm, tiles, tn,
         block_rows, prune=prune,
         bucket=bucket_route(selection, k, tm, True, precision),
-        gstack=gstack_route(selection, k, tm, True, precision))
+        gstack=gstack_route(selection, k, tm, True, precision)
+        and (k <= APPEND_MAX_K or geo is not None))
     vals, idx = topk_merge(part_v, part_i, k)
     return (vals, idx) if rows is None else (vals[rows], idx[rows])
 

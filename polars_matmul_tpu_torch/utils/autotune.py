@@ -217,10 +217,13 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     shapes and the core alone), with kernel A's carry gate on or off
     (``prune_gate``), its bucket selection or not (``bucket_route`` at
     the launch's query tile, where ``bucket_built``) and its gstack
-    selection or not (``gstack_route``, where ``gstack_built``); the core
-    comes last."""
-    from ..kernels.fused_topk import (bucket_built, bucket_route,
-                                      gstack_built, gstack_route,
+    selection or not (``gstack_route``, where ``gstack_built``; above
+    k = 128 where ``gstack_geometry`` builds it on the card, and never on
+    the CPU, where every selection is the plain version); the core comes
+    last."""
+    from ..kernels.fused_topk import (APPEND_MAX_K, bucket_built,
+                                      bucket_route, device_sms, gstack_built,
+                                      gstack_geometry, gstack_route,
                                       kernel_precision, prune_gate,
                                       query_tile_rows, supports)
 
@@ -232,8 +235,13 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     gate = ("gated",) if prune_gate(cfg.prune) else ()
     bucket = (("bucket",) if bucket_route(cfg.selection, k, tm, False, core)
               and bucket_built(tm, core, k) else ())
+    if k > APPEND_MAX_K:
+        built = q.is_cuda and gstack_geometry(
+            q.shape[0], c.shape[0], k, core, device_sms(q.device)) is not None
+    else:
+        built = gstack_built(tm, core, k)
     gstack = (("gstack",) if gstack_route(cfg.selection, k, tm, False, core)
-              and gstack_built(tm, core, k) else ())
+              and built else ())
     return ("fused",) + gate + bucket + gstack + (core,)
 
 
