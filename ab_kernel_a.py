@@ -5,7 +5,7 @@ by side and timed in turns.
     git archive <parent> polars_matmul_tpu_torch | tar -x -C build/parent
     python ab_kernel_a.py --parent build/parent [--bits-only]
         [--groups canonical,big,...] [--variants noselect,...] [--bucket]
-        [--gstack]
+        [--gstack] [--stack]
 
 Run from the checkout's root, beside ``chip_smoke.py``, whose operands,
 timer and bounds it reuses, so its cells are that script's.  It builds
@@ -76,7 +76,20 @@ alone and with kernel B (A + B, this tree's kernel B in a library of its
 own), since the splits differ; a cell where it is not built says so.
 ``--gstack-cap N`` adds this tree's build, and each "gstack..." variant's,
 asked for the gstack above k = 128 on splits of at most N tiles
-("<build>+gstack@N").  ``--timed``
+("<build>+gstack@N").  ``--stack`` adds this tree's build asked for the
+stack selection (``csrc/fused_topk_stack.cu``; alt 6 of
+``pmm_fused_topk_partial``), "change+stack": its lists must equal the
+parent's in every cell and lie within tolerance of
+``fused_topk.stack_partial_plain``'s, its plan
+(``pmm_fused_topk_stack``) the host's, and its times sit beside the
+insertion's or the slack's in the same turns, kernel A alone and with
+kernel B, with its plain version's time; it is skipped in a cell where it
+is not built (dense, query tiles 16 and 32, bf16x3 and highest).  The
+``stack`` group (k = 17-128 at query tiles 16 and 32): the canonical
+operands in bf16x3 and highest at k=17, 24, 32, 64, 100 and 128; 2M x 256
+f32 batch 8 at k=17, 24, 32 and 100, batch 32 at k=17 and 32; planted
+data that crowds one column (``chip_smoke._planted_heavy``, 37 x 200,000
+x 56) at k=17 and 32.  ``--timed``
 names the groups that are timed (the others are held to the parent's bits
 only).  A parent older
 than the gstack selection, the bucket selection or the carry gate is
@@ -104,7 +117,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("polars_matmul_tpu_torch/kernels/csrc")
 GROUPS = ("canonical", "big", "stored", "wide", "wide-int4", "wide-bf16",
-          "clustered", "lists", "bucket", "gstack", "gstack-big")
+          "clustered", "lists", "bucket", "gstack", "gstack-big", "stack")
 # Builds of this tree's fused_topk.cu with a line or two changed: (pattern,
 # replacement) pairs of re.subn, each of which must match once, in
 # fused_topk.cu or, given as a third item, another file of csrc/.
@@ -279,7 +292,8 @@ def build(parent: Path, work: Path, variants):
             raise RuntimeError(f"nvcc failed for {kind} {name} {unit}:\n"
                                f"{log}")
         if kind == "lib":
-            _ptxas(log, "fused_topk.cu", lines[name])
+            _ptxas(log, STACK_UNIT if unit == STACK_UNIT else "fused_topk.cu",
+                   lines[name])
         else:
             _ptxas(log, name, lines[kind])
     from polars_matmul_tpu_torch.kernels import _build
@@ -308,6 +322,9 @@ def build(parent: Path, work: Path, variants):
         lib.pmm_fused_topk_partial.restype = i
         lib.pmm_fused_topk_blocks_per_sm.argtypes = [i] * 5
         lib.pmm_fused_topk_blocks_per_sm.restype = i
+        if (d / STACK_UNIT).exists():
+            lib.pmm_fused_topk_stack.argtypes = [i] * 4 + [p]
+            lib.pmm_fused_topk_stack.restype = i
         libs[name] = (lib if gated and gstack
                       else _Older(lib, gated, bucket))
     merge = ctypes.CDLL(str(work / "merge.so"))
@@ -318,10 +335,16 @@ def build(parent: Path, work: Path, variants):
     return libs, lines, merge
 
 
+# The stack selection's unit.
+STACK_UNIT = "fused_topk_stack.cu"
+
+
 def _units(d: Path):
     """Kernel A's translation units in source directory ``d``:
-    fused_topk.cu, and its gstack units where the tree has them."""
-    return [d / "fused_topk.cu"] + sorted(d.glob("fused_topk_gstack*.cu"))
+    fused_topk.cu, and its gstack and stack units where the tree has
+    them."""
+    return ([d / "fused_topk.cu"] + sorted(d.glob("fused_topk_gstack*.cu"))
+            + sorted(d.glob(STACK_UNIT)))
 
 
 def _takes(src: Path, arg: str) -> bool:
@@ -652,10 +675,54 @@ def _gstack_big(cs, F, dev):
     return cells
 
 
+# The stack group's canonical k: its class (17-32) and above.
+STACK_KS = (17, 24, 32, 64, 100, 128)
+
+
+def _stack(cs, F, dev):
+    """The stack selection's cells (see the module's head)."""
+    cells = []
+    rng = np.random.default_rng(cs.SEED)
+    q = torch.from_numpy(rng.standard_normal(
+        (cs.N_QUERIES, cs.DIM)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal(
+        (cs.N_CORPUS, cs.DIM)).astype(np.float32)).to(dev)
+    qn, cn = (x / x.norm(dim=1, keepdim=True) for x in (q, c))
+    for core in ("bf16x3", "highest"):
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=core)
+        qp = F.prepare_queries(q, "cosine", core)
+        cells += [Cell(f"canonical {core} k={k} tm {tm}", core, qp, cp,
+                       cbp, k, qn, cn, dim=cs.DIM, tm=tm)
+                  for k in STACK_KS for tm in (16, 32)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    big = torch.randn((cs.BIG_ROWS, cs.DIM), generator=gen, device=dev)
+    cp, cbp = F.prepare_corpus(big, "cosine", precision="bf16x3")
+    cn = big / big.norm(dim=1, keepdim=True)
+    for b, ks in ((8, (17, 24, 32, 100)), (32, (17, 32))):
+        qb = torch.randn((b, cs.DIM), generator=gen, device=dev)
+        cells += [Cell(f"2M x 256 f32 batch {b} k={k}", "bf16x3",
+                       F.prepare_queries(qb, "cosine", "bf16x3"), cp, cbp, k,
+                       qb / qb.norm(dim=1, keepdim=True), cn, dim=cs.DIM)
+                  for k in ks]
+    del big, cn
+    torch.cuda.empty_cache()
+    # Planted data that crowds one column of the tile with every row's
+    # winners (chip_smoke._planted_heavy), over splits of about 36 tiles:
+    # a cell holds a window's whole column, so the lists stay exact.
+    gen.manual_seed(cs.SEED + 3)
+    q, c = cs._planted_heavy(torch, gen, 37, 200_000, 56)
+    cp, cbp = F.prepare_corpus(c, "dot", precision="bf16x3")
+    cells += [Cell(f"planted 37 x 200,000 x 56 dot k={k} tm 16", "bf16x3",
+                   F.prepare_queries(q, "dot", "bf16x3"), cp, cbp, k, dim=56,
+                   tm=16) for k in (17, 32)]
+    return cells
+
+
 BUILDERS = {"canonical": _canonical, "big": _big, "stored": _stored,
             "wide": _wide, "wide-int4": _wide_int4, "wide-bf16": _wide_bf16,
             "clustered": _clustered, "lists": _lists, "bucket": _bucket,
-            "gstack": _gstack, "gstack-big": _gstack_big}
+            "gstack": _gstack, "gstack-big": _gstack_big, "stack": _stack}
 
 
 def _verdict(card, label, name, times, lib):
@@ -691,6 +758,8 @@ def main(argv=None) -> int:
                          "bucket selection")
     ap.add_argument("--gstack", action="store_true",
                     help="also this tree asked for the gstack selection")
+    ap.add_argument("--stack", action="store_true",
+                    help="also this tree asked for the stack selection")
     ap.add_argument("--gstack-cap", default="",
                     help="with --gstack, also each build asked for it above "
                          "k = 128 on splits no longer than N tiles "
@@ -731,6 +800,15 @@ def main(argv=None) -> int:
     for key in sorted(lines["change"]):
         if key.startswith("fused_topk.cu:"):
             print(f"ptxas change: {key}: {lines['change'][key]}")
+    stack = {key: line for key, line in lines["change"].items()
+             if key.startswith(STACK_UNIT + ":")}
+    if stack:
+        spills = [key for key, line in stack.items()
+                  if not line.endswith(" 0 bytes spill loads")]
+        print(f"ptxas stack: {len(stack)} instantiations, {len(spills)} "
+              f"spilling")
+        for key in sorted(stack):
+            print(f"ptxas stack: {key}: {stack[key]}")
     for name in variants:
         spills = [key for key, line in lines[name].items()
                   if key.startswith("fused_topk.cu:")
@@ -760,6 +838,9 @@ def main(argv=None) -> int:
             routes.update({f"{name}+gstack@{args.gstack_cap}":
                            (name, "gstack") for name in ["change"] + [
                                v for v in variants if v.startswith("gstack")]})
+
+    if args.stack:
+        routes["change+stack"] = ("change", "stack")
 
     def use(name):
         _build._lib = libs[routes[name][0]]
@@ -812,24 +893,54 @@ def main(argv=None) -> int:
         return F.fused_topk_partial(cell.qp, cell.cp, cell.cbp, None, cell.k,
                                     cell.core, splits, tps, tm, *extra,
                                     bucket=routes[name][1] == "bucket",
-                                    gstack=routes[name][1] == "gstack")
+                                    gstack=routes[name][1] == "gstack",
+                                    stack=routes[name][1] == "stack")
 
     def built(cell, geo, name):
         """Whether ``name`` runs its own route at this cell: a build asked
-        for the gstack selection only where it is built."""
+        for the gstack or the stack selection only where it is built."""
+        if routes[name][1] == "stack":
+            return (cell.listed is None
+                    and F.stack_built(geo[0], cell.core, cell.k))
         if routes[name][1] != "gstack":
             return True
         if cell.k > F.APPEND_MAX_K and routes[name][0] == "parent":
             return False   # the parent's gstack stops at k = 128
         return F.gstack_built(geo[0], cell.core, cell.k, geo[2])
 
+    def stack_check(label, cell, geo, name, got):
+        """The stack's plan against the host's, its lists ``got`` against
+        its plain version's."""
+        tm, splits, tps = geo
+        out = (ctypes.c_int * 3)()
+        built = _build._lib.pmm_fused_topk_stack(
+            tm, F.CORES.index(cell.core), cell.k, cell.cp.shape[1], out)
+        want = (int(F.stack_built(tm, cell.core, cell.k)), F.STACK_WINDOW)
+        # Real data: the plain version's scores round otherwise than the
+        # ring's, so the lists are held within chip_smoke's tolerance of
+        # the row's term scale (``compare`` raises where they are not).
+        scale = cs._term_scale(F, cell.qp, cell.cp, cell.cbp, cell.core)
+        err = cs.compare(*got, *F.stack_partial_plain(
+            cell.qp, cell.cp, cell.cbp, None, cell.k, cell.core, splits,
+            tps), scale=scale[:, :, None],
+            what=f"{label}: {name} against stack_partial_plain")
+        print(f"stack: {label} (tm={tm}, splits={splits}): {name} built "
+              f"{built}, window {out[0]}, {out[1]} bytes beside the ring's "
+              f"least plan, {out[2]} stages; lists within tolerance of "
+              f"stack_partial_plain's: True (max abs err {err:.3g})")
+        if (built, out[0]) != want:
+            raise RuntimeError(f"{label}: {name}'s plan {built, out[0]} is "
+                               f"not the host's {want}")
+
     def bits(label, cell, geo):
         outs = {}
-        for name, (lib_name, _) in routes.items():
+        for name, (lib_name, sel) in routes.items():
             if lib_name not in ("noselect", "noproducts", "nodecode",
                                 "nosort", "posu") and built(cell, geo, name):
                 use(name)
                 outs[name] = launch(cell, geo, name)
+                if sel == "stack":
+                    stack_check(label, cell, geo, name, outs[name])
         torch.cuda.synchronize()
         pv, pi = outs.pop("parent")
         for name, (v, i) in outs.items():
@@ -891,7 +1002,7 @@ def main(argv=None) -> int:
                 ms = cs.cuda_ms(lambda: launch(cell, geo, name),
                                 reps=args.reps)
                 times.setdefault(name, []).append((ms, geo))
-                if cell.k > F.APPEND_MAX_K:   # A + B: the splits differ
+                if cell.k > F.APPEND_MAX_K or group == "stack":   # A + B
                     ms = cs.cuda_ms(lambda: merge(launch(cell, geo, name),
                                                   cell.k), reps=args.reps)
                     merged.setdefault(name, []).append((ms, geo))
@@ -924,6 +1035,15 @@ def main(argv=None) -> int:
                        f"({str(cell.lib_c.dtype).split('.')[-1]} rows)")
             else:
                 lib = "in chip_smoke.py phase 6"
+            if group == "stack":
+                # The stack's plain version at the own selection's
+                # geometry.
+                _, splits, tps = times["change"][0][1]
+                ms = cs.cuda_ms(lambda: F.stack_partial_plain(
+                    cell.qp, cell.cp, cell.cbp, None, k, cell.core, splits,
+                    tps), reps=2, warmup=1)
+                print(f"[{card}] {cell.label}: plain stack_partial_plain "
+                      f"{ms:.3f} ms")
             print(f"[{card}] {cell.label}: " + "; ".join(
                 f"{name} {' / '.join(f'{ms:.4f}' for ms, _ in ts)} ms (tm "
                 f"{ts[0][1][0]}, splits {ts[0][1][1]})"
@@ -936,7 +1056,8 @@ def main(argv=None) -> int:
                     f"(tm {ts[0][1][0]}, splits {ts[0][1][1]})"
                     for name, ts in merged.items()))
             for name in routes:
-                if ("+bucket" in name or "+gstack" in name) and name in times:
+                if ("+bucket" in name or "+gstack" in name
+                        or "+stack" in name) and name in times:
                     lib_name = routes[name][0]
                     _verdict(card, cell.label, name, times,
                              lib_name if lib_name in times else "change")

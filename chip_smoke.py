@@ -22,7 +22,11 @@ Phases, each printing one line or a few:
    allowed); kernel A's gstack selection likewise (``pmm_fused_topk_gstack``
    against ``fused_topk.gstack_built``, ``pmm_fused_topk_levels`` against
    ``gstack_levels``, its instantiations' lines, no spill allowed, and its
-   depth and ring beside its stacks at a few query tiles and k);
+   depth and ring beside its stacks at a few query tiles and k); kernel A's
+   stack selection likewise (``pmm_fused_topk_stack``'s built and window
+   against ``fused_topk.stack_built`` / ``STACK_WINDOW`` at every query
+   tile, core and k <= 128, its instantiations' lines, no spill allowed,
+   its tail and ring at a few query tiles and k);
 2. each kernel against its plain PyTorch version on the card, over ragged
    shapes and at the shapes phases 3 and 4 give it, every metric and
    every core of kernel A (bf16x3, highest, bf16c, int8c, int4c; int4
@@ -73,7 +77,11 @@ Phases, each printing one line or a few:
    version bit for bit with its fire counter equal to the plain version
    of its walk's (``_gstack_edges``: every core, each query tile it is
    built at, k=1/10/16/100/128, splits of 1, 3 and 17 tiles and a list,
-   masks, zero query rows, planted collisions that must fire);
+   masks, zero query rows, planted collisions that must fire); kernel A's
+   stack selection against its plain version and the plain version of its
+   walk, bit for bit (``_stack_edges``: its cores, each query tile it is
+   built at, ``STACK_KS``, dense splits of 1, 3 and 17 tiles, masks, zero
+   query rows, planted data that crowds one column);
 3. the canonical workload (1000 queries x 10,000 rows x 256 dims, f32,
    cosine, seed 42) through ``topk`` and a resident ``Corpus`` at k=10,
    k=100 and k=512, in the default precision and precision="highest",
@@ -82,11 +90,14 @@ Phases, each printing one line or a few:
    queries at k=10 and k=100, and one of 8 at k=10 through a corpus whose
    config asks for the bucket selection, and two through corpora asking
    for "gstack" (the 2M rows) and "gpop" (their first 10,000: gpop's
-   envelope), each held to a float64 oracle on the card;
+   envelope), and 8 queries at k=17 and 32 (the default "auto", which
+   takes the stack selection in its class) and k=24 through a corpus
+   asking for "stack", each held to a float64 oracle on the card;
 5. the launch counts of each main path (phases 3 and 4, each tier of
    phase 7, and the probed path of phase 8): its kernels and cores ran,
-   the radix selection ran (canonical k=512), the bucket and the gstack
-   selections ran (phase 4's requests), the plain versions did not;
+   the radix selection ran (canonical k=512), the bucket, the gstack and
+   the stack selections ran (phase 4's requests), the plain versions did
+   not;
 6. times from CUDA events: kernels against plain versions and library
    calls, and requests with their bounds (both cores at the canonical
    k=10, 100 and 512, each launch's selection, blocks, slots and splits
@@ -115,7 +126,14 @@ Phases, each printing one line or a few:
    spread) at the canonical k=10 and 100 at query tiles 64, 32 and 16,
    2M x 256 batch 8 at k=10 and 100 and batch 256 at k=10, and in phases
    7 and 8 10M x 768 int8 batch 8 k=10 and the probed cells, then where
-   it was faster;
+   it was faster; kernel A with the slack and asked for the stack
+   selection in turns (``_time_stack``: the lists equal to the slack's
+   and within tolerance of the plain version of the walk's, kernel A
+   alone and A + B,
+   each route's times and their spread, the plain version, the library
+   call and the bound) in its class, 2M x 256 batch 8 at k=17 and 32 and
+   the canonical k=17 and 32 at query tile 16, both cores, then where it
+   was faster;
 7. the full-width path: a 10,000,000 x 768 corpus (the north-star shape)
    made on the card from seed 42, stored as int8 (requests of 8 and 256
    queries at k=10 and k=100), int4 and bf16 (8 and 256 queries at
@@ -254,6 +272,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -325,7 +344,7 @@ BF16X3_PLANS = HIGHEST_PLANS
 # Kernel A's selections by the source's Selection value (the warpgroup
 # consumer's bool: 0 insert, 1 append).
 SELECTIONS = ("insert", "append", "radix", "bucket", "gstack",
-              "gstack-big")
+              "gstack-big", "stack")
 # The TPU kernel's bucket selection, which kernel A's kBucket ports.
 BUCKET_SRC = TPU_KERNEL + ":1083"
 # The TPU kernel's gstack build (_gstack_update), which kernel A's kGstack
@@ -334,6 +353,9 @@ GSTACK_SRC = TPU_KERNEL + ":608"
 # The TPU kernel's big-k gstack depth (_bigk_depth), which kernel A's
 # kGstackBig ports with the same build and finish.
 GSTACK_BIG_SRC = TPU_KERNEL + ":539"
+# The TPU kernel's per-tile stacks (_select_stack), which kernel A's
+# kStack ports.
+STACK_SRC = TPU_KERNEL + ":337"
 # The one instantiation of kernel A known to spill (4 B stored, 4 B
 # loaded; ROADMAP.md): phase 1 fails on a spill in any other.  The carry
 # gate's vote moved it here from bf16c listed at query tile 16 (8 B / 32
@@ -500,6 +522,62 @@ def phase_card():
           f"{torch.cuda.device_count()} device(s), "
           f"{torch.cuda.get_device_name(0)}")
     return card
+
+
+# The stack selection in phase 1: its tail and ring at these (query tile,
+# k), its class's and beyond.
+STACK_PLAN_CELLS = ((16, 17), (16, 32), (32, 17), (32, 32), (16, 100),
+                    (32, 128), (64, 17))
+
+
+def _stack_plans(F, lib, log):
+    """Phase 1's lines of the stack selection: where a dense launch that
+    asks for it takes it and its window, the source's rules against the
+    host's (``stack_built``, STACK_WINDOW) at every query tile, core and
+    k <= 128, its instantiations (no spill: kernel A's check), and its
+    tail and ring at STACK_PLAN_CELLS at the canonical width."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    got, want = [], []
+    for tm in (16, 32, 64):
+        for ci, core in enumerate(F.CORES):
+            c_ld = F._corpus_width(core, DIM)
+            for k in range(1, F.APPEND_MAX_K + 1):
+                built = lib.pmm_fused_topk_stack(tm, ci, k, c_ld, out)
+                got.append((built, out[0]))
+                want.append((int(F.stack_built(tm, core, k)),
+                             F.STACK_WINDOW))
+    require(got == want, "kernel A's stack route or window: the source's "
+            "rule differs from fused_topk.stack_built / STACK_WINDOW")
+    stack = [line for line in _ptxas_summary(log)
+             if line.startswith(("fused_topk_stored_kernel<",
+                                 "fused_topk_f32_kernel<"))
+             and ", stack>" in line]
+    require(len(stack) > 0, "no stack instantiation of kernel A was built")
+    for line in stack:
+        print("  stack: " + line)
+    for tm, k in STACK_PLAN_CELLS:
+        plans = []
+        for ci, core in enumerate(F.CORES):
+            if lib.pmm_fused_topk_stack(tm, ci, k, F._corpus_width(core, DIM),
+                                        out) != 1:
+                plans.append(f"{core} not built ({out[1]} B)")
+                continue
+            plans.append(f"{core} {out[2]} stages, {out[1]} B beside the "
+                         f"ring's least plan")
+        print(f"  stack: tm={tm} k={k}: tail {F.stack_tail_bytes(tm, k)} B; "
+              f"at dim {DIM}: " + "; ".join(plans)
+              + f"; route (bf16x3, dense) "
+              f"{F.stack_route('auto', k, tm, False, 'bf16x3')}")
+    print(f"  stack: {len(stack)} instantiations (k <= {F.APPEND_MAX_K}, "
+          f"dense, query tiles 16 / 32, {F.STACK_CORES}; windows of "
+          f"{F.STACK_WINDOW} tiles, cells as deep: lossless), "
+          f"{sum('spills' in line for line in stack)} spilling; the "
+          f"source's route and window equal the host's at tm 16 / 32 / 64, "
+          f"every core, k=1...{F.APPEND_MAX_K}; \"auto\" and \"stack\" take "
+          f"it at {F.STACK_MIN_K} <= k <= {F.STACK_MAX_K}, where its tail "
+          f"leaves two blocks an SM")
 
 
 # The gstack selection above k = 128 in phase 1: the source's plan
@@ -834,6 +912,7 @@ def phase_build():
           f"spilling; the source's route and depth equal the host's at tm "
           f"16 / 32 / 64, every core, k=1...{F.APPEND_MAX_K}")
     _gstack_big_plans(F, lib, log)
+    _stack_plans(F, lib, log)
     # The bf16x3 ring at the canonical and the wide dims (c_ld 2 dim).
     core = F.CORES.index("bf16x3")
     for dim in (DIM, WIDE_DIM):
@@ -1809,6 +1888,15 @@ def _compare_all(F, torch, ms, ns, dims, ks):
           f"rows ({planted} of them planted) and {blocks} blocks fired, "
           f"each block walked again; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    stack = _stack_edges(F, torch, gen)
+    print(f"phase 2: kernel A's stack selection: {stack} cases "
+          f"bit-identical to its plain version and to the plain version of "
+          f"its walk (k={STACK_KS}, {F.STACK_CORES}, each query tile where "
+          f"built, dense splits of {STACK_TPS} tiles, masked and not; tie "
+          f"data with zero query rows, and planted data crowding one "
+          f"column; windows of {F.STACK_WINDOW} tiles), each gated twin "
+          f"equal; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     cases, lossless, lossy, rows, planted, skipped = _gstack_bigk_edges(
         F, torch, gen)
     print(f"phase 2: kernel A's gstack selection above k = "
@@ -2015,14 +2103,44 @@ def phase_big(pmt, torch):
               + (f"{geo[1]} splits of {geo[2]} tiles" if geo else
                  "not built: the radix selection")
               + "): passes the float64 oracle gate")
+    # The stack selection on the main path: the default "auto" takes it in
+    # its class (batch 8, query tile 16, k=17 and 32), and so does a corpus
+    # whose config asks for "stack" (k=24).
+    q = requests[(8, 10)]
+    stacked = pmt.Corpus(c, config=pmt.SearchConfig(selection="stack"))
+    for handle, sel, k in ((corpus, "auto", 17), (corpus, "auto", 32),
+                           (stacked, "stack", 24)):
+        tm = F.query_tile_rows(8, k)
+        require(F.stack_route(sel, k, tm, False, "bf16x3"),
+                f"selection={sel!r} at batch 8 k={k} does not take the stack")
+        idx, scores = handle.topk(q, k)
+        ref_idx, ref_scores = _oracle_on_card(torch, q, c, k)
+        gate(idx, scores, ref_idx, ref_scores,
+             f"2M corpus batch=8 k={k} selection={sel!r} (the stack)")
+        print(f"phase 4: {BIG_ROWS}x{DIM} corpus, batch 8, k={k}, "
+              f"selection={sel!r} (the stack selection, windows of "
+              f"{F.STACK_WINDOW} tiles): passes the float64 oracle gate")
+    del stacked
     return corpus, requests
 
 
-def profile_request(torch, fn, label: str, card: str,
-                    host_ms: float) -> None:
+def profile_request(torch, fn, label: str, card: str, host_ms: float,
+                    ab_ms: Optional[float] = None) -> None:
     """One request under torch.profiler: device time by kernel, and the
     device's busy share of ``host_ms``, the request's median host time
-    measured without the profiler (which slows the host side)."""
+    measured without the profiler (which slows the host side).
+
+    Device time is summed over the trace's device events (kernels,
+    copies), not over ``key_averages()``: there a CPU operator carries its
+    kernels' device time as well (``aten::mm`` and CUPTI's "Activity
+    Buffer Request" each carried one GEMM's, tripling it), and the
+    package's ``pmm.*`` ranges span the request on the device too.  The
+    trace must hold kernel A and, where ``ab_ms`` (the request's kernels A
+    + B, CUDA events) is given, at least half of that in device time: a
+    profile that misses either fails the phase (a trace once held
+    0.0614 ms of an 8.659 ms request, with no kernel A; its cause is not
+    known)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2031,21 +2149,33 @@ def profile_request(torch, fn, label: str, card: str,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # The package's own record_function ranges ("pmm.*") also carry
-    # device time; count only the work itself.
-    dev = sorted(((e.self_device_time_total, e.key)
-                  for e in prof.key_averages()
-                  if e.self_device_time_total > 0
-                  and not e.key.startswith("pmm.")), reverse=True)
-    busy = sum(t for t, _ in dev)
-    if not dev:
-        print(f"phase 6: [{card}] {label}: profiler saw no device time "
-              f"(not measured)")
-        return
-    top = ", ".join(f"{name[:48]} {t / 1e3:.4f} ms" for t, name in dev[:5])
+    dev = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("pmm."):
+            dev[e.name] = dev.get(e.name, 0.0) + e.device_time_total
+    busy = sum(dev.values())
+    kernel_a = sum(t for name, t in dev.items()
+                   if re.search(r"fused_topk_\w+_kernel", name))
+    top = ", ".join(f"{name[:48]} {t / 1e3:.4f} ms" for name, t in
+                    sorted(dev.items(), key=lambda x: -x[1])[:5])
+    ab = "" if ab_ms is None else f" (A+B by events {ab_ms:.4f} ms)"
     print(f"phase 6: [{card}] {label} profile: device busy "
           f"{busy / 1e3:.4f} ms, {100 * busy / (host_ms * 1e3):.1f} % of the "
-          f"{host_ms:.3f} ms request; {top}")
+          f"{host_ms:.3f} ms request; kernel A {kernel_a / 1e3:.4f} ms{ab}; "
+          f"{top}")
+    require(kernel_a > 0 and (ab_ms is None or busy >= 500 * ab_ms),
+            f"{label}: the profile missed kernel A or half of the request's "
+            f"A+B device time")
+
+
+def _request_ab_ms(F, handle, q, k, core):
+    """Kernels A + B of a dense request of ``handle`` (a ``Corpus`` whose
+    core is ``core``) at k, cosine, on its prepared operands: CUDA events,
+    the median of five calls."""
+    qp = F.prepare_queries(q, "cosine", core)
+    cp, cbp = handle._prepared_for(F.Metric.COSINE)
+    return cuda_ms(lambda: F.fused_select(qp, cp, cbp, None, k, core),
+                   reps=5, warmup=1)
 
 
 def _bound(nbytes, ops, dtype):
@@ -2143,8 +2273,8 @@ class BucketCheck:
             args = (qp, cp, cbp, mask, k, precision, splits, tps, tm) + rest
             out = launch(*args, bucket=bucket, bucket_count=bucket_count,
                          **kw)
-            if (bucket or kw.get("gstack") or not qp.is_cuda
-                    or not F.bucket_built(tm, precision, k)):
+            if (bucket or kw.get("gstack") or kw.get("stack")
+                    or not qp.is_cuda or not F.bucket_built(tm, precision, k)):
                 return out
             count = torch.zeros(2, dtype=torch.int32, device=qp.device)
             got = launch(*args, bucket=True, bucket_count=count, **kw)
@@ -2197,7 +2327,8 @@ class GstackCheck:
             args = (qp, cp, cbp, mask, k, precision, splits, tps, tm) + rest
             out = launch(*args, gstack=gstack, gstack_count=gstack_count,
                          **kw)
-            if (gstack or kw.get("bucket") or not qp.is_cuda
+            if (gstack or kw.get("bucket") or kw.get("stack")
+                    or not qp.is_cuda
                     or not F.gstack_built(tm, precision, k, tps)):
                 return out
             count = torch.zeros(2, dtype=torch.int32, device=qp.device)
@@ -2310,6 +2441,58 @@ def _gstack_edges(F, torch, gen):
     torch.cuda.synchronize()
     require(planted_rows > 0, "no planted collision fired")
     return cases, rows, blocks, planted_rows
+
+
+# The stack selection's own edges (phase 2): k below, in and above its
+# class up to 128, dense splits of 1, 3 and 17 tiles (a window ending
+# inside a split and at its end).
+STACK_KS = (1, 17, 32, 100, 128)
+STACK_TPS = (1, 3, 17)
+
+
+def _stack_edges(F, torch, gen):
+    """Kernel A's stack selection against its plain version and the plain
+    version of its walk (``fused_topk.stack_partial_plain``), bit for bit
+    on integer data: tie data with half the query rows zero, and planted
+    data (``_planted_heavy``: every row's top-k crowd one column), its
+    cores, each query tile it is built at, STACK_KS x STACK_TPS dense
+    splits, with and without a mask that drops a third of the rows and
+    every row of whole splits; each launch's gated twin too (under
+    GateCheck).  Returns the cases."""
+    n, dim, m = 3000, 56, 37
+    keep = torch.rand((n,), generator=gen, device="cuda") < 0.66
+    keep[n // 3: n // 3 + 640] = False
+    masks = (None, F.pad_mask_row(keep, n))
+    n_tiles = -(-n // F._TN)
+    cases = 0
+    for planted in (False, True):
+        if planted:
+            q, c = _planted_heavy(torch, gen, m, n, dim)
+        else:
+            q, c = _tie_data(torch, gen, m, n, dim)
+            q[::2] = 0.0
+        for precision in F.STACK_CORES:
+            qp = F.prepare_queries(q, "dot", precision)
+            cp, cbp = F.prepare_corpus(c, "dot", precision=precision)
+            for k, mask, tps in ((k, mask, tps) for k in STACK_KS
+                                 for mask in masks for tps in STACK_TPS):
+                what = (f"stack selection m={m} n={n} k={k} {precision} "
+                        f"mask={mask is not None} planted={planted}, splits "
+                        f"of {tps} tiles")
+                args = (qp, cp, cbp, mask, k, precision, -(-n_tiles // tps),
+                        tps)
+                want = F.fused_topk_partial_plain(*args)
+                compare(*F.stack_partial_plain(*args), *want, exact=True,
+                        what=f"the plain walk, {what}")
+                for tm in (16, 32):
+                    if not F.stack_built(tm, precision, k):
+                        continue
+                    compare(*F.fused_topk_partial(*args, tm, stack=True),
+                            *want, exact=True, what=f"tm={tm}, {what}")
+                    cases += 1
+            del qp, cp, cbp
+    torch.cuda.synchronize()
+    return cases
 
 
 # The gstack selection above k = 128 (phase 2): its k, dense splits of 3
@@ -2651,6 +2834,87 @@ def _time_gstack(F, torch, card, label, args, reps=10, **kw):
     return cell
 
 
+# Kernel A asked for the stack selection against the slack at the cells
+# of phase 6 (its class): each cell's times and verdict, for the summary
+# and PERF.md.
+STACK_CELLS = []
+# The k of phase 6's stack cells.
+STACK_TIMED_KS = (17, 32)
+
+
+def _time_stack(F, torch, card, label, args, library, bound):
+    """Kernel A (``fused_topk_partial(*args)``, args ending in the query
+    tile) with the slack and asked for the stack selection, alone and with
+    kernel B, in turns (CUDA events, GATE_TURNS turns): the split lists
+    equal bit for bit to the slack's and within tolerance of the plain
+    version of its walk (``fused_topk.stack_partial_plain``), each route's
+    median and their
+    spread, beside the plain version's time, the library call
+    (``library``) and ``bound``.  Returns the kernels line's entry."""
+    k, precision, tm = args[4], args[5], args[8]
+    require(F.stack_built(tm, precision, k), f"{label}: the stack is not "
+            f"built")
+    own = F.fused_topk_partial(*args)
+    got = F.fused_topk_partial(*args, stack=True)
+    compare(*got, *own, exact=True,
+            what=f"{label}: the stack against {F.selection(k)}")
+    # Real data: the plain version's scores round otherwise than the
+    # ring's, so it is held within RTOL of the row's term scale (the exact
+    # plain walk on integer data is phase 2's ``_stack_edges``).
+    compare(*got, *F.stack_partial_plain(*args[:8]),
+            scale=_term_scale(F, *args[:3], precision)[:, :, None],
+            what=f"{label}: the stack against stack_partial_plain")
+    routes = {"own": lambda: F.fused_topk_partial(*args),
+              "stack": lambda: F.fused_topk_partial(*args, stack=True)}
+    routes["own A+B"] = lambda: F.topk_merge(*routes["own"](), k)
+    routes["stack A+B"] = lambda: F.topk_merge(*routes["stack"](), k)
+    times = {name: [] for name in routes}
+    for turn in range(GATE_TURNS):
+        for name in (list(routes) if turn % 2 == 0 else
+                     list(reversed(list(routes)))):
+            times[name].append(cuda_ms(routes[name], reps=10, warmup=2))
+    med = {name: statistics.median(v) for name, v in times.items()}
+    spread = {a: max(max(times[a]) - min(times[a]),
+                     max(times[b]) - min(times[b]))
+              for a, b in (("stack", "own"), ("stack A+B", "own A+B"))}
+    faster = {a: med[b] - med[a] > spread[a]
+              for a, b in (("stack", "own"), ("stack A+B", "own A+B"))}
+    plain = cuda_ms(lambda: F.stack_partial_plain(*args[:8]), reps=3,
+                    warmup=1)
+    lib = cuda_ms(library, reps=10)
+    STACK_CELLS.append({"label": label, "own_ms": med["own"],
+                        "stack_ms": med["stack"], "faster": faster["stack"],
+                        "faster_ab": faster["stack A+B"]})
+    print(f"phase 6: [{card}] stack selection, {label}: {F.selection(k)} A "
+          f"{' / '.join(f'{t:.4f}' for t in times['own'])} ms, A+B "
+          f"{' / '.join(f'{t:.4f}' for t in times['own A+B'])} ms; stack "
+          f"(windows of {F.STACK_WINDOW} tiles) A "
+          f"{' / '.join(f'{t:.4f}' for t in times['stack'])} ms, A+B "
+          f"{' / '.join(f'{t:.4f}' for t in times['stack A+B'])} ms "
+          f"(medians A {med['own']:.4f} / {med['stack']:.4f}, A+B "
+          f"{med['own A+B']:.4f} / {med['stack A+B']:.4f}; faster beyond "
+          f"the spread: A {faster['stack']}, A+B {faster['stack A+B']}); "
+          f"plain walk {plain:.3f} ms; library "
+          f"torch.addmm + torch.topk (f32) {lib:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return _entry(med["stack"], plain, lib, "torch.addmm + torch.topk (f32)",
+                  bound, f"{label}: selection='auto' / 'stack' (windows of "
+                  f"{F.STACK_WINDOW} tiles; {F.selection(k)} "
+                  f"{med['own']:.4f} ms; A+B {med['stack A+B']:.4f} against "
+                  f"{med['own A+B']:.4f} ms)")
+
+
+def _stack_summary(card):
+    """The stack selection's cells: where it was faster than the slack
+    beyond the spread ("auto" takes it where ``fused_topk.stack_route``
+    says)."""
+    faster = [c["label"] for c in STACK_CELLS if c["faster"]]
+    print(f"phase 6: [{card}] stack selection: {len(STACK_CELLS)} cells "
+          f"timed, faster than the slack beyond the spread at "
+          f"{len(faster)} (A; A + B at "
+          f"{sum(c['faster_ab'] for c in STACK_CELLS)}): {faster}")
+
+
 # The canonical k that phase 6 times the gstack selection above k = 128 at
 # (k=1024 is not built there: it prints so).
 GSTACK_BIG_TIMED = (129, 256, 512, 1024)
@@ -2946,8 +3210,29 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
             if (k, precision) == (512, "bf16x3"):
                 per_kernel["gstack_bigk"] = cell
         del qp, cp, cbp
+    # The stack selection at the canonical shape in its class: k=17 and 32
+    # at query tile 16 (the main path's tile 64 keeps the slack), both
+    # cores.
+    for precision in ("bf16x3", "highest"):
+        qp = F.prepare_queries(q, "cosine", precision)
+        cp, cbp = F.prepare_corpus(c, "cosine", precision=precision)
+        passes, peak = ((3, "bfloat16") if precision == "bf16x3"
+                        else (1, "float32_cuda_cores"))
+        for k in STACK_TIMED_KS:
+            tm, splits, tps = F.kernel_geometry(N_QUERIES, N_CORPUS, k,
+                                                precision, q.device, 16,
+                                                dim=DIM)
+            bound = _bound(qp.nbytes + cp.nbytes + cbp.nbytes
+                           + N_QUERIES * splits * k * 8,
+                           passes * 2 * N_QUERIES * N_CORPUS * DIM, peak)
+            _time_stack(F, torch, card, f"canonical k={k} {precision} "
+                        f"(tm={tm}, splits={splits})",
+                        (qp, cp, cbp, None, k, precision, splits, tps, tm),
+                        lambda k=k: library(k), bound)
+        del qp, cp, cbp
     _time_merge(F, torch, card)
     canon = pmt.Corpus(c_np)
+    q_card = torch.from_numpy(q_np).to("cuda")
     for k in (10, 100, 512):
         canon.topk(q_np, k)
         ts = []
@@ -2959,7 +3244,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
               f"{statistics.median(ts):.3f} ms host per 1000-query request")
         profile_request(torch, lambda: canon.topk(q_np, k),
                         f"canonical Corpus.topk k={k}", card,
-                        statistics.median(ts))
+                        statistics.median(ts),
+                        ab_ms=_request_ab_ms(F, canon, q_card, k, "bf16x3"))
     canon = pmt.Corpus(c_np, config=pmt.SearchConfig(precision="highest"))
     canon.topk(q_np, 10)
     ts = []
@@ -2972,7 +3258,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
           f"request")
     profile_request(torch, lambda: canon.topk(q_np, 10),
                     "canonical Corpus.topk k=10 highest", card,
-                    statistics.median(ts))
+                    statistics.median(ts),
+                    ab_ms=_request_ab_ms(F, canon, q_card, 10, "highest"))
     del canon
     big = {core: _time_big(F, torch, corpus_big, requests, card, core)
            for core in ("bf16x3", "highest")}
@@ -2980,6 +3267,8 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
     big["highest"].pop("bucket", None)
     per_kernel["gstack"] = big["bf16x3"].pop("gstack")
     big["highest"].pop("gstack", None)
+    per_kernel["stack"] = big["bf16x3"].pop("stack")
+    big["highest"].pop("stack", None)
     per_kernel["gated"] = _time_big_gate(F, torch, corpus_big, requests,
                                          card, big["bf16x3"])
     for (batch, k), qb in requests.items():
@@ -2997,7 +3286,7 @@ def phase_times(pmt, F, torch, q_np, c_np, corpus_big, requests, card):
               f"A+B {dev:.3f} ms device")
         profile_request(torch, lambda: corpus_big.topk(qb, k),
                         f"{BIG_ROWS}x{DIM} batch {batch} k={k}", card,
-                        statistics.median(ts))
+                        statistics.median(ts), ab_ms=dev)
     return per_kernel
 
 
@@ -3080,6 +3369,26 @@ def _time_big(F, torch, corpus_big, requests, card, core):
     _time_gstack(F, torch, card, f"{BIG_ROWS}x{DIM} batch 8 k=100 {core} "
                  f"(tm={tm}, splits={splits})",
                  (qp, cp, cbp, None, 100, core, splits, tps, tm))
+    # The stack at batch 8 in its class (tile 16: the main path's launch).
+    qn = qb / qb.norm(dim=1, keepdim=True)
+    for k in STACK_TIMED_KS:
+        tm, splits, tps = F.kernel_geometry(8, BIG_ROWS, k, core, qp.device,
+                                            dim=DIM)
+        require(F.stack_route("auto", k, tm, False, core),
+                f"batch 8 k={k} {core} is not in the stack's class")
+
+        def library(k=k):
+            with exact_matmul():
+                return torch.topk(torch.addmm(zero, qn, cn.T), k, dim=1)
+
+        bound = _bound(qp.nbytes + cp.nbytes + cbp.nbytes + 8 * splits * k * 8,
+                       passes * 2 * 8 * BIG_ROWS * DIM, peak)
+        entry = _time_stack(F, torch, card, f"{BIG_ROWS}x{DIM} batch 8 k={k} "
+                            f"{core} (tm={tm}, splits={splits})",
+                            (qp, cp, cbp, None, k, core, splits, tps, tm),
+                            library, bound)
+        if k == max(STACK_TIMED_KS):
+            measured["stack"] = entry
     del cp, cbp, cn
     return measured
 
@@ -3321,7 +3630,8 @@ def phase_wide(pmt, F, torch, card, err):
                   f"{bound[0]:.3f} ms ({bound[1]}), library torch.addmm + "
                   f"torch.topk on the dequantised bf16 rows {lib:.3f} ms")
             profile_request(torch, lambda: corpus.topk(qb, k),
-                            f"{label} batch {batch} k={k}", card, host)
+                            f"{label} batch {batch} k={k}", card, host,
+                            ab_ms=ab)
             if tier == "int8":
                 tm, splits, tps = F.kernel_geometry(batch, corpus.n, k, core,
                                                     qp.device, dim=corpus.dim)
@@ -5626,7 +5936,8 @@ def main() -> int:
           f"{cores}")
     for name in ("fused_topk_partial", "fused_topk_partial_radix",
                  "fused_topk_partial_bucket", "fused_topk_partial_gstack",
-                 "fused_topk_partial_gstack_bigk", "topk_merge"):
+                 "fused_topk_partial_gstack_bigk", "fused_topk_partial_stack",
+                 "topk_merge"):
         require(counts[name] > 0, f"{name} never launched on the main path")
     for core in ("bf16x3", "highest"):
         require(cores[core] > 0, f"{core} never launched on the main path")
@@ -5645,6 +5956,7 @@ def main() -> int:
     _gate_summary(card)
     _bucket_summary(card)
     _gstack_summary(card)
+    _stack_summary(card)
     launches = dict(cores, **wide_counts)
     launches["topk_merge"] += counts["topk_merge"]
     kernels = [dict({"name": f"fused_topk_partial.{core}", "route": "cuda",
@@ -5727,6 +6039,18 @@ def main() -> int:
                          "launches": counts["fused_topk_partial_gstack_bigk"],
                          "max_abs_err": err["bf16x3"]},
                         **per_kernel["gstack_bigk"]))
+    # Kernel A asked for the stack selection (the JAX kernel's
+    # _select_stack): its launches on the f32 main path (phase 4's "auto"
+    # requests in its class and its selection="stack" request); its lists
+    # equal the slack's bit for bit (phase 2), so its error against the
+    # plain version is the bf16x3 core's.
+    kernels.append(dict({"name": "fused_topk_partial.stack",
+                         "route": "cuda",
+                         "source": KERNEL_SRC + "fused_topk.cu",
+                         "replaces": STACK_SRC,
+                         "launches": counts["fused_topk_partial_stack"],
+                         "max_abs_err": err["bf16x3"]},
+                        **per_kernel["stack"]))
     kernels += phase_matmul(pmt, F, torch, q, c, card)
     kernels += phase_floor(F, torch, card)
     torch.cuda.empty_cache()

@@ -50,9 +50,14 @@ On this port:
   radix selection in every cell measured on the card (canonical bf16x3
   k=512 1.3369 against 0.7134 ms), so an explicit "gstack" above k = 128
   is slower than the radix it ran before; "auto" takes it where
-  ``kernels.fused_topk.gstack_route`` says (nowhere).
-  Every other value, and these three where their selection is not built,
-  runs kernel A's own selection by k (``kernels.fused_topk.selection``:
+  ``kernels.fused_topk.gstack_route`` says (nowhere).  "stack" and "auto"
+  run kernel A's port of the JAX kernel's stack selection in its class
+  (``kernels.fused_topk.stack_route``: dense, 17 <= k <= 32, query tiles
+  16 and 32, the bf16x3 and highest cores, where its tail leaves two
+  blocks an SM), where it was faster than the slack on the card; the
+  same lists, bit for bit.
+  Every other value, and these four where their selection is not built
+  or outside its class, runs kernel A's own selection by k (``kernels.fused_topk.selection``:
   the insertion at k <= 16, the slack at k <= 128, the radix selection
   above).  An explicit "gpop",
   "gstack", "bucket", "stack" or "insert" outside the envelope the JAX

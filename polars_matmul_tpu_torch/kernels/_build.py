@@ -87,6 +87,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pmm_fused_topk_levels.restype = i
     lib.pmm_fused_topk_gstack_big.argtypes = [i, i, i, i, p]
     lib.pmm_fused_topk_gstack_big.restype = i
+    lib.pmm_fused_topk_stack.argtypes = [i, i, i, i, p]
+    lib.pmm_fused_topk_stack.restype = i
     lib.pmm_topk_merge.argtypes = [p, p, p, p, i, i, i, p]
     lib.pmm_topk_merge.restype = i
     lib.pmm_topk_merge_plan.argtypes = [p] * 5 + [i] * 5 + [p]

@@ -161,6 +161,14 @@ extern "C" int pmm_fused_topk_gstack_launch(
     int n, int dim, int c_ld, int ck, int k, int splits, int tiles_per_split,
     int p, int tn_tiles, int block_rows, int tm, int core, int listed,
     int prune, int* gate_count, int* sel_count, int* flags, void* stream);
+// The same for the stack selection of a dense scan, instantiated in
+// fused_topk_stack.cu (PMM_STACK_UNIT) where stack_built: it has no
+// counters and no re-walk.
+extern "C" int pmm_fused_topk_stack_launch(
+    const void* qp, const void* cp, const float* scale, const float* cb,
+    const uint8_t* mask, float* part_v, int* part_i, int m, int n, int dim,
+    int c_ld, int ck, int k, int splits, int tiles_per_split, int tm,
+    int core, int prune, int* gate_count, void* stream);
 // The same for the gstack selection above kAppendMaxK, instantiated in
 // fused_topk_gstack_big.cu (PMM_GSTACK_BIG_UNIT) on gstack_big_plan's
 // depth.
@@ -317,11 +325,16 @@ constexpr int kRadixWords = (1 << kRadixBits) / 2;
 // kGstackBig is the gstack selection above kAppendMaxK: the launch's alt
 // asks for it as kGstack.
 enum Selection { kInsert = 0, kAppend = 1, kRadix = 2, kBucket = 3,
-                 kGstack = 4, kGstackBig = 5 };
+                 kGstack = 4, kGstackBig = 5, kStack = 6 };
 
 // Whether SEL is either gstack selection.
 __host__ __device__ constexpr bool gstack_sel(int sel) {
   return sel == kGstack || sel == kGstackBig;
+}
+
+// Whether SEL's threshold is a word a row (the carry gate's WORD).
+__host__ __device__ constexpr bool word_bound(int sel) {
+  return sel == kRadix || gstack_sel(sel) || sel == kStack;
 }
 
 __host__ __device__ constexpr int selection(int k) {
@@ -1850,6 +1863,236 @@ __device__ inline void gstack_big_finish(float* Cv, int k, int levels,
 }
 
 // ---------------------------------------------------------------------------
+// The stack selection (SEL kStack, k up to kAppendMaxK, on request): the
+// port of the TPU kernel's per-tile stacks (_select_stack fused_topk.py
+// :337, _stack_geometry :323, _STACK_DEPTH :270).  There each of the 128
+// lane classes of a tile of block_n corpus rows keeps a sorted stack of its
+// best min(8, groups) scores of the tile, a group id packed into each
+// score's low mantissa bits (scores truncated by up to 31 ulps); one
+// pop-merge takes the best k of the carry and the stacks, and a class
+// whose next level could hold a winner sends the tile through the exact
+// extraction again.  Here a window of kStackWindow consecutive tiles of the
+// block's split stands for one JAX tile of 64 kStackWindow rows.  Each (row,
+// column of the 64-column tile) cell keeps the window's exact sel_keys that
+// beat the row's bound (the carry's k-th value when the window began,
+// strict >, the carry gate's word), sorted, in shared memory with a count
+// (stack_tile): keys are exact, so nothing is truncated.  A cell meets one
+// score a tile, so cells kStackWindow deep hold every candidate of the
+// window: the JAX kernel's case groups <= depth, where nothing can be lost
+// and nothing is detected.  At the window's end (stack_window_end) the
+// row's warp pops its best cell head while that beats the carry entry it
+// would displace, and merges the popped entries into the carry by rank:
+// the carry is then the exact top k of carry and window, and its k-th
+// value the next bound.
+// ---------------------------------------------------------------------------
+
+// The stack selection's window, in tiles of the split, and its cells'
+// depth (chosen by measurement on the H100 among windows of 4, 8 and 16,
+// PERF.md: the shortest was the fastest at 17 <= k <= 32, its tail the
+// smallest).
+constexpr int kStackWindow = 4;
+static_assert(kStackWindow >= 1 && kStackWindow <= 8,
+              "cells as deep as the window, at most the TPU kernel's "
+              "_STACK_DEPTH");
+
+// Words of a row's state: whether the window put any, then 64 count bytes
+// (a cell's entries).
+constexpr int kStackStateWords = 1 + kGstackCells / 4;
+
+// Shared memory after the staging: the score tile, each row's bound, each
+// row's state, each row's carry of k keys, each row's kGstackCells x
+// kStackWindow keys (level-major: key l * 64 + cell), then each warp's 2k
+// keys of merge scratch.
+__host__ __device__ inline size_t stack_tail_bytes(int tm, int k) {
+  return (size_t)tm * (kTN + 1) * sizeof(float) + (size_t)tm * sizeof(float)
+       + (size_t)tm * kStackStateWords * sizeof(uint32_t)
+       + (size_t)tm * k * sizeof(uint64_t)
+       + (size_t)tm * kGstackCells * kStackWindow * sizeof(uint64_t)
+       + (size_t)kWarps * 2 * k * sizeof(uint64_t);
+}
+
+// The stack selection's state: Cv is the word after the score tile,
+// holding each row's bound, then the rows' states, carries, cells and the
+// warps' scratch.
+template <int TM>
+struct StackState {
+  float* Cv;
+  int k;
+  __device__ uint32_t* state(int r) const {
+    return reinterpret_cast<uint32_t*>(Cv + TM) + r * kStackStateWords;
+  }
+  __device__ uint8_t* used(int r) const {
+    return reinterpret_cast<uint8_t*>(state(r) + 1);
+  }
+  __device__ uint64_t* carry(int r) const {
+    return reinterpret_cast<uint64_t*>(Cv + TM + TM * kStackStateWords) +
+           (size_t)r * k;
+  }
+  __device__ uint64_t* cells(int r) const {
+    return carry(TM) + (size_t)r * kGstackCells * kStackWindow;
+  }
+  __device__ uint64_t* scratch(int warp) const {
+    return cells(TM) + (size_t)warp * 2 * k;
+  }
+};
+
+// Bounds -inf (+inf past m, which the gate then never counts), clear
+// states, empty carries.
+template <int TM>
+__device__ inline void init_stack(const StackState<TM>& S, int rows_valid) {
+  for (int r = threadIdx.x; r < TM; r += kThreads)
+    S.Cv[r] = r < rows_valid ? -INFINITY : INFINITY;
+  uint32_t* st = S.state(0);
+  for (int e = threadIdx.x; e < TM * kStackStateWords; e += kThreads)
+    st[e] = 0u;
+  uint64_t* key = S.carry(0);
+  for (int e = threadIdx.x; e < TM * S.k; e += kThreads) key[e] = kEmptyKey;
+}
+
+// Puts candidate x in its cell (cell[l * kGstackCells], l < *used, best
+// first).  The cell holds fewer than kStackWindow entries: it meets one
+// score a tile.  Keys are distinct.
+__device__ __forceinline__ void stack_put(uint64_t* cell, uint8_t* used,
+                                          uint64_t x) {
+  int p = *used;
+  *used = (uint8_t)(p + 1);
+  for (; p > 0; --p) {
+    const uint64_t y = cell[(p - 1) * kGstackCells];
+    if (y > x) break;
+    cell[p * kGstackCells] = y;
+  }
+  cell[p * kGstackCells] = x;
+}
+
+// The stack selection of one TM x kTN score tile: one warp per query row.
+// A score is a candidate if it beats the row's bound (strict >); each lane
+// puts its candidates in its two cells (columns lane and 32 + lane).
+template <int TM>
+__device__ inline void stack_tile(const float* St, const StackState<TM>& S,
+                                  int n0, int rows_valid, int warp,
+                                  int lane) {
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const float s0 = St[r * (kTN + 1) + lane];
+    const float s1 = St[r * (kTN + 1) + 32 + lane];
+    const float bound = S.Cv[r];
+    const bool c0 = s0 > bound, c1 = s1 > bound;
+    if (!__any_sync(0xffffffffu, c0 || c1)) continue;
+    uint64_t* cell = S.cells(r);
+    uint8_t* used = S.used(r);
+    if (c0) stack_put(cell + lane, used + lane, sel_key(s0, n0 + lane));
+    if (c1)
+      stack_put(cell + 32 + lane, used + 32 + lane,
+                sel_key(s1, n0 + 32 + lane));
+    if (lane == 0) S.state(r)[0] = 1u;
+  }
+}
+
+// Entries of a[0, n), sorted best first, that beat x.
+__device__ __forceinline__ int keys_above(const uint64_t* a, int n,
+                                          uint64_t x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The end of a window, for each of the warp's rows that put any (the port
+// of _select_stack's pop-merge): the warp pops the best of its lanes' two
+// cell heads (a max over the high words, then over the low words of the
+// lanes that hold that high word) while it beats the carry entry it would
+// displace (the pop's c-th beats carry[k - 1 - c]; the next ones are worse
+// and the carry's better), to scratch[c].  Then each popped entry goes to
+// place c + (carry entries above it) and each of the carry's first k - c
+// to j + (popped entries above it), in scratch[k, 2k), copied back as the
+// carry, whose k-th value is the row's new bound.  Whole warp calls.
+template <int TM>
+__device__ inline void stack_window_end(const StackState<TM>& S,
+                                        int rows_valid, int warp,
+                                        int lane) {
+  const int k = S.k;
+  uint64_t* scratch = S.scratch(warp);
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    __syncwarp();
+    uint32_t* st = S.state(r);
+    if (st[0] == 0u) continue;
+    const uint64_t* cell = S.cells(r);
+    uint64_t* carry = S.carry(r);
+    uint8_t* used = S.used(r);
+    const int u0 = used[lane], u1 = used[32 + lane];
+    int p0 = 0, p1 = 0;
+    uint64_t h0 = u0 > 0 ? cell[lane] : kEmptyKey;
+    uint64_t h1 = u1 > 0 ? cell[32 + lane] : kEmptyKey;
+    int c = 0;
+    for (; c < k; ++c) {
+      const uint64_t best = key_max(h0, h1);
+      const unsigned hi =
+          __reduce_max_sync(0xffffffffu, (unsigned)(best >> 32));
+      const unsigned lo = __reduce_max_sync(
+          0xffffffffu, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+      const uint64_t win = ((uint64_t)hi << 32) | lo;
+      // Empty (nothing left) never beats a carry entry.
+      if (win <= carry[k - 1 - c]) break;
+      if (lane == 0) scratch[c] = win;
+      if (best == win) {   // real keys are distinct: one lane holds it
+        if (h0 == win) {
+          ++p0;
+          h0 = p0 < u0 ? cell[p0 * kGstackCells + lane] : kEmptyKey;
+        } else {
+          ++p1;
+          h1 = p1 < u1 ? cell[p1 * kGstackCells + 32 + lane] : kEmptyKey;
+        }
+      }
+    }
+    __syncwarp();
+    if (c > 0) {
+      uint64_t* out = scratch + k;
+      for (int i = lane; i < c; i += 32) {
+        const uint64_t x = scratch[i];
+        out[i + keys_above(carry, k, x)] = x;
+      }
+      for (int j = lane; j < k - c; j += 32) {
+        const uint64_t x = carry[j];
+        out[j + keys_above(scratch, c, x)] = x;
+      }
+      __syncwarp();
+      for (int j = lane; j < k; j += 32) carry[j] = out[j];
+    }
+    used[lane] = 0;
+    used[32 + lane] = 0;
+    __syncwarp();
+    if (lane == 0) {
+      st[0] = 0u;
+      S.Cv[r] = key_value(carry[k - 1]);
+    }
+  }
+  __syncwarp();
+}
+
+// The stack selection's end of a split, after the walk's last barrier:
+// the last window's end, then each row's carry to its output slots
+// ((-inf, INT32_MAX) past the last real entry).  Every thread calls.
+template <int TM>
+__device__ inline void stack_finish(const StackState<TM>& S, int rows_valid,
+                                    int warp, int lane, float* part_v,
+                                    int* part_i, int row0, int splits,
+                                    int split) {
+  stack_window_end<TM>(S, rows_valid, warp, lane);
+  for (int r = warp; r < rows_valid; r += kWarps) {
+    const uint64_t* carry = S.carry(r);
+    const size_t o = ((size_t)(row0 + r) * splits + split) * S.k;
+    for (int j = lane; j < S.k; j += 32) {
+      part_v[o + j] = key_value(carry[j]);
+      part_i[o + j] = key_index(carry[j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The carry gate: the TPU kernel's exact tile pruning (prune=, fused_topk.py
 // :1434-1478, prune_eff :1995), a runtime argument of every kernel here.
 //
@@ -2132,15 +2375,18 @@ fused_topk_f32_kernel(const float* __restrict__ q,
     init_gstack<TM>(Cv, levels, rows_valid);
   else if constexpr (SEL == kGstackBig)
     init_gstack_big<TM>(Cv, levels, rows_valid);
+  else if constexpr (SEL == kStack)
+    init_stack<TM>(StackState<TM>{Cv, k}, rows_valid);
   else
     init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1), SEL == kRadix || gstack_sel(SEL)> gate{
+  const CarryGate<TM * (kTN + 1), word_bound(SEL)> gate{
       k, prune, gate_count};
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
   [[maybe_unused]] BucketCells<TM / kWarps> cells;
   if constexpr (SEL == kBucket) init_bucket(cells, Lv);
+  [[maybe_unused]] int window = 0;   // the stack selection's
 
   // The producer: the next position (its step's first tile, its chunk)
   // into stage `to`; one commit group a position, empty or not.  The first
@@ -2233,6 +2479,15 @@ fused_topk_f32_kernel(const float* __restrict__ q,
                                lane);
       else if constexpr (SEL == kGstackBig)
         gstack_big_tile<TM>(St, Cv, k, levels, n0, rows_valid, warp, lane);
+      else if constexpr (SEL == kStack) {
+        const StackState<TM> S{Cv, k};
+        const int w = (t0 + t - t_begin) / kStackWindow;
+        if (w != window) {
+          stack_window_end<TM>(S, rows_valid, warp, lane);
+          window = w;
+        }
+        stack_tile<TM>(St, S, n0, rows_valid, warp, lane);
+      }
       else if constexpr (SEL == kBucket)
         bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN, cells,
                         k, n0, rows_valid, warp, lane, sel_count);
@@ -2259,6 +2514,11 @@ fused_topk_f32_kernel(const float* __restrict__ q,
   if constexpr (SEL == kGstackBig) {
     gstack_big_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v,
                           part_i, row0, splits, split, sel_count, flags);
+    return;
+  }
+  if constexpr (SEL == kStack) {
+    stack_finish<TM>(StackState<TM>{Cv, k}, rows_valid, warp, lane, part_v,
+                     part_i, row0, splits, split);
     return;
   }
   if constexpr (SEL == kAppend)
@@ -2329,19 +2589,22 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
     init_gstack<TM>(Cv, levels, rows_valid);
   else if constexpr (SEL == kGstackBig)
     init_gstack_big<TM>(Cv, levels, rows_valid);
+  else if constexpr (SEL == kStack)
+    init_stack<TM>(StackState<TM>{Cv, k}, rows_valid);
   else
     init_carry(Cv, Ci, k, TM, rows_valid);
-  const CarryGate<TM * (kTN + 1), SEL == kRadix || gstack_sel(SEL)> gate{
+  const CarryGate<TM * (kTN + 1), word_bound(SEL)> gate{
       k, prune, gate_count};
   if constexpr (SEL == kAppend)   // the slack counts
     for (int r = tid; r < TM; r += kThreads)
       reinterpret_cast<int*>(Lv)[r] = 0;
   [[maybe_unused]] BucketCells<TM / kWarps> cells;
   if constexpr (SEL == kBucket) init_bucket(cells, Lv);
+  [[maybe_unused]] int window = 0;   // the stack selection's
   ring_walk<TM, CORE, LISTED>(
       qp, cp, scale, cb, mask, list, layout_tiles, tn_tiles, smem, St, row0,
       m, n, dim, c_ld, ck, t_begin, t_end, stages, q_resident, vec,
-      [&](int, int n0) {
+      [&](int t, int n0) {
         if constexpr (SEL == kRadix)
           radix_tile<TM, radix_lean(TM, CORE)>(St, Cv, k, n0, rows_valid,
                                                warp, lane, part_v, part_i,
@@ -2351,6 +2614,15 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
                                                 rows_valid, warp, lane);
         else if constexpr (SEL == kGstackBig)
           gstack_big_tile<TM>(St, Cv, k, levels, n0, rows_valid, warp, lane);
+        else if constexpr (SEL == kStack) {
+          const StackState<TM> S{Cv, k};
+          const int w = (t - t_begin) / kStackWindow;
+          if (w != window) {
+            stack_window_end<TM>(S, rows_valid, warp, lane);
+            window = w;
+          }
+          stack_tile<TM>(St, S, n0, rows_valid, warp, lane);
+        }
         else if constexpr (SEL == kBucket)
           bucket_tile<TM>(St, Cv, Ci, Lv + warp * kTN, Li + warp * kTN,
                           cells, k, n0, rows_valid, warp, lane, sel_count);
@@ -2376,6 +2648,11 @@ fused_topk_stored_kernel(const uint16_t* __restrict__ qp,
   if constexpr (SEL == kGstackBig) {
     gstack_big_finish<TM>(Cv, k, levels, rows_valid, warp, lane, part_v,
                           part_i, row0, splits, split, sel_count, flags);
+    return;
+  }
+  if constexpr (SEL == kStack) {
+    stack_finish<TM>(StackState<TM>{Cv, k}, rows_valid, warp, lane, part_v,
+                     part_i, row0, splits, split);
     return;
   }
   if constexpr (SEL == kAppend)
@@ -2557,6 +2834,43 @@ RingPlan gstack_plan(int k, int c_ld) {
   }
 }
 
+// The stack selection's instantiations: the bf16x3 core's mma.sync ring
+// (and its wide form) and the f32 walk, at query tiles 16 and 32, dense
+// (the class fused_topk.stack_route takes it in; the other cores, query
+// tile 64 and the tile lists were slower or not measured, PERF.md).
+template <int TM, int CORE, bool LISTED>
+constexpr bool stack_instance() {
+  return (TM == 16 || TM == 32) && (CORE == kBf16x3 || CORE == kHighest) &&
+         !LISTED;
+}
+
+// Whether a dense launch of kernel A at query tile tm, core and k that
+// asks for the stack selection takes it: k up to kAppendMaxK on an
+// instantiation, where its tail fits beside the ring's least plan.
+inline bool stack_built(int tm, int core, int k) {
+  if (k < 1 || k > kAppendMaxK || (tm != 16 && tm != 32) ||
+      (core != kBf16x3 && core != kHighest))
+    return false;
+  const size_t ring = 2 * (core == kHighest ? f32_stage_bytes(tm, false)
+                                            : ring_stage_bytes(tm, core,
+                                                               false));
+  return ring + stack_tail_bytes(tm, k) <= kMaxSmem;
+}
+
+// The ring of the stack instantiation beside its tail.
+template <int TM, int CORE>
+RingPlan stack_plan(int k, int c_ld) {
+  const size_t tail = stack_tail_bytes(TM, k);
+  if constexpr (CORE == kHighest) {
+    return f32_plan(TM, c_ld, tail);
+  } else {
+    const int core = ring_core_beside<TM, CORE>(c_ld, tail);
+    return ring_plan(TM, core,
+                     ring_chunks(TM, core, c_ld * ring_elem_bytes(core)),
+                     tail);
+  }
+}
+
 // The gstack selection's plan above kAppendMaxK at query tile tm, core, k
 // and tiles_per_split tps: its depth, and whether it is built.  Lossless
 // first: a cell sees one score a tile, so levels >= tps never drop one (at
@@ -2686,6 +3000,24 @@ auto gstack_big_kernel(int c_ld, size_t tail, size_t& bytes,
   }
 }
 
+// The stack instantiation of kernel<TM, CORE, false> (bf16x3 on the ring
+// ring_core_beside picks beside its tail), its shared memory and its ring,
+// where stack_built.
+template <int TM, int CORE>
+auto stack_kernel_of(int k, int c_ld, size_t& bytes, RingPlan& plan) {
+  plan = stack_plan<TM, CORE>(k, c_ld);
+  bytes = plan.bytes;
+  if constexpr (CORE == kHighest) {
+    return fused_topk_f32_kernel<TM, false, kStack>;
+  } else {
+    if constexpr (TM != 32)
+      if (ring_core_beside<TM, CORE>(c_ld, stack_tail_bytes(TM, k)) ==
+          kBf16x3W)
+        return fused_topk_stored_kernel<TM, kBf16x3W, false, kStack>;
+    return fused_topk_stored_kernel<TM, CORE, false, kStack>;
+  }
+}
+
 // One launch of `kern`, a kernel<TM, CORE, LISTED> of `bytes` shared
 // memory on `plan`: sel_count the selection's counters, levels and flags
 // the gstack's (its depth; its block flags, written by a gstack launch,
@@ -2735,15 +3067,17 @@ int launch_kernel(Kern kern, size_t bytes, const RingPlan& plan,
   return (int)cudaGetLastError();
 }
 
-#if !defined(PMM_GSTACK_UNIT) && !defined(PMM_GSTACK_BIG_UNIT)
-// Kernel A as alt asks (0: its selection by k, kBucket, kGstack).  A
-// gstack launch (the gstack units' pmm_fused_topk_gstack_launch and
+#if !defined(PMM_GSTACK_UNIT) && !defined(PMM_GSTACK_BIG_UNIT) && \
+    !defined(PMM_STACK_UNIT)
+// Kernel A as alt asks (0: its selection by k, kBucket, kGstack, kStack).
+// A gstack launch (the units' pmm_fused_topk_gstack_launch and
 // pmm_fused_topk_gstack_big_launch) is followed by the exact selection's
 // launch on the same grid, which walks again, exactly, the splits of the
-// blocks the gstack's detector flagged and returns at once in every other
-// block: no host synchronisation, and the lists are the exact selection's
-// bit for bit.  A lossless plan above kAppendMaxK (levels >= the split's
-// tiles) cannot fire and launches no re-walk.
+// blocks the detector flagged and returns at once in every other block: no
+// host synchronisation, and the lists are the exact selection's bit for
+// bit.  A lossless plan above kAppendMaxK (levels >= the split's tiles)
+// cannot fire and launches no re-walk; nor does the stack selection
+// (pmm_fused_topk_stack_launch), whose cells are lossless.
 template <int TM, int CORE, bool LISTED>
 int launch(const void* qp, const void* cp, const float* scale,
            const float* cb, const uint8_t* mask, const int* tiles,
@@ -2759,6 +3093,11 @@ int launch(const void* qp, const void* cp, const float* scale,
         k, splits, tiles_per_split, p, tn_tiles, block_rows, TM, CORE,
         LISTED, prune, gate_count, sel_count, flags, stream);
     if (rc != 0) return rc;
+  } else if (alt == kStack && !LISTED && stack_built(TM, CORE, k)) {
+    return pmm_fused_topk_stack_launch(qp, cp, scale, cb, mask, part_v,
+                                       part_i, m, n, dim, c_ld, ck, k, splits,
+                                       tiles_per_split, TM, CORE, prune,
+                                       gate_count, stream);
   } else if (alt == kGstack && k > kAppendMaxK) {
     const GstackBig big = gstack_big_plan(TM, CORE, k, tiles_per_split);
     if (big.built) {
@@ -2802,7 +3141,7 @@ int occupancy(int k, int c_ld) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-#endif  // !PMM_GSTACK_UNIT && !PMM_GSTACK_BIG_UNIT
+#endif  // !PMM_GSTACK_UNIT && !PMM_GSTACK_BIG_UNIT && !PMM_STACK_UNIT
 
 // Calls f(TM, CORE, LISTED) with all three as integral constants, or
 // returns -1.
@@ -2859,6 +3198,51 @@ int pmm_fused_topk_gstack_launch(
     }
   });
 }
+#elif defined(PMM_STACK_UNIT)
+int pmm_fused_topk_stack_launch(
+    const void* qp, const void* cp, const float* scale, const float* cb,
+    const uint8_t* mask, float* part_v, int* part_i, int m, int n, int dim,
+    int c_ld, int ck, int k, int splits, int tiles_per_split, int tm,
+    int core, int prune, int* gate_count, void* stream) {
+  if (!stack_built(tm, core, k)) return -1;
+  return dispatch(tm, core, false, [&](auto tmc, auto cc, auto lc) {
+    constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
+    if constexpr (!stack_instance<TM, CORE, decltype(lc)::value>()) {
+      return -1;
+    } else {
+      size_t bytes;
+      RingPlan plan{};
+      auto kern = stack_kernel_of<TM, CORE>(k, c_ld, bytes, plan);
+      return launch_kernel<TM, CORE, false>(
+          kern, bytes, plan, qp, cp, scale, cb, mask, nullptr, part_v, part_i,
+          m, n, dim, c_ld, ck, k, splits, tiles_per_split, 0, 0, 0,
+          prune != 0, gate_count, nullptr, 0, nullptr,
+          static_cast<cudaStream_t>(stream));
+    }
+  });
+}
+
+extern "C" {
+
+// Whether a dense launch of kernel A at query tile tm, core and k that
+// asks for the stack selection takes it (1 or 0; -1 for k <= 0), and out =
+// {its window (its cells' depth), its tail plus the ring's least plan in
+// bytes, its ring's stages (0 where not built)}.
+int pmm_fused_topk_stack(int tm, int core, int k, int c_ld, int* out) {
+  if (k <= 0 || c_ld <= 0 || core < 0 || core > kInt4c) return -1;
+  const bool built = stack_built(tm, core, k);
+  out[0] = kStackWindow;
+  out[1] = (int)(2 * (core == kHighest ? f32_stage_bytes(tm, false)
+                                       : ring_stage_bytes(tm, core, false)) +
+                 stack_tail_bytes(tm, k));
+  out[2] = !built ? 0 : dispatch(tm, core, false, [&](auto tmc, auto cc, auto) {
+    constexpr int TM = decltype(tmc)::value, CORE = decltype(cc)::value;
+    return stack_plan<TM, CORE>(k, c_ld).stages;
+  });
+  return built ? 1 : 0;
+}
+
+}  // extern "C"
 #elif defined(PMM_GSTACK_BIG_UNIT)
 int pmm_fused_topk_gstack_big_launch(
     const void* qp, const void* cp, const float* scale, const float* cb,
@@ -2912,13 +3296,14 @@ extern "C" {
 //
 // alt asks for another selection: 3 the bucket selection, which the
 // launch takes where pmm_fused_topk_bucket says so; 4 the gstack
-// selection, where pmm_fused_topk_gstack says so; 0 none (the lists are
-// the same, bit for bit, whatever alt is).  alt_count, if not null, is two
-// int32 counters such a launch adds to: the bucket's {windows ended,
-// overflow entries}, the gstack's {rows fired, blocks fired} (a row is a
-// query row's split).  flags, for a gstack launch, is one int32 a block
-// of the (ceil(m / tm), splits) grid, which it writes and its re-walk
-// reads.
+// selection, where pmm_fused_topk_gstack says so; 6 the stack selection,
+// where pmm_fused_topk_stack says so; 0 none (the lists are the same, bit
+// for bit, whatever alt is).  alt_count, if not null, is two int32
+// counters such a launch adds to: the bucket's {windows ended, overflow
+// entries}, the gstack's and the stack's {rows fired, blocks fired} (a
+// row is a query row's split).  flags, for a gstack or stack launch, is
+// one int32 a block of the (ceil(m / tm), splits) grid, which it writes
+// and its re-walk reads.
 int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                            const float* cb, const uint8_t* mask,
                            const int* tiles, float* part_v, int* part_i,
@@ -2928,7 +3313,8 @@ int pmm_fused_topk_partial(const void* qp, const void* cp, const float* scale,
                            int prune, int* gate_count, int alt,
                            int* alt_count, int* flags, void* stream) {
   if (m <= 0 || n <= 0 || dim <= 0 || k <= 0 || splits <= 0 ||
-      tiles_per_split <= 0 || (alt != 0 && alt != kBucket && alt != kGstack))
+      tiles_per_split <= 0 ||
+      (alt != 0 && alt != kBucket && alt != kGstack && alt != kStack))
     return -1;
   long long rows = n;
   if (tiles != nullptr) {
@@ -3030,4 +3416,4 @@ int pmm_fused_topk_ring(int tm, int core, int c_ld, int k, int* out) {
 }
 
 }  // extern "C"
-#endif  // PMM_GSTACK_UNIT / PMM_GSTACK_BIG_UNIT
+#endif  // PMM_GSTACK_UNIT / PMM_STACK_UNIT / PMM_GSTACK_BIG_UNIT

@@ -49,7 +49,12 @@ longer than its stacks are deep where that fits, so nothing is dropped,
 nothing fires and no re-walk runs; elsewhere lossy stacks with the
 detector and the re-walk; elsewhere still the radix selection at its own
 geometry.  It was slower than the radix selection in every cell measured
-on the card (``gstack_route``).  The (m, n) score matrix never reaches
+on the card (``gstack_route``).  ``selection="stack"`` and "auto" take
+the port of the JAX kernel's stack selection (``stack_built``: exact
+keys of windows of STACK_WINDOW tiles in per-column cells, popped into
+the carry at each window's end) in the class where it was faster on the
+card (``stack_route``: dense, 17 <= k <= 32, query tiles 16 and 32, the
+bf16x3 and highest cores, where its tail leaves two blocks an SM).  The (m, n) score matrix never reaches
 device memory: kernel A writes m * splits * k candidates.
 
 Metric handling is the JAX package's: cosine pre-scales queries and
@@ -160,6 +165,8 @@ launches = {
     # (``gstack_big_plan``), dense or listed, each with its re-walk launch
     # where the plan is lossy.
     "fused_topk_partial_gstack_bigk": 0,
+    # Kernel A's launches of the stack selection (``stack_built``), dense.
+    "fused_topk_partial_stack": 0,
     "topk_merge": 0,
     "fused_topk_plain": 0,
     "fused_topk_partial_plain": 0,
@@ -1230,16 +1237,19 @@ def _gstack_walk(s: torch.Tensor, k: int, tps: int, levels: int):
     return key_values(top), key_indices(top), fired
 
 
-def _gstack_dense(qp, cp, cbp, mask, k: int, precision: str, splits: int,
-                  tiles_per_split: int, levels: int):
-    """``_gstack_walk`` over the splits of a dense scan, about
-    _PLAIN_CHUNK scores of them at once (each split's tiles walked
-    together), scored in ``_plain_rows`` chunks."""
+def _walk_dense(walk, qp, cp, cbp, mask, k: int, precision: str,
+                splits: int, tiles_per_split: int):
+    """``walk(s, k, tiles_per_split)`` over the splits of a dense scan,
+    about _PLAIN_CHUNK scores of them at once (each split's tiles walked
+    together), scored in ``_plain_rows`` chunks.  ``walk`` takes (m, S,
+    tps * 64) scores and returns (m, S, k) values and indices within the
+    split, then any (m, S) tensors more (``_gstack_walk``'s fired), each
+    of which is returned whole after the values and the indices."""
     m, n = qp.shape[0], cp.shape[0]
     rows = tiles_per_split * _TN
     per = max(1, _PLAIN_CHUNK // max(1, m * rows))
     step = _plain_rows(qp)
-    vals, idx, fired = [], [], []
+    vals, idx, more = [], [], []
     for s0 in range(0, splits, per):
         s1 = min(splits, s0 + per)
         r1 = min(n, s1 * rows)
@@ -1250,13 +1260,13 @@ def _gstack_dense(qp, cp, cbp, mask, k: int, precision: str, splits: int,
             torch.empty((m, 0), device=qp.device)], dim=1)
         s = torch.nn.functional.pad(s, (0, (s1 - s0) * rows - (r1 - r0)),
                                     value=_NEG_INF)
-        v, i, f = _gstack_walk(s.reshape(m, s1 - s0, rows), k,
-                               tiles_per_split, levels)
+        v, i, *rest = walk(s.reshape(m, s1 - s0, rows), k, tiles_per_split)
         base = torch.arange(s0, s1, device=qp.device)[None, :, None] * rows
         vals.append(v)
         idx.append(torch.where(i == INT32_MAX, i, i + base.to(torch.int32)))
-        fired.append(f)
-    return torch.cat(vals, 1), torch.cat(idx, 1), torch.cat(fired, 1)
+        more.append(rest)
+    return (torch.cat(vals, 1), torch.cat(idx, 1),
+            *(torch.cat(x, 1) for x in zip(*more)))
 
 
 def gstack_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
@@ -1273,16 +1283,19 @@ def gstack_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
     is ``gstack_big_plan``'s at ``tiles_per_split``."""
     levels = (gstack_big_plan(tm, precision, k, tiles_per_split)[0]
               if k > APPEND_MAX_K else gstack_levels(k, tm))
+    def walk(s, k_, tps):
+        return _gstack_walk(s, k_, tps, levels)
+
     if tiles is None:
-        return _gstack_dense(qp, cp, cbp, mask, k, precision, splits,
-                             tiles_per_split, levels)
+        return _walk_dense(walk, qp, cp, cbp, mask, k, precision, splits,
+                           tiles_per_split)
     vals, idx, fired = [], [], []
     for b in range(tiles.shape[0]):
         r0, r1 = b * block_rows, min(qp.shape[0], (b + 1) * block_rows)
         gid, cp_b, cb_b, mk_b = _listed(cp, cbp, mask, tiles[b], tn,
                                         precision)
-        v, i, f = _gstack_dense(qp[r0:r1], cp_b, cb_b, mk_b, k, precision,
-                                splits, tiles_per_split, levels)
+        v, i, f = _walk_dense(walk, qp[r0:r1], cp_b, cb_b, mk_b, k,
+                              precision, splits, tiles_per_split)
         g = gid[torch.clamp(i.long(), max=gid.shape[0] - 1)]
         vals.append(v)
         idx.append(torch.where(i == INT32_MAX, i, g.to(torch.int32)))
@@ -1297,6 +1310,115 @@ def gstack_fires(fired: torch.Tensor, tm: int) -> Tuple[int, int]:
     pad = torch.nn.functional.pad(fired, (0, 0, 0, -m % tm))
     blocks = pad.reshape(-1, tm, splits).any(1)
     return int(fired.sum()), int(blocks.sum())
+
+
+# Kernel A's stack selection (the JAX kernel's ``_select_stack`` and its
+# ``_stack_geometry``): a window of STACK_WINDOW consecutive tiles of a
+# split stands for one JAX tile; each (query row, column of the 64-column
+# tile) cell keeps the window's exact keys that beat the row's bound (the
+# carry's k-th value when the window began); at the window's end the
+# cells' entries that enter the carry are popped and merged into it, so
+# the carry is the exact top k of carry and window.  A cell meets one score
+# a tile, so cells STACK_WINDOW deep never drop a candidate: nothing is
+# detected and nothing is walked again.  Its instantiations (dense, query
+# tiles 16 and 32, the bf16x3 and highest cores) are compiled in
+# ``csrc/fused_topk_stack.cu``.  The window (4 tiles) and the class
+# ``stack_route`` takes it in were chosen by measurement on the card
+# (PERF.md §6).
+STACK_WINDOW = 4
+# The stack's class: dense scans at STACK_MIN_K <= k <= STACK_MAX_K, query
+# tiles up to STACK_MAX_TM, the "bf16x3" and "highest" cores, where its
+# tail leaves two blocks an SM.  Its instantiations are the class's query
+# tiles and cores.
+STACK_MIN_K, STACK_MAX_K, STACK_MAX_TM = 17, 32, 32
+STACK_CORES = ("bf16x3", "highest")
+
+
+def stack_tail_bytes(tm: int, k: int) -> int:
+    """The stack instantiation's shared memory after its staging: the
+    score tile, each row's bound and 17 state words (whether the window
+    put any, 64 count bytes), each row's carry of k 8-byte keys, each
+    row's 64 x STACK_WINDOW keys, each warp's 2k keys of merge scratch."""
+    return (tm * (_TN + 1) * 4 + tm * 4 + tm * (1 + GSTACK_CELLS // 4) * 4
+            + tm * k * 8 + tm * GSTACK_CELLS * STACK_WINDOW * 8
+            + 8 * 2 * k * 8)
+
+
+def stack_built(tm: int, precision: str, k: int) -> bool:
+    """Whether a dense launch that asks for the stack selection takes it
+    (``pmm_fused_topk_stack`` in the source): k <= APPEND_MAX_K at query
+    tiles 16 and 32 on the bf16x3 core's mma.sync ring and the highest
+    core's f32 walk, where the tail fits beside the ring's least plan."""
+    if (not 1 <= k <= APPEND_MAX_K or tm not in (16, STACK_MAX_TM)
+            or precision not in STACK_CORES):
+        return False
+    return _least_ring(tm, precision) + stack_tail_bytes(tm, k) <= MAX_SMEM
+
+
+def stack_two_blocks(tm: int, precision: str, k: int) -> bool:
+    """Whether the stack instantiation's least plan (its tail beside a
+    two-stage ring) leaves room for two blocks an SM, as kernel A's own
+    selection keeps."""
+    nbytes = _least_ring(tm, precision) + stack_tail_bytes(tm, k)
+    return _SMEM_PER_SM // (nbytes + _SMEM_PER_BLOCK) >= 2
+
+
+def stack_route(selection_cfg: str, k: int, tm: int, listed: bool,
+                precision: str) -> bool:
+    """Whether kernel A is asked for the stack selection, by (k, query
+    tile, listed, core): under ``selection="stack"`` and "auto" in its
+    class (dense, STACK_MIN_K <= k <= STACK_MAX_K, where ``stack_built``
+    and ``stack_two_blocks``); every other value, and both outside the
+    class, keep ``selection(k)``.
+
+    On an NVIDIA H100 80GB HBM3 at 700 W (``ab_kernel_a.py --stack
+    --groups stack --rounds 2``, medians of four turns, PERF.md §6),
+    windows of 4 tiles were faster than the slack beyond the spread in
+    that class at the canonical operands: k=17 / 24 / 32 at query tiles 16
+    and 32 -15 % to -30 %; at 2M x 256 batch 8 (bytes-bound) within the
+    spread or a few per cent faster.  Where the stack's tail costs the
+    second block an SM it lost (bf16x3 at query tile 32, k=32: canonical
+    +6.1 %, 2M x 256 batch 32 +33 %), and outside the class it was slower
+    or level: canonical k=64 to 128 up to +92 %, 10M x 768 int8 batch 8
+    k=32 / 100 +32 / +41 %, the 2M x 256 clustered lists at k=100 +6 % to
+    +91 %.  So an explicit "stack" outside the class runs the slack, as
+    before."""
+    return (selection_cfg in ("stack", "auto") and not listed
+            and STACK_MIN_K <= k <= STACK_MAX_K
+            and stack_built(tm, precision, k)
+            and stack_two_blocks(tm, precision, k))
+
+
+def _stack_walk(s: torch.Tensor, k: int, tps: int):
+    """The stack walk of S splits of epilogue scores ``s`` (m, S, tps *
+    64), NaN as -inf, columns in walk order: (values, indices within the
+    split), the form of ``stack_tile`` / ``stack_window_end``: each
+    window's candidates beat the carry's k-th value, and the carry becomes
+    the top k of carry and candidates (the cells hold them all)."""
+    m, S, _ = s.shape
+    dev = s.device
+    carry = torch.full((m, S, k), EMPTY_KEY, dtype=torch.int64, device=dev)
+    for t0 in range(0, tps, STACK_WINDOW):
+        x = s[:, :, t0 * _TN:(t0 + STACK_WINDOW) * _TN]
+        col = torch.arange(t0 * _TN, t0 * _TN + x.shape[2],
+                           dtype=torch.int32, device=dev)
+        cand = x > key_values(carry[..., -1])[..., None]
+        if not bool(cand.any()):
+            continue
+        keys = torch.where(cand, select_keys(x, col.expand(m, S, -1)),
+                           EMPTY_KEY)
+        carry = torch.sort(torch.cat([carry, keys], 2), dim=2,
+                           descending=True).values[..., :k]
+    return key_values(carry), key_indices(carry)
+
+
+def stack_partial_plain(qp, cp, cbp, mask, k: int, precision: str,
+                        splits: int, tiles_per_split: int):
+    """Plain version of kernel A's stack walk of a dense scan: (part_v,
+    part_i), the split lists it writes, window by window.  Its cells are
+    lossless, so they are ``fused_topk_partial_plain``'s bit for bit."""
+    return _walk_dense(_stack_walk, qp, cp, cbp, mask, k, precision, splits,
+                       tiles_per_split)
 
 
 # Kernel A's gstack selection above APPEND_MAX_K (the JAX kernel's big-k
@@ -1726,7 +1848,8 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
                        bucket: bool = False,
                        bucket_count: Optional[torch.Tensor] = None,
                        gstack: bool = False,
-                       gstack_count: Optional[torch.Tensor] = None):
+                       gstack_count: Optional[torch.Tensor] = None,
+                       stack: bool = False):
     """Kernel A: (m, splits, k) f32 values and int32 indices.
 
     With ``tiles`` (n_lists, P), query rows [b * block_rows, (b + 1) *
@@ -1747,12 +1870,16 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
     a lossless plan above APPEND_MAX_K, which cannot fire);
     ``gstack_count``, a (2,) int32 tensor on the card, gains {rows fired,
     blocks fired} of such a launch (a row: a query row's split; a block:
-    a split of a query tile, which the second launch walks again).  On
-    the CPU all six change nothing."""
+    a split of a query tile, which the second launch walks again).
+    ``stack`` asks for the stack selection, which a dense launch takes
+    where ``stack_built`` (the same lists, bit for bit, in one launch).
+    On the CPU all seven change nothing."""
     _check_operands(qp, cp, cbp, mask, k, precision)
     if bucket and gstack:
         raise ValueError("ask for the bucket or the gstack selection, not "
                          "both")
+    if stack and (bucket or gstack):
+        raise ValueError("ask for the stack selection or another, not both")
     for name, count in (("gate_count", gate_count),
                         ("bucket_count", bucket_count),
                         ("gstack_count", gstack_count)):
@@ -1786,11 +1913,13 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
                          device=qp.device)
     part_i = torch.empty((m, splits, k), dtype=torch.int32, device=qp.device)
     gstack = gstack and gstack_built(tm, precision, k, tiles_per_split)
+    stack = stack and not listed and stack_built(tm, precision, k)
     # The gstack's block flags, one a (query tile, split), written by its
     # launch and read by the re-walk.
     flags = (torch.empty((-(-m // tm) * splits,), dtype=torch.int32,
                          device=qp.device) if gstack else None)
     alt, count = ((_ALT_GSTACK, gstack_count) if gstack
+                  else (_ALT_STACK, None) if stack
                   else (_ALT_BUCKET, bucket_count) if bucket else (0, None))
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1816,13 +1945,15 @@ def fused_topk_partial(qp, cp, cbp, mask, k: int, precision: str,
         launches["fused_topk_partial_bucket"] += 1
     elif gstack:
         launches["fused_topk_partial_gstack"] += 1
+    elif stack:
+        launches["fused_topk_partial_stack"] += 1
     core_launches[precision] += 1
     return part_v, part_i
 
 
 # ``pmm_fused_topk_partial``'s alt: the source's Selection values of the
-# bucket and the gstack selections.
-_ALT_BUCKET, _ALT_GSTACK = 3, 4
+# bucket, the gstack and the stack selections.
+_ALT_BUCKET, _ALT_GSTACK, _ALT_STACK = 3, 4, 6
 
 
 @functools.lru_cache(maxsize=None)
@@ -1914,9 +2045,10 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
     plain version for CPU tensors, and an error for any other device.
     ``tiles`` / ``tn`` / ``block_rows``: the tile lists of probed search
     (see ``fused_topk_partial``); ``prune``: kernel A's carry gate;
-    ``selection``: the config's, which ``bucket_route`` and
-    ``gstack_route`` turn into kernel A's route at the launch's query
-    tile."""
+    ``selection``: the config's, which ``bucket_route``,
+    ``gstack_route`` and ``stack_route`` turn into kernel A's route at the
+    launch's query tile (the stack's class is dense: a probed scan never
+    takes it)."""
     _check_operands(qp, cp, cbp, mask, k, precision)
     m = qp.shape[0]
     if m == 0:
@@ -1943,7 +2075,8 @@ def fused_select(qp, cp, cbp, mask, k: int, precision: str,
             qp, cp, cbp, mask, k, precision, splits, tps, tm, prune=prune,
             bucket=bucket_route(selection, k, tm, False, precision),
             gstack=gstack_route(selection, k, tm, False, precision)
-            and (k <= APPEND_MAX_K or geo is not None))
+            and (k <= APPEND_MAX_K or geo is not None),
+            stack=stack_route(selection, k, tm, False, precision))
         return topk_merge(part_v, part_i, k)
     n_rows = tiles.shape[1] * tn
     geo = (gstack_geometry(_padded_rows(m, tiles.shape[0], block_rows,

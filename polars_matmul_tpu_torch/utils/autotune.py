@@ -219,13 +219,14 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
     the launch's query tile, where ``bucket_built``) and its gstack
     selection or not (``gstack_route``, where ``gstack_built``; above
     k = 128 where ``gstack_geometry`` builds it on the card, and never on
-    the CPU, where every selection is the plain version); the core comes
-    last."""
+    the CPU, where every selection is the plain version) and its stack
+    selection or not (``stack_route``); the core comes last."""
     from ..kernels.fused_topk import (APPEND_MAX_K, bucket_built,
                                       bucket_route, device_sms, gstack_built,
                                       gstack_geometry, gstack_route,
                                       kernel_precision, prune_gate,
-                                      query_tile_rows, supports)
+                                      query_tile_rows, stack_route,
+                                      supports)
 
     if not cfg.use_pallas or not supports(q.shape, c.shape, q.dtype, k,
                                           cfg):
@@ -242,7 +243,9 @@ def _launch_key(cfg: SearchConfig, q, c, k: int) -> tuple:
         built = gstack_built(tm, core, k)
     gstack = (("gstack",) if gstack_route(cfg.selection, k, tm, False, core)
               and built else ())
-    return ("fused",) + gate + bucket + gstack + (core,)
+    stack = (("stack",) if stack_route(cfg.selection, k, tm, False, core)
+             else ())
+    return ("fused",) + gate + bucket + gstack + stack + (core,)
 
 
 def _sweep(candidates, cfg0: SearchConfig, q: torch.Tensor,

@@ -312,15 +312,17 @@ def test_launch_key():
 def test_launch_key_bucket(m, k, precision, prune, want):
     """selection="bucket" is a launch of its own where kernel A builds the
     bucket selection (k <= 16 at query tiles 16 and 32), the insertion's
-    launch elsewhere; "insert" and "auto" keep the insertion's."""
+    launch elsewhere; "insert" and "auto" keep the insertion's (the slack's
+    above k = 16, where "auto" takes the stack selection in its class)."""
     q, c = _data(m, 300, 32)
     cfg = pt.SearchConfig(selection="bucket", precision=precision,
                           prune=prune)
     assert A._launch_key(cfg, q, c, k) == want
     plain = tuple(x for x in want if x != "bucket")
     for sel in ("insert", "auto", "extract"):
+        stack = ("stack",) if sel == "auto" and 17 <= k <= 32 else ()
         assert A._launch_key(cfg.with_updates(selection=sel), q, c,
-                             k) == plain
+                             k) == plain[:-1] + stack + plain[-1:]
 
 
 @pytest.mark.parametrize("m, k, precision, prune, want", [
